@@ -1,0 +1,112 @@
+"""Single entry point: ``fit(x, k, method="k2means", init=...)`` (port of
+``repro.core.api`` for the single-device f32 k²-means path)."""
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import torch
+
+from ..device import as_tensor, resolve
+from .gdi import gdi_device_init
+from .k2means import fit_k2means
+from .kmeanspp import assign_nearest, random_init
+from .lloyd import KMeansResult
+from .opcount import OpCounter
+
+METHODS = ("k2means",)
+INITS = ("random", "gdi", "gdi_device")
+# reference inits and methods the port does not have yet, by ROADMAP item
+_LATER = {"kmeanspp": 11, "gdi_host": 11, "gdi_parallel": 11,
+          "gdi_replicated": 12, "lloyd": 11, "elkan": 11, "minibatch": 11,
+          "akm": 11}
+
+
+def _not_ported(what: str, name: str):
+    return NotImplementedError(f"{what} {name!r} is not ported yet "
+                               f"(ROADMAP §1 item {_LATER[name]})")
+
+
+def initialize(x: torch.Tensor, k: int, init: str,
+               generator: torch.Generator, counter: OpCounter):
+    """Returns (centers, assignment_or_None). ``"gdi"`` is the
+    frontier-batched device GDI, as on the reference's Pallas path."""
+    if init == "random":
+        return random_init(x, k, generator), None
+    if init in ("gdi", "gdi_device"):
+        return gdi_device_init(x, k, generator=generator, counter=counter,
+                               device=x.device)
+    if init in _LATER:
+        raise _not_ported("init", init)
+    raise ValueError(f"unknown init {init!r}; expected one of {INITS}")
+
+
+def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
+        generator: torch.Generator | None = None, seed: int = 0,
+        max_iters: int = 100, kn: int = 30,
+        counter: OpCounter | None = None, mesh: Any = None,
+        profile: bool = False, validate: str = "raise", device=None,
+        **kw: Any) -> KMeansResult:
+    """Cluster ``x`` into ``k`` clusters on ``device`` (default ``cuda``)
+    -> :class:`KMeansResult`.
+
+    ``generator`` (default: a new one on the device seeded with ``seed``)
+    drives the init's draws. Extra keywords flow to
+    :func:`core.k2means.fit_k2means` (``residency``, ``monitor_every``,
+    ``regroup_every``, ``bn``, ...). ``profile=True`` attaches the
+    counter's op and memory-traffic breakdown plus the host-clock seconds
+    of the init and of the iterations (each ended by a device
+    synchronize) to ``result.profile``. ``validate``: "raise" rejects
+    non-finite rows, "sanitize" zeroes them, "none" skips the check.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh placement is not ported yet (ROADMAP §1 item 12)")
+    if kw.get("return_model"):
+        raise NotImplementedError(
+            "return_model (the query subsystem) is not ported yet "
+            "(ROADMAP §1 item 6)")
+    if method != "k2means":
+        if method in _LATER:
+            raise _not_ported("method", method)
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{METHODS}")
+    if validate not in ("raise", "sanitize", "none"):
+        raise ValueError(f"validate must be 'raise' | 'sanitize' | "
+                         f"'none', got {validate!r}")
+    dev = resolve(device)
+    counter = counter or OpCounter()
+    x = as_tensor(x, dev)
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-D (n, d), got shape {tuple(x.shape)}")
+    if validate != "none":
+        bad = ~torch.isfinite(x).all(dim=1)
+        n_bad = int(torch.sum(bad))
+        if n_bad:
+            if validate == "raise":
+                idx = torch.nonzero(bad).flatten()[:8].tolist()
+                raise ValueError(
+                    f"fit input: {n_bad} non-finite rows (first at {idx}); "
+                    "pass validate='sanitize' to zero them")
+            x = torch.where(bad[:, None], 0.0, x)
+            counter.count_sanitized_rows(n_bad)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+
+    def sync_clock():
+        if profile and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    t0 = sync_clock()
+    centers, assignment = initialize(x, k, init, generator, counter)
+    if assignment is None:
+        assignment = assign_nearest(x, centers, counter)
+    t1 = sync_clock()
+    result = fit_k2means(x, centers, assignment, kn=kn, max_iters=max_iters,
+                         counter=counter, device=dev, **kw)
+    t2 = sync_clock()
+    if profile:
+        result.profile = counter.profile() | {"init_s": t1 - t0,
+                                              "iterate_s": t2 - t1}
+    return result

@@ -1,0 +1,141 @@
+"""Vector-operation accounting following the paper's methodology.
+
+A copy of the reference's counter (``repro.core.opcount``), cut to the
+lanes the ported fit path charges: the paper's vector-op metric
+(distances, inner products, additions, sorts as ``m log2 m / d``
+equivalents) and the layout memory-traffic lane of the resident engine.
+Charges are pure Python on host integers, so the port and the reference
+compare exactly equal on the same trajectory.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+
+
+@dataclasses.dataclass
+class OpCounter:
+    """Host-side accumulator of the paper's vector-op metric."""
+    distances: float = 0.0
+    inner_products: float = 0.0
+    additions: float = 0.0
+    sort_equivalents: float = 0.0
+    # memory-traffic lane (bytes): layout gathers/scatters and sort passes
+    bytes_gathered: float = 0.0
+    bytes_scattered: float = 0.0
+    bytes_sorted: float = 0.0
+    # table bytes the candidate scans read (4d per f32 candidate)
+    bytes_scanned: float = 0.0
+    rows_moved: float = 0.0
+    resorts: float = 0.0
+    sanitized_rows: float = 0.0
+    wall_t0: float = dataclasses.field(default_factory=time.perf_counter)
+
+    @property
+    def total(self) -> float:
+        return (self.distances + self.inner_products + self.additions
+                + self.sort_equivalents)
+
+    @property
+    def bytes_moved(self) -> float:
+        """Total layout memory traffic (gather + scatter + sort bytes)."""
+        return self.bytes_gathered + self.bytes_scattered + self.bytes_sorted
+
+    @property
+    def wall(self) -> float:
+        return time.perf_counter() - self.wall_t0
+
+    @staticmethod
+    def _integral(n, kind: str) -> float:
+        """Whole-op charges must be integral (sort equivalents are the one
+        fractional lane)."""
+        v = float(n)
+        if v != int(v):
+            raise ValueError(f"{kind} charge must be an integer op count, "
+                             f"got {n!r}")
+        return v
+
+    def add_distances(self, n: float) -> None:
+        self.distances += self._integral(n, "distances")
+
+    def add_inner(self, n: float) -> None:
+        self.inner_products += self._integral(n, "inner_products")
+
+    def add_additions(self, n: float) -> None:
+        self.additions += self._integral(n, "additions")
+
+    def add_scan_bytes(self, b: float) -> None:
+        self.bytes_scanned += float(b)
+
+    def add_sort(self, m: float, d: int) -> None:
+        """Charge an m-element sort as m*log2(m)/d vector ops (paper §2.2)."""
+        if m > 1:
+            self.sort_equivalents += m * math.log2(m) / max(d, 1)
+
+    def add_gather_bytes(self, b: float) -> None:
+        self.bytes_gathered += float(b)
+
+    def add_scatter_bytes(self, b: float) -> None:
+        self.bytes_scattered += float(b)
+
+    def add_sort_bytes(self, b: float) -> None:
+        self.bytes_sorted += float(b)
+
+    def count_sanitized_rows(self, n: int) -> None:
+        self.sanitized_rows += int(n)
+
+    def snapshot(self) -> float:
+        return self.total
+
+    def profile(self) -> dict:
+        """Machine-readable counter state for ``fit(..., profile=True)``."""
+        return {
+            "distances": self.distances,
+            "inner_products": self.inner_products,
+            "additions": self.additions,
+            "sort_equivalents": self.sort_equivalents,
+            "total_ops": self.total,
+            "bytes_gathered": self.bytes_gathered,
+            "bytes_scattered": self.bytes_scattered,
+            "bytes_sorted": self.bytes_sorted,
+            "bytes_moved": self.bytes_moved,
+            "bytes_scanned": self.bytes_scanned,
+            "rows_moved": self.rows_moved,
+            "resorts": self.resorts,
+            "sanitized_rows": self.sanitized_rows,
+            "wall_s": self.wall,
+        }
+
+
+# state lanes that ride along with a moved row besides its d features:
+# (u, lo, w) — the point id travels inside the sort/scatter key charge
+LAYOUT_STATE_LANES = 3
+
+
+def charge_iteration(counter: OpCounter, *, n: int, d: int, k: int, kn: int,
+                     stats, resident: bool = False) -> float:
+    """Charge one k²-means iteration from its host-read ``StepStats``
+    values ``(n_need, changed, energy, moved, resorted)``.
+
+    Paper ops: the k²-NN graph build, k_n candidate distances per
+    recomputed point, k movement norms, and the mean update's additions
+    (``n`` for a full re-reduction, ``2*moved`` for the resident engine's
+    incremental delta). Memory traffic: ``moved`` rows × (d + state lanes)
+    gathered and scattered, plus m·log2(m) key passes over them. Returns
+    the iteration's post-update energy.
+    """
+    n_need, changed, energy, moved, resorted = (float(s) for s in stats[:5])
+    counter.add_distances(k * k + n_need * kn + k)
+    counter.add_scan_bytes(n_need * kn * 4 * d)
+    row_bytes = (d + LAYOUT_STATE_LANES) * 4
+    full_update = (not resident) or resorted > 0
+    counter.add_additions(n if full_update else 2.0 * moved)
+    counter.rows_moved += moved
+    counter.resorts += resorted
+    if moved > 0:
+        counter.add_gather_bytes(moved * row_bytes)
+        counter.add_scatter_bytes(moved * row_bytes)
+        counter.add_sort_bytes(moved * 8
+                               * max(1.0, math.log2(max(moved, 2.0))))
+    return energy
