@@ -7,29 +7,45 @@ Run from the root of the repository, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, without the final result line):
 1. print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the three CUDA kernels from ``src/`` (one
+   CUDA versions, and build the four CUDA kernels from ``src/`` (one
    ``nvcc`` per source, in parallel);
 2. run the port's main path, ``repro_torch.core.fit(x, 1000,
    method="k2means", init="gdi", kn=30, max_iters=30)``, at the paper's
    mnist shape (n=60000, d=784) on GMM data made on the card from a
    seed, with every kernel's launch count set to 0 just before and read
-   just after; check that every kernel launched, that the energy
-   history is finite and non-increasing (rel 1e-6) and ends below the
-   GDI init's energy; check a small fit against the plain PyTorch path;
-3. hold each kernel against its plain version on tensors of that run
+   just after; check that every kernel of the fit launched, that the
+   energy history is finite and non-increasing (rel 1e-6) and ends below
+   the GDI init's energy; check a small fit against the plain PyTorch
+   path;
+2b. serve from that fit: ``KMeansModel.from_result(result, x)`` (K2
+   builds the graph), then ``predict`` 65536 held-out rows of the same
+   mixture at batch_size=8192 in f32 (resolution through K1) and in int8
+   (K4 + an exact f32 re-rank), each after one warm-up call and with the
+   counts set to 0 just before; check the launches, that the int8
+   assignments equal the f32 ones, that every returned squared distance
+   is the minimum over the routed center's neighborhood (rtol 1e-6), that
+   the counted f32 distances per query stay within the dense budget, and
+   a small predict against the plain PyTorch path; print queries/s,
+   recall@1 against the brute-force argmin, host reads per call and peak
+   device memory;
+3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, K1 over the final resident arena with no
-   block skipped, K3 on the GDI leaf-grouped layout) and time both with
-   CUDA events, beside one library call where one computes the same
+   block skipped and over one predict batch's grouped layout, K3 on the
+   GDI leaf-grouped layout, K4 on one int8 predict batch) and time both
+   with CUDA events, beside one library call where one computes the same
    function and beside the least time the card could take (bytes over
-   3.35 TB/s, FP32 FLOPs over 67 TFLOP/s: the H100 SXM data sheet);
+   3.35 TB/s, or operations over the H100 SXM data sheet's peak for
+   their type: 67 TFLOP/s FP32, 1979 TOP/s int8);
 4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
-``python3 chip_smoke.py --profile`` adds, after phase 3, a second fit
-under ``torch.profiler``: device time by kernel, the device's busy share
-of the host clock, and the count of host synchronisations.
+``python3 chip_smoke.py --profile`` adds, after phase 3, the fit and one
+predict in each precision under ``torch.profiler``: device time by
+kernel, the device's busy share of the host clock, and the host
+synchronisations.
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -39,8 +55,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 N, D, K, KN, TRUE_K, MAX_ITERS, SEED = 60000, 784, 1000, 30, 128, 30, 0
 BKN = 8
+NQ, BATCH = 65536, 8192            # held-out queries, predict batch size
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
+INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
+
+FIT_KERNELS = ("center_sqdist", "candidate_assign_tiled", "segmented_scan")
 
 FAILURES: list[str] = []
 
@@ -66,9 +86,10 @@ def time_ms(fn, torch, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, ops: float,
+          ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -79,13 +100,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch.core import (K2Step, OpCounter, center_knn_graph,
-                                      clustering_energy, fit, fit_k2means,
-                                      initialize)
+        from repro_torch.core import (K2Step, KMeansModel, OpCounter,
+                                      center_knn_graph, clustering_energy,
+                                      fit, fit_k2means, initialize)
+        from repro_torch.core.distance import chunked_argmin_sqdist
+        from repro_torch.core.model import _RESOLVE_RERANK as rerank
         from repro_torch.data import gmm_blobs
-        from repro_torch.kernels import _build, ref
+        from repro_torch.kernels import _build, quant, ref
         from repro_torch.kernels.candidate_assign import (
-            candidate_assign_tiled, candidate_tables, pad_candidates)
+            candidate_assign_int8_tiled, candidate_assign_tiled,
+            candidate_tables, pad_candidates)
         from repro_torch.kernels.center_knn import center_sqdist
         from repro_torch.kernels.ops import (choose_group_bn,
                                              group_by_cluster_device)
@@ -116,8 +140,11 @@ def main() -> int:
 
     # --- 2. the main path -----------------------------------------------
     dev = torch.device("cuda")
-    x = gmm_blobs(N, D, TRUE_K, generator=torch.Generator(
+    # the training rows and the held-out queries: one draw from the
+    # mixture, split
+    allx = gmm_blobs(N + NQ, D, TRUE_K, generator=torch.Generator(
         device=dev).manual_seed(SEED), device=dev)
+    x, queries = allx[:N], allx[N:]
     # the GDI init on its own: its energy is the bar the fit must clear;
     # it and two iterations from it warm the path up before the timed run
     c0, a0 = initialize(x, K, "gdi",
@@ -141,8 +168,9 @@ def main() -> int:
     print(f"  counted ops {res.profile['total_ops']:.6g}, layout bytes "
           f"{res.profile['bytes_moved']:.6g}, resorts "
           f"{res.profile['resorts']:.0f}")
-    for name, n_launch in launches.items():
-        check(n_launch > 0, f"{name} launched in the main path ({n_launch})")
+    for name in FIT_KERNELS:
+        check(launches[name] > 0,
+              f"{name} launched in the fit ({launches[name]})")
     check(res.centers.shape == (K, D) and res.assignment.shape == (N,),
           "result shapes")
     check(bool(torch.isfinite(res.centers).all()), "centers finite")
@@ -154,6 +182,72 @@ def main() -> int:
           "energy history non-increasing (rel 1e-6)")
     check(res.energy < e_init, "final energy below the GDI init's")
     _small_fit_agrees(torch, dev, fit_k2means, check)
+
+    # --- 2b. the served model: predict in f32 and int8 ------------------
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    model = KMeansModel.from_result(res, x, kn=KN, device=dev)
+    torch.cuda.synchronize()
+    built = _build.launches()
+    check(built["center_sqdist"] > 0,
+          f"center_sqdist launched at the model build ({built})")
+    dense = model.dense_distances_per_query()
+    print(f"phase 2b: model k={model.k} kn={model.kn} route_groups="
+          f"{model.route_groups} route_cap={model.route_cap} probes="
+          f"{model.route_probes}, dense distances per query {dense}, arena "
+          f"bn={model.bn} capacity={model.capacity}")
+    served = {}
+    for prec, kernel in (("f32", "candidate_assign_tiled"),
+                         ("int8", "candidate_assign_int8_tiled")):
+        model.predict(queries, batch_size=BATCH, precision=prec)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counter = OpCounter()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        a, dist = model.predict(queries, batch_size=BATCH, precision=prec,
+                                counter=counter, return_sqdist=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _build.launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        reads = _host_reads(torch, lambda: model.predict(
+            queries, batch_size=BATCH, precision=prec))
+        served[prec] = dict(a=a, d=dist, counter=counter, launches=got)
+        print(f"  predict {prec}: {NQ / secs:.1f} queries/s ({secs:.4f} s "
+              f"for {NQ}, batch {BATCH}), counted f32 distances "
+              f"{counter.distances / NQ:.3f}/query, int8 ops "
+              f"{counter.int8_ops / NQ:.1f}/query, scan bytes "
+              f"{counter.bytes_scanned / NQ:.1f}/query, host reads {reads} "
+              f"per call, peak device memory +{peak / 2 ** 20:.1f} MiB, "
+              f"launches {got}")
+        check(got[kernel] > 0, f"{kernel} launched by predict({prec}) "
+                               f"({got[kernel]})")
+        check(counter.distances / NQ <= dense,
+              f"predict({prec}) counted f32 distances per query "
+              f"{counter.distances / NQ:.3f} <= dense {dense}")
+    f32, i8 = served["f32"], served["int8"]
+    print(f"  int8 / f32 counted f32 distances: "
+          f"{i8['counter'].distances / f32['counter'].distances:.4f}; scan "
+          f"bytes {i8['counter'].bytes_scanned / f32['counter'].bytes_scanned:.4f}")
+    check(bool(torch.equal(f32["a"], i8["a"])),
+          f"int8 assignments equal the f32 ones "
+          f"({int((f32['a'] != i8['a']).sum())} differ)")
+    routed = model.route(queries)
+    want_d = _neighborhood_min(torch, queries, model.centers,
+                               model.neighbors[routed.long()])
+    for prec in ("f32", "int8"):
+        got_d = served[prec]["d"]
+        rel = float(((got_d - want_d).abs() / want_d.clamp(min=1e-30)).max())
+        check(bool(((got_d - want_d).abs() <= 1e-6 * want_d).all()),
+              f"predict({prec}) distances are the minimum over the routed "
+              f"neighborhood: max rel err {rel:.3g} (rtol 1e-6)")
+    truth, _ = chunked_argmin_sqdist(queries, model.centers)
+    print(f"  recall@1 against the brute-force argmin: "
+          f"{float((f32['a'] == truth).float().mean()):.6f}")
+    _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,
+                          check)
 
     # --- 3. each kernel against its plain version -----------------------
     kernels = []
@@ -191,34 +285,20 @@ def main() -> int:
     zf = torch.zeros(s_rows, device=dev)
     args = (st.xg, ctab, csqtab, cidx, rowsel,
             torch.zeros(nb, dtype=torch.int32, device=dev), zi, zf, zf)
-    a_k, d1_k, d2_k = candidate_assign_tiled(*args, bn=bn, bkn=BKN)
-    a_p, d1_p, d2_p = ref.candidate_assign_tiled_ref(*args, bn)
-    tie = (d2_p - d1_p) <= 1e-5 * d1_p
-    err = max(float((d1_k - d1_p).abs().max()),
-              float((d2_k - d2_p).abs().max()))
-    tol = lambda p: 1e-5 * p.abs() + 1e-5 * cmax    # noqa: E731
-    check(bool(((a_k == a_p) | tie).all())
-          and bool(((d1_k - d1_p).abs() <= tol(d1_p)).all())
-          and bool(((d2_k - d2_p).abs() <= tol(d2_p)).all()),
-          f"K1 candidate_assign_tiled vs plain over {s_rows} arena rows: "
-          f"{int((a_k != a_p).sum())} assignment differences, all on "
-          f"near-ties; max abs err {err:.3g} (rtol 1e-5, atol "
-          f"{1e-5 * cmax:.3g})")
     knp = cidx.shape[1]
     rows_read = int(torch.unique(rowsel).numel())
-    b_ms, b_by = bound(s_rows * D * 4.0 + rows_read * knp * (D + 2) * 4.0
-                       + nb * 8.0 + s_rows * 12.0 * 2,
-                       2.0 * s_rows * knp * D + 2.0 * s_rows * D)
-    kernels.append(dict(
-        name="candidate_assign_tiled", route="cuda",
-        source="src/repro_torch/kernels/csrc/candidate_assign.cu",
-        replaces="src/repro/kernels/candidate_assign.py:130",
-        launches=launches["candidate_assign_tiled"], max_abs_err=err,
-        ms=time_ms(lambda: candidate_assign_tiled(*args, bn=bn, bkn=BKN),
-                   torch),
-        plain_ms=time_ms(lambda: ref.candidate_assign_tiled_ref(*args, bn),
-                         torch),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    kernels.append(_against_plain(
+        torch, check, f"K1 over the final resident arena ({s_rows} rows, "
+                      f"bn={bn}, no block skipped)",
+        functools.partial(candidate_assign_tiled, *args, bn=bn, bkn=BKN),
+        functools.partial(ref.candidate_assign_tiled_ref, *args, bn),
+        dict(name="candidate_assign_tiled",
+             source="src/repro_torch/kernels/csrc/candidate_assign.cu",
+             replaces="src/repro/kernels/candidate_assign.py:130",
+             launches=launches["candidate_assign_tiled"]),
+        bound(s_rows * D * 4.0 + rows_read * knp * (D + 2) * 4.0
+              + nb * 8.0 + s_rows * 12.0 * 2,
+              2.0 * s_rows * knp * D + 2.0 * s_rows * D)))
     del st, args, ctab
 
     # K3: segmented_scan on the GDI leaf-grouped layout
@@ -256,6 +336,50 @@ def main() -> int:
         plain_ms=time_ms(lambda: ref.segmented_scan_ref(xg, w, b2s, bn3),
                          torch),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # K1 and K4 on the first predict batch, grouped by its routed centers
+    # as bounded_predict_assign(_int8) groups it (bn=8 at this shape)
+    qb = queries[:BATCH]
+    cidx = pad_candidates(model.neighbors, BKN).contiguous()
+    knp = cidx.shape[1]
+    qg, b2c, skip, bnp, live, slabs = _predict_layout(
+        torch, model, qb, "f32", choose_group_bn, group_by_cluster_device)
+    ctab, csqtab = candidate_tables(c, cidx)
+    zi = torch.zeros(qg.shape[0], dtype=torch.int32, device=dev)
+    zf = torch.zeros(qg.shape[0], device=dev)
+    args = (qg, ctab, csqtab, cidx, b2c, skip, zi, zf, zf)
+    kernels.append(_against_plain(
+        torch, check, f"K1 at the predict layout (bn={bnp})",
+        functools.partial(candidate_assign_tiled, *args, bn=bnp, bkn=BKN),
+        functools.partial(ref.candidate_assign_tiled_ref, *args, bnp),
+        dict(name="candidate_assign_tiled[predict]",
+             source="src/repro_torch/kernels/csrc/candidate_assign.cu",
+             replaces="src/repro/kernels/candidate_assign.py:130",
+             launches=served["f32"]["launches"]["candidate_assign_tiled"]),
+        bound(live * D * 4.0 + slabs * knp * (D + 2) * 4.0
+              + b2c.shape[0] * 8.0 + qg.shape[0] * 12.0 * 2,
+              2.0 * live * knp * D + 2.0 * live * D)))
+    del ctab, args
+
+    qg, b2c, skip, bnp, live, slabs = _predict_layout(
+        torch, model, qb, "int8", choose_group_bn, group_by_cluster_device)
+    xq, xsc = quant.quantize_rows(qg)
+    args = (xq, xsc, quant.residual_norm(qg, xq, xsc),
+            *quant.quantized_candidate_slabs(model._quant_tables()[0], cidx),
+            b2c, skip)
+    kernels.append(_against_plain(
+        torch, check, f"K4 at the predict layout (bn={bnp})",
+        functools.partial(candidate_assign_int8_tiled, *args, bn=bnp,
+                          bkn=BKN, r=rerank),
+        functools.partial(ref.candidate_assign_int8_tiled_ref, *args, bnp,
+                          rerank),
+        dict(name="candidate_assign_int8_tiled",
+             source="src/repro_torch/kernels/csrc/candidate_assign_int8.cu",
+             replaces="src/repro/kernels/candidate_assign.py:282",
+             launches=served["int8"]["launches"][
+                 "candidate_assign_int8_tiled"]),
+        bound(live * (D + 8.0) + slabs * knp * (D + 12.0)
+              + b2c.shape[0] * 8.0 + xq.shape[0] * (4.0 * rerank + 8.0),
+              2.0 * live * knp * D, INT8_OP_PER_S)))
     for kr in kernels:
         print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
@@ -263,7 +387,13 @@ def main() -> int:
               f"{kr['launches']}")
 
     if "--profile" in sys.argv[1:]:
-        _profile_fit(torch, fit, x, dev)
+        _profile(torch, "fit", lambda: fit(
+            x, K, method="k2means", init="gdi", kn=KN, max_iters=MAX_ITERS,
+            device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+        for prec in ("f32", "int8"):
+            _profile(torch, f"predict {prec}", lambda: model.predict(
+                queries, batch_size=BATCH, precision=prec))
 
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
@@ -280,16 +410,14 @@ def main() -> int:
     return 0
 
 
-def _profile_fit(torch, fit, x, dev) -> None:
-    """The main path once more under torch.profiler (CPU + CUDA): device
-    time by kernel, the busy share, and the host synchronisations."""
+def _profile(torch, label: str, fn) -> None:
+    """``fn`` once more under torch.profiler (CPU + CUDA): device time by
+    kernel, the busy share of the host clock, and the host calls."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = fit(x, K, method="k2means", init="gdi", kn=KN,
-                  max_iters=MAX_ITERS, device=dev, profile=True,
-                  generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -300,15 +428,72 @@ def _profile_fit(torch, fit, x, dev) -> None:
     on_dev = [e for e in events if "CUDA" in str(getattr(e, "device_type",
                                                          ""))]
     busy = sum(dev_us(e) for e in on_dev) / 1e6
-    print(f"profile: fit wall {wall:.3f} s under the profiler (GDI "
-          f"{res.profile['init_s']:.3f} s, {res.iterations} iterations in "
-          f"{res.profile['iterate_s']:.3f} s); device busy {busy:.3f} s = "
-          f"{100 * busy / wall:.1f}% of the wall")
+    print(f"profile {label}: wall {wall:.4f} s under the profiler; device "
+          f"busy {busy:.4f} s = {100 * busy / wall:.1f}% of the wall")
     for e in sorted(on_dev, key=dev_us, reverse=True)[:25]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:100]}")
     for e in events:
         if "Synchronize" in e.key or "Memcpy" in e.key:
             print(f"  host calls: {e.key} x{e.count}")
+
+
+def _predict_layout(torch, model, qb, prec, choose_group_bn,
+                    group_by_cluster_device):
+    """One predict batch grouped by its routed centers, as the model's
+    resolution groups it: (grouped rows, b2c, skip, bn, live rows,
+    distinct candidate lists that live blocks read)."""
+    bn = choose_group_bn(qb.shape[0], model.k, model.d, bkn=BKN,
+                         itemsize=1 if prec == "int8" else 4)
+    routed = model.route_batch(qb, precision=prec)[0]
+    perm, b2c = group_by_cluster_device(routed, model.k, bn)
+    skip = (~(perm >= 0).reshape(-1, bn).any(1)).to(torch.int32)
+    live = int((skip == 0).sum()) * bn
+    slabs = int(torch.unique(b2c[skip == 0]).numel())
+    return (qb[perm.clamp(min=0).long()].contiguous(), b2c, skip, bn, live,
+            slabs)
+
+
+def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by):
+    """Hold a kernel bit-equal to its plain version on the same inputs
+    and time both: the kernels line's entry."""
+    got, want = kern(), plain()
+    same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    check(same, f"{what} vs plain: bit-equal ({same}), max abs err "
+                f"{err:.3g}")
+    return dict(entry, route="cuda", max_abs_err=err,
+                ms=time_ms(kern, torch), plain_ms=time_ms(plain, torch),
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
+                library_ms=None)
+
+
+def _host_reads(torch, fn) -> int:
+    """Device-to-host copies during one call of ``fn``: each drains the
+    queue (a .item(), int(), bool() or .tolist() of a CUDA tensor)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("Memcpy DtoH"))
+
+
+def _neighborhood_min(torch, q, c, nbh, chunk: int = 8192):
+    """Plain PyTorch: each query's least squared distance over its
+    candidate centers ``nbh`` (m, kn), by the oracle's formula with its
+    norms and products rounded once from f64."""
+    c64 = c.double()
+    csq = (c64 * c64).sum(1).float()
+    out = []
+    for lo in range(0, q.shape[0], chunk):
+        qd = q[lo:lo + chunk].double()
+        ids = nbh[lo:lo + chunk]
+        cross = torch.gather((qd @ c64.T).float(), 1, ids)
+        sq = ((qd * qd).sum(1).float()[:, None] - 2.0 * cross
+              + csq[ids]).clamp(min=0.0)
+        out.append(sq.min(1).values)
+    return torch.cat(out)
 
 
 def _finite(v: float) -> bool:
@@ -333,6 +518,39 @@ def _small_fit_agrees(torch, dev, fit_k2means, check) -> None:
           f"small fit (n=3000, d=16, k=24) on the card equals the plain "
           f"CPU path: assignments {same}, iterations {r_gpu.iterations} "
           f"vs {r_cpu.iterations}, energy rel diff {rel:.2g}")
+
+
+def _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,
+                          check) -> None:
+    """A small served model through the kernels against the same model on
+    the CPU's plain path: assignments, distances and counted charges in
+    both precisions."""
+    g = torch.Generator().manual_seed(11)
+    mus = torch.randn(16, 16, generator=g) * 8
+    x = mus[torch.randint(0, 16, (3000,), generator=g)] \
+        + torch.randn(3000, 16, generator=g)
+    q = mus[torch.randint(0, 16, (1000,), generator=g)] \
+        + torch.randn(1000, 16, generator=g)
+    init = x[torch.randperm(3000, generator=g)[:24]]
+    a0 = torch.cdist(x, init).argmin(1).to(torch.int32)
+    res = fit_k2means(x, init, a0, kn=8, max_iters=30, device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        model = KMeansModel.from_result(res, x, kn=8, device=where)
+        for prec in ("f32", "int8"):
+            counter = OpCounter()
+            a, d = model.predict(q, counter=counter, return_sqdist=True,
+                                 batch_size=256, precision=prec)
+            out[str(where), prec] = (a.cpu(), d.cpu(), counter.distances,
+                                     counter.int8_ops, counter.bytes_scanned)
+    for prec in ("f32", "int8"):
+        cpu, gpu = out["cpu", prec], out[str(dev), prec]
+        same = bool(torch.equal(cpu[0], gpu[0])) \
+            and bool(torch.equal(cpu[1], gpu[1]))
+        check(same and cpu[2:] == gpu[2:],
+              f"small predict {prec} (n=1000, d=16, k=24) on the card equals "
+              f"the plain CPU path: assignments and distances {same}, "
+              f"charges {gpu[2:]} vs {cpu[2:]}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Carry a fitted state across packages: the reference's (JAX) centers
-and assignment, as numpy arrays, become the port's tensors, so both
-packages can start from one state."""
+and assignment, or its whole served model, read as numpy arrays, become
+the port's tensors, so both packages can start from one state."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,3 +13,35 @@ def from_reference(centers_np, assignment_np, *, device):
     c = torch.tensor(np.asarray(centers_np, np.float32), device=device)
     a = torch.tensor(np.asarray(assignment_np, np.int32), device=device)
     return c, a
+
+
+def model_from_reference(model, *, device):
+    """The reference's ``KMeansModel`` -> the port's, on ``device``.
+
+    Reads every array through ``numpy.asarray`` (so this module imports
+    nothing of the reference): centers, graph and ``nb_dist``, the five
+    ``Router`` fields, sums and counts, the arena's slot arrays and the
+    insertion-order mirrors, and the read side's static config."""
+    from .core.engine import ResidentState
+    from .core.model import KMeansModel, Router
+
+    def t(v, dtype=torch.float32):
+        return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+
+    i32 = torch.int32
+    st = model.state
+    state = ResidentState(
+        c=t(st.c), prev_nb=t(st.prev_nb, i32), sums=t(st.sums),
+        counts=t(st.counts), it=int(np.asarray(st.it)),
+        first=bool(np.asarray(st.first)), xg=t(st.xg), pid=t(st.pid, i32),
+        ug=t(st.ug), lo_g=t(st.lo_g), wg=t(st.wg), b2c=t(st.b2c, i32),
+        fill=t(st.fill, i32), openb=t(st.openb, i32))
+    rt = model.router
+    router = Router(t(rt.gc), t(rt.members, i32), t(rt.mdist),
+                    t(rt.mowner, i32), t(rt.modist))
+    return KMeansModel(
+        state=state, router=router, nb_dist=t(model.nb_dist),
+        x_pts=t(model.x_pts), a_pts=t(model.a_pts, i32), w_pts=t(model.w_pts),
+        kn=model.kn, bn=model.bn, bkn=model.bkn,
+        route_probes=model.route_probes, router_iters=model.router_iters,
+        precision=model.precision, n_rows=model.n_rows)

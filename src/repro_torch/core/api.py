@@ -1,5 +1,6 @@
 """Single entry point: ``fit(x, k, method="k2means", init=...)`` (port of
-``repro.core.api`` for the single-device f32 k²-means path)."""
+``repro.core.api`` for the single-device f32 k²-means path, with the
+served model of ``return_model=True``)."""
 from __future__ import annotations
 
 import time
@@ -12,6 +13,7 @@ from .gdi import gdi_device_init
 from .k2means import fit_k2means
 from .kmeanspp import assign_nearest, random_init
 from .lloyd import KMeansResult
+from .model import KMeansModel
 from .opcount import OpCounter
 
 METHODS = ("k2means",)
@@ -45,10 +47,14 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
         generator: torch.Generator | None = None, seed: int = 0,
         max_iters: int = 100, kn: int = 30,
         counter: OpCounter | None = None, mesh: Any = None,
-        profile: bool = False, validate: str = "raise", device=None,
-        **kw: Any) -> KMeansResult:
+        profile: bool = False, validate: str = "raise",
+        return_model: bool = False, model_capacity: int | None = None,
+        device=None, **kw: Any):
     """Cluster ``x`` into ``k`` clusters on ``device`` (default ``cuda``)
-    -> :class:`KMeansResult`.
+    -> :class:`KMeansResult`, or ``(result, model)`` with
+    ``return_model=True``: the :class:`core.model.KMeansModel` served from
+    the fit, its resident arena built over ``x`` with room for
+    ``model_capacity`` rows (default 2n).
 
     ``generator`` (default: a new one on the device seeded with ``seed``)
     drives the init's draws. Extra keywords flow to
@@ -62,10 +68,6 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     if mesh is not None:
         raise NotImplementedError(
             "mesh placement is not ported yet (ROADMAP §1 item 12)")
-    if kw.get("return_model"):
-        raise NotImplementedError(
-            "return_model (the query subsystem) is not ported yet "
-            "(ROADMAP §1 item 6)")
     if method != "k2means":
         if method in _LATER:
             raise _not_ported("method", method)
@@ -109,4 +111,7 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     if profile:
         result.profile = counter.profile() | {"init_s": t1 - t0,
                                               "iterate_s": t2 - t1}
+    if return_model:
+        return result, KMeansModel.from_result(
+            result, x, kn=min(kn, k), capacity=model_capacity, device=dev)
     return result

@@ -26,6 +26,14 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor,
     return torch.clamp(x_sq[:, None] - 2.0 * cross + c_sq[None, :], min=0.0)
 
 
+def bottom_k(v: torch.Tensor, n: int) -> torch.Tensor:
+    """Column indices of the n smallest entries of each row, (rows, n)
+    int32, ties to the lower index: ``lax.top_k(-v, n)`` as a stable
+    ascending sort (``torch.topk`` promises no tie order)."""
+    order = torch.sort(v, dim=1, stable=True).indices
+    return order[:, :n].to(torch.int32).contiguous()
+
+
 def chunked_argmin_sqdist(x: torch.Tensor, c: torch.Tensor,
                           chunk: int = 4096):
     """Nearest-center assignment in row chunks of ``chunk`` (bounds the

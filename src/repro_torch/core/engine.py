@@ -41,7 +41,7 @@ from ..kernels.ops import (choose_group_bn, compact, k2_bounded_assign,
                            plan_layout_repair, resident_capacity,
                            resident_regroup, scatter_from_grouped,
                            segment_sum)
-from .distance import sqnorm
+from .distance import bottom_k, sqnorm
 
 
 class K2State(typing.NamedTuple):
@@ -98,11 +98,9 @@ def init_state(centers: torch.Tensor, assignment: torch.Tensor,
 
 def center_knn_graph(c: torch.Tensor, kn: int) -> torch.Tensor:
     """Self-inclusive k_n-NN graph over centers, (k, kn) int32: the
-    center distance kernel, then the first kn columns of a stable
-    ascending sort (ties to the lower index, as ``lax.top_k``)."""
-    cc_sq = center_sqdist(c)
-    order = torch.sort(cc_sq, dim=1, stable=True).indices
-    return order[:, :kn].to(torch.int32).contiguous()
+    center distance kernel, then the kn smallest of each row
+    (:func:`distance.bottom_k`, ties to the lower index)."""
+    return bottom_k(center_sqdist(c), kn)
 
 
 def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,

@@ -1,9 +1,9 @@
 """Vector-operation accounting following the paper's methodology.
 
 A copy of the reference's counter (``repro.core.opcount``), cut to the
-lanes the ported fit path charges: the paper's vector-op metric
-(distances, inner products, additions, sorts as ``m log2 m / d``
-equivalents) and the layout memory-traffic lane of the resident engine.
+lanes the ported fit and predict paths charge: the paper's vector-op
+metric (distances, inner products, additions, sorts as ``m log2 m / d``
+equivalents), the int8 scan lane, and the memory-traffic lanes.
 Charges are pure Python on host integers, so the port and the reference
 compare exactly equal on the same trajectory.
 """
@@ -21,11 +21,15 @@ class OpCounter:
     inner_products: float = 0.0
     additions: float = 0.0
     sort_equivalents: float = 0.0
+    # quantized-scan lane (DESIGN.md §13): int8 approximate distances,
+    # kept off ``total`` (an int8 scan op is neither free nor an f32
+    # distance)
+    int8_ops: float = 0.0
     # memory-traffic lane (bytes): layout gathers/scatters and sort passes
     bytes_gathered: float = 0.0
     bytes_scattered: float = 0.0
     bytes_sorted: float = 0.0
-    # table bytes the candidate scans read (4d per f32 candidate)
+    # table bytes the scans read (4d per f32 row, d + 4 per int8 row)
     bytes_scanned: float = 0.0
     rows_moved: float = 0.0
     resorts: float = 0.0
@@ -65,6 +69,10 @@ class OpCounter:
     def add_additions(self, n: float) -> None:
         self.additions += self._integral(n, "additions")
 
+    def add_int8_ops(self, n: float) -> None:
+        """Charge ``n`` int8 approximate-distance ops (off ``total``)."""
+        self.int8_ops += self._integral(n, "int8_ops")
+
     def add_scan_bytes(self, b: float) -> None:
         self.bytes_scanned += float(b)
 
@@ -96,6 +104,7 @@ class OpCounter:
             "additions": self.additions,
             "sort_equivalents": self.sort_equivalents,
             "total_ops": self.total,
+            "int8_ops": self.int8_ops,
             "bytes_gathered": self.bytes_gathered,
             "bytes_scattered": self.bytes_scattered,
             "bytes_sorted": self.bytes_sorted,

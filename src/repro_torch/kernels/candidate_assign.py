@@ -1,14 +1,17 @@
-"""K1: k_n-restricted assignment over the cluster-grouped layout — the
-k²-means hotspot.
+"""K1 and K4: k_n-restricted assignment over the cluster-grouped layout —
+the k²-means hotspot — in f32 (K1) and as the int8 margin-test scan (K4).
 
-Port of ``repro.kernels.candidate_assign`` (the tiled fast path). CUDA
-tensors go through the hand-written kernel ``csrc/candidate_assign.cu``;
-CPU tensors through the plain version ``ref.candidate_assign_tiled_ref``.
+Port of ``repro.kernels.candidate_assign`` (the tiled paths). CUDA
+tensors go through the hand-written kernels ``csrc/candidate_assign.cu``
+and ``csrc/candidate_assign_int8.cu``; CPU tensors through the plain
+versions ``ref.candidate_assign_tiled_ref`` and
+``ref.candidate_assign_int8_tiled_ref``.
 
 Contract: points are grouped so that every block of bn rows shares one
 candidate list, ``cidx[rowsel[b]]``; blocks need not be cluster
 contiguous or hole free, which is what lets the resident layout repair
-blocks in place. A block with ``skip[b] != 0`` emits ``prev_*``.
+blocks in place. A block with ``skip[b] != 0`` emits ``prev_*`` (K1) or
+no survivors (K4).
 """
 from __future__ import annotations
 
@@ -17,13 +20,11 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import candidate_assign_tiled_ref
-
-# Padded candidate columns carry this squared "distance" so they never win
-# an argmin; finite (not inf) so no inf-inf NaNs can appear downstream.
-PAD_SQDIST = 1e30
+from .ref import (PAD_SQDIST, candidate_assign_int8_tiled_ref,
+                  candidate_assign_tiled_ref, exact_sqnorm)
 
 _ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS_INT8 = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def pad_candidates(cand: torch.Tensor, bkn: int) -> torch.Tensor:
@@ -38,17 +39,17 @@ def pad_candidates(cand: torch.Tensor, bkn: int) -> torch.Tensor:
 def candidate_tables(c: torch.Tensor, cidx: torch.Tensor):
     """Candidate-center table for :func:`candidate_assign_tiled`:
     c (k, d), cidx (T, kn_pad) int32 (-1 = padding) -> (ctab (T, kn_pad,
-    d), csqtab (T, kn_pad)) with PAD_SQDIST on padded columns."""
-    ctab = c[torch.clamp(cidx, min=0).long()]
-    csqtab = torch.where(cidx >= 0, torch.sum(ctab * ctab, dim=-1),
-                         torch.full_like(ctab[..., 0], PAD_SQDIST))
-    return ctab.contiguous(), csqtab.to(torch.float32).contiguous()
+    d), csqtab (T, kn_pad)) with the exactly rounded ``|c|^2``
+    (``ref.exact_sqnorm``) and PAD_SQDIST on padded columns."""
+    safe = torch.clamp(cidx, min=0).long()
+    csqtab = torch.where(cidx >= 0, exact_sqnorm(c)[safe], PAD_SQDIST)
+    return c[safe].contiguous(), csqtab.to(torch.float32).contiguous()
 
 
-def _check(name, t, dtype, shape):
+def _check(kernel, name, t, dtype, shape):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or t.device.type != "cuda":
-        raise ValueError(f"candidate_assign_tiled: {name} must be a "
+        raise ValueError(f"{kernel}: {name} must be a "
                          f"contiguous CUDA {dtype} tensor of shape "
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
                          f"on {t.device}")
@@ -65,9 +66,10 @@ def candidate_assign_tiled(x, ctab, csqtab, cidx, rowsel, skip, prev_a,
     """
     n, d = x.shape
     t, knp = cidx.shape
-    if n % bn or knp % bkn:
+    if n % bn or knp % bkn or not 1 <= bn <= 128:
         raise ValueError(f"candidate_assign_tiled: n={n} must divide by "
-                         f"bn={bn} and kn_pad={knp} by bkn={bkn}")
+                         f"bn={bn} in [1, 128] and kn_pad={knp} by "
+                         f"bkn={bkn}")
     nb = n // bn
     if x.device.type == "cpu":
         return candidate_assign_tiled_ref(x, ctab, csqtab, cidx, rowsel,
@@ -79,7 +81,7 @@ def candidate_assign_tiled(x, ctab, csqtab, cidx, rowsel, skip, prev_a,
             ("rowsel", rowsel, i32, (nb,)), ("skip", skip, i32, (nb,)),
             ("prev_a", prev_a, i32, (n,)), ("prev_d1", prev_d1, f32, (n,)),
             ("prev_d2", prev_d2, f32, (n,))):
-        _check(name, ten, dt, shape)
+        _check("candidate_assign_tiled", name, ten, dt, shape)
     a = torch.empty((n,), dtype=i32, device=x.device)
     d1 = torch.empty((n,), dtype=f32, device=x.device)
     d2 = torch.empty((n,), dtype=f32, device=x.device)
@@ -92,3 +94,49 @@ def candidate_assign_tiled(x, ctab, csqtab, cidx, rowsel, skip, prev_a,
                  "candidate_assign_tiled")
     _build.count("candidate_assign_tiled")
     return a, d1, d2
+
+
+def candidate_assign_int8_tiled(xq, xsc, xerr, qtab, qsc, qerrtab, csqtab,
+                                rowsel, skip, *, bn: int, bkn: int = 8,
+                                r: int = 8):
+    """Int8 tiled scan: per-row survivor sets instead of exact argmins.
+
+    xq: (n, d) int8 grouped points, n % bn == 0; xsc, xerr: (n,) f32 their
+    scales and exact residual norms; qtab: (T, kn_pad, d) int8 and qsc,
+    qerrtab, csqtab: (T, kn_pad) f32 from
+    ``quant.quantized_candidate_slabs``; rowsel, skip: (nb,) int32.
+    Returns (surv (n, r) int32 ascending survivor columns, -1 beyond the
+    count; nsv (n,) int32 survivor count, may exceed r; lbm (n,) f32 the
+    least non-survivor lower bound). Skipped blocks yield (-1, 0,
+    PAD_SQDIST).
+    """
+    n, d = xq.shape
+    t, knp = qsc.shape
+    if n % bn or knp % bkn:
+        raise ValueError(f"candidate_assign_int8_tiled: n={n} must divide "
+                         f"by bn={bn} and kn_pad={knp} by bkn={bkn}")
+    nb = n // bn
+    if xq.device.type == "cpu":
+        return candidate_assign_int8_tiled_ref(xq, xsc, xerr, qtab, qsc,
+                                               qerrtab, csqtab, rowsel, skip,
+                                               bn, r)
+    f32, i32 = torch.float32, torch.int32
+    for name, ten, dt, shape in (
+            ("xq", xq, torch.int8, (n, d)), ("xsc", xsc, f32, (n,)),
+            ("xerr", xerr, f32, (n,)), ("qtab", qtab, torch.int8, (t, knp, d)),
+            ("qsc", qsc, f32, (t, knp)), ("qerrtab", qerrtab, f32, (t, knp)),
+            ("csqtab", csqtab, f32, (t, knp)), ("rowsel", rowsel, i32, (nb,)),
+            ("skip", skip, i32, (nb,))):
+        _check("candidate_assign_int8_tiled", name, ten, dt, shape)
+    surv = torch.empty((n, r), dtype=i32, device=xq.device)
+    nsv = torch.empty((n,), dtype=i32, device=xq.device)
+    lbm = torch.empty((n,), dtype=f32, device=xq.device)
+    fn = _build.function("candidate_assign_int8",
+                         "k2_candidate_assign_int8_tiled", _ARGS_INT8)
+    p = _build.ptr
+    _build.check(fn(p(xq), p(xsc), p(xerr), p(qtab), p(qsc), p(qerrtab),
+                    p(csqtab), p(rowsel), p(skip), p(surv), p(nsv), p(lbm),
+                    nb, bn, knp, d, r, _build.stream_ptr(xq.device)),
+                 "candidate_assign_int8_tiled")
+    _build.count("candidate_assign_int8_tiled")
+    return surv, nsv, lbm

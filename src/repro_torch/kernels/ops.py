@@ -1,7 +1,8 @@
 """Grouped-layout operations around the kernels (port of the grouped
 subset of ``repro.kernels.ops``): block-size selection, the
 cluster-grouped layout, the resident arena's re-sort and sparse repair
-plan, and the rebuild iteration's bound-gated assignment.
+plan, the rebuild iteration's bound-gated assignment, and the query-time
+resolution in f32 (K1) and int8 (K4 + exact f32 re-rank).
 
 Idioms that differ from the reference, kept exact:
 - sorts are stable everywhere the reference's are (``jnp.argsort`` is
@@ -11,14 +12,20 @@ Idioms that differ from the reference, kept exact:
   with the host and has a dynamic shape);
 - ``.at[idx].set(v, mode="drop")`` becomes :func:`scatter_drop`, a
   scatter into one extra trailing slot that is sliced off, so sentinel
-  writes never alias a real slot.
+  writes never alias a real slot;
+- the int8 re-rank's ``lax.cond`` on overflowing rows becomes one host
+  read per call that lists those rows, and only they take the full
+  exact pass (:func:`quantized_scan_rerank`).
 """
 from __future__ import annotations
 
 import torch
 
-from .candidate_assign import (candidate_assign_tiled, candidate_tables,
+from . import quant
+from .candidate_assign import (candidate_assign_int8_tiled,
+                               candidate_assign_tiled, candidate_tables,
                                pad_candidates)
+from .ref import PAD_SQDIST, slab_sqdist
 
 # the reference sizes point blocks against a ~12 MiB f32 working set; the
 # port keeps its formula so both packages build bit-equal layouts
@@ -249,3 +256,93 @@ def k2_bounded_assign(x, c, neighbors, a, u, lo, need, *, bn: int,
                                              device=x.device))
     return (a_new, torch.where(fresh, torch.sqrt(d1_sq), u),
             torch.where(fresh, torch.sqrt(d2_sq), lo))
+
+
+def _route_grouping(routed: torch.Tensor, k: int, bn: int):
+    """Queries grouped by route center: (perm, b2c, skip) with every
+    all-padding capacity block skipped."""
+    perm, b2c = group_by_cluster_device(routed, k, bn)
+    nb = perm.shape[0] // bn
+    skip = (~torch.any((perm >= 0).reshape(nb, bn), dim=1)).to(torch.int32)
+    return perm, b2c, skip
+
+
+def bounded_predict_assign(q, c, neighbors, routed, *, bn: int = 128,
+                           bkn: int = 8):
+    """Resolve routed queries against their route center's
+    k_n-neighborhood through K1: q (m, d), c (k, d), neighbors (k, kn),
+    routed (m,) int32. Queries are grouped by route center so every point
+    block shares one candidate list. Returns (assignment (m,) int32, best
+    squared distance (m,)) in query order."""
+    m = q.shape[0]
+    perm, b2c, skip = _route_grouping(routed, c.shape[0], bn)
+    zeros = torch.zeros((m,), dtype=torch.float32, device=q.device)
+    a, d1, _ = k2_assign_grouped(q, c, neighbors, perm, b2c, skip,
+                                 routed.to(torch.int32), zeros, zeros,
+                                 bn=bn, bkn=bkn)
+    return a, d1
+
+
+def quantized_scan_rerank(xf, xq, xsc, c, cq, cidx, rowsel, skip, prev_a,
+                          prev_d1, prev_d2, *, bn: int = 128, bkn: int = 8,
+                          r: int = 8):
+    """Int8 scan (K4) + exact f32 re-rank, the quantized replacement for
+    :func:`candidate_assign_tiled` over a grouped layout.
+
+    xf: (n, d) f32 grouped rows, xq/xsc their int8 quantization; c (k, d)
+    centers and cq their ``quant.CenterQuant``; cidx (T, kn_pad);
+    rowsel/skip/prev_* as in the f32 kernel. Survivors are re-ranked with
+    the oracle's formula against their block's own f32 slab
+    (``ref.slab_sqdist``: kn_pad columns per row, not k); rows whose
+    survivor count exceeds ``r`` take the exact top-2 over the whole slab
+    row instead, selected on the device (no host read). Returns (a,
+    d1_sq, d2_sq, n_surv, fallback): d2_sq is the exact second-best among
+    survivors, floored by the non-survivor margin bound."""
+    xerr = quant.residual_norm(xf, xq, xsc)
+    qtab, qsc, qerrtab, csqtab = quant.quantized_candidate_slabs(cq, cidx)
+    surv, nsv, lbm = candidate_assign_int8_tiled(
+        xq, xsc, xerr, qtab, qsc, qerrtab, csqtab, rowsel, skip, bn=bn,
+        bkn=bkn, r=r)
+    fresh = torch.repeat_interleave(skip == 0, bn)
+    nsv = torch.where(fresh, nsv, 0)
+    cand_all = cidx[torch.repeat_interleave(rowsel.long(), bn)]
+    sq_all = slab_sqdist(xf, *candidate_tables(c, cidx), rowsel, bn)
+    cols = torch.clamp(surv, min=0).long()
+    ids = torch.where(surv >= 0, torch.gather(cand_all, 1, cols), -1)
+    sq = torch.where(surv >= 0, torch.gather(sq_all, 1, cols), PAD_SQDIST)
+    a, d1, d2 = quant.first_min_top2(sq, ids)
+    lo_rest = torch.square(torch.clamp(torch.clamp(lbm, max=1e15) - xerr,
+                                       min=0.0))
+    d2 = torch.minimum(d2, lo_rest)
+    fb = fresh & (nsv > r)
+    a_fb, d1_fb, d2_fb = quant.first_min_top2(sq_all, cand_all)
+    a, d1, d2 = (torch.where(fb, a_fb, a), torch.where(fb, d1_fb, d1),
+                 torch.where(fb, d2_fb, d2))
+    return (torch.where(fresh, a, prev_a).to(torch.int32),
+            torch.where(fresh, d1, prev_d1), torch.where(fresh, d2, prev_d2),
+            nsv, fb)
+
+
+def bounded_predict_assign_int8(q, c, cq, neighbors, routed, *,
+                                bn: int = 128, bkn: int = 8, r: int = 8):
+    """Quantized analogue of :func:`bounded_predict_assign`: routed
+    queries resolve through the int8 scan (K4) + exact f32 re-rank. cq:
+    the ``quant.CenterQuant`` of ``c``. Returns (assignment (m,), best
+    sqdist (m,), n_surv (m,), fallback (m,) bool) in query order."""
+    m = q.shape[0]
+    cidx = pad_candidates(neighbors.to(torch.int32), bkn).contiguous()
+    perm, b2c, skip = _route_grouping(routed, c.shape[0], bn)
+    sp = torch.clamp(perm, min=0).long()
+    qg = q[sp].contiguous()
+    qq, qs = quant.quantize_rows(qg)
+    routed32 = routed.to(torch.int32)
+    zeros_g = torch.zeros((perm.shape[0],), dtype=torch.float32,
+                          device=q.device)
+    a_g, d1_g, _, nsv_g, fb_g = quantized_scan_rerank(
+        qg, qq, qs, c, cq, cidx, b2c, skip, routed32[sp], zeros_g, zeros_g,
+        bn=bn, bkn=bkn, r=r)
+    zeros = zeros_g[:m]
+    return (scatter_from_grouped(perm, a_g, routed32),
+            scatter_from_grouped(perm, d1_g, zeros),
+            scatter_from_grouped(perm, nsv_g, torch.zeros_like(routed32)),
+            scatter_from_grouped(perm, fb_g, zeros > 0))

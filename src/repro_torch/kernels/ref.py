@@ -6,6 +6,9 @@ from __future__ import annotations
 
 import torch
 
+# Padded candidate columns carry this squared "distance" so they never win
+# an argmin; finite (not inf) so no inf-inf NaNs can appear downstream.
+PAD_SQDIST = 1e30
 
 
 def center_sqdist_ref(c: torch.Tensor) -> torch.Tensor:
@@ -14,20 +17,56 @@ def center_sqdist_ref(c: torch.Tensor) -> torch.Tensor:
     return torch.clamp(sq[:, None] - 2.0 * (c @ c.T) + sq[None, :], min=0.0)
 
 
+def exact_sqnorm(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of squares accumulated in f64 and rounded once to f32:
+    the correctly rounded value (up to a rare double rounding), whatever
+    the order, so every evaluation of a row's norm agrees. Exact for
+    int8 rows (every partial sum is an integer below 2^53)."""
+    xd = x.double()
+    return torch.sum(xd * xd, dim=-1).float()
+
+
+def exact_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched or not) accumulated in f64 and rounded once to
+    f32: each f32 x f32 product is exact in f64, so the result does not
+    depend on the order of the sum (see :func:`exact_sqnorm`)."""
+    return (a.double() @ b.double()).float()
+
+
+def slab_sqdist(x, ctab, csqtab, rowsel, bn: int, *,
+                chunk_elems: int = 1 << 24):
+    """Squared distances of every grouped row to each column of its
+    block's slab ``ctab[rowsel[b]]``, (n, kn_pad): ``max((|x|^2 - 2 x.c)
+    + |c|^2, 0)`` in f32 from the exactly rounded ``|x|^2`` and ``x.c``,
+    the values K1 selects from (so K1, this function and
+    ``quant.rerank_exact`` give one pair one value). Padding columns
+    carry ``csqtab`` = PAD_SQDIST. Runs in chunks of blocks so that the
+    gathered f64 slabs stay under ``chunk_elems`` values."""
+    n, d = x.shape
+    nb = n // bn
+    knp = ctab.shape[1]
+    rs = rowsel.long()
+    xb = x.reshape(nb, bn, d)
+    cb = max(1, chunk_elems // (knp * d))
+    out = []
+    for b0 in range(0, nb, cb):
+        xc, rc = xb[b0:b0 + cb], rs[b0:b0 + cb]
+        cross = exact_cross(xc, ctab[rc].transpose(1, 2))  # (cb, bn, kn_pad)
+        out.append(torch.clamp(exact_sqnorm(xc)[..., None] - 2.0 * cross
+                               + csqtab[rc][:, None, :], min=0.0))
+    return torch.cat(out).reshape(n, knp)
+
+
 def candidate_assign_tiled_ref(x, ctab, csqtab, cidx, rowsel, skip, prev_a,
                                prev_d1, prev_d2, bn: int):
     """Grouped k_n-restricted assignment over a candidate table: block b
-    of ``x`` (bn rows) competes among ``cidx[rowsel[b]]``. Returns
-    (argbest id int32, best sqdist, second-best sqdist), with ``prev_*``
-    on rows of skipped blocks. Ties take the first column."""
-    n, d = x.shape
-    nb = n // bn
+    of ``x`` (bn rows) competes among ``cidx[rowsel[b]]`` with the
+    distances of :func:`slab_sqdist`. Returns (argbest id int32, best
+    sqdist, second-best sqdist), with ``prev_*`` on rows of skipped
+    blocks. Ties take the first column."""
+    nb = x.shape[0] // bn
     rs = rowsel.long()
-    xb = x.reshape(nb, bn, d)
-    ct = ctab[rs]                                    # (nb, kn_pad, d)
-    cross = torch.bmm(xb, ct.transpose(1, 2))        # (nb, bn, kn_pad)
-    sq = torch.clamp(torch.sum(xb * xb, dim=-1)[..., None] - 2.0 * cross
-                     + csqtab[rs][:, None, :], min=0.0)
+    sq = slab_sqdist(x, ctab, csqtab, rowsel, bn).reshape(nb, bn, -1)
     loc = torch.argmin(sq, dim=-1)                   # first-min
     a = torch.gather(cidx[rs], 1, loc).reshape(-1).to(torch.int32)
     if sq.shape[-1] >= 2:
@@ -68,3 +107,65 @@ def segmented_scan_ref(x, w, block2seg, bn: int):
     off_c = torch.where(has, gc[prev_row], 0.0)[row_blk]
     return ((gx - off_x).to(x.dtype), (gq - off_q).to(x.dtype),
             (gc - off_c).to(x.dtype))
+
+
+def int8_approx_sqdist(xhsq, xsc, tsc, cross, tsq):
+    """Approximate squared distance between dequantized rows,
+    ``max(xhsq - (2 (xsc tsc)) cross + tsq, 0)``, in the reference's
+    order of operations (operands broadcast; all f32)."""
+    return torch.clamp(xhsq - 2.0 * (xsc * tsc) * cross + tsq, min=0.0)
+
+
+def survivor_columns(mask: torch.Tensor, lb: torch.Tensor, r: int):
+    """(..., P) margin-test mask and lower bounds -> (surv (..., r) int32:
+    the first r survivor columns in ascending order, -1 beyond the count;
+    nsv (...,) int32 survivor count, may exceed r; lbm (...,) the least
+    lower bound among non-survivors, PAD_SQDIST when every column
+    survives)."""
+    nsv = torch.sum(mask, dim=-1, dtype=torch.int32)
+    pos = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
+    iota = torch.arange(mask.shape[-1], device=mask.device)
+    cols = [torch.where(s < nsv, torch.sum(torch.where(mask & (pos == s),
+                                                       iota, 0), dim=-1),
+                        -1) for s in range(r)]
+    surv = torch.stack(cols, dim=-1).to(torch.int32)
+    lbm = torch.amin(torch.where(mask, PAD_SQDIST, lb), dim=-1)
+    return surv, nsv, lbm
+
+
+def candidate_assign_int8_tiled_ref(xq, xsc, xerr, qtab, qsc, qerrtab,
+                                    csqtab, rowsel, skip, bn: int, r: int):
+    """Int8 margin-test scan over quantized candidate slabs: block b of
+    ``xq`` (bn rows) against slab ``qtab[rowsel[b] * (1 - skip[b])]``.
+    Per row: the int8 products (exact, in f64), the approximate distance
+    s_hat, and the survivors of ``s_hat - rc <= min(s_hat + rc) + 2 rx``
+    (rc = qerrtab, rx = xerr; the min starts at PAD_SQDIST as the TPU
+    kernel's running minimum does). Returns (surv (n, r) int32 ascending
+    survivor columns, -1 padded; nsv (n,) int32; lbm (n,) f32 least
+    non-survivor lower bound); a skipped block yields (-1, 0,
+    PAD_SQDIST). Runs in chunks of blocks to bound the f64 temporaries."""
+    n, d = xq.shape
+    nb = n // bn
+    tsel = (rowsel * (1 - skip)).long()
+    cb = max(1, min(256, 8192 // bn))
+    outs = []
+    for b0 in range(0, nb, cb):
+        ts = tsel[b0:b0 + cb]
+        m = ts.shape[0]
+        rows = slice(b0 * bn, (b0 + m) * bn)
+        xb = xq[rows].reshape(m, bn, d)
+        cross = exact_cross(xb, qtab[ts].transpose(1, 2))
+        s = xsc[rows].reshape(m, bn, 1)
+        xhsq = s * s * exact_sqnorm(xb)[..., None]
+        shat = torch.sqrt(int8_approx_sqdist(
+            xhsq, s, qsc[ts][:, None, :], cross, csqtab[ts][:, None, :]))
+        rc = qerrtab[ts][:, None, :]
+        lb = shat - rc
+        ub_min = torch.clamp(torch.amin(shat + rc, dim=-1), max=PAD_SQDIST)
+        cut = ub_min + 2.0 * xerr[rows].reshape(m, bn)
+        live = (skip[b0:b0 + m] == 0)[:, None]
+        surv, nsv, lbm = survivor_columns((lb <= cut[..., None])
+                                          & live[..., None], lb, r)
+        outs.append((surv.reshape(-1, r), nsv.reshape(-1),
+                     torch.where(live, lbm, PAD_SQDIST).reshape(-1)))
+    return tuple(torch.cat(parts) for parts in zip(*outs))

@@ -1,20 +1,24 @@
-"""Each CUDA kernel against its plain PyTorch version, on the card.
+"""Each CUDA kernel against its plain PyTorch version, on the card, and
+the served model's predict on the card against the same model on the CPU.
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` at first use); without a card they
 skip. They import no JAX, so they run on a machine that has only the
 port's dependencies: ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Tolerances are those of the CPU parity
-tests (tests/test_torch_kernels.py); an assignment may differ only on a
-near-tie, where the plain second-best is within 1e-5 relative of the
-best.
+tests (tests/test_torch_kernels.py). K1 rounds its f64 sums once to f32
+and K4 rounds after every operation, each like its plain version, so
+K1's assignments and distances and K4's survivors, counts and lower
+bounds are held bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, ref
-from repro_torch.kernels.candidate_assign import (candidate_assign_tiled,
+from repro_torch.core import KMeansModel, OpCounter, fit_k2means
+from repro_torch.kernels import _build, quant, ref
+from repro_torch.kernels.candidate_assign import (candidate_assign_int8_tiled,
+                                                  candidate_assign_tiled,
                                                   candidate_tables,
                                                   pad_candidates)
 from repro_torch.kernels.center_knn import center_sqdist
@@ -67,7 +71,9 @@ def _segments_abs(v, b2s, bn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,d,kn,bn,bkn", [(256, 64, 48, 8, 64, 8),
                                              (320, 100, 784, 30, 32, 8),
-                                             (512, 128, 16, 16, 128, 8)])
+                                             (512, 128, 16, 16, 128, 8),
+                                             (256, 100, 784, 30, 8, 8),
+                                             (512, 400, 100, 200, 128, 8)])
 def test_cuda_candidate_assign_tiled(cuda, n, k, d, kn, bn, bkn):
     inp = _assign_inputs(n, k, d, kn, bn, bkn, seed=n + k)
     before = _build.launches()["candidate_assign_tiled"]
@@ -75,13 +81,8 @@ def test_cuda_candidate_assign_tiled(cuda, n, k, d, kn, bn, bkn):
     torch.cuda.synchronize()
     assert _build.launches()["candidate_assign_tiled"] == before + 1
     want = _torch_assign(*inp, bn, bkn)
-    atol = 1e-5 * float(np.max(np.sum(inp[1] ** 2, 1)))
-    d1w, d2w = want[1].numpy(), want[2].numpy()
-    tie = (d2w - d1w) <= 1e-5 * d1w
-    assert ((got[0].cpu().numpy() == want[0].numpy()) | tie).all()
-    for g, w in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
-                                   atol=atol)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
@@ -112,3 +113,77 @@ def test_cuda_segmented_scan(cuda, n, d, k, bn):
         bound = 1e-5 * np.abs(wv.numpy()) + 1e-5 * _segments_abs(v, b2n, bn)
         assert (err <= bound).all()
     assert (got[2].cpu().double() == want[2]).all()
+
+
+def _int8_inputs(n, k, d, kn, bn, bkn, seed):
+    """A K4 input (CPU tensors): random candidate lists, blocks skipped at
+    random, and block 0 near kn nearly equal centers that all survive
+    the margin test, so its rows overflow a re-rank width below kn."""
+    rng = np.random.RandomState(seed)
+    nb = n // bn
+    t = max(2, nb // 2)
+    c = (rng.randn(k, d) * 2).astype(np.float32)
+    c[:kn] = c[0] + 1e-3 * rng.randn(kn, d).astype(np.float32)
+    x = rng.randn(n, d).astype(np.float32)
+    x[:bn] = c[0] + 0.3 * rng.randn(bn, d).astype(np.float32)
+    cand = rng.randint(0, k, (t, kn)).astype(np.int32)
+    cand[0] = np.arange(kn)
+    rowsel = rng.randint(0, t, nb).astype(np.int32)
+    skip = (rng.rand(nb) < 0.3).astype(np.int32)
+    rowsel[0], skip[0], skip[-1] = 0, 0, 1
+    xt = torch.tensor(x)
+    xq, xsc = quant.quantize_rows(xt)
+    xerr = torch.linalg.norm(xt - quant.dequantize_rows(xq, xsc), dim=1)
+    slabs = quant.quantized_candidate_slabs(
+        quant.center_quant(torch.tensor(c)),
+        pad_candidates(torch.tensor(cand), bkn).contiguous())
+    return (xq, xsc, xerr, *slabs, torch.tensor(rowsel), torch.tensor(skip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 784, 785])
+@pytest.mark.parametrize("bkn", [4, 8])
+@pytest.mark.parametrize("bn", [8, 16, 128])
+def test_cuda_candidate_assign_int8_tiled(cuda, bn, bkn, d):
+    r = 8
+    args = [a.to(cuda) for a in _int8_inputs(bn * 6, 40, d, 12, bn, bkn,
+                                             seed=bn + bkn + d)]
+    before = _build.launches()["candidate_assign_int8_tiled"]
+    got = candidate_assign_int8_tiled(*args, bn=bn, bkn=bkn, r=r)
+    torch.cuda.synchronize()
+    assert _build.launches()["candidate_assign_int8_tiled"] == before + 1
+    want = ref.candidate_assign_int8_tiled_ref(*args, bn, r)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    nsv = got[1].cpu()
+    assert (nsv[:bn] > r).all(), "block 0 did not overflow the width"
+    assert (nsv[-bn:] == 0).all() and (got[0][-bn:] == -1).all()
+
+
+@pytest.mark.cuda
+def test_cuda_predict_matches_cpu(cuda):
+    """A small served model on the card against the same model on the
+    CPU: assignments, distances and charges in both precisions."""
+    rng = np.random.RandomState(7)
+    mus = rng.randn(16, 16) * 8
+    x = (mus[rng.randint(0, 16, 3000)] + rng.randn(3000, 16)).astype(
+        np.float32)
+    q = (mus[rng.randint(0, 16, 1000)] + rng.randn(1000, 16)).astype(
+        np.float32)
+    init = x[rng.permutation(3000)[:24]]
+    a0 = torch.cdist(torch.tensor(x), torch.tensor(init)).argmin(1)
+    res = fit_k2means(x, init, a0.to(torch.int32), kn=8, max_iters=30,
+                      device="cpu")
+    models = {dev: KMeansModel.from_result(res, x, kn=8, device=dev)
+              for dev in ("cpu", cuda)}
+    for prec in ("f32", "int8"):
+        out = {}
+        for dev, model in models.items():
+            counter = OpCounter()
+            a, dist = model.predict(q, counter=counter, return_sqdist=True,
+                                    batch_size=256, precision=prec)
+            out[dev] = (a.cpu(), dist.cpu(), counter.distances,
+                        counter.bytes_scanned)
+        assert torch.equal(out["cpu"][0], out[cuda][0])
+        assert torch.equal(out["cpu"][1], out[cuda][1])
+        assert out["cpu"][2:] == out[cuda][2:]
