@@ -7,7 +7,7 @@ Run from the root of the repository, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, without the final result line):
 1. print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the four CUDA kernels from ``src/`` (one
+   CUDA versions, and build the six CUDA kernels from ``src/`` (one
    ``nvcc`` per source, in parallel);
 2. run the port's main path, ``repro_torch.core.fit(x, 1000,
    method="k2means", init="gdi", kn=30, max_iters=30)``, at the paper's
@@ -28,20 +28,36 @@ Phases (any failure exits non-zero, without the final result line):
    a small predict against the plain PyTorch path; print queries/s,
    recall@1 against the brute-force argmin, host reads per call and peak
    device memory;
+2c. the paper's baselines on the same rows: ``kmeanspp_init`` at k=1000,
+   then ``fit(method="lloyd", init="kmeanspp")`` (every assignment step
+   through K5) and ``fit(method="elkan", init="kmeanspp")`` for a few
+   iterations, counts set to 0 just before each fit; print the k-means++
+   seconds, ms per Lloyd iteration, the energies and the k²-means /
+   Lloyd++ energy and counted-ops ratios, host reads per Lloyd iteration
+   and inside the k-means++ loop; check that K5 launched once per Lloyd
+   iteration, that Lloyd's energy history does not increase (rel 1e-6),
+   ends at or below the k-means++ init's, that host reads are 1 per
+   Lloyd iteration (+1 for the final energy) and 0 in k-means++, and that
+   Elkan's first assignment equals Lloyd's first from the same centers;
+2d. the assignment bench (the reference's ``benchmarks/assign_bench``
+   check, on the card): K7 rowwise and K1 tiled over the k²-means fit's
+   resident arena with the same per-block lists, counts set to 0 just
+   before; check that both launched and agree;
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, K1 over the final resident arena with no
    block skipped and over one predict batch's grouped layout, K3 on the
-   GDI leaf-grouped layout, K4 on one int8 predict batch) and time both
-   with CUDA events, beside one library call where one computes the same
-   function and beside the least time the card could take (bytes over
-   3.35 TB/s, or operations over the H100 SXM data sheet's peak for
-   their type: 67 TFLOP/s FP32, 1979 TOP/s int8);
+   GDI leaf-grouped layout, K4 on one int8 predict batch, K5 on x and the
+   Lloyd++ centers, K7 over the arena) and time both with CUDA events,
+   beside one library call where one computes the same function and
+   beside the least time the card could take (bytes over 3.35 TB/s, or
+   operations over the H100 SXM data sheet's peak for their type:
+   67 TFLOP/s FP32, 1979 TOP/s int8);
 4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
-``python3 chip_smoke.py --profile`` adds, after phase 3, the fit and one
-predict in each precision under ``torch.profiler``: device time by
-kernel, the device's busy share of the host clock, and the host
-synchronisations.
+``python3 chip_smoke.py --profile`` adds, after phase 3, the fit, one
+predict in each precision and one Lloyd++ fit under ``torch.profiler``:
+device time by kernel, the device's busy share of the host clock, and
+the host synchronisations.
 """
 from __future__ import annotations
 
@@ -56,6 +72,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 N, D, K, KN, TRUE_K, MAX_ITERS, SEED = 60000, 784, 1000, 30, 128, 30, 0
 BKN = 8
 NQ, BATCH = 65536, 8192            # held-out queries, predict batch size
+LLOYD_ITERS, ELKAN_ITERS = 300, 5   # Lloyd++ runs to convergence here
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
@@ -102,15 +119,17 @@ def main() -> int:
     try:
         from repro_torch.core import (K2Step, KMeansModel, OpCounter,
                                       center_knn_graph, clustering_energy,
-                                      fit, fit_k2means, initialize)
-        from repro_torch.core.distance import chunked_argmin_sqdist
+                                      fit, fit_elkan, fit_k2means, fit_lloyd,
+                                      initialize, kmeanspp_init)
         from repro_torch.core.model import _RESOLVE_RERANK as rerank
         from repro_torch.data import gmm_blobs
         from repro_torch.kernels import _build, quant, ref
         from repro_torch.kernels.candidate_assign import (
-            candidate_assign_int8_tiled, candidate_assign_tiled,
-            candidate_tables, pad_candidates)
+            candidate_assign_int8_tiled, candidate_assign_rowwise,
+            candidate_assign_tiled, candidate_tables, pad_candidates)
         from repro_torch.kernels.center_knn import center_sqdist
+        from repro_torch.kernels.distance_argmin import distance_argmin
+        from repro_torch.kernels.ops import assign_nearest_kernel
         from repro_torch.kernels.ops import (choose_group_bn,
                                              group_by_cluster_device)
         from repro_torch.kernels.segmented_scan import segmented_scan
@@ -243,15 +262,116 @@ def main() -> int:
         check(bool(((got_d - want_d).abs() <= 1e-6 * want_d).all()),
               f"predict({prec}) distances are the minimum over the routed "
               f"neighborhood: max rel err {rel:.3g} (rtol 1e-6)")
-    truth, _ = chunked_argmin_sqdist(queries, model.centers)
+    truth, _ = assign_nearest_kernel(queries, model.centers)
     print(f"  recall@1 against the brute-force argmin: "
           f"{float((f32['a'] == truth).float().mean()):.6f}")
     _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,
                           check)
 
+    # --- 2c. the paper's baselines: k-means++, Lloyd++ and Elkan --------
+    def pp_gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 2)
+    kmeanspp_init(x, 8, pp_gen())                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_pp = kmeanspp_init(x, K, pp_gen())
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    pp_reads = _host_reads(torch, lambda: kmeanspp_init(x, K, pp_gen()))
+    e_pp = float(assign_nearest_kernel(x, c_pp)[1].sum())
+    # Lloyd's first assignment (and the warm-up of its path) and Elkan's
+    # initial one, from the same centers
+    lloyd1 = fit_lloyd(x, c_pp, max_iters=1, device=dev).assignment
+    elkan0 = fit_elkan(x, c_pp, max_iters=0, device=dev).assignment
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res_l = fit(x, K, method="lloyd", init="kmeanspp", max_iters=LLOYD_ITERS,
+                device=dev, profile=True, generator=pp_gen())
+    torch.cuda.synchronize()
+    l_launch = _build.launches()
+    hist_l = [e for _, e in res_l.history]
+    lloyd_ms = res_l.profile["iterate_s"] / res_l.iterations * 1e3
+    lloyd_reads = _host_reads(torch, lambda: fit_lloyd(x, c_pp, max_iters=3,
+                                                       device=dev))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res_e = fit(x, K, method="elkan", init="kmeanspp", max_iters=ELKAN_ITERS,
+                device=dev, profile=True, generator=pp_gen())
+    torch.cuda.synchronize()
+    e_launch = _build.launches()
+    print(f"phase 2c: k-means++ k={K}: {pp_s:.4f} s "
+          f"({res_l.profile['init_s']:.4f} s inside fit), host reads "
+          f"{pp_reads} in the whole init; energy {e_pp:.6g}")
+    print(f"  Lloyd++: {res_l.iterations} iterations (cap {LLOYD_ITERS}), "
+          f"{lloyd_ms:.3f} ms/iteration, energy {res_l.energy:.6g}, counted "
+          f"ops {res_l.ops:.6g}, host reads {lloyd_reads} for 3 iterations, "
+          f"launches {l_launch}")
+    ops_l = res_l.history[min(res_e.iterations, res_l.iterations) - 1][0]
+    print(f"  Elkan++: {res_e.iterations} iterations, "
+          f"{res_e.profile['iterate_s'] / max(res_e.iterations, 1) * 1e3:.3f} "
+          f"ms/iteration, energy {res_e.energy:.6g}, counted ops "
+          f"{res_e.ops:.6g} (Lloyd++ after as many iterations: "
+          f"{ops_l:.6g}), launches {e_launch}")
+    print(f"  k2-means (phase 2) / Lloyd++: energy "
+          f"{res.energy / res_l.energy:.6f}, counted ops "
+          f"{res.ops / res_l.ops:.6f}")
+    check(l_launch["distance_argmin"] == res_l.iterations
+          and sum(l_launch.values()) == res_l.iterations,
+          f"distance_argmin (K5) launched once per Lloyd iteration and "
+          f"nothing else launched ({l_launch['distance_argmin']} for "
+          f"{res_l.iterations})")
+    check(len(hist_l) == res_l.iterations and all(map(_finite, hist_l)),
+          "Lloyd energy history finite, one entry per iteration")
+    check(all(b <= a * (1 + 1e-6) for a, b in zip(hist_l, hist_l[1:])),
+          "Lloyd energy history non-increasing (rel 1e-6)")
+    check(abs(hist_l[0] - e_pp) <= 1e-6 * e_pp,
+          "the fit's k-means++ drew the same centers (first Lloyd energy = "
+          "the init's, rel 1e-6)")
+    check(res_l.energy <= e_pp, "Lloyd++ energy <= the k-means++ init's")
+    check(pp_reads == 0, f"no host read inside k-means++ ({pp_reads})")
+    check(lloyd_reads == 3 + 1, f"host reads: 1 per Lloyd iteration + 1 for "
+                                f"the final energy ({lloyd_reads} for 3)")
+    check(bool(torch.equal(lloyd1, elkan0)),
+          f"Elkan's first assignment equals Lloyd's first from the same "
+          f"centers ({int((lloyd1 != elkan0).sum())} differ)")
+    check(_finite(res_e.energy) and res_e.assignment.shape == (N,),
+          "Elkan's result finite and of the expected shape")
+
+    # --- 2d. the assignment bench: K7 rowwise beside K1 tiled -----------
+    c = res.centers.contiguous()
+    sb = K2Step(k=K, kn=KN, bkn=BKN)
+    st = sb.init_resident(x, torch.ones(N, device=dev), c, res.assignment)
+    nb = st.b2c.shape[0]
+    bn = st.pid.shape[0] // nb
+    graph = center_knn_graph(c, KN)
+    cidx = pad_candidates(graph, BKN).contiguous()
+    ctab, csqtab = candidate_tables(c, cidx)
+    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
+    cand = graph[rowsel.long()].contiguous()
+    s_rows = st.pid.shape[0]
+    zi = torch.zeros(s_rows, dtype=torch.int32, device=dev)
+    zf = torch.zeros(s_rows, device=dev)
+    noskip = torch.zeros(nb, dtype=torch.int32, device=dev)
+    args = (st.xg, ctab, csqtab, cidx, rowsel, noskip, zi, zf, zf)
+    args7 = (st.xg, c, cand, noskip, zi, zf)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    a_t, d_t, _ = candidate_assign_tiled(*args, bn=bn, bkn=BKN)
+    a_r, d_r = candidate_assign_rowwise(*args7, bn=bn)
+    torch.cuda.synchronize()
+    bench = _build.launches()
+    print(f"phase 2d: assignment bench over the resident arena ({s_rows} "
+          f"rows, bn={bn}, {nb} blocks, kn={KN}): launches {bench}")
+    check(bench["candidate_assign_rowwise"] == 1
+          and bench["candidate_assign_tiled"] == 1,
+          "candidate_assign_rowwise (K7) and candidate_assign_tiled (K1) "
+          "launched by the bench")
+    check(bool(torch.equal(a_t, a_r)) and bool(torch.equal(d_t, d_r)),
+          f"K7 rowwise equals K1 tiled on the same lists (assign_bench's "
+          f"check): {int((a_t != a_r).sum())} assignments differ")
+
     # --- 3. each kernel against its plain version -----------------------
     kernels = []
-    c = res.centers.contiguous()
     cmax = float((c * c).sum(1).max())
 
     # K2: center_sqdist on the final centers
@@ -273,18 +393,6 @@ def main() -> int:
         library_ms=time_ms(lambda: torch.cdist(c, c) ** 2, torch)))
 
     # K1: candidate_assign_tiled over the final resident arena, no skips
-    sb = K2Step(k=K, kn=KN, bkn=BKN)
-    st = sb.init_resident(x, torch.ones(N, device=dev), c, res.assignment)
-    nb = st.b2c.shape[0]
-    bn = st.pid.shape[0] // nb
-    cidx = pad_candidates(center_knn_graph(c, KN), BKN).contiguous()
-    ctab, csqtab = candidate_tables(c, cidx)
-    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
-    s_rows = st.pid.shape[0]
-    zi = torch.zeros(s_rows, dtype=torch.int32, device=dev)
-    zf = torch.zeros(s_rows, device=dev)
-    args = (st.xg, ctab, csqtab, cidx, rowsel,
-            torch.zeros(nb, dtype=torch.int32, device=dev), zi, zf, zf)
     knp = cidx.shape[1]
     rows_read = int(torch.unique(rowsel).numel())
     kernels.append(_against_plain(
@@ -299,7 +407,23 @@ def main() -> int:
         bound(s_rows * D * 4.0 + rows_read * knp * (D + 2) * 4.0
               + nb * 8.0 + s_rows * 12.0 * 2,
               2.0 * s_rows * knp * D + 2.0 * s_rows * D)))
-    del st, args, ctab
+
+    # K7: candidate_assign_rowwise over the same arena and lists
+    rows7 = int(torch.unique(cand).numel())
+    kernels.append(_against_plain(
+        torch, check, f"K7 over the final resident arena ({s_rows} rows, "
+                      f"bn={bn}, kn={KN})",
+        functools.partial(candidate_assign_rowwise, *args7, bn=bn),
+        functools.partial(ref.candidate_assign_ref, *args7, bn),
+        dict(name="candidate_assign_rowwise",
+             source="src/repro_torch/kernels/csrc/candidate_assign_rowwise.cu",
+             replaces="src/repro/kernels/candidate_assign.py:401",
+             launches=bench["candidate_assign_rowwise"]),
+        bound(s_rows * D * 4.0 + rows7 * (D + 1) * 4.0 + nb * (KN + 1) * 4.0
+              + s_rows * 8.0 * 2, 2.0 * s_rows * KN * D)))
+    print(f"  tiled_vs_rowwise_wall (K7 ms / K1 ms over the arena): "
+          f"{kernels[-1]['ms'] / kernels[-2]['ms']:.3f}")
+    del st, args, args7, ctab
 
     # K3: segmented_scan on the GDI leaf-grouped layout
     bn3 = choose_group_bn(N, K, D)
@@ -380,6 +504,19 @@ def main() -> int:
         bound(live * (D + 8.0) + slabs * knp * (D + 12.0)
               + b2c.shape[0] * 8.0 + xq.shape[0] * (4.0 * rerank + 8.0),
               2.0 * live * knp * D, INT8_OP_PER_S)))
+    # K5: distance_argmin on x and the Lloyd++ centers
+    c_l = res_l.centers.contiguous()
+    kernels.append(_against_plain(
+        torch, check, f"K5 on x and the Lloyd++ centers (n={N}, k={K}, "
+                      f"d={D})",
+        functools.partial(distance_argmin, x, c_l),
+        functools.partial(ref.distance_argmin_ref, x, c_l),
+        dict(name="distance_argmin",
+             source="src/repro_torch/kernels/csrc/distance_argmin.cu",
+             replaces="src/repro/kernels/distance_argmin.py:54",
+             launches=l_launch["distance_argmin"]),
+        bound((N * D + K * D + K) * 4.0 + N * 8.0, 2.0 * N * K * D),
+        library=functools.partial(_cublas_argmin, torch, x, c_l)))
     for kr in kernels:
         print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
@@ -394,6 +531,9 @@ def main() -> int:
         for prec in ("f32", "int8"):
             _profile(torch, f"predict {prec}", lambda: model.predict(
                 queries, batch_size=BATCH, precision=prec))
+        _profile(torch, "Lloyd++ fit", lambda: fit(
+            x, K, method="lloyd", init="kmeanspp", max_iters=LLOYD_ITERS,
+            device=dev, generator=pp_gen()))
 
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
@@ -453,9 +593,11 @@ def _predict_layout(torch, model, qb, prec, choose_group_bn,
             slabs)
 
 
-def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by):
+def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,
+                   library=None):
     """Hold a kernel bit-equal to its plain version on the same inputs
-    and time both: the kernels line's entry."""
+    and time both, and ``library`` (one PyTorch call computing the same
+    function) where there is one: the kernels line's entry."""
     got, want = kern(), plain()
     same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
     err = max(float((g.double() - w.double()).abs().max())
@@ -465,7 +607,18 @@ def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by):
     return dict(entry, route="cuda", max_abs_err=err,
                 ms=time_ms(kern, torch), plain_ms=time_ms(plain, torch),
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
-                library_ms=None)
+                library_ms=None if library is None else time_ms(library,
+                                                                torch))
+
+
+def _cublas_argmin(torch, x, c, chunk: int = 4096):
+    """The f32 cuBLAS path the port's nearest-center assignment took
+    before K5: ``x_sq - 2 x @ c.T + c_sq`` per 4096-row chunk, then
+    ``torch.min``."""
+    c_sq = (c * c).sum(1)
+    return [torch.min(((xb * xb).sum(1)[:, None] - 2.0 * (xb @ c.T)
+                       + c_sq).clamp(min=0.0), dim=1)
+            for xb in torch.split(x, chunk)]
 
 
 def _host_reads(torch, fn) -> int:

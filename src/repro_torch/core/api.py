@@ -1,6 +1,7 @@
-"""Single entry point: ``fit(x, k, method="k2means", init=...)`` (port of
-``repro.core.api`` for the single-device f32 k²-means path, with the
-served model of ``return_model=True``)."""
+"""Single entry point: ``fit(x, k, method=..., init=...)`` (port of
+``repro.core.api`` for the single-device f32 fit: k²-means and the
+paper's Lloyd and Elkan baselines, with the served model of
+``return_model=True``)."""
 from __future__ import annotations
 
 import time
@@ -9,19 +10,19 @@ from typing import Any
 import torch
 
 from ..device import as_tensor, resolve
+from .elkan import fit_elkan
 from .gdi import gdi_device_init
 from .k2means import fit_k2means
-from .kmeanspp import assign_nearest, random_init
-from .lloyd import KMeansResult
+from .kmeanspp import assign_nearest, kmeanspp_init, random_init
+from .lloyd import fit_lloyd
 from .model import KMeansModel
 from .opcount import OpCounter
 
-METHODS = ("k2means",)
-INITS = ("random", "gdi", "gdi_device")
+METHODS = ("lloyd", "elkan", "k2means")
+INITS = ("random", "kmeanspp", "gdi", "gdi_device")
 # reference inits and methods the port does not have yet, by ROADMAP item
-_LATER = {"kmeanspp": 11, "gdi_host": 11, "gdi_parallel": 11,
-          "gdi_replicated": 12, "lloyd": 11, "elkan": 11, "minibatch": 11,
-          "akm": 11}
+_LATER = {"gdi_host": 11, "gdi_parallel": 11, "gdi_replicated": 12,
+          "minibatch": 11, "akm": 11}
 
 
 def _not_ported(what: str, name: str):
@@ -35,6 +36,8 @@ def initialize(x: torch.Tensor, k: int, init: str,
     frontier-batched device GDI, as on the reference's Pallas path."""
     if init == "random":
         return random_init(x, k, generator), None
+    if init == "kmeanspp":
+        return kmeanspp_init(x, k, generator, counter), None
     if init in ("gdi", "gdi_device"):
         return gdi_device_init(x, k, generator=generator, counter=counter,
                                device=x.device)
@@ -57,9 +60,11 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     ``model_capacity`` rows (default 2n).
 
     ``generator`` (default: a new one on the device seeded with ``seed``)
-    drives the init's draws. Extra keywords flow to
-    :func:`core.k2means.fit_k2means` (``residency``, ``monitor_every``,
-    ``regroup_every``, ``bn``, ...). ``profile=True`` attaches the
+    drives the init's draws. Extra keywords flow to the method's fit
+    function: :func:`core.k2means.fit_k2means` (``residency``,
+    ``monitor_every``, ``regroup_every``, ``bn``, ...),
+    :func:`core.lloyd.fit_lloyd` (``callback``) or
+    :func:`core.elkan.fit_elkan`. ``profile=True`` attaches the
     counter's op and memory-traffic breakdown plus the host-clock seconds
     of the init and of the iterations (each ended by a device
     synchronize) to ``result.profile``. ``validate``: "raise" rejects
@@ -68,7 +73,7 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     if mesh is not None:
         raise NotImplementedError(
             "mesh placement is not ported yet (ROADMAP §1 item 12)")
-    if method != "k2means":
+    if method not in METHODS:
         if method in _LATER:
             raise _not_ported("method", method)
         raise ValueError(f"unknown method {method!r}; expected one of "
@@ -102,11 +107,19 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
 
     t0 = sync_clock()
     centers, assignment = initialize(x, k, init, generator, counter)
-    if assignment is None:
+    if method == "k2means" and assignment is None:
         assignment = assign_nearest(x, centers, counter)
     t1 = sync_clock()
-    result = fit_k2means(x, centers, assignment, kn=kn, max_iters=max_iters,
-                         counter=counter, device=dev, **kw)
+    if method == "lloyd":
+        result = fit_lloyd(x, centers, max_iters=max_iters, counter=counter,
+                           device=dev, **kw)
+    elif method == "elkan":
+        result = fit_elkan(x, centers, max_iters=max_iters, counter=counter,
+                           device=dev, **kw)
+    else:
+        result = fit_k2means(x, centers, assignment, kn=kn,
+                             max_iters=max_iters, counter=counter,
+                             device=dev, **kw)
     t2 = sync_clock()
     if profile:
         result.profile = counter.profile() | {"init_s": t1 - t0,

@@ -25,12 +25,14 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("center_knn", "candidate_assign", "segmented_scan",
-           "candidate_assign_int8")
+           "candidate_assign_int8", "distance_argmin",
+           "candidate_assign_rowwise")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"center_sqdist": 0, "candidate_assign_tiled": 0,
-            "segmented_scan": 0, "candidate_assign_int8_tiled": 0}
+            "segmented_scan": 0, "candidate_assign_int8_tiled": 0,
+            "distance_argmin": 0, "candidate_assign_rowwise": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -121,6 +123,17 @@ def function(lib: str, symbol: str, argtypes: list):
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return _fns[key]
+
+
+def require(kernel: str, name: str, t, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``, the only layout a kernel takes."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.device.type != "cuda":
+        raise ValueError(f"{kernel}: {name} must be a "
+                         f"contiguous CUDA {dtype} tensor of shape "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
 
 
 def check(err: int, name: str) -> None:

@@ -1,8 +1,9 @@
-"""Grouped-layout operations around the kernels (port of the grouped
-subset of ``repro.kernels.ops``): block-size selection, the
-cluster-grouped layout, the resident arena's re-sort and sparse repair
-plan, the rebuild iteration's bound-gated assignment, and the query-time
-resolution in f32 (K1) and int8 (K4 + exact f32 re-rank).
+"""Operations around the kernels (port of ``repro.kernels.ops`` without
+its ungrouped paths): the fused nearest-center assignment (K5),
+block-size selection, the cluster-grouped layout, the resident arena's
+re-sort and sparse repair plan, the rebuild iteration's bound-gated
+assignment, and the query-time resolution in f32 (K1) and int8 (K4 +
+exact f32 re-rank).
 
 Idioms that differ from the reference, kept exact:
 - sorts are stable everywhere the reference's are (``jnp.argsort`` is
@@ -25,6 +26,7 @@ from . import quant
 from .candidate_assign import (candidate_assign_int8_tiled,
                                candidate_assign_tiled, candidate_tables,
                                pad_candidates)
+from .distance_argmin import distance_argmin
 from .ref import PAD_SQDIST, slab_sqdist
 
 # the reference sizes point blocks against a ~12 MiB f32 working set; the
@@ -49,6 +51,15 @@ def choose_group_bn(n: int, k: int, d: int | None = None,
     while bn * 2 <= min(per, cap):
         bn *= 2
     return bn
+
+
+def assign_nearest_kernel(x: torch.Tensor, c: torch.Tensor):
+    """Drop-in fused assignment, the port of the reference's
+    ``assign_nearest_pallas``: (n, d), (k, d) -> (assignment int32 (n,),
+    min sqdist f32 (n,)) through K5 (:func:`distance_argmin`), which
+    launches its kernel on CUDA tensors and takes its plain version on
+    CPU tensors. No padding: the kernel handles ragged n and k."""
+    return distance_argmin(x.contiguous(), c.contiguous())
 
 
 def grouped_capacity(n: int, k: int, bn: int) -> int:

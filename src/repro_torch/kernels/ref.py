@@ -33,6 +33,63 @@ def exact_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b.double()).float()
 
 
+def exact_sqdist(x: torch.Tensor, c: torch.Tensor, *,
+                 chunk_elems: int = 1 << 24) -> torch.Tensor:
+    """(n, d) x (k, d) -> (n, k) f32 squared distances ``max((|x|^2 -
+    2 x.c) + |c|^2, 0)`` from the exactly rounded norms and products,
+    the value every kernel of the port gives a (point, center) pair. Runs
+    in row chunks that keep the f64 product under ``chunk_elems``
+    values."""
+    csq = exact_sqnorm(c)
+    ct = c.T
+    rows = max(1, chunk_elems // max(c.shape[0], 1))
+    return torch.cat([torch.clamp(exact_sqnorm(xb)[:, None]
+                                  - 2.0 * exact_cross(xb, ct) + csq, min=0.0)
+                      for xb in torch.split(x, rows)])
+
+
+def distance_argmin_ref(x: torch.Tensor, c: torch.Tensor, *,
+                        chunk_elems: int = 1 << 24):
+    """(n, d), (k, d) -> (assignment (n,) int32, min sqdist (n,) f32): the
+    nearest of all k centers by :func:`exact_sqdist`, ties to the first
+    center. Works in row chunks, so no (n, k) matrix is held."""
+    rows = max(1, chunk_elems // max(c.shape[0], 1))
+    a, m = [], []
+    for xb in torch.split(x, rows):
+        sq = exact_sqdist(xb, c, chunk_elems=chunk_elems)
+        a.append(torch.argmin(sq, dim=1).to(torch.int32))
+        m.append(torch.amin(sq, dim=1))
+    return torch.cat(a), torch.cat(m)
+
+
+def candidate_assign_ref(x, c, cand, skip, prev_a, prev_d, bn: int, *,
+                         chunk_elems: int = 1 << 24):
+    """Per-block restricted assignment: block b of ``x`` (bn rows) against
+    the centers ``cand[b]`` (nb, kn), with the distances of
+    :func:`exact_sqdist`. Returns (argbest id int32, best sqdist), ties to
+    the first in list order, ``prev_*`` on rows of skipped blocks. Runs in
+    chunks of blocks that keep the gathered f64 centers under
+    ``chunk_elems`` values."""
+    n, d = x.shape
+    nb, kn = cand.shape
+    csq = exact_sqnorm(c)
+    cl = cand.long()
+    xb = x.reshape(nb, bn, d)
+    cb = max(1, chunk_elems // max(kn * d, 1))
+    a, m = [], []
+    for b0 in range(0, nb, cb):
+        ids = cl[b0:b0 + cb]
+        cross = exact_cross(xb[b0:b0 + cb], c[ids].transpose(1, 2))
+        sq = torch.clamp(exact_sqnorm(xb[b0:b0 + cb])[..., None]
+                         - 2.0 * cross + csq[ids][:, None, :], min=0.0)
+        loc = torch.argmin(sq, dim=-1)                    # first in the list
+        a.append(torch.gather(ids, 1, loc).reshape(-1))
+        m.append(torch.amin(sq, dim=-1).reshape(-1))
+    skip_pt = torch.repeat_interleave(skip != 0, bn)
+    return (torch.where(skip_pt, prev_a, torch.cat(a).to(torch.int32)),
+            torch.where(skip_pt, prev_d, torch.cat(m)))
+
+
 def slab_sqdist(x, ctab, csqtab, rowsel, bn: int, *,
                 chunk_elems: int = 1 << 24):
     """Squared distances of every grouped row to each column of its

@@ -6,22 +6,25 @@ These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 skip. They import no JAX, so they run on a machine that has only the
 port's dependencies: ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Tolerances are those of the CPU parity
-tests (tests/test_torch_kernels.py). K1 rounds its f64 sums once to f32
-and K4 rounds after every operation, each like its plain version, so
-K1's assignments and distances and K4's survivors, counts and lower
-bounds are held bit-equal.
+tests (tests/test_torch_kernels.py). K1, K5 and K7 round their f64 sums
+once to f32 and K4 rounds after every operation, each like its plain
+version, so their assignments and distances and K4's survivors, counts
+and lower bounds are held bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import KMeansModel, OpCounter, fit_k2means
+from repro_torch.core import (KMeansModel, OpCounter, fit_elkan,
+                              fit_k2means, fit_lloyd)
 from repro_torch.kernels import _build, quant, ref
 from repro_torch.kernels.candidate_assign import (candidate_assign_int8_tiled,
+                                                  candidate_assign_rowwise,
                                                   candidate_assign_tiled,
                                                   candidate_tables,
                                                   pad_candidates)
 from repro_torch.kernels.center_knn import center_sqdist
+from repro_torch.kernels.distance_argmin import distance_argmin
 from repro_torch.kernels.ops import group_by_cluster_device
 from repro_torch.kernels.segmented_scan import segmented_scan
 
@@ -158,6 +161,85 @@ def test_cuda_candidate_assign_int8_tiled(cuda, bn, bkn, d):
     nsv = got[1].cpu()
     assert (nsv[:bn] > r).all(), "block 0 did not overflow the width"
     assert (nsv[-bn:] == 0).all() and (got[0][-bn:] == -1).all()
+
+
+@pytest.mark.cuda
+def test_cuda_candidate_assign_int8_tiled_wide_slab(cuda):
+    """kn_pad = 384 at bn = 128: past the 333 columns that K4's
+    shared-memory tile held before it walked kn_pad in chunks."""
+    bn, r = 128, 8
+    args = [a.to(cuda) for a in _int8_inputs(bn * 4, 400, 784, 384, bn, 8,
+                                             seed=384)]
+    assert args[4].shape[1] == 384
+    got = candidate_assign_int8_tiled(*args, bn=bn, bkn=8, r=r)
+    torch.cuda.synchronize()
+    want = ref.candidate_assign_int8_tiled_ref(*args, bn, r)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][:bn] > r).all(), "block 0 did not overflow the width"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(1000, 333, 17), (4097, 1000, 784),
+                                   (130, 65, 3072), (64, 1, 5),
+                                   (700, 129, 784)])
+def test_cuda_distance_argmin(cuda, n, k, d):
+    rng = np.random.RandomState(n + k + d)
+    x = torch.tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    c = torch.tensor(rng.randn(k, d).astype(np.float32), device=cuda)
+    c[k // 2:k // 2 + 1] = c[:1]                # a duplicated center
+    before = _build.launches()["distance_argmin"]
+    got = distance_argmin(x, c)
+    torch.cuda.synchronize()
+    assert _build.launches()["distance_argmin"] == before + 1
+    want = ref.distance_argmin_ref(x, c)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d,kn,bn", [(256, 64, 48, 8, 64),
+                                         (320, 100, 784, 30, 32),
+                                         (96, 40, 3072, 5, 8)])
+def test_cuda_candidate_assign_rowwise(cuda, n, k, d, kn, bn):
+    rng = np.random.RandomState(n * kn)
+    nb = n // bn
+    t = lambda v: torch.tensor(v, device=cuda)   # noqa: E731
+    args = (t(rng.randn(n, d).astype(np.float32)),
+            t(rng.randn(k, d).astype(np.float32)),
+            t(rng.randint(0, k, (nb, kn)).astype(np.int32)),
+            t((np.arange(nb) % 3 == 1).astype(np.int32)),
+            t(rng.randint(0, k, n).astype(np.int32)),
+            t(np.full(n, 7.0, np.float32)))
+    before = _build.launches()["candidate_assign_rowwise"]
+    got = candidate_assign_rowwise(*args, bn=bn)
+    torch.cuda.synchronize()
+    assert _build.launches()["candidate_assign_rowwise"] == before + 1
+    want = ref.candidate_assign_ref(*args, bn)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_lloyd_and_elkan_match_cpu(cuda):
+    """A small Lloyd fit through K5 on the card against the plain CPU
+    path from one init: the same trajectory; Elkan's first assignment on
+    the card equals Lloyd's first."""
+    rng = np.random.RandomState(3)
+    mus = rng.randn(12, 20) * 6
+    x = (mus[rng.randint(0, 12, 4000)] + rng.randn(4000, 20)).astype(
+        np.float32)
+    init = x[rng.permutation(4000)[:30]]
+    first = {}
+    out = {dev: fit_lloyd(x, init, max_iters=40, device=dev,
+                          callback=lambda it, c, a, e, dev=dev:
+                          first.setdefault(dev, a.cpu()))
+           for dev in ("cpu", cuda)}
+    assert out["cpu"].iterations == out[cuda].iterations
+    assert torch.equal(out["cpu"].assignment, out[cuda].assignment.cpu())
+    assert out[cuda].energy == pytest.approx(out["cpu"].energy, rel=1e-5)
+    elkan0 = fit_elkan(x, init, max_iters=0, device=cuda)
+    assert torch.equal(elkan0.assignment.cpu(), first[cuda])
 
 
 @pytest.mark.cuda

@@ -225,7 +225,8 @@ def test_fit_max_iters_zero_evaluates_init():
 @pytest.mark.parametrize("kw,item", [
     ({"backend": "xla"}, "item 11"), ({"precision": "int8"}, "item 7"),
     ({"guards": True}, "item 9"), ({"mesh": object()}, "item 12"),
-    ({"method": "lloyd"}, "item 11"), ({"init": "kmeanspp"}, "item 11"),
+    ({"method": "minibatch"}, "item 11"),
+    ({"init": "gdi_parallel"}, "item 11"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):
     x = blobs(7, 64, 4, 3)
