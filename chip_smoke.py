@@ -7,7 +7,7 @@ Run from the root of the repository, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, without the final result line):
 1. print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the six CUDA kernels from ``src/`` (one
+   CUDA versions, and build the seven CUDA kernels from ``src/`` (one
    ``nvcc`` per source, in parallel);
 2. run the port's main path, ``repro_torch.core.fit(x, 1000,
    method="k2means", init="gdi", kn=30, max_iters=30)``, at the paper's
@@ -43,19 +43,39 @@ Phases (any failure exits non-zero, without the final result line):
    check, on the card): K7 rowwise and K1 tiled over the k²-means fit's
    resident arena with the same per-block lists, counts set to 0 just
    before; check that both launched and agree;
+2e. LM serving with k²-attention (``repro_torch.launch.serve.run``) at
+   Qwen3-8B's full width (d_model 4096, 32 q-heads over 8 kv-heads,
+   d_head 128, d_ff 12288, vocab 151,936, qk-norm) with the depth cut to
+   4 of its 36 layers and random weights from a seed: 2 requests of a
+   65,536-token random prompt are prefilled (chunked forward), decoded 64
+   greedy tokens with full attention, then every layer's keys are
+   clustered (kc 2048, cap 512) and the cache repacked cluster-major, and
+   the same 64 tokens are decoded with k²-attention (top-p 16, ring 256,
+   a fold of the ring every 32 steps), counts set to 0 just before; print
+   the prefill and attach seconds, tokens dropped by full clusters, ms
+   per decode token, token agreement, member rows absorbed by the folds,
+   attention reads per token, peak device memory and host reads per
+   decode step; check that K6 launched once per layer per clustered
+   token and nothing else launched, that every logit is finite, that
+   host reads are 1 per decode step, and that a small serve (the smoke
+   config in f32) on the card agrees with the plain CPU path;
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, K1 over the final resident arena with no
    block skipped and over one predict batch's grouped layout, K3 on the
    GDI leaf-grouped layout, K4 on one int8 predict batch, K5 on x and the
-   Lloyd++ centers, K7 over the arena) and time both with CUDA events,
+   Lloyd++ centers, K7 over the arena, K6 on layer 0's cluster-major
+   tables at a decode step) and time both with CUDA events,
    beside one library call where one computes the same function and
    beside the least time the card could take (bytes over 3.35 TB/s, or
    operations over the H100 SXM data sheet's peak for their type:
-   67 TFLOP/s FP32, 1979 TOP/s int8);
+   67 TFLOP/s FP32, 1979 TOP/s int8); K6 and its yardsticks are timed
+   with the L2 cache flushed before each launch, as a decode step finds
+   it (the other layers' weights pass through it in between);
 4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` adds, after phase 3, the fit, one
-predict in each precision and one Lloyd++ fit under ``torch.profiler``:
+predict in each precision, one Lloyd++ fit, and phase 2e's full and
+k²-attention decode (8 steps each) and a ring fold under ``torch.profiler``:
 device time by kernel, the device's busy share of the host clock, and
 the host synchronisations.
 """
@@ -73,6 +93,9 @@ N, D, K, KN, TRUE_K, MAX_ITERS, SEED = 60000, 784, 1000, 30, 128, 30, 0
 BKN = 8
 NQ, BATCH = 65536, 8192            # held-out queries, predict batch size
 LLOYD_ITERS, ELKAN_ITERS = 300, 5   # Lloyd++ runs to convergence here
+# phase 2e: Qwen3-8B's width, depth cut to 4 of 36 layers
+LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_DECODE, LM_FOLD = (
+    "qwen3-8b", 4, 2, 65536, 64, 32)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
@@ -133,6 +156,8 @@ def main() -> int:
         from repro_torch.kernels.ops import (choose_group_bn,
                                              group_by_cluster_device)
         from repro_torch.kernels.segmented_scan import segmented_scan
+        from repro_torch.kernels.cluster_attend import cluster_attend_partial
+        from repro_torch.launch import serve
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -370,6 +395,11 @@ def main() -> int:
           f"K7 rowwise equals K1 tiled on the same lists (assign_bench's "
           f"check): {int((a_t != a_r).sum())} assignments differ")
 
+    # --- 2e. LM serving with k²-attention at Qwen3-8B's width ----------
+    t0 = time.perf_counter()
+    lm = _lm_serve(torch, dev, serve, check)
+    print(f"  phase 2e wall {time.perf_counter() - t0:.1f} s")
+
     # --- 3. each kernel against its plain version -----------------------
     kernels = []
     cmax = float((c * c).sum(1).max())
@@ -517,6 +547,7 @@ def main() -> int:
              launches=l_launch["distance_argmin"]),
         bound((N * D + K * D + K) * 4.0 + N * 8.0, 2.0 * N * K * D),
         library=functools.partial(_cublas_argmin, torch, x, c_l)))
+    kernels.append(_k6_entry(torch, check, lm, cluster_attend_partial, ref))
     for kr in kernels:
         print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
@@ -534,6 +565,7 @@ def main() -> int:
         _profile(torch, "Lloyd++ fit", lambda: fit(
             x, K, method="lloyd", init="kmeanspp", max_iters=LLOYD_ITERS,
             device=dev, generator=pp_gen()))
+        _profile_serve(torch, serve, lm)
 
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
@@ -575,6 +607,22 @@ def _profile(torch, label: str, fn) -> None:
     for e in events:
         if "Synchronize" in e.key or "Memcpy" in e.key:
             print(f"  host calls: {e.key} x{e.count}")
+
+
+def _profile_serve(torch, serve, lm) -> None:
+    """Phase 2e's decode under the profiler: 8 full-attention steps (over
+    the flat cache's prompt, rewriting its decode slots), 8 k²-attention
+    steps, and one fold of the ring they filled."""
+    cfg, params = lm["cfg"], lm["params"]
+    tok = lm["prompt"][:, -1:]
+    _profile(torch, "full decode x8", lambda: serve.decode(
+        cfg, params, lm["flat_cache"], tok, LM_PROMPT, 8))
+    pos = LM_PROMPT + LM_DECODE + 2
+    _profile(torch, "clustered decode x8", lambda: serve.decode(
+        cfg, params, lm["cache"], tok, pos, 8))
+    rows = int(lm["cache"]["stack"]["ring_fill"][0])
+    _profile(torch, f"ring fold ({rows} rows x {LM_LAYERS} layers)",
+             lambda: serve.fold_ring(lm["cache"], lm["counts"]))
 
 
 def _predict_layout(torch, model, qb, prec, choose_group_bn,
@@ -647,6 +695,214 @@ def _neighborhood_min(torch, q, c, nbh, chunk: int = 8192):
               + csq[ids]).clamp(min=0.0)
         out.append(sq.min(1).values)
     return torch.cat(out)
+
+
+def time_ms_cold(fn, torch, reps: int = 10, warmup: int = 2,
+                 flush_bytes: int = 256 << 20) -> float:
+    """Mean device time of ``fn`` in ms from CUDA events around each
+    launch, with the L2 cache flushed (a 256 MiB write, untimed) before
+    each, after warm-up."""
+    buf = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        buf.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _lm_serve(torch, dev, serve, check) -> dict:
+    """Phase 2e: ``serve.run`` at Qwen3-8B's width, depth cut to
+    LM_LAYERS, with every launch count set to 0 just before; prints and
+    checks its measurements and returns its result."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    full_depth = get_config(LM_ARCH).n_layers
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    r = serve.run(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                  decode_len=LM_DECODE, fold_every=LM_FOLD, device=dev,
+                  seed=SEED, echo=lambda line: print(f"  serve: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    st = r["cache"]["stack"]
+    fill_after = int(st["ring_fill"].sum())
+    tok = r["prompt"][:, -1:]
+    pos = LM_PROMPT + LM_DECODE
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, r["params"], r["cache"], tok, pos, 2))
+    slots = LM_PROMPT * LM_BATCH * cfg.n_kv_heads * LM_LAYERS
+    print(f"phase 2e: {cfg.name} cut to {LM_LAYERS} of {full_depth} layers "
+          f"(d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_head "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), {LM_BATCH} "
+          f"requests x {LM_PROMPT} prompt tokens, {LM_DECODE} decode tokens,"
+          f" kc {cfg.kv_clusters}, cap {cfg.cluster_cap}, top-p "
+          f"{cfg.cluster_top_p}, ring {cfg.cluster_ring}, fold every "
+          f"{r['fold_every']}")
+    print(f"  prefill {r['t_prefill']:.3f} s; attach (k2-means + repack of "
+          f"{LM_LAYERS} layers) {r['t_attach']:.3f} s, tokens dropped by "
+          f"full clusters {r['dropped']} of {slots} "
+          f"({100.0 * r['dropped'] / slots:.3f}%)")
+    print(f"  decode: full {r['t_full'] / LM_DECODE * 1e3:.3f} ms/token, "
+          f"clustered {r['t_clus'] / LM_DECODE * 1e3:.3f} ms/token with "
+          f"folds ({r['t_clus_loop'] / LM_DECODE * 1e3:.3f} in the loop "
+          f"before the tail fold); token agreement {r['agreement']:.4f}")
+    print(f"  folds: {r['folded']} ring slots, {r['sizes1'] - r['sizes0']} "
+          f"member rows absorbed ({r['sizes0']} -> {r['sizes1']}); "
+          f"attention reads/token: full {r['reads_full']}, clustered "
+          f"{r['reads_clus']} ({r['reads_full'] / r['reads_clus']:.1f}x "
+          f"fewer)")
+    print(f"  peak device memory +{peak / 2 ** 30:.2f} GiB; host reads "
+          f"{reads} for 2 decode steps; launches {launches}")
+    want = LM_LAYERS * LM_DECODE
+    check(launches["cluster_attend"] == want
+          and r["launches"]["cluster_attend"] == want
+          and sum(launches.values()) == want,
+          f"cluster_attend (K6) launched once per layer per clustered token "
+          f"and nothing else launched ({launches['cluster_attend']} for "
+          f"{want})")
+    for f in ("prefill_logits", "full_logits", "clus_logits"):
+        check(tuple(r[f].shape) == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(r[f]).all()),
+              f"{f} finite, shape ({LM_BATCH}, {cfg.vocab})")
+    check(r["folded"] == LM_DECODE * LM_LAYERS and 0 <= r["sizes1"]
+          - r["sizes0"] <= r["folded"] * LM_BATCH * cfg.n_kv_heads
+          and r["dropped"] >= 0 and fill_after == 0,
+          f"the folds took {r['folded']} ring slots, one per layer per "
+          f"decoded token, and left the ring empty")
+    check(reads == 2, f"host reads: 1 per decode step ({reads} for 2)")
+    _small_serve_agrees(torch, dev, serve, check)
+    return dict(r, cfg=cfg, launches_all=launches)
+
+
+def _small_serve_agrees(torch, dev, serve, check) -> None:
+    """The smoke config's serve path in f32 on the card (K6) against the
+    plain CPU path on the same params and prompt: prefill, clustering
+    and 4 teacher-forced k²-attention decode steps; logits within 1e-4
+    of their largest magnitude (f32, sums in other orders)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import init_cache, init_params, serve_step
+    cfg = get_smoke_config(LM_ARCH)
+    params = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+
+    def f32(t, where):
+        if isinstance(t, dict):
+            return {k: f32(v, where) for k, v in t.items()}
+        return (t.float() if t.is_floating_point() else t).to(where)
+    prompt = torch.randint(0, cfg.vocab, (2, 48),
+                           generator=torch.Generator().manual_seed(4))
+    toks = torch.randint(0, cfg.vocab, (4, 2, 1),
+                         generator=torch.Generator().manual_seed(5))
+    out = {}
+    for where in ("cpu", dev):
+        p = f32(params, where)
+        cache = f32(init_cache(cfg, 2, 48 + 5, clustered=False,
+                               device="cpu"), where)
+        logits, cache = serve.prefill_into_cache(cfg, p, cache,
+                                                 prompt.to(where))
+        cache = serve.attach_clusters(cfg, cache, length=48)
+        steps = [logits]
+        for i in range(4):
+            logits, cache = serve_step(cfg, p, cache, toks[i].to(where),
+                                       48 + i)
+            steps.append(logits)
+        out[str(where)] = [s.cpu() for s in steps]
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(out[str(dev)], out["cpu"]))
+    check(err <= 1e-4, f"small serve (smoke config in f32, 2 layers) on the "
+                       f"card agrees with the plain CPU path: logits max "
+                       f"rel err {err:.3g} (<= 1e-4)")
+
+
+def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
+    """K6 on layer 0's cluster-major tables at a decode step (the layer's
+    query for the last decoded token, its top-p selection) against its
+    plain version; its bound and SDPA over the pre-gathered blocks."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.cluster_attend import select_clusters
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import layer_params
+    cfg, params, st = lm["cfg"], lm["params"], lm["cache"]["stack"]
+    B, Hkv, _, cap, dh = st["kt"].shape[1:]
+    H, p = cfg.n_heads, cfg.cluster_top_p
+    p0 = layer_params(params["stack"], 0)
+    h = params["embed"][lm["prompt"][:, -1:].long()]
+    pos = torch.full((B, 1), LM_PROMPT + LM_DECODE, device=h.device)
+    q, _, _ = attn.gqa_project(p0["attn"], rmsnorm(p0["ln1"], h), H, Hkv, dh,
+                               pos, cfg.rope_theta, cfg.qk_norm)
+    sel = select_clusters(q[:, 0], st["cent"][0], p)  # the decode path's
+    qf = q[:, 0].reshape(B * H, dh).float().contiguous()
+    kt = st["kt"][0].reshape(-1, cap, dh)
+    vt = st["vt"][0].reshape(-1, cap, dh)
+    sizes = st["sizes"][0].reshape(-1)
+
+    def kern():
+        return cluster_attend_partial(qf, kt, vt, sel, sizes=sizes)
+
+    def plain():
+        return ref.cluster_attend_ref(qf, kt, vt, sel, sizes=sizes)
+    (m, l, acc), (m_p, l_p, acc_p) = kern(), plain()
+    acc_abs = ref.cluster_attend_ref(qf, kt, vt.abs(), sel, sizes=sizes)[2]
+    empty = torch.isinf(m_p)
+    live = ~empty
+    res = torch.exp(m[live] - m_p[live])
+    ok = bool(torch.equal(torch.isinf(m), empty)) \
+        and bool((l[empty] == 0).all()) and bool((acc[empty] == 0).all()) \
+        and torch.allclose(m[live], m_p[live], rtol=1e-5, atol=1e-6) \
+        and torch.allclose(l[live] * res, l_p[live], rtol=1e-5, atol=0.0) \
+        and bool(((acc[live] * res[:, None] - acc_p[live]).abs()
+                  <= 1e-5 * acc_abs[live] + 1e-6).all())
+    out_k = acc / torch.clamp(l, min=1e-30)[:, None]
+    out_p = acc_p / torch.clamp(l_p, min=1e-30)[:, None]
+    err = float((out_k - out_p).abs().max())
+    check(ok, f"K6 on layer 0's tables ({tuple(kt.shape)} bf16, {B * H} "
+              f"rows, p={p}) vs plain: m, l within rtol 1e-5 (rescaled to "
+              f"the plain max), acc within atol 1e-5 of the row's sum of "
+              f"w|v|, empty rows exact; "
+              f"attention output max abs err {err:.3g}")
+    # bound: the distinct selected blocks' live rows of K and V (bf16),
+    # q, sel and the sizes read, the outputs written; 4 dh FLOPs per
+    # (query row, live row) pair
+    ids = torch.unique(sel.long())
+    live_rows = int(sizes.long()[ids].sum())
+    pair_rows = int(sizes.long()[sel.long()].sum())
+    n_bytes = (live_rows * dh * 2 * 2 + qf.numel() * 4 + sel.numel() * 4
+               + ids.numel() * 4 + B * H * (dh + 2) * 4)
+    b_ms, b_by = bound(n_bytes, 4.0 * dh * pair_rows)
+    # SDPA over the pre-gathered blocks with the validity mask (the gather
+    # is outside the timed call)
+    s = sel.long()
+    kk = kt[s].reshape(B * H, 1, p * cap, dh)
+    vv = vt[s].reshape(B * H, 1, p * cap, dh)
+    mask = (torch.arange(cap, device=h.device)
+            < sizes.long()[s][..., None]).reshape(B * H, 1, 1, p * cap)
+    qb = qf.to(torch.bfloat16).reshape(B * H, 1, 1, dh)
+    print(f"  K6 at the decode step: {live_rows} distinct live rows in "
+          f"{ids.numel()} selected blocks, {pair_rows} (row, block) reads, "
+          f"mean block size {float(sizes.float().mean()):.2f} of {cap}")
+    return dict(
+        name="cluster_attend", route="cuda",
+        source="src/repro_torch/kernels/csrc/cluster_attend.cu",
+        replaces="src/repro/kernels/cluster_attend.py:67",
+        launches=lm["launches_all"]["cluster_attend"], max_abs_err=err,
+        ms=time_ms_cold(kern, torch), plain_ms=time_ms_cold(plain, torch),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms_cold(lambda: F.scaled_dot_product_attention(
+            qb, kk, vv, attn_mask=mask), torch))
 
 
 def _finite(v: float) -> bool:

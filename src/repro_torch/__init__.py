@@ -1,13 +1,14 @@
 """PyTorch/CUDA port of the k²-means clustering library.
 
-Mirrors ``src/repro`` (the JAX reference) module for module. The
-single-device f32 fit path is ported: frontier-batched divisive init
-(``core.gdi``), the resident k²-means iteration (``core.engine``,
-``core.k2means``) and the public ``core.api.fit``. Its three kernels
-(``kernels.center_knn``, ``kernels.candidate_assign``,
-``kernels.segmented_scan``) are hand-written CUDA C++ for Hopper
-(``kernels/csrc``), each with a plain PyTorch version that the wrappers
-take for CPU tensors.
+Mirrors ``src/repro`` (the JAX reference) module for module. Ported so
+far: the single-device f32 fit (``core.api.fit`` with the divisive init
+``core.gdi`` and the resident k²-means iteration ``core.engine`` /
+``core.k2means``; Lloyd, Elkan and k-means++), the served model's
+``predict`` in f32 and int8 (``core.model``), and LM serving with
+k²-attention over a cluster-major KV cache for the dense GQA family
+(``configs``, ``models``, ``launch.serve``). Its seven kernels are
+hand-written CUDA C++ for Hopper (``kernels/csrc``), each behind a
+wrapper that takes a plain PyTorch version for CPU tensors.
 
 The package imports torch, numpy and the standard library only.
 """

@@ -1,0 +1,76 @@
+"""Architecture config schema and registry (port of
+``repro.configs.base``): the port's own copy of ``ArchConfig``, with its
+fields and defaults as the reference has them, and the registry of the
+ported architectures, one module each. The reference's other
+architectures (MoE, MLA, SSM, hybrid, VLM, audio) wait for their
+families (ROADMAP §1 item 13)."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    # --- MoE ---
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    dense_residual: bool = False
+    first_dense: int = 0
+    # --- MLA ---
+    mla: bool = False
+    kv_lora: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # --- SSM / hybrid ---
+    ssm: str = ""
+    ssm_state: int = 64
+    ssm_expand: int = 2
+    attn_every: int = 0
+    # --- enc-dec (audio) ---
+    encoder_layers: int = 0
+    frontend_stub: bool = False
+    # --- vlm ---
+    n_patches: int = 0
+    # --- k²-attention (clustered KV) defaults for long-context decode ---
+    kv_clusters: int = 2048
+    cluster_cap: int = 512
+    cluster_top_p: int = 16
+    cluster_ring: int = 256      # exact recent-token buffer (read-write)
+    long_context_threshold: int = 65536   # S >= this -> clustered decode
+
+
+# the ported architectures: dense GQA, with and without qk-norm
+ARCH_IDS = ["granite-8b", "qwen3-8b", "minitron-4b"]
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise NotImplementedError(
+            f"{arch_id}: only the dense GQA architectures {ARCH_IDS} are "
+            f"ported (the other families wait for ROADMAP §1 item 13)")
+    return importlib.import_module(
+        f"{__package__}.{arch_id.replace('-', '_')}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

@@ -45,3 +45,39 @@ def model_from_reference(model, *, device):
         kn=model.kn, bn=model.bn, bkn=model.bkn,
         route_probes=model.route_probes, router_iters=model.router_iters,
         precision=model.precision, n_rows=model.n_rows)
+
+
+def _tensor_from_numpy(v, device):
+    """A numpy array (bfloat16 included, read through its bits) -> a
+    tensor of the same type on ``device``."""
+    a = np.array(v)                        # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(v, device):
+    if isinstance(v, dict):
+        return {k: _tree(x, device) for k, x in v.items()}
+    return _tensor_from_numpy(v, device)
+
+
+def params_from_reference(params_np, cfg, *, device):
+    """The reference's LM params (a nested dict of arrays, layers stacked
+    on a leading axis) -> the port's, same paths and types, on
+    ``device``, with the f32 copy of the embedding that ``unembed``
+    reads. Dense GQA family only."""
+    from .models.model import with_unembed_table
+    if cfg.family != "dense" or set(params_np) - {"embed", "out_norm",
+                                                  "stack"}:
+        raise NotImplementedError(f"{cfg.name}: only the dense GQA family "
+                                  f"is ported (ROADMAP §1 item 13)")
+    return with_unembed_table(_tree(params_np, device))
+
+
+def cache_from_reference(cache_np, *, device):
+    """The reference's decode cache, flat (``k``, ``v``) or cluster-major
+    (``kt``, ``vt``, ``cent``, ``sizes``, ring), as nested dicts of
+    arrays -> the port's tensors on ``device``, same fields and types."""
+    return _tree(cache_np, device)

@@ -2,10 +2,11 @@
 (port of ``repro.core.lloyd``), and the fit result type.
 
 The assignment step is K5 (``ops.assign_nearest_kernel``); the update is
-a segment sum in which empty clusters keep their previous center. The
-convergence test compares the assignment with the previous one on the
-device and reads the flag together with the energy: one host read per
-iteration (the reference reads the whole assignment back).
+a segment sum in row order (the card's bits are the CPU's) in which
+empty clusters keep their previous center. The convergence test
+compares the assignment with the previous one on the device and reads
+the flag together with the energy: one host read per iteration (the
+reference reads the whole assignment back).
 """
 from __future__ import annotations
 
@@ -36,9 +37,12 @@ class KMeansResult:
 
 def update_centers(x: torch.Tensor, a: torch.Tensor,
                    c_prev: torch.Tensor) -> torch.Tensor:
-    """Mean of members per cluster; empty clusters keep their old center."""
+    """Mean of members per cluster; empty clusters keep their old center.
+    The sums add members in row order on every device, as the
+    reference's f32 scatter does: the card's centers are the CPU's bit
+    for bit."""
     k = c_prev.shape[0]
-    sums = ops.segment_sum(x, a, k)
+    sums = ops.segment_sum_ordered(x, a, k)
     counts = ops.segment_sum(torch.ones((x.shape[0],), dtype=x.dtype,
                                         device=x.device), a, k)
     means = sums / torch.clamp(counts, min=1.0)[:, None]

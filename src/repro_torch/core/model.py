@@ -50,7 +50,8 @@ from ..kernels import quant
 from ..kernels.center_knn import center_sqdist
 from ..kernels.ops import (bincount, bounded_predict_assign,
                            bounded_predict_assign_int8, choose_group_bn,
-                           resident_capacity, resident_regroup, segment_sum)
+                           resident_capacity, resident_regroup,
+                           segment_sum, segment_sum_f64)
 from .distance import bottom_k
 from .engine import ResidentState
 from .lloyd import KMeansResult
@@ -134,9 +135,7 @@ def _build_router(c: torch.Tensor, g: int, cap: int, iters: int) -> Router:
     ones = torch.ones((k,), dtype=c.dtype, device=c.device)
     for _ in range(iters):
         ga = torch.argmin(quant.sqdist_exact(c, gc), dim=1)
-        # f64 sums rounded once: the same on every device, whatever order
-        # the scatter-add takes
-        sums = segment_sum(c.double(), ga, g).float()
+        sums = segment_sum_f64(c, ga, g)
         cnt = segment_sum(ones, ga, g)
         gc = torch.where(cnt[:, None] > 0,
                          sums / torch.clamp(cnt, min=1.0)[:, None], gc)

@@ -24,6 +24,15 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def host_input(x, device=None) -> torch.Tensor:
+    """A tensor stays where it lies (the caller chose its device); host
+    data (a numpy array, a list) goes to ``resolve(device)``, the card
+    unless the caller asks for the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x).to(resolve(device)).contiguous()
+
+
 def as_tensor(x, dev: torch.device, dtype=torch.float32) -> torch.Tensor:
     """``x`` (numpy array or tensor) as a contiguous tensor on ``dev``."""
     return torch.as_tensor(x, dtype=dtype).to(dev).contiguous()

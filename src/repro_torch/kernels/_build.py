@@ -26,13 +26,14 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("center_knn", "candidate_assign", "segmented_scan",
            "candidate_assign_int8", "distance_argmin",
-           "candidate_assign_rowwise")
+           "candidate_assign_rowwise", "cluster_attend")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"center_sqdist": 0, "candidate_assign_tiled": 0,
             "segmented_scan": 0, "candidate_assign_int8_tiled": 0,
-            "distance_argmin": 0, "candidate_assign_rowwise": 0}
+            "distance_argmin": 0, "candidate_assign_rowwise": 0,
+            "cluster_attend": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}

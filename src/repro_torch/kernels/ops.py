@@ -89,9 +89,43 @@ def bincount(idx: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def segment_sum(v: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-    """``jax.ops.segment_sum(v, seg, num_segments=k)`` for seg in [0, k)."""
+    """``jax.ops.segment_sum(v, seg, num_segments=k)`` for seg in [0, k).
+    On the card its atomics add in no fixed order: use
+    :func:`segment_sum_ordered` or :func:`segment_sum_f64` where the
+    result must not depend on it."""
     out = torch.zeros((k,) + v.shape[1:], dtype=v.dtype, device=v.device)
     return out.index_add_(0, seg.long(), v)
+
+
+def segment_sum_ordered(v: torch.Tensor, seg: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """:func:`segment_sum` with each segment's rows added in row order on
+    every device, so the card gives the CPU's bits, and the CPU's bits
+    are XLA's. On the card it is ``index_put_(accumulate=True)``, which
+    sorts the ids with a stable radix sort and adds each segment's rows
+    in that order, one warp per segment: fast for many small segments,
+    slow for a few large ones. Its kernel for one-value rows reduces
+    across the warp, out of order, so such rows go in beside a column of
+    zeros."""
+    seg = seg.long()
+    if v.device.type == "cpu":
+        return segment_sum(v, seg, k)
+    rows = v.reshape(v.shape[0], -1)
+    width = rows.shape[1]
+    if width == 1:
+        rows = torch.cat([rows, torch.zeros_like(rows)], dim=1)
+    out = torch.zeros((k, rows.shape[1]), dtype=v.dtype, device=v.device)
+    out.index_put_((seg,), rows, accumulate=True)
+    return out[:, :width].reshape((k,) + v.shape[1:])
+
+
+def segment_sum_f64(v: torch.Tensor, seg: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """:func:`segment_sum` summed in f64 and rounded once to ``v``'s type:
+    the same on every device, whatever order the additions take."""
+    out = torch.zeros((k,) + v.shape[1:], dtype=torch.float64,
+                      device=v.device)
+    return out.index_add_(0, seg.long(), v.double()).to(v.dtype)
 
 
 def scatter_drop(target: torch.Tensor, idx: torch.Tensor,

@@ -226,3 +226,58 @@ def candidate_assign_int8_tiled_ref(xq, xsc, xerr, qtab, qsc, qerrtab,
         outs.append((surv.reshape(-1, r), nsv.reshape(-1),
                      torch.where(live, lbm, PAD_SQDIST).reshape(-1)))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def cluster_attend_ref(q, k_table, v_table, sel, *, valid=None, sizes=None):
+    """K6's contract as a one-shot softmax (the reference's
+    ``attention._cm_partial``): each row of ``q`` (BH, dh) attends over
+    the p blocks ``k_table[sel[i]]`` / ``v_table[sel[i]]`` (rows, cap,
+    dh) in f32 at scale dh^-0.5, masked by ``valid`` (rows, cap) > 0 or,
+    when ``sizes`` (rows,) is given instead, by slot < size. Returns the
+    softmax state (m (BH,), l (BH,), acc (BH, dh)), all f32; a row whose
+    blocks are all empty gives (-inf, 0, 0)."""
+    bh, dh = q.shape
+    cap = k_table.shape[1]
+    s = sel.long()
+    if sizes is not None:
+        ok = (torch.arange(cap, device=q.device)
+              < sizes.long()[s][..., None])               # (BH, p, cap)
+    else:
+        ok = valid[s] > 0
+    logits = torch.einsum("nd,npcd->npc", q.float(),
+                          k_table[s].float()) * dh ** -0.5
+    logits = torch.where(ok, logits, -torch.inf).reshape(bh, -1)
+    m = torch.amax(logits, dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.where(torch.isfinite(logits),
+                    torch.exp(logits - m_safe[:, None]), 0.0)
+    acc = torch.einsum("nm,nmd->nd", w,
+                       v_table[s].float().reshape(bh, -1, dh))
+    return m, torch.sum(w, dim=-1), acc
+
+
+def clustered_attend_ref(q, k_cache, v_cache, centroids, members,
+                         member_mask, top_p: int):
+    """Oracle for clustered-KV sparse decode attention (see
+    ``cluster_attend``). q: (h, dh); k_cache/v_cache: (h, S, dh);
+    centroids: (h, kc, dh); members: (h, kc, cap) int32 indices into S;
+    member_mask: same shape, bool. Attends to the union of the top_p
+    closest clusters' members (ties to the lower cluster id)."""
+    from ..core.distance import bottom_k
+    h, s, dh = k_cache.shape
+    d2 = (torch.sum(q * q, -1)[:, None]
+          - 2.0 * torch.einsum("hd,hkd->hk", q, centroids)
+          + torch.sum(centroids * centroids, -1))
+    top = bottom_k(d2, top_p).long()                          # (h, p)
+    sel = torch.gather(members, 1, top[:, :, None].expand(
+        -1, -1, members.shape[2])).reshape(h, -1).long()
+    sel_mask = torch.gather(member_mask, 1, top[:, :, None].expand(
+        -1, -1, members.shape[2])).reshape(h, -1)
+    kk = torch.gather(k_cache, 1, sel[:, :, None].expand(-1, -1, dh))
+    vv = torch.gather(v_cache, 1, sel[:, :, None].expand(-1, -1, dh))
+    logits = torch.einsum("hd,hmd->hm", q, kk) / torch.sqrt(
+        torch.tensor(float(dh), dtype=q.dtype))
+    logits = torch.where(sel_mask, logits, -torch.inf)
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(sel_mask, w, 0.0)
+    return torch.einsum("hm,hmd->hd", w, vv)

@@ -1,0 +1,224 @@
+"""Serving loop: prefill -> k²-means KV clustering -> batched decode
+(port of ``repro.launch.serve``).
+
+CPU-scale demo:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --smoke --device cpu
+On a card (the default device), ``run`` takes any config, for example
+Qwen3-8B's cut in depth with ``dataclasses.replace(cfg, n_layers=4)``
+(as ``chip_smoke.py`` does).
+
+Compares full-attention decode with k²-attention (cluster-major KV)
+decode and reports token agreement and the attention reads saved. The
+clustered decode streams: decode steps append fresh K/V to the exact
+recent-token ring (the tables are read-only in a step), and every
+``--fold-every`` steps the loop folds the ring into the tables with
+``kv_partial_fit``. Each decode step reads one thing back to the host,
+the greedy token.
+
+Differences from the reference: the prompt fills the flat cache from
+one chunked prefill forward (the reference steps ``serve_step`` over the
+prompt, which 65,536 tokens make too slow); the decode and fold steps
+are called directly, without the reference's ``ServeExecutor`` envelope
+(admission queue, retries; ROADMAP §1 item 10), so its ``--retries``
+flag and its queue and fault counter lines are left out.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs.base import get_config, get_smoke_config
+from ..device import resolve
+from ..kernels import _build
+from ..models.kv_cluster import build_cluster_major, kv_partial_fit
+from ..models.model import (forward_prefill, init_cache, init_params,
+                            serve_step)
+
+
+def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
+    """Fill the flat KV cache's first S slots from the prompt (B, S) and
+    return (logits after the prompt (B, vocab), cache): the contract of
+    the reference's stepped prefill, from one chunked forward whose
+    layers hand their keys and values to the cache."""
+    S = tokens.shape[1]
+    st = cache["stack"]
+
+    def sink(i, k, v):                     # (B, S, Hkv, dh) -> (B, Hkv, S, dh)
+        st["k"][i, :, :, :S] = k.transpose(1, 2)
+        st["v"][i, :, :, :S] = v.transpose(1, 2)
+
+    logits = forward_prefill(cfg, params, tokens, q_chunk=q_chunk,
+                             kv_sink=sink)
+    return logits, cache
+
+
+def attach_clusters(cfg, cache, length: int | None = None):
+    """Run k²-means over the cached keys of every layer (one layer at a
+    time) and repack the cache cluster-major: the flat K/V is replaced by
+    the member tables, and an empty ring in the cache's type (bf16 in the
+    model) is added. ``length``: number of filled slots (unfilled zero
+    rows must not be clustered)."""
+    st = cache["stack"]
+    keys, vals = st["k"], st["v"]                       # (L, B, Hkv, S, dh)
+    if length is not None:
+        keys, vals = keys[:, :, :, :length], vals[:, :, :, :length]
+    L, B, Hkv, _, dh = keys.shape
+    kc, cap, R = cfg.kv_clusters, cfg.cluster_cap, cfg.cluster_ring
+    dev = keys.device
+    kt = torch.empty((L, B, Hkv, kc, cap, dh), dtype=keys.dtype, device=dev)
+    vt = torch.empty_like(kt)
+    cent = torch.empty((L, B, Hkv, kc, dh), dtype=keys.dtype, device=dev)
+    sizes = torch.empty((L, B, Hkv, kc), dtype=torch.int32, device=dev)
+    for i in range(L):
+        _, _, cent[i], sizes[i] = build_cluster_major(
+            keys[i], vals[i], kc, cap, out=(kt[i], vt[i]))
+    new = dict(cache)
+    new["stack"] = {f: v for f, v in st.items() if f not in ("k", "v")}
+    new["stack"].update(
+        kt=kt, vt=vt, cent=cent, sizes=sizes,
+        ring_k=torch.zeros((L, B, Hkv, R, dh), dtype=keys.dtype, device=dev),
+        ring_v=torch.zeros((L, B, Hkv, R, dh), dtype=keys.dtype, device=dev),
+        ring_fill=torch.zeros((L,), dtype=torch.int32, device=dev))
+    return new
+
+
+def fold_ring(cache, counts):
+    """Fold every layer's ring into its cluster-major tables with
+    ``kv_partial_fit``, in place. ``counts`` (L, B, Hkv, kc) f32 is the
+    per-center Sculley state carried by the serve loop. One host read
+    (the ring fills). Returns (cache, counts, slots_folded): live ring
+    slots summed over layers; each slot holds one K/V row per (batch, kv
+    head)."""
+    st = cache["stack"]
+    R = st["ring_k"].shape[3]
+    fills = torch.clamp(st["ring_fill"], max=R).tolist()
+    for i, n in enumerate(fills):
+        kv_partial_fit(st["kt"][i], st["vt"][i], st["cent"][i],
+                       st["sizes"][i], counts[i], st["ring_k"][i],
+                       st["ring_v"][i], st["ring_fill"][i], n_live=n)
+    return cache, counts, sum(fills)
+
+
+def decode(cfg, params, cache, tok, start: int, n: int, *,
+           fold_every: int = 0, counts=None):
+    """Greedy-decode ``n`` tokens after ``tok`` (B, 1), the first at slot
+    ``start``. One host read per step (the token); with ``fold_every``,
+    the ring folds into the tables every that many steps. Returns
+    (tokens: list of (B,) int arrays, last logits, cache, counts,
+    slots folded)."""
+    toks, folded, logits = [], 0, None
+    for i in range(n):
+        logits, cache = serve_step(cfg, params, cache, tok, start + i)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        toks.append(tok[:, 0].cpu().numpy())
+        if fold_every and (i + 1) % fold_every == 0:
+            cache, counts, f = fold_ring(cache, counts)
+            folded += f
+    return toks, logits, cache, counts, folded
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
+        fold_every: int = 0, device=None, seed: int = 0, echo=print) -> dict:
+    """Prefill a random prompt, decode with full attention, cluster the
+    cache, decode again with k²-attention (folding the ring every
+    ``fold_every`` steps, default the ring size) and report. Returns the
+    measurements, the params and both caches."""
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, gen, device=dev)
+    S_total = prompt_len + decode_len + 1
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           device=dev, dtype=torch.int32)
+
+    # full-attention path
+    cache = init_cache(cfg, batch, S_total, clustered=False, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    prefill_logits, cache = prefill_into_cache(cfg, params, cache, prompt)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full_toks, full_logits, cache, _, _ = decode(
+        cfg, params, cache, prompt[:, -1:], prompt_len, decode_len)
+    t_full = time.perf_counter() - t0
+
+    # k²-attention path: cluster the prefilled keys (the full decode wrote
+    # only slots past the prompt), then decode against the clusters
+    t0 = time.perf_counter()
+    cache2 = attach_clusters(cfg, cache, length=prompt_len)
+    _sync(dev)
+    t_attach = time.perf_counter() - t0
+    counts = cache2["stack"]["sizes"].float()
+    fold_every = fold_every or cfg.cluster_ring
+    sizes0 = int(torch.sum(cache2["stack"]["sizes"]))
+    before = _build.launches()
+    t0 = time.perf_counter()
+    clus_toks, clus_logits, cache2, counts, folded = decode(
+        cfg, params, cache2, prompt[:, -1:], prompt_len, decode_len,
+        fold_every=fold_every, counts=counts)
+    t_loop = time.perf_counter() - t0
+    cache2, counts, tail = fold_ring(cache2, counts)      # drain the tail
+    _sync(dev)
+    t_clus = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _build.launches().items()}
+    folded += tail
+    sizes1 = int(torch.sum(cache2["stack"]["sizes"]))
+
+    agree = float(sum((a == b).mean() for a, b in zip(full_toks, clus_toks))
+                  / max(len(full_toks), 1))
+    reads_full = S_total
+    reads_clus = cfg.kv_clusters + cfg.cluster_top_p * cfg.cluster_cap
+    n_layers = cache2["stack"]["ring_fill"].shape[0]
+    echo(f"decoded {decode_len} tokens: full={t_full:.2f}s "
+         f"clustered={t_clus:.2f}s  token agreement={agree:.2f}")
+    echo(f"partial_fit folds: {folded} ring slots "
+         f"({folded // max(n_layers, 1)} tokens x {n_layers} "
+         f"layers) absorbed into the cluster tables "
+         f"({sizes1 - sizes0} member rows, {sizes0} -> {sizes1}), "
+         f"fold every {fold_every} steps")
+    echo(f"attention reads/token: full={reads_full} "
+         f"clustered={reads_clus} ({reads_full / reads_clus:.1f}x fewer)")
+    return dict(
+        params=params, cache=cache2, flat_cache=cache, counts=counts,
+        prompt=prompt,
+        prefill_logits=prefill_logits, full_logits=full_logits,
+        clus_logits=clus_logits, full_toks=full_toks, clus_toks=clus_toks,
+        t_prefill=t_prefill, t_attach=t_attach, t_full=t_full,
+        t_clus=t_clus, t_clus_loop=t_loop, agreement=agree, folded=folded,
+        sizes0=sizes0, sizes1=sizes1,
+        dropped=prompt_len * batch * cfg.n_kv_heads * n_layers - sizes0,
+        reads_full=reads_full, reads_clus=reads_clus, launches=launched,
+        fold_every=fold_every)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=48)
+    ap.add_argument("--decode", type=int, default=16)
+    ap.add_argument("--fold-every", type=int, default=0,
+                    help="decode steps between partial_fit folds of the "
+                         "ring into the cluster tables (0: the ring "
+                         "size, i.e. fold just before it would wrap)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    run(cfg, batch=args.batch, prompt_len=args.prompt_len,
+        decode_len=args.decode, fold_every=args.fold_every,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()

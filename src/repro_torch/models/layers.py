@@ -1,0 +1,82 @@
+"""Shared neural building blocks (port of ``repro.models.layers``):
+param dicts of tensors, no framework.
+
+The reference's orders of operations are kept: ``rmsnorm`` normalises in
+f32, casts to the input's type and then scales by ``g`` in that type;
+``apply_rope`` rotates split halves; ``dense`` is ``x @ w`` with ``w``
+laid out (d_in, d_out). A Python constant that multiplies a bf16 tensor
+is rounded to bf16 first (:func:`scale`), as XLA rounds a weakly typed
+constant to the tensor's type. The reference's sharding hints
+(``shard``, ``sanitize_spec``, ``head_spec``) do nothing on one device
+and are left out. Inits take an explicit ``torch.Generator`` and draw
+other numbers than ``jax.random``: tests carry the reference's params
+across with ``convert.params_from_reference``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.bfloat16) -> dict:
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
+    return {"w": w.to(dtype)}
+
+
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"]
+
+
+def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:
+    return {"g": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["g"]
+
+
+def swiglu_init(gen: torch.Generator, d: int, f: int,
+                dtype=torch.bfloat16) -> dict:
+    return {"wi": dense_init(gen, d, f, dtype),
+            "wg": dense_init(gen, d, f, dtype),
+            "wo": dense_init(gen, f, d, dtype)}
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return dense(p["wo"], F.silu(dense(p["wg"], x)) * dense(p["wi"], x))
+
+
+def scale(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x * s`` with ``s`` rounded to ``x``'s type first (XLA's weak
+    typing of a Python constant)."""
+    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+def rope_freqs(dh: int, theta: float = 1e4, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                         device=device) / dh))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: broadcastable to (..., S)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    ang = positions[..., None].float() * freqs            # (..., S, dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy; logits (B, S, V), labels (B, S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -1,0 +1,117 @@
+"""Top-level model, dense GQA family (port of ``repro.models.model``):
+config -> params, prefill forward, caches and the serve step.
+
+Params are nested dicts of tensors whose paths and shapes are the
+reference's (``convert.params_from_reference`` carries them across),
+plus ``"embed_f32"``: one f32 copy of the tied embedding, which
+``unembed`` multiplies in f32 as the reference does (it converts the
+whole table on every call). The caches are updated in place by
+``serve_step``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import host_input, resolve
+from . import transformer as tf
+from .layers import rmsnorm, rmsnorm_init
+
+
+def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
+    """Random params from ``gen`` on ``device`` (the card by default),
+    which must be the generator's device."""
+    dev = resolve(device)
+    if gen.device.type != dev.type or (
+            dev.index is not None and gen.device.index != dev.index):
+        raise ValueError(f"init_params: generator on {gen.device}, params "
+                         f"asked for on {dev}")
+    d, v = cfg.d_model, cfg.vocab
+    if cfg.family != "dense" or cfg.first_dense or cfg.attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported "
+            f"(ROADMAP §1 item 13)")
+    emb = torch.randn((v, d), generator=gen, dtype=torch.float32,
+                      device=gen.device) * d ** -0.5
+    params = {"embed": emb.to(torch.bfloat16),
+              "out_norm": rmsnorm_init(d, device=gen.device)}
+    params["stack"] = tf.stack_init(cfg, gen, tf.layer_init, cfg.n_layers)
+    return with_unembed_table(params)
+
+
+def with_unembed_table(params: dict) -> dict:
+    """Add the f32 copy of the embedding that ``unembed`` reads."""
+    params["embed_f32"] = params["embed"].float()
+    return params
+
+
+def embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens.long()]
+
+
+def unembed(cfg, params, h):
+    """h (..., d) -> f32 logits (..., vocab): h in f32 against the f32
+    tied embedding."""
+    return h.float() @ params["embed_f32"].T
+
+
+def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
+                    kv_sink=None):
+    """Prefill forward: logits for the LAST position only, (B, vocab).
+    ``kv_sink(i, k, v)`` receives every layer's keys and values."""
+    h = embed_tokens(cfg, params, tokens)
+    h = tf.run_stack(cfg, params["stack"], h, q_chunk=q_chunk,
+                     kv_sink=kv_sink)
+    h_last = rmsnorm(params["out_norm"], h[:, -1:])
+    return unembed(cfg, params, h_last)[:, 0]
+
+
+def _layer_cache_shape(cfg, B: int, S: int, clustered: bool) -> dict:
+    dh, hkv = cfg.d_head, cfg.n_kv_heads
+    if clustered:
+        kc, cap, R = cfg.kv_clusters, cfg.cluster_cap, cfg.cluster_ring
+        return {"kt": ((B, hkv, kc, cap, dh), torch.bfloat16),
+                "vt": ((B, hkv, kc, cap, dh), torch.bfloat16),
+                "cent": ((B, hkv, kc, dh), torch.bfloat16),
+                "sizes": ((B, hkv, kc), torch.int32),
+                "ring_k": ((B, hkv, R, dh), torch.bfloat16),
+                "ring_v": ((B, hkv, R, dh), torch.bfloat16),
+                "ring_fill": ((), torch.int32)}
+    # decode-native layout (B, Hkv, S, dh)
+    return {"k": ((B, hkv, S, dh), torch.bfloat16),
+            "v": ((B, hkv, S, dh), torch.bfloat16)}
+
+
+def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
+    """{"stack": {field: (shape, dtype)}} of the stacked decode cache."""
+    if clustered is None:
+        clustered = S >= cfg.long_context_threshold and not cfg.ssm
+    one = _layer_cache_shape(cfg, B, S, clustered)
+    return {"stack": {f: ((cfg.n_layers,) + shape, dt)
+                      for f, (shape, dt) in one.items()}}
+
+
+def init_cache(cfg, B: int, S: int, *, clustered: bool | None = None,
+               device=None) -> dict:
+    """Zero-initialised decode cache, stacked over layers, on ``device``
+    (the card by default)."""
+    dev = resolve(device)
+    return {"stack": {f: torch.zeros(shape, dtype=dt, device=dev)
+                      for f, (shape, dt) in cache_shapes(
+                          cfg, B, S, clustered=clustered)["stack"].items()}}
+
+
+def serve_step(cfg, params, cache, tokens, pos: int, *, device=None):
+    """Decode one token. tokens: (B, 1) int; pos: the slot (host int).
+    Returns (logits (B, vocab) f32, cache), the cache updated in place.
+    Whether attention is full or clustered is decided by the cache's
+    contents: a cluster-major cache carries ``kt``. The step runs where
+    params and cache lie; host-array tokens go to ``device`` (the card
+    by default), which must be theirs."""
+    tokens = host_input(tokens, device)
+    if tokens.device != params["embed"].device:
+        raise ValueError(f"serve_step: tokens on {tokens.device}, params "
+                         f"on {params['embed'].device}")
+    h = embed_tokens(cfg, params, tokens)
+    h = tf.run_stack_decode(cfg, params["stack"], cache["stack"], h, pos)
+    h = rmsnorm(params["out_norm"], h)
+    return unembed(cfg, params, h)[:, 0], cache

@@ -9,7 +9,13 @@ tests/test_torch_cuda.py``. Tolerances are those of the CPU parity
 tests (tests/test_torch_kernels.py). K1, K5 and K7 round their f64 sums
 once to f32 and K4 rounds after every operation, each like its plain
 version, so their assignments and distances and K4's survivors, counts
-and lower bounds are held bit-equal.
+and lower bounds are held bit-equal. K6 carries an online softmax over
+tiles of 64 rows where its plain version takes one softmax over all
+slots, and sums its dot products in another order: its m, and its l
+rescaled to the plain version's max, are held to rtol 1e-5; its acc,
+rescaled the same way, to 1e-5 times the row's sum of w |v| plus 1e-6,
+since acc sums terms of both signs and its error scales with their
+magnitudes, not with the sum; empty rows exactly.
 """
 import numpy as np
 import pytest
@@ -24,9 +30,12 @@ from repro_torch.kernels.candidate_assign import (candidate_assign_int8_tiled,
                                                   candidate_tables,
                                                   pad_candidates)
 from repro_torch.kernels.center_knn import center_sqdist
+from repro_torch.kernels.cluster_attend import cluster_attend_partial
 from repro_torch.kernels.distance_argmin import distance_argmin
-from repro_torch.kernels.ops import group_by_cluster_device
+from repro_torch.kernels.ops import (group_by_cluster_device,
+                                     segment_sum_ordered)
 from repro_torch.kernels.segmented_scan import segmented_scan
+from repro_torch.models.attention import cluster_major_decode_attention
 
 
 @pytest.fixture
@@ -221,6 +230,24 @@ def test_cuda_candidate_assign_rowwise(cuda, n, k, d, kn, bn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(100000, 0, 3), (100000, 1, 3),
+                                   (100000, 20, 30), (20000, 784, 1000)])
+def test_cuda_segment_sum_ordered_matches_cpu(cuda, n, d, k):
+    """Lloyd's center sums on the card are the CPU's bit for bit: each
+    segment's rows are added in row order (many rows per segment, values
+    over six decades, so any other order rounds differently). d=0: rows
+    of one value, a 1-D input."""
+    rng = np.random.RandomState(11)
+    v = rng.randn(n, max(d, 1)) * 10.0 ** rng.randint(-3, 4, (n, 1))
+    v = torch.tensor(v.astype(np.float32))
+    v = v[:, 0] if d == 0 else v
+    seg = torch.tensor(rng.randint(0, k, n))
+    want = segment_sum_ordered(v, seg, k)
+    got = segment_sum_ordered(v.to(cuda), seg.to(cuda), k)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_cuda_lloyd_and_elkan_match_cpu(cuda):
     """A small Lloyd fit through K5 on the card against the plain CPU
     path from one init: the same trajectory; Elkan's first assignment on
@@ -269,3 +296,106 @@ def test_cuda_predict_matches_cpu(cuda):
         assert torch.equal(out["cpu"][0], out[cuda][0])
         assert torch.equal(out["cpu"][1], out[cuda][1])
         assert out["cpu"][2:] == out[cuda][2:]
+
+
+def _attend_inputs(bh, rows, cap, dh, p, dtype, seed, device):
+    """Random tables with ragged sizes (some 0, some full), random
+    selections, and row 0 selecting only empty blocks."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(0, cap + 1, rows).astype(np.int32)
+    sizes[:3] = 0
+    sizes[3:6] = cap
+    sel = rng.randint(0, rows, (bh, p)).astype(np.int32)
+    sel[0] = rng.randint(0, 3, p)
+    valid = (np.arange(cap)[None, :] < sizes[:, None]).astype(np.int32)
+    t = lambda a, dt=None: torch.tensor(a, device=device, dtype=dt)  # noqa
+    return (t(rng.randn(bh, dh).astype(np.float32)),
+            t(rng.randn(rows, cap, dh).astype(np.float32), dtype),
+            t(rng.randn(rows, cap, dh).astype(np.float32), dtype),
+            t(sel), t(sizes), t(valid))
+
+
+def _assert_state_close(got, want, acc_abs):
+    """K6's state against its plain version's: m within rtol 1e-5, l and
+    acc after rescaling to the plain max within rtol 1e-5, acc with atol
+    1e-5 times the row's sum of w |v| (``acc_abs``: acc over |v|, the
+    scale of its cancellation); empty rows exactly (-inf, 0, 0)."""
+    m, l, acc = got
+    m_p, l_p, acc_p = want
+    empty = torch.isinf(m_p)
+    assert torch.equal(torch.isinf(m), empty)
+    assert (l[empty] == 0).all() and (acc[empty] == 0).all()
+    live = ~empty
+    torch.testing.assert_close(m[live], m_p[live], rtol=1e-5, atol=1e-6)
+    rescale = torch.exp(m[live] - m_p[live])
+    torch.testing.assert_close(l[live] * rescale, l_p[live], rtol=1e-5,
+                               atol=0.0)
+    err = (acc[live] * rescale[:, None] - acc_p[live]).abs()
+    assert (err <= 1e-5 * acc_abs[live] + 1e-6).all(), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 20, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["sizes", "valid"])
+def test_cuda_cluster_attend(cuda, dh, dtype, form):
+    q, kt, vt, sel, sizes, valid = _attend_inputs(37, 96, 100, dh, 5, dtype,
+                                                  dh, cuda)
+    if form == "valid":                  # a mask that is not a prefix
+        holes = torch.rand(valid.shape, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+        valid = valid * (holes > 0.3).to(torch.int32)
+    kw = {form: sizes if form == "sizes" else valid}
+    _build.reset_launches()
+    got = cluster_attend_partial(q, kt, vt, sel, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches()["cluster_attend"] == 1
+    want = ref.cluster_attend_ref(q, kt, vt, sel, **kw)
+    _assert_state_close(got, want,
+                        ref.cluster_attend_ref(q, kt, vt.abs(), sel, **kw)[2])
+    assert torch.isinf(got[0][0]) and got[1][0] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_attend_decode_shape(cuda):
+    """The decode shape's cap and p with real-sized rows (dh 128, bf16),
+    both validity forms giving the same state."""
+    q, kt, vt, sel, sizes, valid = _attend_inputs(64, 512, 512, 128, 16,
+                                                  torch.bfloat16, 3, cuda)
+    a = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    b = cluster_attend_partial(q, kt, vt, sel, valid=valid)
+    _assert_state_close(a, ref.cluster_attend_ref(q, kt, vt, sel,
+                                                  sizes=sizes),
+                        ref.cluster_attend_ref(q, kt, vt.abs(), sel,
+                                               sizes=sizes)[2])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_major_decode_attention_matches_cpu(cuda):
+    """The k²-attention decode step on the card (one K6 launch) against
+    the same step on the CPU (plain version), with ring and self token."""
+    rng = np.random.RandomState(5)
+    B, Hkv, g, kc, cap, dh, R, p = 2, 4, 4, 32, 64, 128, 16, 4
+    sizes = rng.randint(0, cap + 1, (B, Hkv, kc)).astype(np.int32)
+    arrays = [rng.randn(B, Hkv * g, dh), rng.randn(B, Hkv, kc, cap, dh),
+              rng.randn(B, Hkv, kc, cap, dh), rng.randn(B, Hkv, kc, dh),
+              sizes, rng.randn(B, Hkv, R, dh), rng.randn(B, Hkv, R, dh),
+              np.int32(5), rng.randn(B, Hkv, dh), rng.randn(B, Hkv, dh)]
+    out = {}
+    for dev in ("cpu", cuda):
+        t = [torch.tensor(a, device=dev) for a in arrays]
+        # bf16 tables, ring and self rows; f32 queries and centroids, so
+        # that no bf16 near-tie can select other clusters on the card
+        t = [x.to(torch.bfloat16) if i in (1, 2, 5, 6, 8, 9)
+             else x.float() if x.is_floating_point() else x
+             for i, x in enumerate(t)]
+        _build.reset_launches()
+        out[dev] = cluster_major_decode_attention(
+            t[0], t[1], t[2], t[3], t[4], p, self_kv=(t[8], t[9]),
+            ring=(t[5], t[6], t[7]))
+        torch.cuda.synchronize()
+        assert _build.launches()["cluster_attend"] == (dev == cuda)
+    torch.testing.assert_close(out[cuda].cpu(), out["cpu"], rtol=1e-5,
+                               atol=1e-5)
