@@ -62,15 +62,16 @@ Phases (any failure exits non-zero, without the final result line):
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, K1 over the final resident arena with no
    block skipped and over one predict batch's grouped layout, K3 on the
-   GDI leaf-grouped layout, K4 on one int8 predict batch, K5 on x and the
-   Lloyd++ centers, K7 over the arena, K6 on layer 0's cluster-major
-   tables at a decode step) and time both with CUDA events,
-   beside one library call where one computes the same function and
-   beside the least time the card could take (bytes over 3.35 TB/s, or
-   operations over the H100 SXM data sheet's peak for their type:
-   67 TFLOP/s FP32, 1979 TOP/s int8); K6 and its yardsticks are timed
-   with the L2 cache flushed before each launch, as a decode step finds
-   it (the other layers' weights pass through it in between);
+   GDI leaf-grouped layout and on one segment over every block, K4 on
+   one int8 predict batch, K5 on x and the Lloyd++ centers, K7 over the
+   arena, K6 on layer 0's cluster-major tables at a decode step) and
+   time both with CUDA events, beside one library call where one
+   computes the same function and beside the least time the card could
+   take (bytes over 3.35 TB/s, or operations over the H100 SXM data
+   sheet's peak for their type: 67 TFLOP/s FP32, 1979 TOP/s int8); K6
+   and its yardsticks are timed with the L2 cache flushed before each
+   launch, as a decode step finds it (the other layers' weights pass
+   through it in between);
 4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` adds, after phase 3, the fit, one
@@ -455,29 +456,25 @@ def main() -> int:
           f"{kernels[-1]['ms'] / kernels[-2]['ms']:.3f}")
     del st, args, args7, ctab
 
-    # K3: segmented_scan on the GDI leaf-grouped layout
+    # K3: segmented_scan on the GDI leaf-grouped layout, and on the first
+    # GDI round's layout (one segment over every block: the longest chains
+    # of the kernel's look-back)
     bn3 = choose_group_bn(N, K, D)
     perm, b2s = group_by_cluster_device(a0, K, bn3)
     xg = x[perm.clamp(min=0).long()].contiguous()
     w = (perm >= 0).to(torch.float32)
-    cs_k, qs_k, cn_k = segmented_scan(xg, w, b2s, bn=bn3)
-    cs_p, qs_p, cn_p = ref.segmented_scan_ref(xg, w, b2s, bn3)
-    row_seg = torch.repeat_interleave(b2s.long(), bn3)
-    xw = xg * w[:, None]
-    seg_abs_x = torch.zeros(K, D, device=dev).index_add_(
-        0, row_seg, xw.abs())[row_seg]
-    seg_abs_q = torch.zeros(K, device=dev).index_add_(
-        0, row_seg, (xw * xg).sum(1))[row_seg]
-    err = max(float((cs_k - cs_p).abs().max()),
-              float((qs_k - qs_p).abs().max()))
-    check(bool(((cs_k - cs_p).abs()
-                <= 1e-5 * cs_p.abs() + 1e-5 * seg_abs_x).all())
-          and bool(((qs_k - qs_p).abs()
-                    <= 1e-5 * qs_p.abs() + 1e-5 * seg_abs_q).all())
-          and bool((cn_k == cn_p).all()),
-          f"K3 segmented_scan vs plain on {xg.shape[0]} rows: max abs err "
-          f"{err:.3g} (rtol 1e-5, atol 1e-5 * the segment's sum of "
-          f"|.|); counts exact")
+    err = _k3_agrees(torch, check, segmented_scan, ref, xg, w, b2s, bn3,
+                     f"{K} segments")
+    perm1, b2s1 = group_by_cluster_device(torch.zeros_like(a0), 1, bn3)
+    x1 = x[perm1.clamp(min=0).long()].contiguous()
+    w1 = (perm1 >= 0).to(torch.float32)
+    _k3_agrees(torch, check, segmented_scan, ref, x1, w1, b2s1, bn3,
+               "one segment")
+    print(f"  K3 on one segment ({x1.shape[0]} rows, {b2s1.shape[0]} "
+          f"blocks): "
+          f"{time_ms(lambda: segmented_scan(x1, w1, b2s1, bn=bn3), torch):.4f}"
+          f" ms")
+    del x1, w1
     r3 = xg.shape[0]
     b_ms, b_by = bound(r3 * D * 4.0 * 2 + r3 * 4.0 * 3 + b2s.shape[0] * 4.0,
                        3.0 * r3 * D)
@@ -657,6 +654,33 @@ def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
                 library_ms=None if library is None else time_ms(library,
                                                                 torch))
+
+
+def _k3_agrees(torch, check, segmented_scan, ref, xg, w, b2s, bn,
+               what) -> float:
+    """K3 against its plain version on one layout: rtol 1e-5 plus 1e-5
+    times the segment's sum of |.|, counts exact. Returns the max abs
+    error."""
+    cs_k, qs_k, cn_k = segmented_scan(xg, w, b2s, bn=bn)
+    cs_p, qs_p, cn_p = ref.segmented_scan_ref(xg, w, b2s, bn)
+    nseg = int(b2s.max()) + 1
+    row_seg = torch.repeat_interleave(b2s.long(), bn)
+    xw = xg * w[:, None]
+    seg_abs_x = torch.zeros(nseg, xg.shape[1], device=xg.device).index_add_(
+        0, row_seg, xw.abs())[row_seg]
+    seg_abs_q = torch.zeros(nseg, device=xg.device).index_add_(
+        0, row_seg, (xw * xg).sum(1))[row_seg]
+    err = max(float((cs_k - cs_p).abs().max()),
+              float((qs_k - qs_p).abs().max()))
+    check(bool(((cs_k - cs_p).abs()
+                <= 1e-5 * cs_p.abs() + 1e-5 * seg_abs_x).all())
+          and bool(((qs_k - qs_p).abs()
+                    <= 1e-5 * qs_p.abs() + 1e-5 * seg_abs_q).all())
+          and bool((cn_k == cn_p).all()),
+          f"K3 segmented_scan vs plain on {xg.shape[0]} rows, {what}: max "
+          f"abs err {err:.3g} (rtol 1e-5, atol 1e-5 * the segment's sum of "
+          f"|.|); counts exact")
+    return err
 
 
 def _cublas_argmin(torch, x, c, chunk: int = 4096):

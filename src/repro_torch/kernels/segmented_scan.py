@@ -2,8 +2,9 @@
 sweep of the divisive init.
 
 Port of ``repro.kernels.segmented_scan``. CUDA tensors go through the
-hand-written three-pass kernel ``csrc/segmented_scan.cu``; CPU tensors
-through the plain version ``ref.segmented_scan_ref``.
+hand-written one-pass kernel ``csrc/segmented_scan.cu`` (decoupled
+look-back); CPU tensors through the plain version
+``ref.segmented_scan_ref``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import torch
 from . import _build
 from .ref import segmented_scan_ref
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SCRATCH_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_size_t)]
 
 
 def segmented_scan(x: torch.Tensor, w: torch.Tensor, block2seg: torch.Tensor,
@@ -40,15 +42,20 @@ def segmented_scan(x: torch.Tensor, w: torch.Tensor, block2seg: torch.Tensor,
                              f"CUDA {dt} tensor, got {t.dtype} on {t.device}")
     nb = r // bn
     dev = x.device
-    tot = torch.empty((nb, d + 2), dtype=torch.float32, device=dev)
-    off = torch.empty((nb, d + 2), dtype=torch.float32, device=dev)
+    # the kernel's tile counter, flags and carries, sized by its own plan
+    nbytes = ctypes.c_size_t()
+    _build.check(_build.function("segmented_scan", "k2_segmented_scan_scratch",
+                                 _SCRATCH_ARGS)(nb, bn, d,
+                                                ctypes.byref(nbytes)),
+                 "segmented_scan")
+    scratch = torch.empty((nbytes.value,), dtype=torch.uint8, device=dev)
     csum = torch.empty((r, d), dtype=torch.float32, device=dev)
     qsum = torch.empty((r,), dtype=torch.float32, device=dev)
     cnt = torch.empty((r,), dtype=torch.float32, device=dev)
     fn = _build.function("segmented_scan", "k2_segmented_scan", _ARGS)
     p = _build.ptr
-    _build.check(fn(p(x), p(w), p(block2seg), p(tot), p(off), p(csum),
-                    p(qsum), p(cnt), nb, bn, d, _build.stream_ptr(dev)),
+    _build.check(fn(p(x), p(w), p(block2seg), p(scratch), p(csum), p(qsum),
+                    p(cnt), nb, bn, d, _build.stream_ptr(dev)),
                  "segmented_scan")
     _build.count("segmented_scan")
     return csum, qsum, cnt

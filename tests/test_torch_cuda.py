@@ -108,7 +108,12 @@ def test_cuda_center_sqdist(cuda, k, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,k,bn", [(100, 5, 7, 8), (2000, 784, 20, 32)])
+@pytest.mark.parametrize("n,d,k,bn", [
+    (100, 5, 7, 8), (2000, 784, 20, 32),
+    (64000, 784, 1, 32),          # one segment over 2,000 blocks: long chains
+    (3000, 3, 2000, 8),           # many singleton and short segments
+    (3000, 3072, 5, 128),         # d over three 1024-column slices
+    (1500, 1030, 9, 24)])         # 4-byte copies over two slices; bn = 3 * 8
 def test_cuda_segmented_scan(cuda, n, d, k, bn):
     rng = np.random.RandomState(n)
     x = rng.randn(n, d).astype(np.float32)
@@ -189,14 +194,21 @@ def test_cuda_candidate_assign_int8_tiled_wide_slab(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,d", [(1000, 333, 17), (4097, 1000, 784),
-                                   (130, 65, 3072), (64, 1, 5),
-                                   (700, 129, 784)])
-def test_cuda_distance_argmin(cuda, n, k, d):
+@pytest.mark.parametrize("n,k,d,dups", [
+    (1000, 333, 17, (166,)), (4097, 1000, 784, (500,)),
+    (130, 65, 3072, (32,)), (64, 1, 5, ()), (700, 129, 784, (64,)),
+    (8193, 1000, 784, (1, 700)),  # in center 0's warp tile and another tile
+    (517, 260, 33, (130,))])      # d no multiple of the MMA depth or chunk
+def test_cuda_distance_argmin(cuda, n, k, d, dups):
+    """Bit-equal to the plain version; center 0 is copied to the indices
+    ``dups`` and one row of x equals it, so that row ties at distance 0
+    and must go to index 0."""
     rng = np.random.RandomState(n + k + d)
     x = torch.tensor(rng.randn(n, d).astype(np.float32), device=cuda)
     c = torch.tensor(rng.randn(k, d).astype(np.float32), device=cuda)
-    c[k // 2:k // 2 + 1] = c[:1]                # a duplicated center
+    for i in dups:
+        c[i] = c[0]
+    x[n // 3] = c[0]
     before = _build.launches()["distance_argmin"]
     got = distance_argmin(x, c)
     torch.cuda.synchronize()
@@ -204,6 +216,7 @@ def test_cuda_distance_argmin(cuda, n, k, d):
     want = ref.distance_argmin_ref(x, c)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert int(got[0][n // 3]) == 0 and float(got[1][n // 3]) == 0.0
 
 
 @pytest.mark.cuda
