@@ -7,16 +7,20 @@ Run from the root of the repository, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero, without the final result line):
 1. print the card (``nvidia-smi`` name and power limit), the torch and
-   CUDA versions, and build the seven CUDA kernels from ``src/`` (one
-   ``nvcc`` per source, in parallel);
+   CUDA versions, and build the CUDA kernels from ``src/`` (the seven
+   ports of the TPU kernels, the correct-rounding kernels of the torch
+   paths and the ordered segment sums; one ``nvcc`` per source, in
+   parallel);
 2. run the port's main path, ``repro_torch.core.fit(x, 1000,
    method="k2means", init="gdi", kn=30, max_iters=30)``, at the paper's
    mnist shape (n=60000, d=784) on GMM data made on the card from a
    seed, with every kernel's launch count set to 0 just before and read
    just after; check that every kernel of the fit launched, that the
    energy history is finite and non-increasing (rel 1e-6) and ends below
-   the GDI init's energy; check a small fit against the plain PyTorch
-   path;
+   the GDI init's energy; fit once more from the same generator seed and
+   check that the two fits are bit-identical (assignments, centers,
+   energy, iterations); check a small fit from GDI against the plain
+   PyTorch path;
 2b. serve from that fit: ``KMeansModel.from_result(result, x)`` (K2
    builds the graph), then ``predict`` 65536 held-out rows of the same
    mixture at batch_size=8192 in f32 (resolution through K1) and in int8
@@ -62,9 +66,13 @@ Phases (any failure exits non-zero, without the final result line):
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, K1 over the final resident arena with no
    block skipped and over one predict batch's grouped layout, K3 on the
-   GDI leaf-grouped layout and on one segment over every block, K4 on
-   one int8 predict batch, K5 on x and the Lloyd++ centers, K7 over the
-   arena, K6 on layer 0's cluster-major tables at a decode step) and
+   GDI leaf-grouped layout and on one segment over every block, each
+   launched twice and held bit-equal to itself, K4 on one int8 predict
+   batch, K5 on x and the Lloyd++ centers, K7 over the arena, K6 on
+   layer 0's cluster-major tables at a decode step; K1, K5 and K7 also on
+   ``data.rounding_fixture`` rows, whose own-center products sit at f32
+   rounding midpoints; the rounding kernels on the final centers and a
+   predict batch, the ordered segment sums over the final arena) and
    time both with CUDA events, beside one library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
@@ -101,7 +109,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
 
-FIT_KERNELS = ("center_sqdist", "candidate_assign_tiled", "segmented_scan")
+FIT_KERNELS = ("center_sqdist", "candidate_assign_tiled", "segmented_scan",
+               "segment_sum_blocks", "exact_sqnorm", "exact_rowdot")
 
 FAILURES: list[str] = []
 
@@ -146,8 +155,8 @@ def main() -> int:
                                       fit, fit_elkan, fit_k2means, fit_lloyd,
                                       initialize, kmeanspp_init)
         from repro_torch.core.model import _RESOLVE_RERANK as rerank
-        from repro_torch.data import gmm_blobs
-        from repro_torch.kernels import _build, quant, ref
+        from repro_torch.data import gmm_blobs, rounding_fixture
+        from repro_torch.kernels import _build, exact_round, quant, ref
         from repro_torch.kernels.candidate_assign import (
             candidate_assign_int8_tiled, candidate_assign_rowwise,
             candidate_assign_tiled, candidate_tables, pad_candidates)
@@ -156,6 +165,7 @@ def main() -> int:
         from repro_torch.kernels.ops import assign_nearest_kernel
         from repro_torch.kernels.ops import (choose_group_bn,
                                              group_by_cluster_device)
+        from repro_torch.kernels.segment_sum import segment_sum_blocks
         from repro_torch.kernels.segmented_scan import segmented_scan
         from repro_torch.kernels.cluster_attend import cluster_attend_partial
         from repro_torch.launch import serve
@@ -226,7 +236,22 @@ def main() -> int:
     check(all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
           "energy history non-increasing (rel 1e-6)")
     check(res.energy < e_init, "final energy below the GDI init's")
+    again = fit(x, K, method="k2means", init="gdi", kn=KN,
+                max_iters=MAX_ITERS, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    same = (bool(torch.equal(again.assignment, res.assignment))
+            and bool(torch.equal(again.centers, res.centers))
+            and again.energy == res.energy
+            and again.iterations == res.iterations)
+    check(same, f"the fit again from the same seed is bit-identical: "
+                f"{int((again.assignment != res.assignment).sum())} "
+                f"assignments differ, centers equal "
+                f"{bool(torch.equal(again.centers, res.centers))}, energy "
+                f"{again.energy:.9g} vs {res.energy:.9g}, iterations "
+                f"{again.iterations} vs {res.iterations}")
+    del again
     _small_fit_agrees(torch, dev, fit_k2means, check)
+    _small_gdi_fit_agrees(torch, dev, fit_k2means, check)
 
     # --- 2b. the served model: predict in f32 and int8 ------------------
     torch.cuda.synchronize()
@@ -267,8 +292,9 @@ def main() -> int:
               f"{counter.bytes_scanned / NQ:.1f}/query, host reads {reads} "
               f"per call, peak device memory +{peak / 2 ** 20:.1f} MiB, "
               f"launches {got}")
-        check(got[kernel] > 0, f"{kernel} launched by predict({prec}) "
-                               f"({got[kernel]})")
+        check(got[kernel] > 0 and got["exact_cross"] > 0,
+              f"{kernel} and exact_cross (the router's rounding) launched "
+              f"by predict({prec}) ({got[kernel]}, {got['exact_cross']})")
         check(counter.distances / NQ <= dense,
               f"predict({prec}) counted f32 distances per query "
               f"{counter.distances / NQ:.3f} <= dense {dense}")
@@ -341,11 +367,16 @@ def main() -> int:
     print(f"  k2-means (phase 2) / Lloyd++: energy "
           f"{res.energy / res_l.energy:.6f}, counted ops "
           f"{res.ops / res_l.ops:.6f}")
-    check(l_launch["distance_argmin"] == res_l.iterations
-          and sum(l_launch.values()) == res_l.iterations,
+    # K5 once per Lloyd iteration, each with its |c|^2 rounding; the
+    # k-means++ init rounds |x|^2 once and each chosen center's products
+    # and norm once
+    want_l = {"distance_argmin": res_l.iterations,
+              "exact_sqnorm": res_l.iterations + K + 1, "exact_rowdot": K}
+    check(all(l_launch[name] == v for name, v in want_l.items())
+          and sum(l_launch.values()) == sum(want_l.values()),
           f"distance_argmin (K5) launched once per Lloyd iteration and "
-          f"nothing else launched ({l_launch['distance_argmin']} for "
-          f"{res_l.iterations})")
+          f"only the rounding kernels beside it ({l_launch} for "
+          f"{res_l.iterations} iterations, k={K})")
     check(len(hist_l) == res_l.iterations and all(map(_finite, hist_l)),
           "Lloyd energy history finite, one entry per iteration")
     check(all(b <= a * (1 + 1e-6) for a, b in zip(hist_l, hist_l[1:])),
@@ -545,6 +576,68 @@ def main() -> int:
         bound((N * D + K * D + K) * 4.0 + N * 8.0, 2.0 * N * K * D),
         library=functools.partial(_cublas_argmin, torch, x, c_l)))
     kernels.append(_k6_entry(torch, check, lm, cluster_attend_partial, ref))
+    _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,
+                    center_knn_graph, pad_candidates, candidate_tables,
+                    candidate_assign_tiled, candidate_assign_rowwise,
+                    distance_argmin, ref)
+
+    # the kernels of the torch paths: the correct rounding of the centers'
+    # norms (every iteration's candidate tables) and of a predict batch's
+    # products with the centers (the router's distances), and the engine's
+    # ordered center sums over the final arena
+    kernels.append(_against_plain(
+        torch, check, f"exact_sqnorm on the final centers ({K} x {D})",
+        functools.partial(exact_round.exact_sqnorm, c),
+        functools.partial(ref.exact_sqnorm, c),
+        dict(name="exact_sqnorm",
+             source="src/repro_torch/kernels/csrc/exact_round.cu",
+             replaces="src/repro/kernels/candidate_assign.py:79",
+             launches=launches["exact_sqnorm"]),
+        bound(K * D * 4.0 + K * 4.0, 2.0 * K * D)))
+    ct = c.T
+    kernels.append(_against_plain(
+        torch, check, f"exact_cross of a predict batch ({BATCH} x {D}) with "
+                      f"the final centers",
+        functools.partial(exact_round.exact_cross, qb, ct),
+        functools.partial(ref.exact_cross, qb, ct),
+        dict(name="exact_cross",
+             source="src/repro_torch/kernels/csrc/exact_round.cu",
+             replaces="src/repro/core/model.py:151",
+             launches=served["f32"]["launches"]["exact_cross"]),
+        bound((BATCH * D + K * D + BATCH * K) * 4.0, 2.0 * BATCH * K * D)))
+    proj_dirs = (c - c.roll(1, 0)).contiguous()    # a direction per leaf
+    kernels.append(_against_plain(
+        torch, check, f"exact_rowdot of the rows ({N} x {D}) with their "
+                      f"clusters' directions (GDI's projections)",
+        functools.partial(exact_round.exact_rowdot, x, proj_dirs,
+                          res.assignment),
+        functools.partial(ref.exact_rowdot, x, proj_dirs, res.assignment),
+        dict(name="exact_rowdot",
+             source="src/repro_torch/kernels/csrc/exact_round.cu",
+             replaces="src/repro/core/gdi.py:215",
+             launches=launches["exact_rowdot"]),
+        bound((N * D + K * D + N) * 4.0 + N * 8.0, 2.0 * N * D)))
+    st = sb.init_resident(x, torch.ones(N, device=dev), c, res.assignment)
+    nb, s_rows = st.b2c.shape[0], st.pid.shape[0]
+    bn = s_rows // nb
+    seg = torch.repeat_interleave(st.b2c.long(), bn)
+    seg = torch.where((seg >= 0) & (st.wg > 0), seg, K)
+    kernels.append(_against_plain(
+        torch, check, f"segment_sum_blocks over the final arena ({s_rows} "
+                      f"slots, bn={bn})",
+        functools.partial(segment_sum_blocks, st.xg, st.b2c, K, bn,
+                          w=st.wg),
+        functools.partial(ref.segment_sum_blocks_ref, st.xg, st.b2c, K, bn,
+                          w=st.wg),
+        dict(name="segment_sum_blocks",
+             source="src/repro_torch/kernels/csrc/segment_sum.cu",
+             replaces="src/repro/core/engine.py:264",
+             launches=launches["segment_sum_blocks"]),
+        bound(s_rows * (D + 1) * 4.0 + nb * 4.0 + K * (D + 1) * 4.0,
+              2.0 * s_rows * D),
+        library=lambda: torch.zeros(K + 1, D, device=dev).index_add_(
+            0, seg, st.xg * st.wg[:, None])))
+    del st, seg
     for kr in kernels:
         print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
@@ -644,9 +737,11 @@ def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,
     and time both, and ``library`` (one PyTorch call computing the same
     function) where there is one: the kernels line's entry."""
     got, want = kern(), plain()
-    same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-    err = max(float((g.double() - w.double()).abs().max())
-              for g, w in zip(got, want))
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+    same = all(bool(torch.equal(g, w)) for g, w in pairs)
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
     check(same, f"{what} vs plain: bit-equal ({same}), max abs err "
                 f"{err:.3g}")
     return dict(entry, route="cuda", max_abs_err=err,
@@ -658,11 +753,25 @@ def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,
 
 def _k3_agrees(torch, check, segmented_scan, ref, xg, w, b2s, bn,
                what) -> float:
-    """K3 against its plain version on one layout: rtol 1e-5 plus 1e-5
-    times the segment's sum of |.|, counts exact. Returns the max abs
-    error."""
+    """K3 against its plain version on one layout: on the CPU, where
+    torch's cumsum adds in K3's order, bit-equal; on the card, rtol 1e-5
+    plus 1e-5 times the segment's sum of |.|, counts exact; and against
+    itself, a second launch bit-equal. Returns the max abs error against
+    the CPU's plain version."""
     cs_k, qs_k, cn_k = segmented_scan(xg, w, b2s, bn=bn)
     cs_p, qs_p, cn_p = ref.segmented_scan_ref(xg, w, b2s, bn)
+    again = segmented_scan(xg, w, b2s, bn=bn)
+    check(all(bool(torch.equal(a, b))
+              for a, b in zip(again, (cs_k, qs_k, cn_k))),
+          f"K3 launched twice on {xg.shape[0]} rows, {what}: bit-equal")
+    cpu = ref.segmented_scan_ref(xg.cpu(), w.cpu(), b2s.cpu(), bn)
+    same = all(bool(torch.equal(a.cpu(), b))
+               for a, b in zip((cs_k, qs_k, cn_k), cpu))
+    cpu_err = max(float((a.cpu().double() - b.double()).abs().max())
+                  for a, b in zip((cs_k, qs_k, cn_k), cpu))
+    check(same, f"K3 on {xg.shape[0]} rows, {what}, vs its plain version "
+                f"on the CPU: bit-equal ({same}), max abs err "
+                f"{cpu_err:.3g}")
     nseg = int(b2s.max()) + 1
     row_seg = torch.repeat_interleave(b2s.long(), bn)
     xw = xg * w[:, None]
@@ -680,7 +789,7 @@ def _k3_agrees(torch, check, segmented_scan, ref, xg, w, b2s, bn,
           f"K3 segmented_scan vs plain on {xg.shape[0]} rows, {what}: max "
           f"abs err {err:.3g} (rtol 1e-5, atol 1e-5 * the segment's sum of "
           f"|.|); counts exact")
-    return err
+    return cpu_err
 
 
 def _cublas_argmin(torch, x, c, chunk: int = 4096):
@@ -929,6 +1038,42 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
             qb, kk, vv, attn_mask=mask), torch))
 
 
+def _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,
+                    center_knn_graph, pad_candidates, candidate_tables,
+                    candidate_assign_tiled, candidate_assign_rowwise,
+                    distance_argmin, ref) -> None:
+    """K5, K1 and K7 against their plain versions on rows whose products
+    with their own centers sit just above f32 rounding midpoints (f64
+    sums in different orders round them apart): bit-equal."""
+    k, kn = 64, 8
+    x, c, a = rounding_fixture(k * 40, k, D, seed=17, device=dev)
+    same5 = all(bool(torch.equal(g, w)) for g, w in zip(
+        distance_argmin(x, c), ref.distance_argmin_ref(x, c)))
+    st = K2Step(k=k, kn=kn, bkn=BKN).init_resident(
+        x, torch.ones(x.shape[0], device=dev), c, a)
+    nb = st.b2c.shape[0]
+    bn = st.pid.shape[0] // nb
+    graph = center_knn_graph(c, kn)
+    cidx = pad_candidates(graph, BKN).contiguous()
+    ctab, csqtab = candidate_tables(c, cidx)
+    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
+    zi = torch.zeros(st.pid.shape[0], dtype=torch.int32, device=dev)
+    zf = torch.zeros(st.pid.shape[0], device=dev)
+    noskip = torch.zeros(nb, dtype=torch.int32, device=dev)
+    args = (st.xg, ctab, csqtab, cidx, rowsel, noskip, zi, zf, zf)
+    same1 = all(bool(torch.equal(g, w)) for g, w in zip(
+        candidate_assign_tiled(*args, bn=bn, bkn=BKN),
+        ref.candidate_assign_tiled_ref(*args, bn)))
+    args7 = (st.xg, c, graph[rowsel.long()].contiguous(), noskip, zi, zf)
+    same7 = all(bool(torch.equal(g, w)) for g, w in zip(
+        candidate_assign_rowwise(*args7, bn=bn),
+        ref.candidate_assign_ref(*args7, bn)))
+    check(same5 and same1 and same7,
+          f"K5, K1 and K7 on the rounding fixture ({x.shape[0]} rows at f32 "
+          f"rounding midpoints, k={k}, d={D}) vs plain: bit-equal "
+          f"({same5}, {same1}, {same7})")
+
+
 def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
@@ -951,6 +1096,36 @@ def _small_fit_agrees(torch, dev, fit_k2means, check) -> None:
           f"small fit (n=3000, d=16, k=24) on the card equals the plain "
           f"CPU path: assignments {same}, iterations {r_gpu.iterations} "
           f"vs {r_cpu.iterations}, energy rel diff {rel:.2g}")
+
+
+def _small_gdi_fit_agrees(torch, dev, fit_k2means, check) -> None:
+    """The small fit's rows again, from GDI (the same uniform draws on
+    both devices) at k = 24 on 16 blobs, so that GDI splits blobs where
+    rows score within rounding of each other: the card's GDI and
+    k²-means against the plain CPU path, same GDI assignment, same
+    iteration count and assignments, energies within rel 1e-5."""
+    from repro_torch.core.gdi import gdi_device_init
+    g = torch.Generator().manual_seed(7)
+    mus = torch.randn(16, 16, generator=g) * 8
+    x = mus[torch.randint(0, 16, (3000,), generator=g)] \
+        + torch.randn(3000, 16, generator=g)
+    draws = [(torch.rand(3000, generator=g), torch.rand(3000, generator=g))
+             for _ in range(64)]
+    out = {}
+    for where in ("cpu", dev):
+        c0, a0 = gdi_device_init(x, 24, draws=draws, device=where)
+        out[str(where)] = (a0.cpu(), fit_k2means(x, c0, a0, kn=8,
+                                                 max_iters=30, device=where))
+    (a_cpu, r_cpu), (a_gpu, r_gpu) = out["cpu"], out[str(dev)]
+    same_init = bool(torch.equal(a_cpu, a_gpu))
+    same = bool((r_gpu.assignment.cpu() == r_cpu.assignment).all())
+    rel = abs(r_gpu.energy - r_cpu.energy) / abs(r_cpu.energy)
+    check(same_init and same and r_gpu.iterations == r_cpu.iterations
+          and rel <= 1e-5,
+          f"small fit from GDI (n=3000, d=16, k=24) on the card equals the "
+          f"plain CPU path: GDI assignments {same_init}, k2-means "
+          f"assignments {same}, iterations {r_gpu.iterations} vs "
+          f"{r_cpu.iterations}, energy rel diff {rel:.2g}")
 
 
 def _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,

@@ -2,8 +2,8 @@
 row norms, the stable bottom-k selection and the clustering energy.
 
 The (point, center) distances themselves, ``||x||^2 - 2 x.c + ||c||^2``
-clamped at 0 from norms and products rounded once from f64, are
-``kernels.ref.exact_sqdist`` and the kernels that match it.
+clamped at 0 from correctly rounded norms and products, are
+``kernels.exact_round.exact_sqdist`` and the kernels that match it.
 """
 from __future__ import annotations
 

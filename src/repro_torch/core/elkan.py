@@ -4,8 +4,8 @@ exact baseline (port of ``repro.core.elkan``).
 Vectorised as in the reference: the per-point/per-center skip conditions
 become boolean masks over a dense (n, k) distance evaluation, and the
 counted vector ops charge only the entries Elkan's serial algorithm
-would compute. The distances are the exactly rounded ones of
-``ref.exact_sqdist`` (f64 products rounded once), so a (point, center)
+would compute. The distances are the correctly rounded ones of
+``exact_round.exact_sqdist``, so a (point, center)
 pair has the value K5 gives it on Lloyd's path and the assignments equal
 Lloyd's.
 """
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..device import as_tensor, resolve
-from ..kernels.ref import exact_sqdist, exact_sqnorm
+from ..kernels.exact_round import exact_sqdist, exact_sqnorm
 from .distance import clustering_energy
 from .lloyd import KMeansResult, update_centers
 from .opcount import OpCounter

@@ -25,7 +25,13 @@ Differences from the reference, none of which changes what is computed:
 - the sparse repair scatters only the host-known prefix of live move
   lanes, in place into the arena (the step consumes its input state);
 - the k_n-NN graph takes the first kn columns of a stable ascending
-  sort, which breaks ties toward the lower index like ``lax.top_k``.
+  sort, which breaks ties toward the lower index like ``lax.top_k``;
+- the center sums add each cluster's rows in a fixed order on every
+  device, so the card's fit is the same in every run: the full sums walk
+  each cluster's arena blocks in slot order (``segment_sum_blocks``, the
+  CPU's row-order scatter-add bit for bit), and so do the moved rows'
+  deltas (each row a block of one slot); the rebuild iteration uses
+  ``ops.segment_sum_ordered``.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from ..kernels.center_knn import center_sqdist
 from ..kernels.ops import (choose_group_bn, compact, k2_bounded_assign,
                            plan_layout_repair, resident_capacity,
                            resident_regroup, scatter_from_grouped,
-                           segment_sum)
+                           segment_sum_ordered)
+from ..kernels.segment_sum import segment_sum_blocks
 from .distance import bottom_k, sqnorm
 
 
@@ -117,8 +124,8 @@ def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
     a_new, u_new, lo_new = k2_bounded_assign(x, c, neighbors, a, u, lo,
                                              need, bn=bn, bkn=bkn)
     al = a_new.long()
-    sums = segment_sum(x * w[:, None], al, k)
-    counts = segment_sum(w, al, k)
+    sums = segment_sum_ordered(x * w[:, None], al, k)
+    counts = segment_sum_ordered(w, al, k)
     c_next = torch.where(counts[:, None] > 0,
                          sums / torch.clamp(counts, min=1.0)[:, None], c)
     delta = torch.sqrt(torch.clamp(sqnorm(c_next - c), min=0.0))
@@ -150,12 +157,13 @@ def init_resident_state(x: torch.Tensor, w: torch.Tensor,
     wg = torch.where(valid, w[sp], 0.0)
     zeros = torch.zeros((perm.shape[0],), dtype=centers.dtype,
                         device=centers.device)
-    al = a.long()
+    # each cluster's rows in row order: the arena lists them so
+    sums, counts = segment_sum_blocks(xg, b2c, k, bn, w=wg)
     return ResidentState(
         centers, torch.full((k, kn), -1, dtype=torch.int32,
                             device=centers.device),
-        segment_sum(x * w[:, None], al, k), segment_sum(w, al, k), 0, True,
-        xg, perm, zeros, zeros.clone(), wg, b2c, fill, openb)
+        sums, counts, 0, True, xg, perm, zeros, zeros.clone(), wg, b2c, fill,
+        openb)
 
 
 def resident_assignment(state: ResidentState, n: int) -> torch.Tensor:
@@ -223,14 +231,20 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     dst_c = a_new[mvs]
 
     # --- 4. incremental center-update deltas over the moved rows ---------
-    seg_dst = torch.where(active, dst_c, k)
-    seg_src = torch.where(active, src_c, k)
     w_mv = torch.where(active, state.wg[mvs], 0.0)
-    rows = state.xg[mvs] * w_mv[:, None]
-    delta_sums = (segment_sum(rows, seg_dst, k + 1)
-                  - segment_sum(rows, seg_src, k + 1))[:k]
-    delta_counts = (segment_sum(w_mv, seg_dst, k + 1)
-                    - segment_sum(w_mv, seg_src, k + 1))[:k]
+    # each moved row a block of one slot, once into its destination (segment
+    # c) and once out of its source (segment k + c): every cluster's moved
+    # rows in lane order, as the CPU's row-order scatter-add takes them;
+    # idle lanes belong to no segment
+    cap = mvs.shape[0]
+    seg2 = torch.cat([torch.where(active, dst_c, -1),
+                      torch.where(active, src_c + k, -1)]).to(torch.int32)
+    lanes = torch.arange(cap, dtype=torch.int32, device=dev).repeat(2)
+    sums_mv, counts_mv = segment_sum_blocks(
+        state.xg[mvs].contiguous(), seg2, 2 * k, 1,
+        w=torch.cat([w_mv, w_mv]), perm=lanes)
+    delta_sums = sums_mv[:k] - sums_mv[k:]
+    delta_counts = counts_mv[:k] - counts_mv[k:]
 
     # --- 5. re-sort triggers: the step's one host read -------------------
     dst_slot, b2c_rep, fill_rep, openb_rep, total_new, n_free = \
@@ -275,9 +289,9 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
 
     # --- 7. center update: incremental delta, or exact recompute ---------
     if full_update:
-        seg = torch.where(wg2 > 0, a_slot2, k)
-        sums2 = segment_sum(xg2 * wg2[:, None], seg, k + 1)[:k]
-        counts2 = segment_sum(wg2, seg, k + 1)[:k]
+        # per cluster, a chain over its blocks in slot order: the CPU's
+        # row-order scatter-add, bit for bit, on the card
+        sums2, counts2 = segment_sum_blocks(xg2, b2c2, k, bn, w=wg2)
     else:
         sums2 = state.sums + delta_sums
         counts2 = state.counts + delta_counts

@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 
 from ..device import as_tensor, resolve
+from ..kernels.exact_round import exact_rowdot, exact_sqnorm
 from ..kernels.ops import (choose_group_bn, group_by_cluster_device,
-                           grouped_capacity, scatter_drop, segment_sum)
+                           grouped_capacity, scatter_drop)
 from ..kernels.segmented_scan import segmented_scan
 from .opcount import OpCounter
 
@@ -50,15 +51,20 @@ def _grouped_layout(a, k: int, bn: int):
     return torch.repeat_interleave(b2s.long(), bn), perm >= 0, perm, b2s
 
 
-def _segmented_sweep(x, a, row_seg, valid, perm, b2s, dirs, tot_s, tot_q,
-                     tot_c, split_flag, *, k: int, bn: int):
+def _segmented_sweep(x, a, row_seg, valid, perm, b2s, dirs, split_flag, *,
+                     k: int, bn: int):
     """One Lemma-1 sweep over every flagged leaf at once. Returns
     (perm2, rmin, found, cnt_a, c_a, c_b, phi_a, phi_b); rmin is the split
     row of the sorted layout (R when no valid split), side A = rows <=
-    rmin of the leaf's segment."""
+    rmin of the leaf's segment. The leaf totals are the scan's own values
+    at each segment's last row (the reference takes them with a
+    ``segment_sum`` before the sweep): one fixed order on every device,
+    and no second pass over x. The projections and the split scores'
+    squared norms are correctly rounded and K3's sums have one fixed
+    order, so the card splits where the CPU does."""
     r = row_seg.shape[0]
     dev = x.device
-    proj_pt = torch.sum(x * dirs[a.long()], dim=-1)
+    proj_pt = exact_rowdot(x, dirs, a)
     safe = torch.clamp(perm, min=0).long()
     proj = torch.where(valid, proj_pt[safe], _INF)
     rows = torch.arange(r, device=dev)
@@ -70,11 +76,17 @@ def _segmented_sweep(x, a, row_seg, valid, perm, b2s, dirs, tot_s, tot_q,
     ws = (perm2 >= 0).to(x.dtype)
     xgs = x[safe2].contiguous()                      # the one (R, d) gather
     csum, qsum, cnt = segmented_scan(xgs, ws, b2s, bn=bn)
+    last = _segment_reduce(rows, row_seg, k, "amax", -1)
+    has = last >= 0
+    at = torch.clamp(last, min=0)
+    tot_s = torch.where(has[:, None], csum[at], 0.0)
+    tot_q = torch.where(has, qsum[at], 0.0)
+    tot_c = torch.where(has, cnt[at], 0.0)
     rem = tot_c[row_seg] - cnt
-    phi_p = qsum - torch.sum(csum * csum, dim=-1) / torch.clamp(cnt, min=1.0)
+    phi_p = qsum - exact_sqnorm(csum) / torch.clamp(cnt, min=1.0)
     sfx = tot_s[row_seg] - csum
     phi_s = (tot_q[row_seg] - qsum) \
-        - torch.sum(sfx * sfx, dim=-1) / torch.clamp(rem, min=1.0)
+        - exact_sqnorm(sfx) / torch.clamp(rem, min=1.0)
     ok = (ws > 0) & (cnt >= 1.0) & (rem >= 1.0) & split_flag[row_seg]
     score = torch.where(ok, phi_p + phi_s, _INF)
     smin = _segment_reduce(score, row_seg, k, "amin", _INF)
@@ -92,22 +104,15 @@ def _segmented_sweep(x, a, row_seg, valid, perm, b2s, dirs, tot_s, tot_q,
     return perm2, rmin, found, cnt_a, c_a, c_b, phi_a, phi_b
 
 
-def _leaf_totals(x, a, k):
-    n = x.shape[0]
-    x_sq = torch.sum(x * x, dim=-1)
-    return (segment_sum(x, a, k), segment_sum(x_sq, a, k),
-            segment_sum(torch.ones((n,), dtype=x.dtype, device=x.device),
-                         a, k))
-
-
 def segmented_split_sweep(x, a, c_a, c_b, *, k: int, bn: int = 8):
     """Standalone single sweep: split every leaf of ``a`` with >= 2
     members along its (c_a - c_b) direction. Returns (found (k,), cnt_a
     (k,), c_a' (k, d), c_b' (k, d), phi_a (k,), phi_b (k,))."""
-    tot_s, tot_q, tot_c = _leaf_totals(x, a, k)
     row_seg, valid, perm, b2s = _grouped_layout(a, k, bn)
+    sizes = torch.zeros(k, dtype=torch.int64, device=x.device).index_add_(
+        0, a.long(), torch.ones_like(a, dtype=torch.int64))
     out = _segmented_sweep(x, a, row_seg, valid, perm, b2s, c_a - c_b,
-                           tot_s, tot_q, tot_c, tot_c >= 2.0, k=k, bn=bn)
+                           sizes >= 2, k=k, bn=bn)
     return out[2:]
 
 
@@ -137,7 +142,7 @@ def gdi_round_step(x, a, centers, energies, sizes, nleaf, *, k: int,
     rank[order] = slot
     split_flag = eligible & (rank < t)
 
-    tot_s, tot_q, tot_c = _leaf_totals(x, a, k)
+    row_seg, valid, perm, b2s = _grouped_layout(a, k, bn)
 
     # two uniform random members per leaf as the initial split direction
     # (Algorithm 3 line 2): per-segment argmax of uniform draws, the
@@ -153,11 +158,10 @@ def gdi_round_step(x, a, centers, energies, sizes, nleaf, *, k: int,
     c_a = x[torch.clamp(i_a, max=n - 1)]
     c_b = x[torch.clamp(i_b, max=n - 1)]
 
-    row_seg, valid, perm, b2s = _grouped_layout(a, k, bn)
     for _ in range(split_iters):
         perm2, rmin, found, cnt_a, c_a_new, c_b_new, phi_a, phi_b = \
             _segmented_sweep(x, a, row_seg, valid, perm, b2s, c_a - c_b,
-                             tot_s, tot_q, tot_c, split_flag, k=k, bn=bn)
+                             split_flag, k=k, bn=bn)
         upd = (split_flag & found)[:, None]
         c_a = torch.where(upd, c_a_new, c_a)
         c_b = torch.where(upd, c_b_new, c_b)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import exact_sqnorm
+from ..kernels.exact_round import exact_rowdot, exact_sqnorm
 from .opcount import OpCounter
 
 
@@ -27,13 +27,14 @@ def _draw(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return torch.searchsorted(cdf, cdf[-1:] * (1.0 - u))
 
 
-def _ppp_update(x64, x_sq, dmin, new_center):
+def _ppp_update(x, x_sq, dmin, new_center, zeros):
     """Each point's squared distance to its nearest chosen center, after
-    adding ``new_center`` (d,): norms and products rounded once from
-    f64, as every distance of the port."""
-    c64 = new_center.double()
-    d_new = torch.clamp(x_sq - 2.0 * (x64 @ c64).float()
-                        + torch.sum(c64 * c64).float(), min=0.0)
+    adding ``new_center`` (d,): norms and products correctly rounded, as
+    every distance of the port; the products are one ``exact_rowdot``
+    against the new center (``zeros``: (n,) row ids, all 0)."""
+    c = new_center[None]
+    d_new = torch.clamp(x_sq - 2.0 * exact_rowdot(x, c, zeros)
+                        + exact_sqnorm(c)[0], min=0.0)
     return torch.minimum(dmin, d_new)
 
 
@@ -43,8 +44,8 @@ def kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator,
     device. Returns (k, d) centers; charges n distances per center."""
     counter = counter or OpCounter()
     n, d = x.shape
-    x64 = x.double()
     x_sq = exact_sqnorm(x)
+    zeros = torch.zeros((n,), dtype=torch.int64, device=x.device)
     centers = torch.empty((k, d), dtype=x.dtype, device=x.device)
     dmin = torch.full((n,), float("inf"), dtype=x.dtype, device=x.device)
     idx = _draw(torch.ones((n,), device=x.device), generator)   # uniform
@@ -52,7 +53,7 @@ def kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator,
         if j:
             idx = _draw(dmin, generator)
         centers[j] = x.index_select(0, idx)[0]
-        dmin = _ppp_update(x64, x_sq, dmin, centers[j])
+        dmin = _ppp_update(x, x_sq, dmin, centers[j], zeros)
         counter.add_distances(n)
     return centers
 

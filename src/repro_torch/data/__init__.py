@@ -1,3 +1,3 @@
-from .synthetic import DATASET_SHAPES, gmm_blobs
+from .synthetic import DATASET_SHAPES, gmm_blobs, rounding_fixture
 
-__all__ = ["DATASET_SHAPES", "gmm_blobs"]
+__all__ = ["DATASET_SHAPES", "gmm_blobs", "rounding_fixture"]

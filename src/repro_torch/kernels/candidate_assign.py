@@ -22,9 +22,9 @@ import ctypes
 import torch
 
 from . import _build
+from .exact_round import exact_sqnorm
 from .ref import (PAD_SQDIST, candidate_assign_int8_tiled_ref,
-                  candidate_assign_ref, candidate_assign_tiled_ref,
-                  exact_sqnorm)
+                  candidate_assign_ref, candidate_assign_tiled_ref)
 
 _ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGS_INT8 = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -43,8 +43,8 @@ def pad_candidates(cand: torch.Tensor, bkn: int) -> torch.Tensor:
 def candidate_tables(c: torch.Tensor, cidx: torch.Tensor):
     """Candidate-center table for :func:`candidate_assign_tiled`:
     c (k, d), cidx (T, kn_pad) int32 (-1 = padding) -> (ctab (T, kn_pad,
-    d), csqtab (T, kn_pad)) with the exactly rounded ``|c|^2``
-    (``ref.exact_sqnorm``) and PAD_SQDIST on padded columns."""
+    d), csqtab (T, kn_pad)) with the correctly rounded ``|c|^2``
+    (``exact_round.exact_sqnorm``) and PAD_SQDIST on padded columns."""
     safe = torch.clamp(cidx, min=0).long()
     csqtab = torch.where(cidx >= 0, exact_sqnorm(c)[safe], PAD_SQDIST)
     return c[safe].contiguous(), csqtab.to(torch.float32).contiguous()

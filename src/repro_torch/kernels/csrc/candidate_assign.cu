@@ -10,48 +10,124 @@
 // padding columns carry csqtab = 1e30 and never win.
 //
 // Bound on an H100: bytes. A fully recomputed pass reads every arena row
-// once (n d 4 bytes) plus the candidate slabs (kn_pad d 4 bytes per
-// block, partly from L2) against 2 n kn_pad d FLOPs (f64 FMAs here).
-// Design: one CUDA block per point block, which reads its own
-// rowsel/skip (the TPU's scalar prefetch); a skipped block copies prev_*
-// and returns without touching x or the table. The block walks its
-// candidate list in chunks of KC columns. For each chunk it loops over d
-// in chunks of DC, staging the x rows and the chunk's slab rows through
-// shared memory, widened to f64 once there (row stride DC+1 against bank
-// conflicts). The threads form TY row lanes x TX column lanes, 8 x 32 at
-// bn <= 8 (the predict layout; 0.77-0.81x the time of 16 x 16 there,
-// PERF.md) and 16 x 16 above; each holds an RM x CN register tile of
-// (row, column) accumulators, rows ty + TY i and columns tx + TX j, so
-// every staged value it loads feeds several FMAs. The chunk's distances
-// go to shared memory, and thread r then scans row r's columns in order
-// with strict <, carrying best, second-best and argbest in registers
-// from chunk to chunk: the flat first-min of the TPU kernel's
-// tile-by-tile merge, with the second-best of the multiset. Shared
-// memory does not grow with kn_pad (at most 60 KB, at bn = 128), so any
-// kn_pad and d fit; bn is at most 128 (ops.choose_group_bn's cap).
+// once (n d 4 bytes) plus the distinct candidate slabs the blocks name,
+// against 2 n kn_pad d FLOPs that must stay exact f64 products (see
+// Rounding). The first design ran them as f64 FMAs on the CUDA cores from
+// 2 x 2 register tiles, with x and the slab staged through shared memory
+// widened to f64 by synchronous loads: about 7 TFLOP/s, 5.5x its bound at
+// the fit's arena.
 //
-// Rounding: x.c and |x|^2 accumulate in f64 (each f32 x f32 product is
-// exact there) and are rounded once to f32, which gives the correctly
-// rounded value whatever the order of the sum, except for a double
-// rounding when the f64 sum lands within its own error (~1e-13 relative)
-// of an f32 rounding midpoint. The plain version and the int8 path's f32
-// re-rank compute them the same way, so one (point, center) pair has one
-// squared distance everywhere, and the f32 and int8 predict paths do not
-// split on near-ties as two f32 summation orders would.
+// Design: the products run on the f64 tensor cores, mma.sync m16n8k8 with
+// f64 inputs and f64 sums (K5's recipe, distance_argmin.cu). One CUDA block
+// of 8 warps per point block, which reads its own rowsel/skip (the TPU's
+// scalar prefetch); a skipped block copies prev_* and returns without
+// touching x or the table. The block walks its candidates in chunks of
+// KC = 32 columns, and each chunk's d in stages of DC = 64 floats: the
+// chunk's 32 slab rows and the block's rows (zero past bn) are copied as
+// f32 into shared memory by cp.async (16 bytes a thread where d % 4 == 0
+// and x, ctab are 16-byte aligned, else 4) into a ring of 4 stages (3
+// above 32 rows), so 2 or 3 copies are in flight while a stage is used;
+// the ring runs straight on across chunks, and values are widened to f64
+// as a fragment is loaded. The candidates sit on the MMA's M side (2 m16 tiles) and the
+// points on its N side (bn / 8 n8 tiles), so the predict layout's bn = 8
+// fills every MMA. Each warp holds 2 x NJ MMA tiles (NJ <= 2) of f64
+// partial sums: the warps split the points into groups of NJ * 8 rows and,
+// where there are fewer groups than warps, split each stage's 8 k-steps
+// among a group's warps. At the end of a chunk the partial sums meet
+// in shared memory, where one thread a (point, candidate) pair adds them,
+// rounds the pair's x.c (Rounding) and evaluates its distance in f32 with
+// explicit __f*_rn steps in the plain version's order; thread r then
+// scans row r's columns in order with strict <, carrying best,
+// second-best and argbest from chunk to chunk: the flat first-min of the
+// TPU kernel's tile-by-tile merge, with the second-best of the multiset.
+// |x|^2 of each row (during the first chunk) and |c|^2 of each candidate
+// (the screen's bound) accumulate in f64 from the staged f32 rows. Any
+// kn_pad and d; bn is at most 128 (ops.choose_group_bn's cap). nvcc
+// -Xptxas -v for sm_90a (CUDA 12.8): 121-128 registers, no spills; 107 KB
+// of dynamic shared memory at bn = 32 (two blocks an SM), 61 KB at bn = 8.
+//
+// Rounding: x.c and |x|^2 are correctly rounded to f32 (common.cuh: the
+// f64 sum, exact products in some order, is screened against its error
+// bound, and the few sums the screen cannot decide are recomputed exactly
+// from the rows in global memory), a value no order changes. The plain
+// version, the torch paths and the int8 path's f32 re-rank compute the
+// same value, so one (point, center) pair has one squared distance
+// everywhere, and the f32 and int8 predict paths do not split on
+// near-ties as two summation orders would.
 #include <math.h>
+#include <stdint.h>
 #include "common.cuh"
 
 namespace {
-constexpr int NT = 256;
-constexpr int KC = 32;            // columns per chunk
-constexpr int DC = 32;
-constexpr int LD = DC + 1;
+constexpr int NT = 256, NW = NT / 32;
+constexpr int KC = 32;            // candidate columns per chunk: 2 m16 tiles
+constexpr int DC = 64;            // floats of d per stage
+constexpr int LD = DC + 4;        // padded row stride: fragment loads hit
+                                  // 32 banks
 constexpr int BN_MAX = 128;
+constexpr int CPC = NT / KC;      // threads that share a candidate's |c|^2
 
-// TX column lanes x TY = NT / TX row lanes; each thread holds RM rows
-// and CN = KC / TX columns, bn <= TY * RM
-template <int TX, int RM>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? bytes : 0;     // n = 0: fill with zeros, read nothing
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+}
+
+// D += A (16x8, row) * B (8x8, col), f64 in, f64 sums. Fragments (g = lane
+// / 4, t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// NJ n8 tiles of points per warp, RG groups of NJ * 8 rows; the KS = NW /
+// RG warps of a group split the k side. BR = RG * NJ * 8 rows are staged,
+// in a ring of STAGES stages (STAGES - 1 copies in flight). The partial
+// sums of a chunk meet in RED (NJ <= 2 keeps it at 32 KB).
+template <int NJ, int RG>
+struct Tile {
+  static constexpr int KS = NW / RG, BR = RG * NJ * 8, PER = 8 * NJ;
+  static constexpr int TPR = NT / BR;                 // threads a row's |x|^2
+  static constexpr int STAGES = BR <= 32 ? 4 : 3;
+  static constexpr int STAGE = (BR + KC) * LD;        // floats
+  static constexpr size_t RED = sizeof(double) * NT * PER;
+  static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE + RED +
+                                 sizeof(double) * (BR + KC) +
+                                 sizeof(float) * BR +
+                                 sizeof(float) * (size_t)BR * KC;
+};
+
+// Copy stage (c0, t0): the point rows row0.. (zero past bn) and the slab
+// rows c0.. (zero past knp), DC floats each, zero past d.
+template <int NJ, int RG, int VEC>
+__device__ __forceinline__ void load_stage(float* st, const float* x,
+                                           const float* slab, size_t row0,
+                                           int c0, int t0, int bn, int knp,
+                                           int d) {
+  constexpr int BR = Tile<NJ, RG>::BR, PER_ROW = DC / VEC;
+  for (int e = threadIdx.x; e < (BR + KC) * PER_ROW; e += NT) {
+    const int r = e / PER_ROW, j = (e % PER_ROW) * VEC;
+    const bool is_x = r < BR;
+    const int q = is_x ? r : c0 + r - BR;
+    const bool ok = (is_x ? r < bn : q < knp) && t0 + j < d;
+    const float* src = is_x ? x + (row0 + r) * d : slab + (size_t)q * d;
+    cp_async(st + r * LD + j, ok ? src + t0 + j : x, ok, VEC * 4);
+  }
+}
+
+template <int NJ, int RG, int VEC>
+__global__ void __launch_bounds__(NT, 2)
 candidate_assign_tiled_kernel(const float* __restrict__ x,
                               const float* __restrict__ ctab,
                               const float* __restrict__ csqtab,
@@ -63,9 +139,9 @@ candidate_assign_tiled_kernel(const float* __restrict__ x,
                               const float* __restrict__ prev_d2,
                               int* __restrict__ a, float* __restrict__ d1,
                               float* __restrict__ d2, int bn, int knp, int d) {
-  constexpr int TY = NT / TX, CN = KC / TX;
-  constexpr int BR = TY * RM;     // staged rows, zero past bn
-  extern __shared__ double smem[];
+  using T = Tile<NJ, RG>;
+  constexpr int KS = T::KS, BR = T::BR, PER = T::PER, TPR = T::TPR;
+  constexpr int STAGES = T::STAGES;
   const int b = blockIdx.x;
   const size_t row0 = (size_t)b * bn;
   if (skip[b] != 0) {
@@ -76,79 +152,182 @@ candidate_assign_tiled_kernel(const float* __restrict__ x,
     }
     return;
   }
-  const int t = rowsel[b];
-  const float* slab = ctab + (size_t)t * knp * d;
-  const float* csq = csqtab + (size_t)t * knp;
-  double* xs = smem;                          // (BR, LD) x chunk
-  double* cs = xs + BR * LD;                  // (KC, LD) slab chunk
-  double* xsq = cs + KC * LD;                 // (bn,) running |x|^2
-  float* vt = reinterpret_cast<float*>(xsq + bn);   // (bn, KC) distances
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int me = threadIdx.x;                 // the row this thread scans
-  float b1 = INFINITY, b2 = INFINITY;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  double* red = reinterpret_cast<double*>(ring + STAGES * T::STAGE);
+  double* xse = red + NT * PER;      // per row: gamma_d |x|, from f64 |x|^2
+  double* cnr = xse + BR;            // per chunk column: |c| from f64 |c|^2
+  float* xs2 = reinterpret_cast<float*>(cnr + KC);  // rounded |x|^2
+  float* vt = xs2 + BR;              // (BR, KC) the chunk's distances
+
+  const int tslab = rowsel[b];
+  const float* slab = ctab + (size_t)tslab * knp * d;
+  const float* csq = csqtab + (size_t)tslab * knp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / KS, ks = warp % KS;
+  const int nkc = max(1, (d + DC - 1) / DC);
+  const int nchunk = (knp + KC - 1) / KC;
+  const int steps = nchunk * nkc;
+
+  double acc[2][NJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+  double sq = 0.0;   // |x|^2 part: row tid / TPR, columns tid % TPR + TPR j
+  double cq = 0.0;   // |c|^2 part: column tid / CPC, floats tid % CPC + CPC j
+  float b1 = INFINITY, b2 = INFINITY;   // row tid's running best, second
   int arg = 0;
-  for (int c0 = 0; c0 < knp; c0 += KC) {
-    double acc[RM][CN];
+
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps)
+      load_stage<NJ, RG, VEC>(ring + s * T::STAGE, x, slab, row0,
+                              (s / nkc) * KC, (s % nkc) * DC, bn, knp, d);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int step = 0; step < steps; ++step) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
+    __syncthreads();                 // stage `step` landed; step-1's is free
+    {
+      const int nx = step + STAGES - 1;
+      if (nx < steps)
+        load_stage<NJ, RG, VEC>(ring + (nx % STAGES) * T::STAGE, x, slab,
+                                row0, (nx / nkc) * KC, (nx % nkc) * DC, bn,
+                                knp, d);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    const int ci = step / nkc, kc = step % nkc, t0 = kc * DC;
+    const float* xs = ring + (step % STAGES) * T::STAGE;
+    const float* cs = xs + BR * LD;
+    if (ci == 0) {
+      const float* xr = xs + (threadIdx.x / TPR) * LD + threadIdx.x % TPR;
 #pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = 0.0;
-    for (int t0 = 0; t0 < d; t0 += DC) {
-      const int w = min(DC, d - t0);
-      __syncthreads();
-      for (int e = threadIdx.x; e < BR * DC; e += NT) {
-        const int r = e / DC, j = e % DC;
-        xs[r * LD + j] =
-            r < bn && j < w ? (double)x[(row0 + r) * d + t0 + j] : 0.0;
-      }
-      for (int e = threadIdx.x; e < KC * DC; e += NT) {
-        const int q = e / DC, j = e % DC;
-        cs[q * LD + j] = c0 + q < knp && j < w
-                             ? (double)slab[(size_t)(c0 + q) * d + t0 + j]
-                             : 0.0;
-      }
-      __syncthreads();
-      if (c0 == 0 && me < bn) {
-        const double* xr = xs + me * LD;
-        double s = t0 == 0 ? 0.0 : xsq[me];
-#pragma unroll 8
-        for (int j = 0; j < DC; ++j) s = fma(xr[j], xr[j], s);
-        xsq[me] = s;
-      }
-#pragma unroll 4
-      for (int j = 0; j < DC; ++j) {
-        double xv[RM], cv[CN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) xv[i] = xs[(ty + TY * i) * LD + j];
-#pragma unroll
-        for (int q = 0; q < CN; ++q) cv[q] = cs[(tx + TX * q) * LD + j];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int q = 0; q < CN; ++q) acc[i][q] = fma(xv[i], cv[q], acc[i][q]);
+      for (int j = 0; j < DC / TPR; ++j) {
+        const double v = xr[TPR * j];
+        sq = fma(v, v, sq);
       }
     }
-    __syncthreads();                          // xsq of every row is final
+    {
+      const float* cr = cs + (threadIdx.x / CPC) * LD + threadIdx.x % CPC;
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + TY * i;
-      if (r >= bn) continue;
-      const float xs2 = __double2float_rn(xsq[r]);
-#pragma unroll
-      for (int q = 0; q < CN; ++q) {
-        const int col = tx + TX * q;
-        if (c0 + col >= knp) continue;
-        const float cross = __double2float_rn(acc[i][q]);
-        vt[r * KC + col] = fmaxf(
-            __fadd_rn(__fsub_rn(xs2, __fmul_rn(2.f, cross)), csq[c0 + col]),
-            0.f);
+      for (int j = 0; j < DC / CPC; ++j) {
+        const double v = cr[CPC * j];
+        cq = fma(v, v, cq);
       }
+    }
+#pragma unroll
+    for (int kk = ks; kk < DC / 8; kk += KS) {
+      if (t0 + kk * 8 >= d) break;   // the rest of the stage is zero
+      double af[2][4], bf[NJ][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = cs + (i * 16 + g) * LD + kk * 8 + t;
+        af[i][0] = p[0];
+        af[i][1] = p[8 * LD];
+        af[i][2] = p[4];
+        af[i][3] = p[8 * LD + 4];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* p = xs + (rg * NJ * 8 + j * 8 + g) * LD + kk * 8 + t;
+        bf[j][0] = p[0];
+        bf[j][1] = p[4];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dmma(acc[i][j], af[i], bf[j]);
+    }
+    if (kc != nkc - 1) continue;
+
+    // --- epilogue of chunk ci: columns c0 .. c0 + KC ---------------------
+    const int c0 = ci * KC;
+#pragma unroll
+    for (int o = 1; o < CPC; o <<= 1)
+      cq += __shfl_xor_sync(0xffffffffu, cq, o);
+    if (threadIdx.x % CPC == 0) cnr[threadIdx.x / CPC] = sqrt(cq);
+    cq = 0.0;
+    if (ci == 0) {
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1)
+        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      if (threadIdx.x % TPR == 0) xse[threadIdx.x / TPR] = sq;
+    }
+    {
+      double* mine = red + (size_t)(warp * 32 + lane) * PER;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            mine[i * 4 * NJ + j * 4 + e] = acc[i][j][e];
+            acc[i][j][e] = 0.0;
+          }
     }
     __syncthreads();
-    if (me < bn) {
+    if (ci == 0) {                     // each row's rounded |x|^2, once
+      if (threadIdx.x < (bn + 31) / 32 * 32) {       // whole warps
+        const bool live = threadIdx.x < bn;
+        const double s2 = live ? xse[threadIdx.x] : 0.0;
+        const float v = k2_round_sqnorm(s2, x + (row0 + threadIdx.x) * d, d);
+        if (live) {
+          xs2[threadIdx.x] = v;
+          xse[threadIdx.x] = k2_gamma(d) * sqrt(s2);
+        }
+      }
+      __syncthreads();
+    }
+    // each thread its (point, candidate) pairs: the screen now, the rare
+    // flagged sums after, a warp at a time
+    unsigned flagged = 0;
+    for (int e = threadIdx.x, m = 0; e < RG * 32 * PER; e += NT, ++m) {
+      const int grp = e / (32 * PER), rem = e % (32 * PER);
+      const int ln = rem / PER, i = rem % PER;
+      const int mi = i / (4 * NJ), nj = (i / 4) % NJ, ee = i % 4;
+      const int cand = mi * 16 + ln / 4 + (ee & 2 ? 8 : 0);
+      const int r = grp * NJ * 8 + nj * 8 + 2 * (ln % 4) + (ee & 1);
+      if (r >= bn || c0 + cand >= knp) continue;
+      double s = 0.0;
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        s += red[(size_t)((grp * KS + k) * 32) * PER + rem];
+      float cross;
+      if (!k2_screen(s, xse[r] * cnr[cand], cross)) {
+        flagged |= 1u << m;
+        continue;
+      }
+      vt[r * KC + cand] = fmaxf(
+          __fadd_rn(__fsub_rn(xs2[r], __fmul_rn(2.f, cross)), csq[c0 + cand]),
+          0.f);
+    }
+    while (__any_sync(0xffffffffu, flagged)) {
+      const bool need = flagged != 0;
+      const int m = need ? __ffs(flagged) - 1 : 0;
+      flagged &= flagged - 1;
+      const int e = threadIdx.x + m * NT;
+      const int rem = e % (32 * PER), ln = rem / PER, i = rem % PER;
+      const int mi = i / (4 * NJ), nj = (i / 4) % NJ, ee = i % 4;
+      const int cand = mi * 16 + ln / 4 + (ee & 2 ? 8 : 0);
+      const int r = e / (32 * PER) * NJ * 8 + nj * 8 + 2 * (ln % 4) + (ee & 1);
+      const float cross =
+          k2_exact_dot_lanes(need, x + (row0 + r) * d, 1,
+                             slab + (size_t)(c0 + cand) * d, 1, d);
+      if (need)
+        vt[r * KC + cand] = fmaxf(
+            __fadd_rn(__fsub_rn(xs2[r], __fmul_rn(2.f, cross)),
+                      csq[c0 + cand]),
+            0.f);
+    }
+    __syncthreads();
+    if (threadIdx.x < bn) {
       const int w = min(KC, knp - c0);
       for (int q = 0; q < w; ++q) {
-        const float v = vt[me * KC + q];
+        const float v = vt[threadIdx.x * KC + q];
         if (v < b1) {
           b2 = b1;
           b1 = v;
@@ -159,27 +338,31 @@ candidate_assign_tiled_kernel(const float* __restrict__ x,
       }
     }
   }
-  if (me < bn) {
-    a[row0 + me] = cidx[(size_t)t * knp + arg];
-    d1[row0 + me] = b1;
-    d2[row0 + me] = b2;
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  if (threadIdx.x < bn) {
+    a[row0 + threadIdx.x] = cidx[(size_t)tslab * knp + arg];
+    d1[row0 + threadIdx.x] = b1;
+    d2[row0 + threadIdx.x] = b2;
   }
 }
 
-template <int TX, int RM>
+template <int NJ, int RG>
 cudaError_t launch(const float* x, const float* ctab, const float* csqtab,
                    const int* cidx, const int* rowsel, const int* skip,
                    const int* prev_a, const float* prev_d1,
                    const float* prev_d2, int* a, float* d1, float* d2, int nb,
                    int bn, int knp, int d, cudaStream_t stream) {
-  const size_t smem = sizeof(double) * ((size_t)(NT / TX * RM + KC) * LD + bn)
-                      + sizeof(float) * (size_t)bn * KC;
-  cudaError_t err = k2_set_smem(candidate_assign_tiled_kernel<TX, RM>, smem);
+  const size_t smem = Tile<NJ, RG>::SMEM;
+  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)ctab % 16 == 0;
+  auto kern = vec ? candidate_assign_tiled_kernel<NJ, RG, 4>
+                  : candidate_assign_tiled_kernel<NJ, RG, 1>;
+  cudaError_t err = k2_set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   if (nb > 0)
-    candidate_assign_tiled_kernel<TX, RM><<<nb, NT, smem, stream>>>(
-        x, ctab, csqtab, cidx, rowsel, skip, prev_a, prev_d1, prev_d2, a, d1,
-        d2, bn, knp, d);
+    kern<<<nb, NT, smem, stream>>>(x, ctab, csqtab, cidx, rowsel, skip,
+                                   prev_a, prev_d1, prev_d2, a, d1, d2, bn,
+                                   knp, d);
   return cudaGetLastError();
 }
 }  // namespace
@@ -193,11 +376,11 @@ K2_EXPORT int k2_candidate_assign_tiled(
     const float* prev_d2, int* a, float* d1, float* d2, int nb, int bn, int knp,
     int d, cudaStream_t stream) {
   if (bn < 1 || bn > BN_MAX || knp < 1) return (int)cudaErrorInvalidValue;
-  auto go = bn <= 8    ? launch<32, 1>
-            : bn <= 16 ? launch<16, 1>
-            : bn <= 32 ? launch<16, 2>
-            : bn <= 64 ? launch<16, 4>
-                       : launch<16, 8>;
+  auto go = bn <= 8    ? launch<1, 1>
+            : bn <= 16 ? launch<1, 2>
+            : bn <= 32 ? launch<2, 2>
+            : bn <= 64 ? launch<2, 4>
+                       : launch<2, 8>;
   return (int)go(x, ctab, csqtab, cidx, rowsel, skip, prev_a, prev_d1,
                  prev_d2, a, d1, d2, nb, bn, knp, d, stream);
 }

@@ -20,13 +20,13 @@
 // center rows of the list are shared by the block's warps through L1/L2.
 // No shared memory.
 //
-// Rounding: x.c and |x|^2 accumulate in f64 and are rounded once to f32,
-// and |c|^2 comes in rounded the same way (ref.exact_sqnorm, taken outside
-// the kernel as the TPU kernel's wrapper takes it); the distance is
-// evaluated with explicit __f*_rn steps in the plain version's order. The
-// kernel and ref.candidate_assign_ref then agree bit for bit, and K1 gives
-// the same pair the same value, so both pick the same center from the same
-// list.
+// Rounding: x.c and |x|^2 accumulate in f64 and are correctly rounded to
+// f32 (common.cuh), and |c|^2 comes in rounded the same way
+// (exact_round.exact_sqnorm, taken outside the kernel as the TPU kernel's
+// wrapper takes it); the distance is evaluated with explicit __f*_rn steps
+// in the plain version's order. The kernel and ref.candidate_assign_ref
+// then agree bit for bit, and K1 gives the same pair the same value, so
+// both pick the same center from the same list.
 #include <math.h>
 #include "common.cuh"
 
@@ -65,7 +65,9 @@ candidate_assign_rowwise_kernel(const float* __restrict__ x,
     const float* xr = x + (row0 + r) * d;
     double s = 0.0;
     for (int j = lane; j < d; j += 32) s = fma((double)xr[j], (double)xr[j], s);
-    const float xs2 = __double2float_rn(warp_sum_all(s));
+    const double s2 = warp_sum_all(s);      // the same in every lane
+    const float xs2 = k2_round_sum_uniform(s2, k2_gamma(d) * s2, xr, 1, xr,
+                                           1, d);
     float best = INFINITY;
     int arg = 0;
     for (int q = 0; q < kn; ++q) {
@@ -74,7 +76,9 @@ candidate_assign_rowwise_kernel(const float* __restrict__ x,
       double t = 0.0;
       for (int j = lane; j < d; j += 32)
         t = fma((double)xr[j], (double)cr[j], t);
-      const float cross = __double2float_rn(warp_sum_all(t));
+      const float cross = k2_round_sum_uniform(
+          warp_sum_all(t), k2_gamma(d) * sqrt(s2 * k2_sqnorm_up(csq[ci])), xr,
+          1, cr, 1, d);
       const float v = fmaxf(
           __fadd_rn(__fsub_rn(xs2, __fmul_rn(2.f, cross)), csq[ci]), 0.f);
       if (v < best) {

@@ -29,34 +29,44 @@
 // Rows are padded to LD = DC + 4 floats: the 32 lanes of a fragment load
 // hit 32 banks. Past n, k and d the copies zero-fill (cp.async src-size 0),
 // so ragged shapes need no padded copies, and a chunk's MMA steps past d
-// are skipped. |x|^2 accumulates in f64 from the staged f32 rows during the
-// first center tile, four threads a row.
+// are skipped. |x|^2 is summed in f64 in a prologue, a warp a row from
+// global memory, while the first chunks land.
 //
-// Epilogue per center tile: each thread rounds its sums, evaluates its 8
-// centers of each of its 4 rows in column order and keeps the first
-// minimum; the 4 lanes that share a row merge by shuffles (lower center on
-// a tie), the 4 warps that share a row through shared memory in column
-// order, and the row's running (min, argmin) takes the tile's only when
-// strictly smaller.
+// Epilogue per center tile: each thread screens its sums (Rounding),
+// evaluates its 8 centers of each of its 4 rows in column order and keeps
+// the first minimum; a pair the screen cannot decide is set aside unless
+// its least possible distance already lies at or above the row's minimum
+// so far (then it cannot be the first minimum), and the few set aside are
+// recomputed exactly after the tile's loops, out of line, and merged in
+// as (distance, center) keys; the 4 lanes that share a row merge by
+// shuffles (lower center on a tie), the 4 warps that share a row through
+// shared memory in column order, and the row's running (min, argmin)
+// takes the tile's only when strictly smaller. |x|^2 is rounded in the
+// prologue, where no accumulator is live: an exact recompute beside the
+// live accumulators made the main loop spill.
 //
-// nvcc -Xptxas -v for sm_90a (CUDA 12.8): 125 registers, no spills; dynamic
-// shared memory 107,008 bytes (two stages of 192 rows x 68 floats, and the
-// row norms and merge buffers), so two blocks an SM. On the card the
-// kernel reaches about 60% of its bound, and a copy of it whose MMAs take
-// constants instead of loaded fragments runs 95% as long
-// (scripts/probe_kernels.py): the DMMA issue rate holds it, not the
-// staging or the widening; 938 blocks of 64 points also run in 3.55 waves
-// of 264, the last half empty.
+// nvcc -Xptxas -v for sm_90a (CUDA 12.8): 118 registers, no spills;
+// dynamic shared memory 108,288 bytes (two stages of 192 rows x 68 floats,
+// the row norms, the tile's center bounds and merge keys), so two blocks
+// an SM. Before the rounding, the kernel reached about 60% of its
+// bound, and a copy of it whose MMAs take constants instead of loaded
+// fragments ran 95% as long (scripts/probe_kernels.py): the DMMA issue
+// rate holds it, not the staging or the widening; 938 blocks of 64 points
+// also run in 3.55 waves of 264, the last half empty.
 //
 // Rounding: each f32 x f32 product is exact in f64, so the MMA's f64 sums
-// equal the FMA sums of the first design up to their order, as cuBLAS's
-// DGEMM in the plain version differs from both; x.c and |x|^2 are rounded
-// once to f32, as K1 does; |c|^2 comes in rounded the same way
-// (ref.exact_sqnorm, taken outside the kernel as the TPU kernel's wrapper
-// takes it). The distance is then evaluated in f32 with explicit __f*_rn
-// steps in the plain version's order, so the kernel and
-// ref.distance_argmin_ref agree bit for bit, and a (point, center) pair has
-// the value that K1, the Elkan path and the int8 re-rank give it.
+// are the exact sums up to the error of their order, and cuBLAS's DGEMM in
+// the plain version sums in another. x.c and |x|^2 are correctly rounded to
+// f32 (common.cuh: a screen of each sum against its error bound, then an
+// exact recompute of the few it cannot decide), which no order changes;
+// |c|^2 comes in rounded the same way (exact_round.exact_sqnorm, taken
+// outside the kernel as the TPU kernel's wrapper takes it), and the
+// screen's bound on x.c uses it rounded up. The distance is then evaluated
+// in f32 with explicit __f*_rn steps in the plain version's order, so the
+// kernel and ref.distance_argmin_ref agree bit for bit, and a (point,
+// center) pair has the value that K1, K7, the Elkan path and the int8
+// re-rank give it. The screen costs two directed roundings and a compare
+// per pair in the epilogue, the square roots once per row and center.
 #include <math.h>
 #include <limits.h>
 #include <stdint.h>
@@ -68,14 +78,13 @@ constexpr int NJ = 4;                  // 8-center MMA tiles of a warp
 constexpr int WTN = 8 * NJ;            // a warp's tile: 32 points x WTN centers
 constexpr int WM = BM / 32, WN = BN / WTN;
 constexpr int NT = 32 * WM * WN;
-constexpr int TPR = NT / BM;           // threads that share a row's |x|^2
 constexpr int DC = 64;                 // floats of d per stage
 constexpr int LD = DC + 4;             // padded row stride in shared memory
 constexpr int STAGES = 2;            // double-buffered
 constexpr int STAGE_FLOATS = (BM + BN) * LD;
 constexpr size_t SMEM_BYTES =
-    sizeof(float) * STAGES * STAGE_FLOATS + sizeof(double) * BM +
-    (sizeof(float) + sizeof(int)) * WN * BM;
+    sizeof(float) * STAGES * STAGE_FLOATS + sizeof(double) * (BM + BN) +
+    sizeof(unsigned long long) * WN * BM + sizeof(float) * BM;
 
 __device__ __forceinline__ void cp_async(float* dst, const float* src,
                                          bool valid, int bytes) {
@@ -129,6 +138,33 @@ __device__ __forceinline__ void load_chunk(float* st, const float* x,
   }
 }
 
+// The pairs a warp's screen flagged (bit ((i * 2 + h) * NJ + j) * 2 + e
+// of each lane's mask): recomputed exactly a warp at a time, then merged
+// into their row's key. Out of line, so that the kernel's main loop keeps
+// its registers.
+__device__ __noinline__ void recompute_flagged(
+    unsigned flagged, unsigned long long* red, const float* xs2s,
+    const float* x, const float* c, const float* csq, size_t row0, int cw0,
+    int rw0, int t, int d) {
+  while (__any_sync(0xffffffffu, flagged)) {
+    const bool need = flagged != 0;
+    const int bit = need ? __ffs(flagged) - 1 : 0;
+    flagged &= flagged - 1;
+    const int e = bit & 1, j = (bit >> 1) % NJ, ih = (bit >> 1) / NJ;
+    const int r = rw0 + (ih >> 1) * 16 + (ih & 1) * 8;
+    const int cc = cw0 + j * 8 + 2 * t + e;
+    const float cross = k2_exact_dot_lanes(need, x + (row0 + r) * d, 1,
+                                           c + (size_t)cc * d, 1, d);
+    const float dq = fmaxf(
+        __fadd_rn(__fsub_rn(xs2s[r], __fmul_rn(2.f, cross)), csq[cc]), 0.f) +
+                     0.f;
+    if (need)
+      atomicMin(&red[r],
+                ((unsigned long long)__float_as_uint(dq) << 32) |
+                    (unsigned)cc);
+  }
+}
+
 template <int VEC>
 __global__ void __launch_bounds__(NT, 2)
 distance_argmin_kernel(const float* __restrict__ x,
@@ -137,9 +173,14 @@ distance_argmin_kernel(const float* __restrict__ x,
                        float* __restrict__ dmin, int n, int k, int d) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
+  // per row: the screen's gamma_d |x| (from the f64 |x|^2), beside the
+  // correctly rounded f32 |x|^2
   double* xsq = reinterpret_cast<double*>(ring + STAGES * STAGE_FLOATS);
-  float* red_v = reinterpret_cast<float*>(xsq + BM);
-  int* red_c = reinterpret_cast<int*>(red_v + WN * BM);
+  double* cns = xsq + BM;            // per tile center: sqrt of |c|^2's bound
+  // per (warp column, row): the (distance, center) first minimum as one
+  // key, distance bits high (non-negative floats order as their bits)
+  unsigned long long* red = reinterpret_cast<unsigned long long*>(cns + BN);
+  float* xs2s = reinterpret_cast<float*>(red + WN * BM);
 
   const size_t row0 = (size_t)blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -155,7 +196,6 @@ distance_argmin_kernel(const float* __restrict__ x,
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
-  double sq = 0.0;   // |x|^2 part: row tid / TPR, columns tid % TPR + TPR j
   float best = INFINITY;               // running (min, argmin) of row tid < BM
   int arg = 0;
 
@@ -165,6 +205,27 @@ distance_argmin_kernel(const float* __restrict__ x,
       load_chunk<VEC>(ring + s * STAGE_FLOATS, x, c, row0, (s / nkc) * BN,
                       (s % nkc) * DC, n, k, d);
     cp_async_commit();
+  }
+  // each row's correctly rounded |x|^2, a warp a row, while the first
+  // chunks land: here no accumulator is live, so the rare exact recompute
+  // costs the main loop no registers
+  for (int r = warp; r < BM; r += NT / 32) {
+    const bool live = row0 + r < (size_t)n;
+    const float* xr = x + (row0 + r) * d;
+    double s2 = 0.0;
+    if (live)
+      for (int j = lane; j < d; j += 32) {
+        const double v = xr[j];
+        s2 = fma(v, v, s2);
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    const float v = k2_round_sum_uniform(s2, k2_gamma(d) * s2, xr, 1, xr, 1,
+                                         d);
+    if (lane == 0) {
+      xs2s[r] = v;
+      xsq[r] = k2_gamma(d) * sqrt(s2);
+    }
   }
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<STAGES - 2>();
@@ -179,14 +240,6 @@ distance_argmin_kernel(const float* __restrict__ x,
     const int ct = step / nkc, kc = step % nkc, t0 = kc * DC;
     const float* xs = ring + (step % STAGES) * STAGE_FLOATS;
     const float* cs = xs + BM * LD;
-    if (ct == 0) {
-      const float* xr = xs + (threadIdx.x / TPR) * LD + threadIdx.x % TPR;
-#pragma unroll
-      for (int j = 0; j < DC / TPR; ++j) {
-        const double v = xr[TPR * j];
-        sq = fma(v, v, sq);
-      }
-    }
 #pragma unroll
     for (int kk = 0; kk < DC / 8; ++kk) {
       if (t0 + kk * 8 >= d) break;     // the rest of the chunk is zero
@@ -210,20 +263,20 @@ distance_argmin_kernel(const float* __restrict__ x,
     if (kc != nkc - 1) continue;
 
     // --- epilogue of center tile ct -------------------------------------
-    if (ct == 0) {                     // the TPR parts of each row's |x|^2
-#pragma unroll
-      for (int o = 1; o < TPR; o <<= 1)
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      if (threadIdx.x % TPR == 0) xsq[threadIdx.x / TPR] = sq;
-      __syncthreads();
-    }
     const int c0 = ct * BN;
+    if (threadIdx.x < BN)
+      cns[threadIdx.x] = c0 + (int)threadIdx.x < k
+                             ? sqrt(k2_sqnorm_up(csq[c0 + threadIdx.x]))
+                             : 0.0;
+    __syncthreads();
+    unsigned flagged = 0;              // pairs the screen left undecided
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = wm * 32 + i * 16 + h * 8 + g;
-        const float xs2 = __double2float_rn(xsq[r]);
+        const float xs2 = xs2s[r];
+        const double ex = xsq[r];
         float v = INFINITY;
         int col = INT_MAX;
 #pragma unroll
@@ -232,10 +285,21 @@ distance_argmin_kernel(const float* __restrict__ x,
           for (int e = 0; e < 2; ++e) {
             const int cc = c0 + wn * WTN + j * 8 + 2 * t + e;
             if (cc >= k) continue;
-            const float cross = __double2float_rn(acc[i][j][2 * h + e]);
+            // the screen; where it cannot decide, dq is the least distance
+            // the pair can have (its x.c rounded up: every step is
+            // monotone), and a later column at or above this row's minimum
+            // so far cannot be the row's first minimum: only the others
+            // are recomputed
+            const double s = acc[i][j][2 * h + e], eb = ex * cns[cc - c0];
+            const float up = __double2float_rn(__dadd_ru(s, eb));
+            const float lo = __double2float_rn(__dsub_rd(s, eb));
             const float dq = fmaxf(
-                __fadd_rn(__fsub_rn(xs2, __fmul_rn(2.f, cross)), csq[cc]),
-                0.f);
+                __fadd_rn(__fsub_rn(xs2, __fmul_rn(2.f, up)), csq[cc]), 0.f) +
+                             0.f;
+            if (lo != up) {
+              if (dq < v) flagged |= 1u << (((i * 2 + h) * NJ + j) * 2 + e);
+              continue;
+            }
             if (dq < v) {
               v = dq;
               col = cc;
@@ -250,11 +314,14 @@ distance_argmin_kernel(const float* __restrict__ x,
             col = oc;
           }
         }
-        if (t == 0) {
-          red_v[wn * BM + r] = v;
-          red_c[wn * BM + r] = col;
-        }
+        if (t == 0)
+          red[wn * BM + r] =
+              ((unsigned long long)__float_as_uint(v) << 32) | (unsigned)col;
       }
+    __syncwarp();
+    if (__any_sync(0xffffffffu, flagged))    // rare, and out of line
+      recompute_flagged(flagged, red + wn * BM, xs2s, x, c, csq, row0,
+                        c0 + wn * WTN, wm * 32 + g, t, d);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -263,14 +330,11 @@ distance_argmin_kernel(const float* __restrict__ x,
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
     __syncthreads();
     if (threadIdx.x < BM) {            // the warps in column order
-      float v = red_v[threadIdx.x];
-      int col = red_c[threadIdx.x];
+      unsigned long long key = red[threadIdx.x];
 #pragma unroll
-      for (int w = 1; w < WN; ++w)
-        if (red_v[w * BM + threadIdx.x] < v) {
-          v = red_v[w * BM + threadIdx.x];
-          col = red_c[w * BM + threadIdx.x];
-        }
+      for (int w = 1; w < WN; ++w) key = min(key, red[w * BM + threadIdx.x]);
+      const float v = __uint_as_float((unsigned)(key >> 32));
+      const int col = (int)(key & 0xffffffffu);
       if (v < best) {
         best = v;
         arg = col;

@@ -22,35 +22,49 @@
 // The block then
 //  1. copies its tile into shared memory by cp.async (16 bytes a thread
 //     where d % 4 == 0 and x is 16-byte aligned, else 4), the one read of x;
-//  2. reduces it: each thread owns 4 columns (f32 sums down the rows), each
-//     warp owns rows for w |x|^2 (f32, as the plain version sums a row);
-//     the slices of one row tile hand their row partials of w |x|^2 to the
-//     last slice, which owns the |x|^2 and count lanes;
+//  2. reduces it: each thread owns 4 columns (f64 sums down the rows of
+//     the f32 products w x), each warp owns rows for |x|^2 (an f64 sum,
+//     rounded correctly to f32 by common.cuh's screen, times w); the
+//     slices of one row tile hand their f64 row partials to the last
+//     slice, which rounds them and owns the |x|^2 and count lanes;
 //  3. publishes its aggregate of the slice's lanes and a flag; a tile that
 //     starts a segment publishes it as its inclusive prefix at once and
 //     waits on nothing;
-//  4. otherwise looks back over its predecessors in the chain, 32 flags at
-//     a time by one warp, adding each one's aggregate until it meets an
-//     inclusive prefix (at the latest the segment's first tile), and
-//     publishes its own inclusive prefix;
-//  5. writes csum, qsum and cnt: the exclusive prefix plus its own f32
-//     running sum, with 16-byte stores.
+//  4. otherwise reads the flags of its 32 predecessors in the chain (one
+//     warp) until one of them is an inclusive prefix P_j (the segment's
+//     first tile is one) and all after it are set, then folds forward:
+//     P_t = (((P_j + a_{j+1}) + a_{j+2}) ... + a_t), reading the
+//     aggregates in ascending order, and publishes P_t. Every published
+//     prefix is then the same left fold from the segment's first tile,
+//     wherever the walk stopped, so the output is the same in every run (a
+//     walk that added the aggregates nearest first gave an f64 sum whose
+//     order depended on which tiles had published at that moment). A tile
+//     waits for a prefix among its 32 predecessors instead of walking past
+//     them, so a fold reads at most 31 records and prefixes keep flowing
+//     down long chains;
+//  5. writes csum, qsum and cnt: the exclusive prefix plus its own f64
+//     running sum, rounded once to f32, with 16-byte stores.
 // A flag is set by one thread's st.release after a barrier behind the
 // block's record writes, and read by ld.acquire; records are read by ld.cg
-// (L2), so no stale L1 line is read. A tile's own sums are f32 over at most
-// TR rows, as the first design's were over a bn-block, and its aggregate
-// record is f32; the inclusive prefixes carried along a chain are f64, so
-// a chain of thousands of tiles adds no rounding of its own. The look-back
-// reads each aggregate it passes (3 KB at d = 784), so its cost grows with
-// the number of tiles that run unresolved at once; 100 KB tiles (two
-// blocks an SM) ran faster on the card than 50 KB ones
+// (L2), so no stale L1 line is read.
+//
+// Every lane is an f64 sum in one fixed order: down each tile's rows, then
+// the tiles' totals folded left from the segment's first tile, then the
+// tile's exclusive prefix plus a row's running sum, rounded once. That is
+// the plain version's arithmetic (ref.segmented_scan_ref, with TR from
+// ref.scan_tile_rows), so the kernel gives the CPU's bits and GDI's splits
+// are the same on both devices. The look-back reads each f64 aggregate it
+// passes (6 KB at d = 784);
+// 100 KB tiles (two blocks an SM) ran faster on the card than 50 KB ones
 // (scripts/probe_kernels.py). The counter and the flags are zeroed on the
 // stream by the entry point, in scratch that the wrapper allocates
 // (k2_segmented_scan_scratch gives its size).
 //
-// nvcc -Xptxas -v for sm_90a (CUDA 12.8): 64 registers, no spills, 16 bytes
-// of static shared memory; the dynamic shared memory is the tile, TR (d + 2)
-// floats (100,608 bytes at bn = 32, d = 784).
+// nvcc -Xptxas -v for sm_90a (CUDA 12.8): 121-126 registers, no spills, a
+// 160-byte stack frame (the out-of-line exact recompute), 16 bytes of
+// static shared memory; the dynamic shared memory is the tile, its w and
+// its f64 |x|^2, TR (d + 3) floats at d % 4 == 0 (100,736 bytes at bn =
+// 32, d = 784), so two blocks an SM.
 #include <stdint.h>
 #include "common.cuh"
 
@@ -78,9 +92,9 @@ Plan plan(int nb, int bn, int d) {
   p.ls = (cw + 2 + 31) & ~31;
   p.ntiles = (int)((size_t)nb * bn / p.tr) * p.slices;
   p.flag_bytes = ((sizeof(unsigned) * (p.ntiles + 1)) + 255) & ~(size_t)255;
-  p.agg_bytes = sizeof(float) * (size_t)p.ntiles * p.ls;
+  p.agg_bytes = sizeof(double) * (size_t)p.ntiles * p.ls;
   p.incl_bytes = sizeof(double) * (size_t)p.ntiles * p.ls;
-  p.qp_bytes = sizeof(float) * (size_t)p.ntiles * p.tr;
+  p.qp_bytes = sizeof(double) * (size_t)p.ntiles * p.tr;
   return p;
 }
 
@@ -128,32 +142,62 @@ __device__ __forceinline__ void put_record(T* rec, int c4, int cw, bool owner,
   }
 }
 
-// Add a record to this thread's carries, 16-byte loads through L2 (lanes
-// past cw land in carries that are never used).
-template <typename T>
-__device__ __forceinline__ void add_record(const T* rec, int c4, bool mine,
-                                           bool owner, int cw,
-                                           double (&pc)[4], double& pq,
-                                           double& pn) {
-  if (mine) {
-    if constexpr (sizeof(T) == 4) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(rec + c4));
-      pc[0] += v.x;
-      pc[1] += v.y;
-      pc[2] += v.z;
-      pc[3] += v.w;
-    } else {
-      const double2 a = __ldcg(reinterpret_cast<const double2*>(rec + c4));
-      const double2 b = __ldcg(reinterpret_cast<const double2*>(rec + c4 + 2));
-      pc[0] += a.x;
-      pc[1] += a.y;
-      pc[2] += b.x;
-      pc[3] += b.y;
+// Add the aggregate records of row tiles u0 .. u1 - 1 (stride rs doubles)
+// to this thread's carries in ascending order, 16-byte loads through L2
+// issued 4 records ahead of the adds (lanes past cw land in carries that
+// are never used).
+__device__ __forceinline__ void fold_records(const double* rec, size_t rs,
+                                             int u0, int u1, int c4,
+                                             bool mine, bool owner, int cw,
+                                             double (&pc)[4], double& pq,
+                                             double& pn) {
+  constexpr int B = 4;
+  for (int u = u0; u < u1; u += B) {
+    double2 v[B], v2[B], o[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      const double* r = rec + (size_t)(u + i) * rs;
+      if (mine && u + i < u1) {
+        v[i] = __ldcg(reinterpret_cast<const double2*>(r + c4));
+        v2[i] = __ldcg(reinterpret_cast<const double2*>(r + c4 + 2));
+      }
+      if (owner && u + i < u1) o[i] = make_double2(__ldcg(r + cw),
+                                                   __ldcg(r + cw + 1));
+    }
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      if (u + i >= u1) break;
+      if (mine) {
+        pc[0] += v[i].x;
+        pc[1] += v[i].y;
+        pc[2] += v2[i].x;
+        pc[3] += v2[i].y;
+      }
+      if (owner) {
+        pq += o[i].x;
+        pn += o[i].y;
+      }
     }
   }
+}
+
+// Start the carries from an inclusive-prefix record (loaded, not added,
+// so a -0 carries over as it was published).
+__device__ __forceinline__ void load_prefix(const double* rec, int c4,
+                                            bool mine, bool owner, int cw,
+                                            double (&pc)[4], double& pq,
+                                            double& pn) {
+  if (mine) {
+    const double2 a = __ldcg(reinterpret_cast<const double2*>(rec + c4));
+    const double2 b = __ldcg(reinterpret_cast<const double2*>(rec + c4 + 2));
+    pc[0] = a.x;
+    pc[1] = a.y;
+    pc[2] = b.x;
+    pc[3] = b.y;
+  }
   if (owner) {
-    pq += __ldcg(rec + cw);
-    pn += __ldcg(rec + cw + 1);
+    pq = __ldcg(rec + cw);
+    pn = __ldcg(rec + cw + 1);
   }
 }
 
@@ -161,7 +205,7 @@ template <int VEC>
 __global__ void __launch_bounds__(NT)
 segmented_scan_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       const int* __restrict__ b2s, unsigned* flags,
-                      float* agg, double* incl, float* qp,
+                      double* agg, double* incl, double* qp,
                       float* __restrict__ csum, float* __restrict__ qsum,
                       float* __restrict__ cnt, int bn, int d, int tr,
                       int slices, int ls) {
@@ -182,8 +226,8 @@ segmented_scan_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const bool starts =
       row0 % bn == 0 && (blk == 0 || b2s[blk] != b2s[blk - 1]);
   float* xs = reinterpret_cast<float*>(smem);    // tr x ldx
-  float* ws = xs + (size_t)tr * ldx;             // tr
-  float* qs = ws + tr;                           // tr: row sums of w |x|^2
+  double* qs = reinterpret_cast<double*>(xs + (size_t)tr * ldx);  // w |x|^2
+  float* ws = reinterpret_cast<float*>(qs + tr);                  // w
 
   // 1. the tile into shared memory
   {
@@ -206,145 +250,139 @@ segmented_scan_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
   }
 
-  // 2. the tile's aggregate: 4 columns a thread, w |x|^2 a warp per row
+  // 2. the tile's aggregate: 4 columns a thread, |x|^2 a warp per row
   const int c4 = 4 * tid;
   const bool mine = c4 < cw;
   const bool owner = last && tid == NT - 1;      // the |x|^2 and count lanes
-  float ac[4] = {0.f, 0.f, 0.f, 0.f};
+  double ac[4] = {0.0, 0.0, 0.0, 0.0};
   if (mine)
     for (int r = 0; r < tr; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(xs + r * ldx + c4);
       const float wr = ws[r];
-      ac[0] += v.x * wr;
-      ac[1] += v.y * wr;
-      ac[2] += v.z * wr;
-      ac[3] += v.w * wr;
+      ac[0] += (double)(v.x * wr);
+      ac[1] += (double)(v.y * wr);
+      ac[2] += (double)(v.z * wr);
+      ac[3] += (double)(v.w * wr);
     }
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < tr; r += NT / 32) {
-      const float wr = ws[r];
-      float q = 0.f;
-      for (int j = 4 * lane; j < ldx; j += 128) {
-        const float4 v = *reinterpret_cast<const float4*>(xs + r * ldx + j);
-        q += v.x * wr * v.x + v.y * wr * v.y + v.z * wr * v.z +
-             v.w * wr * v.w;
-      }
-      q = k2_warp_sum(q);
-      if (lane == 0) qs[r] = q;
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < tr; r += NT / 32) {     // the slice's f64 |x|^2
+    double q = 0.0;
+    for (int j = 4 * lane; j < ldx; j += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + r * ldx + j);
+      q = fma((double)v.x, (double)v.x, q);
+      q = fma((double)v.y, (double)v.y, q);
+      q = fma((double)v.z, (double)v.z, q);
+      q = fma((double)v.w, (double)v.w, q);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    if (slices == 1) {
+      const float* xr = x + (row0 + r) * d;
+      const float v =
+          k2_round_sum_uniform(q, k2_gamma(d) * q, xr, 1, xr, 1, d);
+      if (lane == 0) qs[r] = (double)(ws[r] * v);
+    } else if (lane == 0) {
+      qs[r] = q;
     }
   }
   __syncthreads();
   const size_t rtile0 = (size_t)rt * slices;     // tile id of slice 0
-  if (slices > 1) {                              // row partials of w |x|^2
+  if (slices > 1) {                              // a row's slice partials
     if (!last) {
       for (int r = tid; r < tr; r += NT) qp[(size_t)t * tr + r] = qs[r];
     } else {
       for (int o = 0; o < slices - 1; ++o) wait_published(flags, rtile0 + o);
-      for (int r = tid; r < tr; r += NT) {
-        float q = qs[r];
+      for (int r = warp; r < tr; r += NT / 32) {
+        double q = qs[r];
         for (int o = 0; o < slices - 1; ++o)
           q += __ldcg(qp + (rtile0 + o) * tr + r);
-        qs[r] = q;
+        const float* xr = x + (row0 + r) * d;
+        const float v =
+            k2_round_sum_uniform(q, k2_gamma(d) * q, xr, 1, xr, 1, d);
+        __syncwarp();
+        if (lane == 0) qs[r] = (double)(ws[r] * v);
       }
       __syncthreads();
     }
   }
-  double aq = 0.0, an = 0.0;                     // the owner's warp sums
-  if (last && tid >= NT - 32) {                  // |x|^2 and counts
-    for (int r = tid - (NT - 32); r < tr; r += 32) {
+  double aq = 0.0, an = 0.0;                     // in row order, as step 5
+  if (owner)
+    for (int r = 0; r < tr; ++r) {
       aq += qs[r];
-      an += ws[r];
+      an += (double)ws[r];
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      aq += __shfl_xor_sync(0xffffffffu, aq, o);
-      an += __shfl_xor_sync(0xffffffffu, an, o);
-    }
-  }
 
   // 3. publish the aggregate (a segment's first tile: its inclusive prefix)
-  const double a4[4] = {ac[0], ac[1], ac[2], ac[3]};
-  if (starts)
-    put_record(incl + (size_t)t * ls, c4, cw, owner, a4, aq, an);
-  else
-    put_record(agg + (size_t)t * ls, c4, cw, owner, a4, aq, an);
+  put_record(starts ? incl + (size_t)t * ls : agg + (size_t)t * ls, c4, cw,
+             owner, ac, aq, an);
   publish(flags, t, starts ? PREFIX : AGGREGATE);
 
-  // 4. look back to the nearest inclusive prefix of this chain, 32
-  //    predecessors at a time: warp 0 reads their flags at once and waits
-  //    until every one up to the nearest prefix is set; then every thread
-  //    adds those records (the aggregates, and that prefix)
+  // 4. look back to the nearest inclusive prefix among the 32 predecessors
+  //    of this chain: warp 0 reads their flags at once and waits until one
+  //    of them is a prefix and every one after it is set; then every
+  //    thread folds forward from that prefix over the aggregates after
+  //    it. Waiting for a near prefix, rather than walking further back,
+  //    keeps each fold to at most 31 records, so a tile publishes its own
+  //    prefix soon and the tiles after it find one near them.
   double pc[4] = {0.0, 0.0, 0.0, 0.0}, pq = 0.0, pn = 0.0;
   if (!starts) {
-    for (int j = rt - 1;; j -= 32) {   // j: the window's nearest row tile
-      if (tid < 32) {
-        unsigned f = PREFIX;           // before row tile 0: never reached,
-        unsigned pre;                  // since row tile 0 starts a segment
-        while (true) {
-          if (j - tid >= 0)
-            f = ld_acquire(flags + (size_t)(j - tid) * slices + s);
-          pre = __ballot_sync(0xffffffffu, f == PREFIX);
-          const unsigned empty = __ballot_sync(0xffffffffu, f == 0);
-          const unsigned upto = pre ? (pre & (0u - pre)) * 2u - 1u : ~0u;
-          if (!(empty & upto)) break;
-          __nanosleep(32);
-        }
-        if (tid == 0) s_word = pre ? (unsigned)(__ffs(pre) - 1) | 0x100u : 31u;
+    if (tid < 32) {
+      const int j = rt - 1 - tid;      // lane l: the (l + 1)-th predecessor
+      unsigned f = PREFIX;             // before row tile 0: never reached,
+      unsigned pre;                    // since row tile 0 starts a segment
+      while (true) {
+        if (j >= 0) f = ld_acquire(flags + (size_t)j * slices + s);
+        pre = __ballot_sync(0xffffffffu, f == PREFIX);
+        const unsigned empty = __ballot_sync(0xffffffffu, f == 0);
+        const unsigned upto = (pre & (0u - pre)) * 2u - 1u;
+        if (pre && !(empty & upto)) break;
+        __nanosleep(32);
       }
-      __syncthreads();
-      const unsigned sw = s_word;
-      __syncthreads();                 // s_word is read before it is reused
-      const int nrec = (int)(sw & 0xffu) + 1;
-      const bool hit = sw & 0x100u;
-      const int nagg = nrec - (hit ? 1 : 0);
-#pragma unroll 8
-      for (int l = 0; l < nagg; ++l)
-        add_record(agg + ((size_t)(j - l) * slices + s) * ls, c4, mine,
-                   owner, cw, pc, pq, pn);
-      if (hit) {
-        add_record(incl + ((size_t)(j - nagg) * slices + s) * ls, c4, mine,
-                   owner, cw, pc, pq, pn);
-        break;
-      }
+      if (tid == 0) s_word = (unsigned)(__ffs(pre) - 1);
     }
+    __syncthreads();
+    const int hj = rt - 1 - (int)s_word;   // the row tile of the prefix met
+    load_prefix(incl + ((size_t)hj * slices + s) * ls, c4, mine, owner, cw,
+                pc, pq, pn);
+    fold_records(agg + (size_t)s * ls, (size_t)slices * ls, hj + 1, rt, c4,
+                 mine, owner, cw, pc, pq, pn);
     const double p4[4] = {pc[0] + ac[0], pc[1] + ac[1], pc[2] + ac[2],
                           pc[3] + ac[3]};
     put_record(incl + (size_t)t * ls, c4, cw, owner, p4, pq + aq, pn + an);
     publish(flags, t, PREFIX);
   }
 
-  // 5. prefix plus the tile's own running sums
+  // 5. prefix plus the tile's own running sums, rounded once
   if (mine) {
-    const float p0 = (float)pc[0], p1 = (float)pc[1], p2 = (float)pc[2],
-                p3 = (float)pc[3];
-    float r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f;
+    double r0 = 0.0, r1 = 0.0, r2 = 0.0, r3 = 0.0;
     for (int r = 0; r < tr; ++r) {
       const float4 v = *reinterpret_cast<const float4*>(xs + r * ldx + c4);
       const float wr = ws[r];
-      r0 += v.x * wr;
-      r1 += v.y * wr;
-      r2 += v.z * wr;
-      r3 += v.w * wr;
+      r0 += (double)(v.x * wr);
+      r1 += (double)(v.y * wr);
+      r2 += (double)(v.z * wr);
+      r3 += (double)(v.w * wr);
+      const float o[4] = {(float)(pc[0] + r0), (float)(pc[1] + r1),
+                          (float)(pc[2] + r2), (float)(pc[3] + r3)};
       float* out = csum + (row0 + r) * d + cs0 + c4;
       if (VEC == 4) {
-        *reinterpret_cast<float4*>(out) =
-            make_float4(p0 + r0, p1 + r1, p2 + r2, p3 + r3);
+        *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
       } else {
-        const float o[4] = {p0 + r0, p1 + r1, p2 + r2, p3 + r3};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           if (c4 + i < cw) out[i] = o[i];
       }
     }
   }
-  if (owner)
+  if (owner) {
+    double rq = 0.0, rn = 0.0;
     for (int r = 0; r < tr; ++r) {
-      pq += qs[r];
-      pn += ws[r];
-      qsum[row0 + r] = (float)pq;
-      cnt[row0 + r] = (float)pn;
+      rq += qs[r];
+      rn += (double)ws[r];
+      qsum[row0 + r] = (float)(pq + rq);
+      cnt[row0 + r] = (float)(pn + rn);
     }
+  }
 }
 
 template <int VEC>
@@ -352,16 +390,16 @@ int launch(const Plan& p, const float* x, const float* w, const int* b2s,
            unsigned char* scratch, float* csum, float* qsum, float* cnt,
            int bn, int d, cudaStream_t stream) {
   const int ldx = ((d < CS ? d : CS) + 3) & ~3;
-  const size_t smem = sizeof(float) * ((size_t)p.tr * (ldx + 2));
+  const size_t smem = sizeof(float) * ((size_t)p.tr * (ldx + 3));
   cudaError_t err = k2_set_smem(segmented_scan_kernel<VEC>, smem);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(scratch, 0, p.flag_bytes, stream);
   if (err != cudaSuccess) return (int)err;
-  float* agg = reinterpret_cast<float*>(scratch + p.flag_bytes);
+  double* agg = reinterpret_cast<double*>(scratch + p.flag_bytes);
   double* incl = reinterpret_cast<double*>(scratch + p.flag_bytes +
                                            p.agg_bytes);
-  float* qp = reinterpret_cast<float*>(scratch + p.flag_bytes + p.agg_bytes +
-                                       p.incl_bytes);
+  double* qp = reinterpret_cast<double*>(scratch + p.flag_bytes +
+                                         p.agg_bytes + p.incl_bytes);
   segmented_scan_kernel<VEC><<<p.ntiles, NT, smem, stream>>>(
       x, w, b2s, reinterpret_cast<unsigned*>(scratch), agg, incl, qp, csum,
       qsum, cnt, bn, d, p.tr, p.slices, p.ls);

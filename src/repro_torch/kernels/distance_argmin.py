@@ -16,7 +16,8 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import distance_argmin_ref, exact_sqnorm
+from .exact_round import exact_sqnorm
+from .ref import distance_argmin_ref
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 

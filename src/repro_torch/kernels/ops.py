@@ -27,7 +27,10 @@ from .candidate_assign import (candidate_assign_int8_tiled,
                                candidate_assign_tiled, candidate_tables,
                                pad_candidates)
 from .distance_argmin import distance_argmin
-from .ref import PAD_SQDIST, slab_sqdist
+from .exact_round import slab_sqdist
+from .ref import PAD_SQDIST
+from .segment_sum import (segment_sum, segment_sum_f64,  # noqa: F401
+                          segment_sum_ordered)
 
 # the reference sizes point blocks against a ~12 MiB f32 working set; the
 # port keeps its formula so both packages build bit-equal layouts
@@ -86,46 +89,6 @@ def bincount(idx: torch.Tensor, size: int) -> torch.Tensor:
     with the host on CUDA.)"""
     out = torch.zeros((size,), dtype=torch.int64, device=idx.device)
     return out.index_add_(0, idx, torch.ones_like(idx))
-
-
-def segment_sum(v: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
-    """``jax.ops.segment_sum(v, seg, num_segments=k)`` for seg in [0, k).
-    On the card its atomics add in no fixed order: use
-    :func:`segment_sum_ordered` or :func:`segment_sum_f64` where the
-    result must not depend on it."""
-    out = torch.zeros((k,) + v.shape[1:], dtype=v.dtype, device=v.device)
-    return out.index_add_(0, seg.long(), v)
-
-
-def segment_sum_ordered(v: torch.Tensor, seg: torch.Tensor,
-                        k: int) -> torch.Tensor:
-    """:func:`segment_sum` with each segment's rows added in row order on
-    every device, so the card gives the CPU's bits, and the CPU's bits
-    are XLA's. On the card it is ``index_put_(accumulate=True)``, which
-    sorts the ids with a stable radix sort and adds each segment's rows
-    in that order, one warp per segment: fast for many small segments,
-    slow for a few large ones. Its kernel for one-value rows reduces
-    across the warp, out of order, so such rows go in beside a column of
-    zeros."""
-    seg = seg.long()
-    if v.device.type == "cpu":
-        return segment_sum(v, seg, k)
-    rows = v.reshape(v.shape[0], -1)
-    width = rows.shape[1]
-    if width == 1:
-        rows = torch.cat([rows, torch.zeros_like(rows)], dim=1)
-    out = torch.zeros((k, rows.shape[1]), dtype=v.dtype, device=v.device)
-    out.index_put_((seg,), rows, accumulate=True)
-    return out[:, :width].reshape((k,) + v.shape[1:])
-
-
-def segment_sum_f64(v: torch.Tensor, seg: torch.Tensor,
-                    k: int) -> torch.Tensor:
-    """:func:`segment_sum` summed in f64 and rounded once to ``v``'s type:
-    the same on every device, whatever order the additions take."""
-    out = torch.zeros((k,) + v.shape[1:], dtype=torch.float64,
-                      device=v.device)
-    return out.index_add_(0, seg.long(), v.double()).to(v.dtype)
 
 
 def scatter_drop(target: torch.Tensor, idx: torch.Tensor,
@@ -338,7 +301,7 @@ def quantized_scan_rerank(xf, xq, xsc, c, cq, cidx, rowsel, skip, prev_a,
     centers and cq their ``quant.CenterQuant``; cidx (T, kn_pad);
     rowsel/skip/prev_* as in the f32 kernel. Survivors are re-ranked with
     the oracle's formula against their block's own f32 slab
-    (``ref.slab_sqdist``: kn_pad columns per row, not k); rows whose
+    (``exact_round.slab_sqdist``: kn_pad columns per row, not k); rows whose
     survivor count exceeds ``r`` take the exact top-2 over the whole slab
     row instead, selected on the device (no host read). Returns (a,
     d1_sq, d2_sq, n_surv, fallback): d2_sq is the exact second-best among

@@ -27,8 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from .ref import (PAD_SQDIST, exact_cross, exact_sqnorm, int8_approx_sqdist,
-                  survivor_columns)
+from .exact_round import exact_cross, exact_sqnorm
+from .ref import PAD_SQDIST, int8_approx_sqdist, survivor_columns
 
 QMAX = 127.0
 _EPS = 1e-12        # zero-row guard: a zero scale would 0/0 the dequant
@@ -152,9 +152,10 @@ def approx_scan(xq: torch.Tensor, xsc: torch.Tensor, xerr: torch.Tensor,
 def sqdist_exact(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """All-pairs squared distances (m, d) x (k, d) -> (m, k) with the
     oracle's formula ``max((|x|^2 - 2 x.c) + |c|^2, 0)``, its norms and
-    products rounded once from f64 (``ref.exact_sqnorm``,
-    ``ref.exact_cross``), as K1 computes them: a (row, center) pair gets
-    one value wherever, and on whichever device, it is evaluated."""
+    products correctly rounded (``exact_round.exact_sqnorm``,
+    ``exact_round.exact_cross``), as K1 computes them: a (row, center)
+    pair gets one value wherever, and on whichever device, it is
+    evaluated."""
     return torch.clamp(exact_sqnorm(x)[:, None] - 2.0 * exact_cross(x, c.T)
                        + exact_sqnorm(c)[None, :], min=0.0)
 

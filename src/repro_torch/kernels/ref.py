@@ -4,7 +4,11 @@ the kernel wrappers on CPU tensors and held against the kernels on the
 card."""
 from __future__ import annotations
 
+import math
+
 import torch
+
+from .segment_sum import segment_sum_ordered
 
 # Padded candidate columns carry this squared "distance" so they never win
 # an argmin; finite (not inf) so no inf-inf NaNs can appear downstream.
@@ -17,29 +21,171 @@ def center_sqdist_ref(c: torch.Tensor) -> torch.Tensor:
     return torch.clamp(sq[:, None] - 2.0 * (c @ c.T) + sq[None, :], min=0.0)
 
 
+# The screen's relative error of an f64 sum of exact products, in any
+# order: gamma_d = d u / (1 - d u), u = 2^-53 (Higham, Accuracy and
+# Stability of Numerical Algorithms, 2nd ed., §3.1), times a safety factor
+# 1 + 2^-20 for the rounding of the bound's own arithmetic and for bounds
+# built from f64 norms (themselves f64 sums, relative error <= 2^-22 for
+# d < 2^31); the CUDA kernels' k2_gamma (csrc/common.cuh) is the same.
+def screen_gamma(d: int) -> float:
+    u = d * 2.0 ** -53
+    return u / (1.0 - u) * (1.0 + 2.0 ** -20)
+
+
+def rn_f32_of_int(v: int, exp: int) -> float:
+    """The f32 nearest ``v * 2**exp`` (v a Python int), ties to even, with
+    f32's subnormal quantum 2^-149 and overflow to infinity; a zero is
+    +0.0. Returned as a Python float that is exactly that f32."""
+    if v == 0:
+        return 0.0
+    mag = abs(v)
+    top = mag.bit_length() - 1 + exp              # exponent of the lead bit
+    lsb = max(top - 23, -149)                     # exponent of the quantum
+    shift = lsb - exp
+    if shift > 0:
+        q, r = mag >> shift, mag & ((1 << shift) - 1)
+        half = 1 << (shift - 1)
+        if r > half or (r == half and q & 1):
+            q += 1
+    else:
+        q = mag << -shift
+    if q == 0:
+        return 0.0
+    if q.bit_length() - 1 + lsb >= 128:          # 2^128 or more: overflow
+        return math.copysign(math.inf, v)
+    return math.copysign(math.ldexp(q, lsb), v)
+
+
+def exact_dots_f32(a: torch.Tensor, b: torch.Tensor, *,
+                   rows: int = 4096) -> torch.Tensor:
+    """(m, d) x (m, d) f32 -> (m,) f32: row i is RN_f32 of the exact sum of
+    ``a[i, j] * b[i, j]``. Every f32 is an integer below 2^24 times
+    2^(e - 150), so each product is an integer below 2^48 at bit
+    ``e_a + e_b - 2`` of ``value * 2^298``; the products are added exactly
+    into 19 limbs of 32 bits in int64 on the tensors' device (at most three
+    limbs a product), and each row's limbs become one Python integer,
+    rounded once (:func:`rn_f32_of_int`). Works in chunks of ``rows``."""
+    out = []
+    for lo in range(0, a.shape[0], rows):
+        ua = a[lo:lo + rows].contiguous().view(torch.int32).long() \
+            & 0xffffffff
+        ub = b[lo:lo + rows].contiguous().view(torch.int32).long() \
+            & 0xffffffff
+        ea, eb = (ua >> 23) & 0xff, (ub >> 23) & 0xff
+        m = (((ua & 0x7fffff) | ((ea > 0).long() << 23))
+             * ((ub & 0x7fffff) | ((eb > 0).long() << 23)))
+        p = torch.clamp(ea, min=1) + torch.clamp(eb, min=1) - 2
+        off = p & 31
+        low, high = (m & 0xffffffff) << off, (m >> 32) << off
+        sign = 1 - 2 * (((ua ^ ub) >> 31) & 1)
+        vals = torch.stack([low & 0xffffffff,
+                            (low >> 32) + (high & 0xffffffff), high >> 32],
+                           dim=-1) * sign[..., None]
+        limb = (p >> 5)[..., None] + torch.arange(3, device=a.device)
+        acc = torch.zeros((ua.shape[0], 19), dtype=torch.int64,
+                          device=a.device).scatter_add_(
+            1, limb.reshape(ua.shape[0], -1), vals.reshape(ua.shape[0], -1))
+        for row in acc.cpu().numpy():
+            out.append(rn_f32_of_int(sum(int(v) << (32 * i)
+                                         for i, v in enumerate(row)), -298))
+    return torch.tensor(out, dtype=torch.float32, device=a.device)
+
+
+def _round_screened(s: torch.Tensor, err: torch.Tensor, pairs):
+    """f64 sums ``s`` with ``|s - exact| <= err`` -> f32 RN(exact), a zero
+    as +0: where ``s - err`` and ``s + err`` round to one f32 that is the
+    answer (f64 -> f32 rounding is monotone); elsewhere the element is
+    recomputed exactly, ``pairs(idx)`` giving the (m, d) rows whose
+    products it sums. ``2^-52 |s|`` more of slack makes up for rounding
+    ``s -/+ err`` to nearest instead of outward. Reads the flagged
+    elements to the host (a plain version's privilege)."""
+    err = err + torch.abs(s) * 2.0 ** -52
+    lo, hi = (s - err).float(), (s + err).float()
+    out = hi + 0.0
+    idx = ((lo != hi) & torch.isfinite(s)).nonzero()
+    if idx.shape[0]:
+        out[tuple(idx.T)] = exact_dots_f32(*pairs(idx))
+    return out
+
+
 def exact_sqnorm(x: torch.Tensor) -> torch.Tensor:
-    """Row sums of squares accumulated in f64 and rounded once to f32:
-    the correctly rounded value (up to a rare double rounding), whatever
-    the order, so every evaluation of a row's norm agrees. Exact for
-    int8 rows (every partial sum is an integer below 2^53)."""
+    """Row sums of squares, each RN_f32 of the exact sum of the exact
+    products, ties to even, a zero as +0: a value of no order, so every
+    evaluation of a row's norm agrees with every kernel's. The f64 sum is
+    screened against its error bound ``gamma_d * s``; rows it cannot
+    decide are recomputed exactly (:func:`exact_dots_f32`). Integer rows
+    (int8) sum exactly in f64 already."""
     xd = x.double()
-    return torch.sum(xd * xd, dim=-1).float()
+    s = torch.sum(xd * xd, dim=-1)
+    if not x.is_floating_point():
+        return s.float()
+    d = x.shape[-1]
+
+    def pairs(idx):
+        rows = x[tuple(idx.T)].float()
+        return rows, rows
+    return _round_screened(s, s * screen_gamma(d), pairs)
 
 
-def exact_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (batched or not) accumulated in f64 and rounded once to
-    f32: each f32 x f32 product is exact in f64, so the result does not
-    depend on the order of the sum (see :func:`exact_sqnorm`)."""
-    return (a.double() @ b.double()).float()
+def exact_cross(a: torch.Tensor, b: torch.Tensor, *, na=None,
+                nb=None) -> torch.Tensor:
+    """``a @ b`` (batched or not), each element RN_f32 of the exact sum of
+    the exact f32 products, ties to even, a zero as +0: the same value
+    whatever the order of the sum (see :func:`exact_sqnorm`). The f64
+    product is screened against ``gamma_d * sqrt(|a_i|^2 |b_j|^2)``
+    (Cauchy-Schwarz bounds the sum of |products|); elements it cannot
+    decide are recomputed exactly. Integer inputs (int8) multiply exactly
+    in f64 already. ``na`` (..., m) / ``nb`` (..., k): the f64 norms of
+    a's rows / b's columns when the caller has them."""
+    ad, bd = a.double(), b.double()
+    s = ad @ bd
+    if not (a.is_floating_point() and b.is_floating_point()):
+        return s.float()
+    d = a.shape[-1]
+    na = (torch.linalg.vector_norm(ad, dim=-1) if na is None
+          else na)[..., :, None]
+    nb = (torch.linalg.vector_norm(bd, dim=-2) if nb is None
+          else nb)[..., None, :]
+    batch = s.shape[:-2]
+    ab = a.expand(batch + a.shape[-2:])
+    bb = b.expand(batch + b.shape[-2:]).transpose(-1, -2)
+
+    def pairs(idx):
+        t = tuple(idx[:, :-2].T)
+        return ab[t + (idx[:, -2],)], bb[t + (idx[:, -1],)]
+    return _round_screened(s, na * nb * screen_gamma(d), pairs)
+
+
+def exact_rowdot(x: torch.Tensor, y: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """(n, d), (m, d), (n,) -> (n,): ``x[i] . y[idx[i]]``, each RN_f32 of
+    the exact sum of the exact f32 products (see :func:`exact_cross`),
+    screened against ``gamma_d |x_i| |y_idx[i]|``."""
+    yg = y[idx.long()]
+    xd, yd = x.double(), yg.double()
+    s = torch.sum(xd * yd, dim=-1)
+    bnd = torch.sqrt(torch.sum(xd * xd, dim=-1) * torch.sum(yd * yd, dim=-1))
+
+    def pairs(i):
+        return x[i[:, 0]].float(), yg[i[:, 0]].float()
+    return _round_screened(s, bnd * screen_gamma(x.shape[-1]), pairs)
+
+
+def _rounders(sqnorm, cross):
+    return sqnorm or exact_sqnorm, cross or exact_cross
 
 
 def exact_sqdist(x: torch.Tensor, c: torch.Tensor, *,
-                 chunk_elems: int = 1 << 24) -> torch.Tensor:
+                 chunk_elems: int = 1 << 24, sqnorm=None,
+                 cross=None) -> torch.Tensor:
     """(n, d) x (k, d) -> (n, k) f32 squared distances ``max((|x|^2 -
-    2 x.c) + |c|^2, 0)`` from the exactly rounded norms and products,
+    2 x.c) + |c|^2, 0)`` from the correctly rounded norms and products,
     the value every kernel of the port gives a (point, center) pair. Runs
     in row chunks that keep the f64 product under ``chunk_elems``
-    values."""
+    values. ``sqnorm``/``cross`` (default :func:`exact_sqnorm`,
+    :func:`exact_cross`) compute the rounded values: the torch paths pass
+    ``exact_round``'s, which stay on the device."""
+    exact_sqnorm, exact_cross = _rounders(sqnorm, cross)
     csq = exact_sqnorm(c)
     ct = c.T
     rows = max(1, chunk_elems // max(c.shape[0], 1))
@@ -91,14 +237,16 @@ def candidate_assign_ref(x, c, cand, skip, prev_a, prev_d, bn: int, *,
 
 
 def slab_sqdist(x, ctab, csqtab, rowsel, bn: int, *,
-                chunk_elems: int = 1 << 24):
+                chunk_elems: int = 1 << 24, sqnorm=None, cross=None):
     """Squared distances of every grouped row to each column of its
     block's slab ``ctab[rowsel[b]]``, (n, kn_pad): ``max((|x|^2 - 2 x.c)
     + |c|^2, 0)`` in f32 from the exactly rounded ``|x|^2`` and ``x.c``,
     the values K1 selects from (so K1, this function and
     ``quant.rerank_exact`` give one pair one value). Padding columns
     carry ``csqtab`` = PAD_SQDIST. Runs in chunks of blocks so that the
-    gathered f64 slabs stay under ``chunk_elems`` values."""
+    gathered f64 slabs stay under ``chunk_elems`` values; ``sqnorm`` and
+    ``cross`` as in :func:`exact_sqdist`."""
+    exact_sqnorm, exact_cross = _rounders(sqnorm, cross)
     n, d = x.shape
     nb = n // bn
     knp = ctab.shape[1]
@@ -138,32 +286,47 @@ def candidate_assign_tiled_ref(x, ctab, csqtab, cidx, rowsel, skip, prev_a,
             torch.where(skip_pt, prev_d2, d2))
 
 
+# K3's tile (csrc/segmented_scan.cu, ``plan``): TR rows, the largest power
+# of two that divides bn, is at most 128 and keeps TR f32 rows of
+# min(d, 1024) columns (rounded up to 4, plus 2) within 100 KB.
+def scan_tile_rows(bn: int, d: int) -> int:
+    row = 4 * (((min(d, 1024) + 3) & ~3) + 2)
+    tr = 1
+    while tr * 2 <= 128 and bn % (tr * 2) == 0 and row * tr * 2 <= 100 * 1024:
+        tr *= 2
+    return tr
+
+
 def segmented_scan_ref(x, w, block2seg, bn: int):
     """Segmented inclusive scans of (w x, w |x|^2, w) over block-aligned
-    segments (``block2seg`` non-decreasing): a global inclusive cumsum
-    minus the cumsum just before each segment's first row, the
-    formulation of the reference's device-resident sweep
-    (``gdi._segmented_sweep``, impl="xla"). The cumsums run in float64 so
-    that the subtraction keeps f32 accuracy relative to the segment's own
-    sums, not to the global prefix; results are cast back to x's type."""
-    r = x.shape[0]
-    nb = r // bn
-    xw = x * w[:, None]
-    gx = torch.cumsum(xw.double(), dim=0)
-    gq = torch.cumsum(torch.sum(xw * x, dim=-1).double(), dim=0)
-    gc = torch.cumsum(w.double(), dim=0)
-    blk = torch.arange(nb, device=x.device)
-    new = torch.ones(nb, dtype=torch.bool, device=x.device)
-    new[1:] = block2seg[1:] != block2seg[:-1]
-    start = torch.cummax(torch.where(new, blk, 0), dim=0).values
-    prev_row = torch.clamp(start * bn - 1, min=0)
-    has = start > 0
-    row_blk = torch.repeat_interleave(blk, bn)
-    off_x = torch.where(has[:, None], gx[prev_row], 0.0)[row_blk]
-    off_q = torch.where(has, gq[prev_row], 0.0)[row_blk]
-    off_c = torch.where(has, gc[prev_row], 0.0)[row_blk]
-    return ((gx - off_x).to(x.dtype), (gq - off_q).to(x.dtype),
-            (gc - off_c).to(x.dtype))
+    segments (``block2seg`` non-decreasing), in K3's own arithmetic, so
+    that the kernel gives this function's bits. Every lane is summed in
+    f64 in one fixed order: a running sum down each tile of
+    :func:`scan_tile_rows` rows; the tiles' totals folded left from the
+    segment's first tile; a row's value is its tile's exclusive prefix
+    plus its running sum, rounded once to f32. The |x|^2 lane sums w times
+    the correctly rounded |x|^2 (:func:`exact_sqnorm`), so it too has no
+    order of its own. torch's cumsum adds in sequence on the CPU; on the
+    card it adds in another order, within rounding of these values."""
+    r, d = x.shape
+    tr = scan_tile_rows(bn, d)
+    nt = r // tr
+    lanes = torch.cat([x * w[:, None], (w * exact_sqnorm(x))[:, None],
+                       w[:, None]], dim=1).double()
+    run = torch.cumsum(lanes.reshape(nt, tr, d + 2), dim=1)
+    agg = run[:, -1]
+    row0 = torch.arange(nt, device=x.device) * tr
+    blk = row0 // bn
+    starts = (row0 % bn == 0) & ((blk == 0) | (
+        block2seg[blk] != block2seg[torch.clamp(blk - 1, min=0)]))
+    incl = torch.empty_like(agg)
+    edges = starts.nonzero().flatten().tolist() + [nt]
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        incl[lo:hi] = torch.cumsum(agg[lo:hi], dim=0)
+    excl = torch.zeros_like(agg)
+    excl[1:] = torch.where(starts[1:, None], 0.0, incl[:-1])
+    out = (excl[:, None, :] + run).reshape(r, d + 2).to(x.dtype)
+    return out[:, :d], out[:, d], out[:, d + 1]
 
 
 def int8_approx_sqdist(xhsq, xsc, tsc, cross, tsq):
@@ -281,3 +444,26 @@ def clustered_attend_ref(q, k_cache, v_cache, centroids, members,
     w = torch.softmax(logits, dim=-1)
     w = torch.where(sel_mask, w, 0.0)
     return torch.einsum("hm,hmd->hd", w, vv)
+
+
+def segment_sum_blocks_ref(x, b2s, k: int, bn: int, *, w=None, perm=None):
+    """Per-segment sums over a block-grouped layout of ``b2s.shape[0] *
+    bn`` slots: block b belongs to segment ``b2s[b]`` (-1: none), slot s
+    reads row ``perm[s]`` of ``x`` (-1: empty; slot s itself without
+    ``perm``) with weight ``w[s]`` (1 without ``w``). Returns (sums (k, d)
+    of RN(x * w), sums (k,) of w), each a scatter-add in slot order
+    (``segment_sum.segment_sum_ordered``): the chain ``csrc/segment_sum.cu``
+    takes, and, where the layout lists a segment's rows in row order, the
+    CPU's row-order ``segment_sum``."""
+    dev = x.device
+    nslot = b2s.shape[0] * bn
+    seg = torch.repeat_interleave(b2s.long(), bn)
+    row = perm.long() if perm is not None else torch.arange(nslot,
+                                                            device=dev)
+    seg = torch.where((seg >= 0) & (row >= 0), seg, k)
+    rs = torch.clamp(row, min=0)
+    wt = w if w is not None else torch.ones(nslot, dtype=x.dtype,
+                                            device=dev)
+    vals = x[rs] * wt[:, None] if w is not None else x[rs]
+    return (segment_sum_ordered(vals, seg, k + 1)[:k],
+            segment_sum_ordered(wt, seg, k + 1)[:k])

@@ -8,10 +8,11 @@ cluster-major functions keep the cache sorted by cluster and fold the
 recent-token ring into it as tokens decode.
 
 Where the port differs from the reference, and why:
-- the segment means are a segment sum (``index_add_``) in f64, rounded
-  once to f32, where the reference multiplies by a (..., S, kc) one-hot
-  (8.6 GB at Qwen3-8B's KV width and a 65,536-token prompt): the sums no
-  longer depend on the order the card adds them in;
+- the segment means are a segment sum in f64 that adds each segment's
+  rows in row order (``ops.segment_sum_f64``), rounded once to f32, where
+  the reference multiplies by a (..., S, kc) one-hot (8.6 GB at
+  Qwen3-8B's KV width and a 65,536-token prompt): the card gives the
+  CPU's sums, in every run;
 - the (..., S, kc) distances and the (..., S, k_n, d) candidate centers
   are formed in chunks of tokens (:data:`CHUNK_ELEMS` values), so one
   layer's clustering holds about a gigabyte of temporaries; every value

@@ -6,10 +6,16 @@ These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 skip. They import no JAX, so they run on a machine that has only the
 port's dependencies: ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Tolerances are those of the CPU parity
-tests (tests/test_torch_kernels.py). K1, K5 and K7 round their f64 sums
-once to f32 and K4 rounds after every operation, each like its plain
-version, so their assignments and distances and K4's survivors, counts
-and lower bounds are held bit-equal. K6 carries an online softmax over
+tests (tests/test_torch_kernels.py). K1, K5 and K7 correctly round their
+f64 sums to f32 (a value no order of summation changes) and K4 rounds
+after every operation, each like its plain version, so their assignments
+and distances and K4's survivors, counts and lower bounds are held
+bit-equal, also on rows built to sit at f32 rounding midpoints
+(``data.rounding_fixture``). The rounding kernels of the torch paths and
+the ordered segment sums are held bit-equal to their plain versions, K3
+to its plain version on the CPU (where torch's cumsum adds in K3's
+order) and to itself across launches, the whole fit to itself across
+runs, and GDI plus k²-means to the CPU's. K6 carries an online softmax over
 tiles of 64 rows where its plain version takes one softmax over all
 slots, and sums its dot products in another order: its m, and its l
 rescaled to the plain version's max, are held to rtol 1e-5; its acc,
@@ -21,9 +27,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (KMeansModel, OpCounter, fit_elkan,
-                              fit_k2means, fit_lloyd)
-from repro_torch.kernels import _build, quant, ref
+from repro_torch.core import (K2Step, KMeansModel, OpCounter,
+                              center_knn_graph, fit, fit_elkan, fit_k2means,
+                              fit_lloyd)
+from repro_torch.core.gdi import gdi_device_init
+from repro_torch.data import rounding_fixture
+from repro_torch.kernels import _build, exact_round, quant, ref
 from repro_torch.kernels.candidate_assign import (candidate_assign_int8_tiled,
                                                   candidate_assign_rowwise,
                                                   candidate_assign_tiled,
@@ -34,6 +43,7 @@ from repro_torch.kernels.cluster_attend import cluster_attend_partial
 from repro_torch.kernels.distance_argmin import distance_argmin
 from repro_torch.kernels.ops import (group_by_cluster_device,
                                      segment_sum_ordered)
+from repro_torch.kernels.segment_sum import segment_sum_blocks
 from repro_torch.kernels.segmented_scan import segmented_scan
 from repro_torch.models.attention import cluster_major_decode_attention
 
@@ -70,22 +80,17 @@ def _torch_assign(x, c, cand, rowsel, skip, prev_a, prev_d1, prev_d2, bn,
                                   t(prev_d2), bn=bn, bkn=bkn)
 
 
-def _segments_abs(v, b2s, bn):
-    """Per-row sum of |v| over the row's segment (atol scale)."""
-    row_seg = np.repeat(b2s, bn)
-    out = np.zeros_like(v)
-    for s in np.unique(row_seg):
-        rows = row_seg == s
-        out[rows] = np.abs(v[rows]).sum(0)
-    return out
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,d,kn,bn,bkn", [(256, 64, 48, 8, 64, 8),
                                              (320, 100, 784, 30, 32, 8),
                                              (512, 128, 16, 16, 128, 8),
                                              (256, 100, 784, 30, 8, 8),
-                                             (512, 400, 100, 200, 128, 8)])
+                                             (512, 400, 100, 200, 128, 8),
+                                             (2048, 500, 784, 30, 32, 8),
+                                             (192, 64, 785, 12, 8, 4),
+                                             (96, 40, 13, 40, 24, 8),
+                                             (1024, 300, 256, 64, 16, 8),
+                                             (384, 200, 3, 100, 64, 4)])
 def test_cuda_candidate_assign_tiled(cuda, n, k, d, kn, bn, bkn):
     inp = _assign_inputs(n, k, d, kn, bn, bkn, seed=n + k)
     before = _build.launches()["candidate_assign_tiled"]
@@ -122,14 +127,9 @@ def test_cuda_segmented_scan(cuda, n, d, k, bn):
     xg = torch.tensor(x)[perm.clamp(min=0).long()]
     w = (perm >= 0).float()
     got = segmented_scan(xg.to(cuda), w.to(cuda), b2s.to(cuda), bn=bn)
-    want = ref.segmented_scan_ref(xg.double(), w.double(), b2s, bn)
-    b2n, xw = b2s.numpy(), (xg * w[:, None]).numpy()
-    for g, wv, v in ((got[0], want[0], xw),
-                     (got[1], want[1], np.sum(xw * xg.numpy(), 1))):
-        err = np.abs(g.cpu().double().numpy() - wv.numpy())
-        bound = 1e-5 * np.abs(wv.numpy()) + 1e-5 * _segments_abs(v, b2n, bn)
-        assert (err <= bound).all()
-    assert (got[2].cpu().double() == want[2]).all()
+    want = ref.segmented_scan_ref(xg, w, b2s, bn)   # K3's order on the CPU
+    for g, wv in zip(got, want):
+        assert torch.equal(g.cpu(), wv)
 
 
 def _int8_inputs(n, k, d, kn, bn, bkn, seed):
@@ -412,3 +412,175 @@ def test_cuda_cluster_major_decode_attention_matches_cpu(cuda):
         assert _build.launches()["cluster_attend"] == (dev == cuda)
     torch.testing.assert_close(out[cuda].cpu(), out["cpu"], rtol=1e-5,
                                atol=1e-5)
+
+
+def _rounding_cases(device):
+    """Inputs on which f64 sums in different orders round apart: the
+    rounding fixture, and rows over wide exponent ranges."""
+    x, c, _ = rounding_fixture(300, 40, 96, seed=5, device=device)
+    rng = np.random.RandomState(6)
+    wide = lambda *s: (rng.randn(*s) * 2.0 ** rng.randint(  # noqa: E731
+        -30, 30, s)).astype(np.float32)
+    return [(x, c), (torch.tensor(wide(200, 64), device=device),
+                     torch.tensor(wide(50, 64), device=device))]
+
+
+@pytest.mark.cuda
+def test_cuda_exact_round_matches_plain(cuda):
+    """The torch paths' rounding kernels give the plain versions' values
+    bit for bit, 2-d and batched, with no host read."""
+    for x, c in _rounding_cases(cuda):
+        before = _build.launches()
+        assert torch.equal(exact_round.exact_sqnorm(x), ref.exact_sqnorm(x))
+        assert torch.equal(exact_round.exact_cross(x, c.T),
+                           ref.exact_cross(x, c.T))
+        xb = x[:40].reshape(4, 10, -1)
+        cb = c[torch.arange(32, device=cuda) % c.shape[0]].reshape(4, 8, -1)
+        assert torch.equal(exact_round.exact_cross(xb, cb.transpose(1, 2)),
+                           ref.exact_cross(xb, cb.transpose(1, 2)))
+        after = _build.launches()
+        assert after["exact_sqnorm"] == before["exact_sqnorm"] + 1
+        assert after["exact_cross"] == before["exact_cross"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 96, 784])
+def test_cuda_kernels_on_the_rounding_fixture(cuda, d):
+    """K1, K5 and K7 are bit-equal to their plain versions on rows whose
+    own-center products sit just above f32 rounding midpoints, and give
+    each row's own pair its correctly rounded distance."""
+    k = 64
+    x, c, a = rounding_fixture(k * 40, k, d, seed=d, device=cuda)
+    got = distance_argmin(x, c)
+    want = ref.distance_argmin_ref(x, c)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    st = K2Step(k=k, kn=8, bkn=8).init_resident(
+        x, torch.ones(x.shape[0], device=cuda), c, a)
+    nb = st.b2c.shape[0]
+    bn = st.pid.shape[0] // nb
+    graph = center_knn_graph(c, 8)
+    cidx = pad_candidates(graph, 8).contiguous()
+    ctab, csqtab = candidate_tables(c, cidx)
+    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
+    rows = st.pid.shape[0]
+    zi = torch.zeros(rows, dtype=torch.int32, device=cuda)
+    zf = torch.zeros(rows, device=cuda)
+    noskip = torch.zeros(nb, dtype=torch.int32, device=cuda)
+    args = (st.xg, ctab, csqtab, cidx, rowsel, noskip, zi, zf, zf)
+    for g, w in zip(candidate_assign_tiled(*args, bn=bn, bkn=8),
+                    ref.candidate_assign_tiled_ref(*args, bn)):
+        assert torch.equal(g, w)
+    args7 = (st.xg, c, graph[rowsel.long()].contiguous(), noskip, zi, zf)
+    for g, w in zip(candidate_assign_rowwise(*args7, bn=bn),
+                    ref.candidate_assign_ref(*args7, bn)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,bn,weighted", [
+    (5000, 784, 1, 32, False), (20000, 64, 300, 8, True),
+    (3000, 3, 2000, 16, True), (4000, 129, 37, 128, False),
+    (1875, 784, 2000, 1, True)])      # the engine's moved rows: bn = 1
+def test_cuda_segment_sum_blocks_matches_cpu(cuda, n, d, k, bn, weighted):
+    """The ordered block sums on the card are the CPU's row-order
+    scatter-add bit for bit (values over six decades, so another order
+    rounds differently), with and without weights and a row map."""
+    rng = np.random.RandomState(n + d)
+    v = rng.randn(n, d) * 10.0 ** rng.randint(-3, 4, (n, 1))
+    x = torch.tensor(v.astype(np.float32))
+    a = torch.tensor(rng.randint(0, k, n).astype(np.int32))
+    perm, b2s = group_by_cluster_device(a, k, bn)
+    w = (torch.tensor(rng.rand(perm.shape[0]).astype(np.float32))
+         * (perm >= 0)) if weighted else None
+    want = segment_sum_blocks(x, b2s, k, bn, w=w, perm=perm)
+    on = lambda t: None if t is None else t.to(cuda)  # noqa: E731
+    got = segment_sum_blocks(x.to(cuda), b2s.to(cuda), k, bn, w=on(w),
+                             perm=perm.to(cuda))
+    for g, wv in zip(got, want):
+        assert torch.equal(g.cpu(), wv)
+    if not weighted:
+        assert torch.equal(want[0], ref.segment_sum_blocks_ref(
+            x, b2s, k, bn, perm=perm)[0])
+        assert torch.equal(want[0], torch.zeros(k, d).index_add_(
+            0, a.long(), x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,bn", [(64000, 64, 1, 32),
+                                      (64000, 784, 700, 32),
+                                      (30000, 1030, 3, 24)])
+def test_cuda_segmented_scan_is_reproducible(cuda, n, d, k, bn):
+    """K3's look-back folds forward from the prefix it meets, so two
+    launches on one input are bit-equal however far each walk went."""
+    rng = np.random.RandomState(d)
+    x = torch.tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    a = torch.tensor(rng.randint(0, k, n).astype(np.int32), device=cuda)
+    perm, b2s = group_by_cluster_device(a, k, bn)
+    xg = x[perm.clamp(min=0).long()].contiguous()
+    w = (perm >= 0).float()
+    first = segmented_scan(xg, w, b2s, bn=bn)
+    for _ in range(4):
+        for g, f in zip(segmented_scan(xg, w, b2s, bn=bn), first):
+            assert torch.equal(g, f)
+
+
+def _tied_blobs(n, d, k, seed, spread=12.0):
+    """Integer-valued blobs with every fifth row repeated: exact ties
+    between rows and between their distances."""
+    rng = np.random.RandomState(seed)
+    mus = np.round(rng.randn(k, d) * spread)
+    x = np.round(mus[rng.randint(0, k, n)] + rng.randn(n, d) * 1.5)
+    x[::5] = x[1::5][:len(x[::5])]
+    return x.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_gdi_fit_is_reproducible(cuda):
+    """Two k²-means fits from GDI on the card, from one generator seed,
+    are bit-identical: assignments, centers, energy, iterations."""
+    x = torch.tensor(_tied_blobs(20000, 64, 40, 1), device=cuda)
+    runs = [fit(x, 200, method="k2means", init="gdi", kn=16, max_iters=30,
+                device=cuda, generator=torch.Generator(device=cuda)
+                .manual_seed(3)) for _ in range(2)]
+    assert torch.equal(runs[0].assignment, runs[1].assignment)
+    assert torch.equal(runs[0].centers, runs[1].centers)
+    assert runs[0].energy == runs[1].energy
+    assert runs[0].iterations == runs[1].iterations
+
+
+@pytest.mark.cuda
+def test_cuda_gdi_fit_matches_cpu(cuda):
+    """GDI (the same uniform draws on both devices) then k²-means, on the
+    card and on the CPU, at a small shape with tied rows and k = 4x the
+    number of blobs, so that GDI splits blobs where rows score within
+    rounding of each other: identical GDI and k²-means assignments and
+    iterations, energy within rel 1e-5. GDI's projections and split
+    scores are correctly rounded and K3 sums in one fixed order, so the
+    two devices split alike."""
+    x = _tied_blobs(3000, 16, 12, 2)
+    rng = np.random.RandomState(9)
+    draws = [(rng.rand(3000).astype(np.float32),
+              rng.rand(3000).astype(np.float32)) for _ in range(200)]
+    out = {}
+    for dev in ("cpu", cuda):
+        c0, a0 = gdi_device_init(x, 48, draws=draws, device=dev)
+        out[dev] = (a0.cpu(), fit_k2means(x, c0, a0, kn=8, max_iters=30,
+                                          device=dev))
+    assert torch.equal(out["cpu"][0], out[cuda][0])
+    r_cpu, r_gpu = out["cpu"][1], out[cuda][1]
+    assert r_cpu.iterations == r_gpu.iterations
+    assert torch.equal(r_cpu.assignment, r_gpu.assignment.cpu())
+    assert r_gpu.energy == pytest.approx(r_cpu.energy, rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(5000, 40, 784), (777, 3, 17),
+                                   (3000, 12, 1030)])
+def test_cuda_exact_rowdot_matches_plain(cuda, n, m, d):
+    """GDI's projections through the kernel: bit-equal to the plain
+    version, also on rows built to sit at f32 rounding midpoints."""
+    x, c, a = rounding_fixture(n, m, d, seed=d, device="cpu")
+    want = ref.exact_rowdot(x, c, a)
+    got = exact_round.exact_rowdot(x.to(cuda), c.to(cuda), a.to(cuda))
+    assert torch.equal(got.cpu(), want)

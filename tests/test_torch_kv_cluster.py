@@ -242,9 +242,11 @@ def test_build_kv_clusters_chunked_equals_whole(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(500, 16), (500,)])
 def test_segment_sum_f64_is_order_free(shape):
-    """The centroid update's f64 segment sum, rounded once, is the same
-    bit for bit whatever order the rows come in (the card's scatter adds
-    in no fixed order) and equals the f64 sum rounded to f32."""
+    """The centroid update's f64 segment sum adds each segment's rows in
+    row order on every device and rounds once: it equals numpy's
+    row-order f64 sum rounded to f32, and on these values (six decades)
+    its f64 rounding lies so far below f32's that permuted rows give the
+    same bits too."""
     from repro_torch.kernels.ops import segment_sum_f64
     rng = np.random.RandomState(4)
     v = (rng.randn(*shape) * 10.0 ** rng.randint(-3, 4, shape[:1] + (1,) *
