@@ -19,8 +19,9 @@ Phases (any failure exits non-zero, without the final result line):
    energy history is finite and non-increasing (rel 1e-6) and ends below
    the GDI init's energy; fit once more from the same generator seed and
    check that the two fits are bit-identical (assignments, centers,
-   energy, iterations); check a small fit from GDI against the plain
-   PyTorch path;
+   energy, iterations); check that GDI's split norms ran once per sweep
+   and the centers' norms once per iteration; check a small fit from GDI
+   against the plain PyTorch path;
 2b. serve from that fit: ``KMeansModel.from_result(result, x)`` (K2
    builds the graph), then ``predict`` 65536 held-out rows of the same
    mixture at batch_size=8192 in f32 (resolution through K1) and in int8
@@ -71,8 +72,10 @@ Phases (any failure exits non-zero, without the final result line):
    batch, K5 on x and the Lloyd++ centers, K7 over the arena, K6 on
    layer 0's cluster-major tables at a decode step; K1, K5 and K7 also on
    ``data.rounding_fixture`` rows, whose own-center products sit at f32
-   rounding midpoints; the rounding kernels on the final centers and a
-   predict batch, the ordered segment sums over the final arena) and
+   rounding midpoints; the rounding kernels on the final centers, GDI's
+   split norms on the GDI layout, a predict batch's products with the
+   centers and with the router's centroids; the ordered segment sums over
+   the final arena) and
    time both with CUDA events, beside one library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
@@ -110,7 +113,8 @@ FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
 
 FIT_KERNELS = ("center_sqdist", "candidate_assign_tiled", "segmented_scan",
-               "segment_sum_blocks", "exact_sqnorm", "exact_rowdot")
+               "segment_sum_blocks", "exact_sqnorm", "exact_split_sqnorms",
+               "exact_rowdot")
 
 FAILURES: list[str] = []
 
@@ -226,6 +230,14 @@ def main() -> int:
     for name in FIT_KERNELS:
         check(launches[name] > 0,
               f"{name} launched in the fit ({launches[name]})")
+    # one GDI sweep is one K3 scan and one pass of its split norms; the
+    # centers' norms once per k²-means iteration (the candidate tables)
+    check(launches["exact_split_sqnorms"] == launches["segmented_scan"]
+          and launches["exact_sqnorm"] == res.iterations,
+          f"exact_split_sqnorms once per GDI sweep "
+          f"({launches['exact_split_sqnorms']} for "
+          f"{launches['segmented_scan']} K3 sweeps), exact_sqnorm once per "
+          f"iteration ({launches['exact_sqnorm']} for {res.iterations})")
     check(res.centers.shape == (K, D) and res.assignment.shape == (N,),
           "result shapes")
     check(bool(torch.isfinite(res.centers).all()), "centers finite")
@@ -501,6 +513,9 @@ def main() -> int:
     w1 = (perm1 >= 0).to(torch.float32)
     _k3_agrees(torch, check, segmented_scan, ref, x1, w1, b2s1, bn3,
                "one segment")
+    kernels.append(_split_entry(torch, check, exact_round, ref,
+                                segmented_scan, xg, w, b2s, bn3,
+                                launches["exact_split_sqnorms"]))
     print(f"  K3 on one segment ({x1.shape[0]} rows, {b2s1.shape[0]} "
           f"blocks): "
           f"{time_ms(lambda: segmented_scan(x1, w1, b2s1, bn=bn3), torch):.4f}"
@@ -594,17 +609,29 @@ def main() -> int:
              replaces="src/repro/kernels/candidate_assign.py:79",
              launches=launches["exact_sqnorm"]),
         bound(K * D * 4.0 + K * 4.0, 2.0 * K * D)))
-    ct = c.T
-    kernels.append(_against_plain(
-        torch, check, f"exact_cross of a predict batch ({BATCH} x {D}) with "
-                      f"the final centers",
-        functools.partial(exact_round.exact_cross, qb, ct),
-        functools.partial(ref.exact_cross, qb, ct),
-        dict(name="exact_cross",
-             source="src/repro_torch/kernels/csrc/exact_round.cu",
-             replaces="src/repro/core/model.py:151",
-             launches=served["f32"]["launches"]["exact_cross"]),
-        bound((BATCH * D + K * D + BATCH * K) * 4.0, 2.0 * BATCH * K * D)))
+    # exact_cross at both of predict's shapes: a batch against every
+    # center (the re-rank's distances) and against the router's group
+    # centroids, each given the squared norms that quant.sqdist_exact
+    # passes for its screen
+    for label, cc, what in (("", c, "the final centers"),
+                            ("[router]", model.router.gc, "the router's "
+                             "group centroids")):
+        kk = cc.shape[0]
+        ct = cc.T
+        qsq = exact_round.exact_sqnorm(qb)
+        csq = exact_round.exact_sqnorm(cc)
+        kernels.append(_against_plain(
+            torch, check, f"exact_cross{label} of a predict batch ({BATCH} x "
+                          f"{D}) with {what} ({kk})",
+            functools.partial(exact_round.exact_cross, qb, ct, asq=qsq,
+                              bsq=csq),
+            functools.partial(ref.exact_cross, qb, ct),
+            dict(name=f"exact_cross{label}",
+                 source="src/repro_torch/kernels/csrc/exact_round.cu",
+                 replaces="src/repro/core/model.py:151",
+                 launches=served["f32"]["launches"]["exact_cross"]),
+            bound((BATCH * D + kk * D + BATCH * kk) * 4.0,
+                  2.0 * BATCH * kk * D)))
     proj_dirs = (c - c.roll(1, 0)).contiguous()    # a direction per leaf
     kernels.append(_against_plain(
         torch, check, f"exact_rowdot of the rows ({N} x {D}) with their "
@@ -749,6 +776,35 @@ def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
                 library_ms=None if library is None else time_ms(library,
                                                                 torch))
+
+
+def _split_entry(torch, check, exact_round, ref, segmented_scan, xg, w,
+                 b2s, bn, launches) -> dict:
+    """GDI's split-score norms on the fit's GDI layout: K3's prefix sums
+    of the grouped rows, the leaf totals at each leaf's last row (as
+    ``gdi._segmented_sweep`` takes them), against the plain two-call
+    composition; its bound is one read of the prefixes and the row ids,
+    the distinct leaf totals once, and the two outputs."""
+    csum = segmented_scan(xg, w, b2s, bn=bn)[0]
+    r, d = csum.shape
+    row_seg = torch.repeat_interleave(b2s.long(), bn)
+    k = int(b2s.max()) + 1
+    last = torch.full((k,), -1, dtype=torch.int64,
+                      device=csum.device).scatter_reduce_(
+        0, row_seg, torch.arange(r, device=csum.device), "amax")
+    tot = torch.where((last >= 0)[:, None], csum[last.clamp(min=0)], 0.0)
+    live = int((last >= 0).sum())
+    return _against_plain(
+        torch, check, f"exact_split_sqnorms on the GDI layout ({r} rows, "
+                      f"{k} leaves, d={d})",
+        functools.partial(exact_round.exact_split_sqnorms, csum, tot,
+                          row_seg),
+        functools.partial(ref.exact_split_sqnorms, csum, tot, row_seg),
+        dict(name="exact_split_sqnorms",
+             source="src/repro_torch/kernels/csrc/exact_round.cu",
+             replaces="src/repro/core/gdi.py:244", launches=launches),
+        bound(r * d * 4.0 + r * 8.0 + live * d * 4.0 + 2 * r * 4.0,
+              5.0 * r * d))
 
 
 def _k3_agrees(torch, check, segmented_scan, ref, xg, w, b2s, bn,

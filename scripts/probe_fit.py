@@ -2,7 +2,8 @@
 """Time the fit's two stages on one CUDA card at chip_smoke.py's shapes
 (n=60000, d=784, k=1000, k_n=30), for one checkout of the repository:
 
-- GDI (``initialize(..., "gdi")``) three times, then once under
+- GDI (``initialize(..., "gdi")``) three times, then once for its peak
+  device memory above what it starts from, then once under
   ``torch.profiler``: its device busy time and its kernels by device time;
 - k²-means (``fit_k2means``) three times from one shared init: 1000
   random rows as centers, each row assigned to its nearest by K5, so two
@@ -67,6 +68,11 @@ def main() -> int:
         gdi()
         torch.cuda.synchronize()
         gdi_s.append(time.perf_counter() - t0)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gdi()
+    torch.cuda.synchronize()
+    gdi_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         gdi()
@@ -93,9 +99,11 @@ def main() -> int:
                          / r.iterations * 1e3,
                          iterations=r.iterations, energy=r.energy))
     out = dict(label=args.label, gdi_s=gdi_s, gdi_device_busy_ms=busy_ms,
-               gdi_top_kernels=top, k2means_from_a_shared_init=fits)
+               gdi_peak_mib=gdi_peak_mib, gdi_top_kernels=top,
+               k2means_from_a_shared_init=fits)
     print(f"{args.label}: GDI {[round(s, 4) for s in gdi_s]} s (device busy "
-          f"{busy_ms:.1f} ms); k2-means ms/iteration "
+          f"{busy_ms:.1f} ms, peak +{gdi_peak_mib:.1f} MiB); k2-means "
+          f"ms/iteration "
           f"{[round(f['ms_per_iteration'], 3) for f in fits]}")
     for name, count, ms in top:
         print(f"  {ms:9.3f} ms x{count:<5d} {name}")

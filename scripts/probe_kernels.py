@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Probe what bounds K1 (candidate_assign_tiled), K3 (segmented_scan)
-and K5 (distance_argmin) on one CUDA card, at chip_smoke.py's shapes
-(n=60000, d=784, k=1000; bn=32; K1 also at the predict layout, bn=8),
-and what the correct rounding's tiers cost.
+"""Probe what bounds K1 (candidate_assign_tiled), K3 (segmented_scan),
+K5 (distance_argmin) and the rounding kernels (exact_round: exact_cross
+at a predict batch's 8192 x 1000 and 8192 x 63) on one CUDA card, at
+chip_smoke.py's shapes (n=60000, d=784, k=1000; bn=32; K1 also at the
+predict layout, bn=8), and what the correct rounding's tiers cost.
 
 Run from the root of the repository on a machine with one CUDA card:
 
-    python3 scripts/probe_kernels.py
+    python3 scripts/probe_kernels.py [--only KERNEL]
+
+``--only`` keeps the variants of one timed kernel (``distance_argmin``,
+``segmented_scan``, ``candidate_assign_tiled``, ``exact_round`` or
+``all``).
 
 Each kernel is timed beside variants of its sources built by text
 substitution, and K5 beside cuBLAS's f64 GEMM of the same product (with
@@ -101,10 +106,27 @@ VARIANTS = {
      "no epilogue (copies and MMAs only)"): {
         "    if (kc != nkc - 1) continue;":
         "    if (kc != nkc - 1 || acc[0][0][0] != -1.2345) continue;"},
+    ("exact_round", "exact_round.cu", "cross: MMAs fed constants"): {
+        _LOADS: "\n".join(f"        af[i][{e}] = {e + 1}.0;"
+                          for e in range(4)),
+        _BFRAG: "        const double bf[2] = {1.0, 2.0};"},
+    ("exact_round", "exact_round.cu",
+     "cross: no epilogue (copies and MMAs only)"): {
+        "    if (kc != nkc - 1) continue;":
+        "    if (kc != nkc - 1 || acc[0][0][0] != -1.2345) continue;"},
+    ("exact_round", "exact_round.cu",
+     "cross: no exact recompute of flagged sums"): {
+        "  recompute_marked(flags,": "  if (0) recompute_marked(flags,"},
+    ("exact_round", "exact_round.cu",
+     "exact: cross kernel one block an SM, no register cap"): {
+        "__launch_bounds__(CrossTile<BN>::NT, 2)":
+        "__launch_bounds__(CrossTile<BN>::NT, 1)"},
+    ("exact_round", "exact_round.cu",
+     "exact: cross at k <= 64 in 128-column tiles too"): {
+        "  if (k <= 64)\n": "  if (false)\n"},
     ("all", "common.cuh", "exact: no double-double tier"): {
-        "    if (!k2_refine_dot_warp(pa, qa, pb, qb, d, v))": "    if (true)",
-        "  if (k2_screen(s, e, v) || k2_refine_dot_warp(a, sa, b, sb, d, v)) "
-        "return v;": "  if (k2_screen(s, e, v)) return v;"},
+        "  if (!k2_refine_dot_warp(pair, d, v)) v = k2_exact_dot_warp(pair, "
+        "d);": "  v = k2_exact_dot_warp(pair, d);"},
 }
 
 
@@ -117,6 +139,10 @@ def _use_sources(build, csrc: pathlib.Path, build_dir: pathlib.Path) -> None:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None)
+    only = ap.parse_args().only
     import torch
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device available", file=sys.stderr)
@@ -193,7 +219,10 @@ def main() -> int:
         return {"exact_sqnorm (x)": time_ms(
                     lambda: exact_round.exact_sqnorm(x), torch, reps=20),
                 "exact_cross (8192 x 1000)": time_ms(
-                    lambda: exact_round.exact_cross(q, c.T), torch, reps=20)}
+                    lambda: exact_round.exact_cross(q, c.T), torch, reps=20),
+                "exact_cross (8192 x 63)": time_ms(
+                    lambda: exact_round.exact_cross(q, c[:63].T), torch,
+                    reps=20)}
 
     def answers():
         return ([distance_argmin(x, c)]
@@ -206,6 +235,7 @@ def main() -> int:
     timers = {"distance_argmin": lambda: {"K5": k5()},
               "segmented_scan": lambda: {"K3": k3()},
               "candidate_assign_tiled": lambda: {"K1": k1()},
+              "exact_round": lambda: {"rounding": rounding()},
               "all": lambda: {"K5": k5(), "K3": k3(), "K1": k1(),
                               "rounding": rounding()}}
     xd, cd = x.double(), c.double()
@@ -226,6 +256,8 @@ def main() -> int:
     orig = _build.CSRC, _build.BUILD_DIR
     try:
         for (name, fname, label), subs in VARIANTS.items():
+            if only is not None and name != only:
+                continue
             vdir = ROOT / "build" / "probe" / f"{name}-{len(out)}"
             shutil.rmtree(vdir, ignore_errors=True)
             shutil.copytree(orig[0], vdir)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..device import as_tensor, resolve
-from ..kernels.exact_round import exact_rowdot, exact_sqnorm
+from ..kernels.exact_round import exact_rowdot, exact_split_sqnorms
 from ..kernels.ops import (choose_group_bn, group_by_cluster_device,
                            grouped_capacity, scatter_drop)
 from ..kernels.segmented_scan import segmented_scan
@@ -60,8 +60,9 @@ def _segmented_sweep(x, a, row_seg, valid, perm, b2s, dirs, split_flag, *,
     at each segment's last row (the reference takes them with a
     ``segment_sum`` before the sweep): one fixed order on every device,
     and no second pass over x. The projections and the split scores'
-    squared norms are correctly rounded and K3's sums have one fixed
-    order, so the card splits where the CPU does."""
+    squared norms are correctly rounded (the suffix norms from the totals
+    and the prefixes in one pass, with no (R, d) suffix formed) and K3's
+    sums have one fixed order, so the card splits where the CPU does."""
     r = row_seg.shape[0]
     dev = x.device
     proj_pt = exact_rowdot(x, dirs, a)
@@ -83,10 +84,9 @@ def _segmented_sweep(x, a, row_seg, valid, perm, b2s, dirs, split_flag, *,
     tot_q = torch.where(has, qsum[at], 0.0)
     tot_c = torch.where(has, cnt[at], 0.0)
     rem = tot_c[row_seg] - cnt
-    phi_p = qsum - exact_sqnorm(csum) / torch.clamp(cnt, min=1.0)
-    sfx = tot_s[row_seg] - csum
-    phi_s = (tot_q[row_seg] - qsum) \
-        - exact_sqnorm(sfx) / torch.clamp(rem, min=1.0)
+    sq_p, sq_s = exact_split_sqnorms(csum, tot_s, row_seg)
+    phi_p = qsum - sq_p / torch.clamp(cnt, min=1.0)
+    phi_s = (tot_q[row_seg] - qsum) - sq_s / torch.clamp(rem, min=1.0)
     ok = (ws > 0) & (cnt >= 1.0) & (rem >= 1.0) & split_flag[row_seg]
     score = torch.where(ok, phi_p + phi_s, _INF)
     smin = _segment_reduce(score, row_seg, k, "amin", _INF)

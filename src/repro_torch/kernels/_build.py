@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"center_sqdist": 0, "candidate_assign_tiled": 0,
             "segmented_scan": 0, "candidate_assign_int8_tiled": 0,
             "distance_argmin": 0, "candidate_assign_rowwise": 0,
-            "cluster_attend": 0, "exact_sqnorm": 0, "exact_cross": 0,
-            "exact_rowdot": 0,
+            "cluster_attend": 0, "exact_sqnorm": 0,
+            "exact_split_sqnorms": 0, "exact_cross": 0, "exact_rowdot": 0,
             "segment_sum_blocks": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}

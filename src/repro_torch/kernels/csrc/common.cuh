@@ -16,6 +16,44 @@ static inline cudaError_t k2_set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// cp.async of one 16- or 4-byte piece into shared memory; with valid
+// false it reads nothing and fills the piece with zeros. Then commit a
+// group, and wait until at most N groups are in flight. (K1 and K5 keep
+// their own copies of these and of k2_dmma.)
+__device__ __forceinline__ void k2_cp_async(float* dst, const float* src,
+                                            bool valid, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void k2_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void k2_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D += A (16x8, row) * B (8x8, col) on the f64 tensor cores, f64 in, f64
+// sums. Fragments (g = lane / 4, t = lane % 4): a = A[g][t], A[g+8][t],
+// A[g][t+4], A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t],
+// D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void k2_dmma(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
 __device__ __forceinline__ float k2_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -65,25 +103,41 @@ __device__ __forceinline__ bool k2_screen(double s, double e, float& out) {
   return lo == hi || !(fabs(s) <= 1.79e308);
 }
 
-// RN_f32 of sum_i a[i sa] * b[i sb] over i < d, exactly, computed by one
-// whole warp (every lane calls it, converged, with the same arguments, and
-// every lane gets the value). Each product is an integer m < 2^48 times
+// The exact tiers below read the two factors of product i through an
+// element loader: pair(i) returns (a_i, b_i) as a float2. K2Strided reads
+// two strided f32 rows, as most kernels store them; a kernel whose factors
+// are formed on the fly (the split suffix tot - csum of GDI's scores,
+// exact_round.cu) passes its own loader, so that the rare recompute reads
+// the same values the fast path summed.
+struct K2Strided {
+  const float* a;
+  long long sa;
+  const float* b;
+  long long sb;
+  __device__ __forceinline__ float2 operator()(int i) const {
+    return make_float2(a[i * sa], b[i * sb]);
+  }
+};
+
+// RN_f32 of sum_i a_i * b_i over i < d, (a_i, b_i) = pair(i), exactly,
+// computed by one whole warp (every lane calls it, converged, with the
+// same arguments, and every lane gets the value). Each product is an integer m < 2^48 times
 // 2^(E - 298) with 0 <= E <= 506; lane l adds products l, l + 32, ... into
 // a fixed-point accumulator of 19 signed 64-bit limbs of 32 bits each
 // (bits 0..607 of value * 2^298), the lanes' limbs are summed by
 // butterflies (room for 2^29 products in all), and the sum is rounded once
 // to nearest, ties to even, with f32's subnormal quantum 2^-149 and
 // overflow to infinity. Off the fast path: only sums the screen flags.
-__device__ __noinline__ float k2_exact_dot_warp(const float* a, long long sa,
-                                                const float* b, long long sb,
-                                                int d) {
+template <class Pair>
+__device__ __noinline__ float k2_exact_dot_warp(Pair pair, int d) {
   constexpr int L = 19;
   long long acc[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) acc[i] = 0;
   for (int i = threadIdx.x % 32; i < d; i += 32) {
-    const unsigned ua = __float_as_uint(a[i * sa]);
-    const unsigned ub = __float_as_uint(b[i * sb]);
+    const float2 f = pair(i);
+    const unsigned ua = __float_as_uint(f.x);
+    const unsigned ub = __float_as_uint(f.y);
     const unsigned ea = (ua >> 23) & 0xffu, eb = (ub >> 23) & 0xffu;
     unsigned long long ma = ua & 0x7fffffu, mb = ub & 0x7fffffu;
     if (ea) ma |= 0x800000u;
@@ -163,12 +217,13 @@ __device__ __noinline__ float k2_exact_dot_warp(const float* a, long long sa,
 // rounding in sum |p| and in e. True, with the value in out, when it
 // decides; false leaves the sum to k2_exact_dot_warp. It decides all but
 // sums within about 2^-52 of an f32 rounding midpoint, relatively.
-__device__ __noinline__ bool k2_refine_dot_warp(const float* a, long long sa,
-                                                const float* b, long long sb,
-                                                int d, float& out) {
+template <class Pair>
+__device__ __noinline__ bool k2_refine_dot_warp(Pair pair, int d,
+                                                float& out) {
   double hi = 0.0, lo = 0.0, ab = 0.0;
   for (int i = threadIdx.x % 32; i < d; i += 32) {
-    const double p = __dmul_rn((double)a[i * sa], (double)b[i * sb]);
+    const float2 f = pair(i);
+    const double p = __dmul_rn((double)f.x, (double)f.y);
     const double s = __dadd_rn(hi, p);
     const double bb = __dsub_rn(s, hi);
     lo = __dadd_rn(lo, __dadd_rn(__dsub_rn(hi, __dsub_rn(s, bb)),
@@ -196,6 +251,15 @@ __device__ __noinline__ bool k2_refine_dot_warp(const float* a, long long sa,
   return k2_screen(t, e, out);
 }
 
+// The two tiers in turn for one sum the whole warp holds: the
+// double-double screen, then the fixed-point sum where it cannot decide.
+template <class Pair>
+__device__ __forceinline__ float k2_exact_dot_tiers(Pair pair, int d) {
+  float v;
+  if (!k2_refine_dot_warp(pair, d, v)) v = k2_exact_dot_warp(pair, d);
+  return v;
+}
+
 // Every lane of a warp calls this, converged; the lanes with need set get
 // the exact rounded dot product of their own pair (a, b), one pair after
 // another: the double-double screen first, the fixed-point sum where that
@@ -216,9 +280,7 @@ __device__ __noinline__ float k2_exact_dot_lanes(bool need, const float* a,
         __shfl_sync(0xffffffffu, reinterpret_cast<unsigned long long>(b), src));
     const long long qa = __shfl_sync(0xffffffffu, sa, src);
     const long long qb = __shfl_sync(0xffffffffu, sb, src);
-    float v;
-    if (!k2_refine_dot_warp(pa, qa, pb, qb, d, v))
-      v = k2_exact_dot_warp(pa, qa, pb, qb, d);
+    const float v = k2_exact_dot_tiers(K2Strided{pa, qa, pb, qb}, d);
     if ((int)(threadIdx.x % 32) == src) mine = v;
   }
   return mine;
@@ -249,8 +311,8 @@ __device__ __forceinline__ float k2_round_sum_uniform(double s, double e,
                                                      const float* b,
                                                      long long sb, int d) {
   float v;
-  if (k2_screen(s, e, v) || k2_refine_dot_warp(a, sa, b, sb, d, v)) return v;
-  return k2_exact_dot_warp(a, sa, b, sb, d);
+  if (k2_screen(s, e, v)) return v;
+  return k2_exact_dot_tiers(K2Strided{a, sa, b, sb}, d);
 }
 
 // |x|^2 of a row from its f64 sum of squares in any order (every lane of

@@ -5,8 +5,8 @@ value K1, K5 and K7 give a (point, center) pair (``csrc/common.cuh``).
 CUDA tensors go through ``csrc/exact_round.cu``, which screens the f64
 sum against its error bound and recomputes the few undecided elements
 exactly on the device, with no read to the host; CPU tensors through the
-plain versions ``ref.exact_sqnorm`` and ``ref.exact_cross``. Not a port
-of a TPU kernel: the reference forms these sums in f32 in its glue.
+plain versions in ``ref`` of the same names. Not a port of a TPU kernel:
+the reference forms these sums in f32 in its glue.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ from .ref import exact_sqnorm as exact_sqnorm_ref
 _ARGS_SQ = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_void_p]
 _ARGS_ROWDOT = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_void_p]
+_ARGS_SPLIT = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                        ctypes.c_void_p]
 _ARGS_CROSS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
@@ -40,6 +42,30 @@ def exact_sqnorm(x: torch.Tensor) -> torch.Tensor:
                     _build.stream_ptr(x.device)), "exact_sqnorm")
     _build.count("exact_sqnorm")
     return out.reshape(x.shape[:-1])
+
+
+def exact_split_sqnorms(csum: torch.Tensor, tot: torch.Tensor,
+                        row_seg: torch.Tensor):
+    """GDI's split-score norms in one pass over K3's prefix sums: csum
+    (R, d) f32, tot (k, d) f32 leaf totals, row_seg (R,) leaf of each row
+    in [0, k) -> (|csum[r]|^2, |tot[row_seg[r]] - csum[r]|^2), each (R,)
+    and correctly rounded to f32, with no (R, d) suffix formed."""
+    if csum.device.type == "cpu":
+        return ref.exact_split_sqnorms(csum, tot, row_seg)
+    r, d = csum.shape
+    _build.require("exact_split_sqnorms", "csum", csum, torch.float32, (r, d))
+    _build.require("exact_split_sqnorms", "tot", tot, torch.float32,
+                   (tot.shape[0], d))
+    row_seg = row_seg.to(torch.int64).contiguous()
+    out_p = torch.empty(r, dtype=torch.float32, device=csum.device)
+    out_s = torch.empty(r, dtype=torch.float32, device=csum.device)
+    fn = _build.function("exact_round", "k2_exact_split_sqnorms",
+                         _ARGS_SPLIT)
+    p = _build.ptr
+    _build.check(fn(p(csum), p(tot), p(row_seg), p(out_p), p(out_s), r, d,
+                    _build.stream_ptr(csum.device)), "exact_split_sqnorms")
+    _build.count("exact_split_sqnorms")
+    return out_p, out_s
 
 
 def exact_rowdot(x: torch.Tensor, y: torch.Tensor,
@@ -62,17 +88,20 @@ def exact_rowdot(x: torch.Tensor, y: torch.Tensor,
     return out
 
 
-def exact_cross(a: torch.Tensor, b: torch.Tensor, *, na=None,
-                nb=None) -> torch.Tensor:
+def exact_cross(a: torch.Tensor, b: torch.Tensor, *, asq=None,
+                bsq=None) -> torch.Tensor:
     """``a @ b`` for a (..., m, d) and b (..., d, k) f32 (the same batch
-    shape, or 2-d), each element correctly rounded to f32 (a zero as +0).
-    The f64 product is a DGEMM (``torch.matmul``); the kernel rounds it.
-    Integer inputs multiply exactly in f64 and round once. ``na`` /
-    ``nb``: the f64 norms of a's rows / b's columns when the caller has
-    them (the screen's bound)."""
+    shape, or 2-d; any element strides), each element correctly rounded to
+    f32 (a zero as +0). On the card one kernel forms the f64 products on
+    the tensor cores and rounds them in its epilogue; no f64 copy of an
+    operand is made. Integer inputs multiply exactly in f64 and round
+    once. ``asq`` (..., m) / ``bsq`` (..., k): the correctly rounded f32
+    squared norms of a's rows / b's columns (``exact_sqnorm``'s values)
+    when the caller has them, for the screen's bound; else the kernel
+    takes bounds from a and b."""
     if a.device.type == "cpu" or not (a.is_floating_point()
                                       and b.is_floating_point()):
-        return exact_cross_ref(a, b, na=na, nb=nb)
+        return exact_cross_ref(a, b, asq=asq, bsq=bsq)
     if a.dim() != b.dim() or a.dim() not in (2, 3) \
             or a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
         raise ValueError(f"exact_cross: a {tuple(a.shape)} and b "
@@ -80,18 +109,18 @@ def exact_cross(a: torch.Tensor, b: torch.Tensor, *, na=None,
                          f"(t, m, d), (t, d, k)")
     a3 = (a if a.dim() == 3 else a[None]).to(torch.float32)
     b3 = (b if b.dim() == 3 else b[None]).to(torch.float32)
-    ad, bd = a3.double(), b3.double()
-    s = (ad @ bd).contiguous()
-    na = (torch.linalg.vector_norm(ad, dim=-1) if na is None
-          else na.reshape(a3.shape[:2])).contiguous()
-    nb = (torch.linalg.vector_norm(bd, dim=-2) if nb is None
-          else nb.reshape(b3.shape[0], b3.shape[2])).contiguous()
     t, m, d = a3.shape
     k = b3.shape[-1]
+    asq, bsq = (None if v is None else v.to(torch.float32).reshape(
+        t, rows).contiguous() for v, rows in ((asq, m), (bsq, k)))
+    scratch = None if asq is not None and bsq is not None else torch.empty(
+        t * (m + k), dtype=torch.float32, device=a.device)
     out = torch.empty((t, m, k), dtype=torch.float32, device=a.device)
     fn = _build.function("exact_round", "k2_exact_cross", _ARGS_CROSS)
     p = _build.ptr
-    _build.check(fn(p(s), p(a3), p(b3), p(na), p(nb), p(out), t, m, k, d,
+    _build.check(fn(p(a3), p(b3), None if asq is None else p(asq),
+                    None if bsq is None else p(bsq), p(out),
+                    None if scratch is None else p(scratch), t, m, k, d,
                     *a3.stride(), *b3.stride(), _build.stream_ptr(a.device)),
                  "exact_cross")
     _build.count("exact_cross")

@@ -155,9 +155,10 @@ def sqdist_exact(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     products correctly rounded (``exact_round.exact_sqnorm``,
     ``exact_round.exact_cross``), as K1 computes them: a (row, center)
     pair gets one value wherever, and on whichever device, it is
-    evaluated."""
-    return torch.clamp(exact_sqnorm(x)[:, None] - 2.0 * exact_cross(x, c.T)
-                       + exact_sqnorm(c)[None, :], min=0.0)
+    evaluated. The rounded norms also bound the products' screen."""
+    xsq, csq = exact_sqnorm(x), exact_sqnorm(c)
+    cross = exact_cross(x, c.T, asq=xsq, bsq=csq)
+    return torch.clamp(xsq[:, None] - 2.0 * cross + csq[None, :], min=0.0)
 
 
 def rerank_exact(xf: torch.Tensor, c: torch.Tensor,

@@ -127,25 +127,42 @@ def exact_sqnorm(x: torch.Tensor) -> torch.Tensor:
     return _round_screened(s, s * screen_gamma(d), pairs)
 
 
-def exact_cross(a: torch.Tensor, b: torch.Tensor, *, na=None,
-                nb=None) -> torch.Tensor:
+def exact_split_sqnorms(csum: torch.Tensor, tot: torch.Tensor,
+                        row_seg: torch.Tensor):
+    """GDI's split-score norms over K3's prefix sums: (|csum[r]|^2,
+    |tot[row_seg[r]] - csum[r]|^2) for each row r, both correctly rounded
+    (:func:`exact_sqnorm`), the suffix an f32 subtraction."""
+    return (exact_sqnorm(csum),
+            exact_sqnorm(tot[row_seg.long()] - csum))
+
+
+def sqnorm_bound(sq: torch.Tensor) -> torch.Tensor:
+    """An f64 bound >= |x| from the correctly rounded f32 ``|x|^2``: at
+    most 2^-24 below the exact value relatively while normal and 2^-150
+    in f32's subnormal range (``k2_sqnorm_up`` of ``csrc/common.cuh``)."""
+    return torch.sqrt(sq.double() * (1.0 + 2.0 ** -22) + 2.0 ** -149)
+
+
+def exact_cross(a: torch.Tensor, b: torch.Tensor, *, asq=None,
+                bsq=None) -> torch.Tensor:
     """``a @ b`` (batched or not), each element RN_f32 of the exact sum of
     the exact f32 products, ties to even, a zero as +0: the same value
     whatever the order of the sum (see :func:`exact_sqnorm`). The f64
-    product is screened against ``gamma_d * sqrt(|a_i|^2 |b_j|^2)``
-    (Cauchy-Schwarz bounds the sum of |products|); elements it cannot
-    decide are recomputed exactly. Integer inputs (int8) multiply exactly
-    in f64 already. ``na`` (..., m) / ``nb`` (..., k): the f64 norms of
-    a's rows / b's columns when the caller has them."""
+    product is screened against ``gamma_d |a_i| |b_j|`` (Cauchy-Schwarz
+    bounds the sum of |products|); elements it cannot decide are
+    recomputed exactly. Integer inputs (int8) multiply exactly in f64
+    already. ``asq`` (..., m) / ``bsq`` (..., k): the correctly rounded
+    squared norms of a's rows / b's columns when the caller has them
+    (bounded by :func:`sqnorm_bound`); else the f64 norms."""
     ad, bd = a.double(), b.double()
     s = ad @ bd
     if not (a.is_floating_point() and b.is_floating_point()):
         return s.float()
     d = a.shape[-1]
-    na = (torch.linalg.vector_norm(ad, dim=-1) if na is None
-          else na)[..., :, None]
-    nb = (torch.linalg.vector_norm(bd, dim=-2) if nb is None
-          else nb)[..., None, :]
+    na = (torch.linalg.vector_norm(ad, dim=-1) if asq is None
+          else sqnorm_bound(asq))[..., :, None]
+    nb = (torch.linalg.vector_norm(bd, dim=-2) if bsq is None
+          else sqnorm_bound(bsq))[..., None, :]
     batch = s.shape[:-2]
     ab = a.expand(batch + a.shape[-2:])
     bb = b.expand(batch + b.shape[-2:]).transpose(-1, -2)
@@ -189,9 +206,12 @@ def exact_sqdist(x: torch.Tensor, c: torch.Tensor, *,
     csq = exact_sqnorm(c)
     ct = c.T
     rows = max(1, chunk_elems // max(c.shape[0], 1))
-    return torch.cat([torch.clamp(exact_sqnorm(xb)[:, None]
-                                  - 2.0 * exact_cross(xb, ct) + csq, min=0.0)
-                      for xb in torch.split(x, rows)])
+    out = []
+    for xb in torch.split(x, rows):
+        xsq = exact_sqnorm(xb)
+        cross = exact_cross(xb, ct, asq=xsq, bsq=csq)
+        out.append(torch.clamp(xsq[:, None] - 2.0 * cross + csq, min=0.0))
+    return torch.cat(out)
 
 
 def distance_argmin_ref(x: torch.Tensor, c: torch.Tensor, *,

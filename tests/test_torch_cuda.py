@@ -425,22 +425,119 @@ def _rounding_cases(device):
                      torch.tensor(wide(50, 64), device=device))]
 
 
+def _cross_cases(device):
+    """(a, b) pairs for ``exact_cross``, each with products at f32 rounding
+    midpoints or over wide exponent ranges: the rounding cases; d = 784
+    with m and k off the kernel's tiles (k > 64 and k <= 64, the router's
+    width); an odd d; a's rows strided (4-byte copies); batched."""
+    cases = []
+    for x, c in _rounding_cases(device):
+        cases.append((x, c.T))
+        xb = x[:40].reshape(4, 10, -1)
+        cb = c[torch.arange(32, device=device) % c.shape[0]].reshape(4, 8, -1)
+        cases.append((xb, cb.transpose(1, 2)))
+    x, c, _ = rounding_fixture(333, 1000, 784, seed=8, device=device)
+    cases += [(x, c.T), (x, c[:63].T)]
+    x, c, _ = rounding_fixture(130, 129, 97, seed=9, device=device)
+    cases += [(x, c.T), (x.T.contiguous().T, c.T),
+              (x[:120].reshape(3, 40, 97), c[:90].reshape(3, 30, 97)
+               .transpose(1, 2))]
+    return cases
+
+
 @pytest.mark.cuda
 def test_cuda_exact_round_matches_plain(cuda):
     """The torch paths' rounding kernels give the plain versions' values
-    bit for bit, 2-d and batched, with no host read."""
+    bit for bit, 2-d and batched, at any strides and off the tile sizes,
+    with the squared norms given or not, and with no host read."""
     for x, c in _rounding_cases(cuda):
         before = _build.launches()
         assert torch.equal(exact_round.exact_sqnorm(x), ref.exact_sqnorm(x))
-        assert torch.equal(exact_round.exact_cross(x, c.T),
-                           ref.exact_cross(x, c.T))
-        xb = x[:40].reshape(4, 10, -1)
-        cb = c[torch.arange(32, device=cuda) % c.shape[0]].reshape(4, 8, -1)
-        assert torch.equal(exact_round.exact_cross(xb, cb.transpose(1, 2)),
-                           ref.exact_cross(xb, cb.transpose(1, 2)))
-        after = _build.launches()
-        assert after["exact_sqnorm"] == before["exact_sqnorm"] + 1
-        assert after["exact_cross"] == before["exact_cross"] + 2
+        assert _build.launches()["exact_sqnorm"] == before["exact_sqnorm"] + 1
+    for a, b in _cross_cases(cuda):
+        before = _build.launches()["exact_cross"]
+        want = ref.exact_cross(a, b)
+        assert torch.equal(exact_round.exact_cross(a, b), want)
+        if a.dim() == 2:
+            asq = exact_round.exact_sqnorm(a)
+            bsq = exact_round.exact_sqnorm(b.T)
+            assert torch.equal(exact_round.exact_cross(a, b, asq=asq), want)
+            assert torch.equal(exact_round.exact_cross(a, b, asq=asq,
+                                                       bsq=bsq), want)
+        assert _build.launches()["exact_cross"] == before + (
+            3 if a.dim() == 2 else 1)
+
+
+@pytest.mark.cuda
+def test_cuda_exact_cross_runs_no_library_product(cuda):
+    """``exact_cross`` of f32 operands on the card is its own kernel: no
+    torch matmul and no copy of an operand (in f64 or otherwise)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, c, _ = rounding_fixture(512, 100, 784, seed=3, device=cuda)
+    exact_round.exact_cross(x, c.T)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        exact_round.exact_cross(x, c.T)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::matmul", "aten::mm", "aten::bmm",
+                      "aten::_to_copy", "aten::copy_"}, ops
+
+
+def _split_inputs(case, device):
+    """GDI's sweep inputs (K3's prefix sums ``csum``, the leaf totals at
+    each leaf's last row, ``row_seg``) at d = 784, d = 23 (scalar loads)
+    and on rows 4 bytes off 16-byte alignment; half the leaves empty and
+    a third of the rows at weight 0 in ``sparse``; ``midpoint``: rows
+    whose sum of squares sits at or beside an f32 midpoint, as ``csum =
+    -row`` with a zero ``tot``."""
+    if case == "midpoint":
+        rows = np.zeros((4, 784), np.float32)
+        g = 2.0 ** -12
+        for i, terms in enumerate([(1.0, g), (1.0, g, g, g),
+                                   (1.0, g, 2.0 ** -40),
+                                   (1.0, g, g, g * (1.0 - 2.0 ** -23))]):
+            rows[i, :len(terms)] = terms
+        return (-torch.tensor(rows, device=device),
+                torch.zeros(1, 784, device=device),
+                torch.zeros(4, dtype=torch.int64, device=device))
+    d = {"d784": 784, "d23": 23, "unaligned": 788, "sparse": 784}[case]
+    rng = np.random.RandomState(d)
+    n, k, bn = 6000, 120, 8
+    x = torch.tensor((rng.randn(n, d) * 10.0 ** rng.randint(-3, 4, (n, 1)))
+                     .astype(np.float32))
+    a = torch.tensor(rng.randint(0, k // 2 if case == "sparse" else k, n)
+                     .astype(np.int32))
+    perm, b2s = group_by_cluster_device(a, k, bn)
+    w = (perm >= 0).float()
+    if case == "sparse":
+        w = w * torch.tensor(rng.rand(w.shape[0]) > 0.33).float()
+    csum = ref.segmented_scan_ref(x[perm.clamp(min=0).long()], w, b2s,
+                                  bn)[0]
+    row_seg = torch.repeat_interleave(b2s.long(), bn)
+    last = torch.full((k,), -1, dtype=torch.int64).scatter_reduce_(
+        0, row_seg, torch.arange(row_seg.shape[0]), "amax")
+    tot = torch.where((last >= 0)[:, None], csum[last.clamp(min=0)], 0.0)
+    if case == "unaligned":
+        buf = torch.empty(csum.numel() + 1, device=device)
+        buf[1:] = csum.reshape(-1).to(device)
+        return buf[1:].view(csum.shape), tot.to(device), row_seg.to(device)
+    return csum.to(device), tot.to(device), row_seg.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d784", "d23", "unaligned", "sparse",
+                                  "midpoint"])
+def test_cuda_exact_split_sqnorms_matches_plain(cuda, case):
+    """GDI's split-score norms in one pass: bit-equal to the plain
+    two-call composition, on every row (padding rows, empty leaves, rows
+    at f32 midpoints), one launch a call."""
+    csum, tot, row_seg = _split_inputs(case, cuda)
+    before = _build.launches()["exact_split_sqnorms"]
+    got = exact_round.exact_split_sqnorms(csum, tot, row_seg)
+    assert _build.launches()["exact_split_sqnorms"] == before + 1
+    want = ref.exact_split_sqnorms(csum, tot, row_seg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -196,6 +196,84 @@ def test_rounding_fixture_and_permutations(d):
     assert torch.equal(exact_round.exact_sqnorm(x), sq)
 
 
+# rows whose sum of squares sits at or beside an f32 rounding midpoint
+# above 1, with the value it rounds to: a tie down to even, a tie up to
+# even, and 2^-80 above and 2^-46 below a midpoint
+_MIDPOINT_ROWS = [
+    ((1.0, 2.0 ** -12), 1.0),
+    ((1.0, 2.0 ** -12, 2.0 ** -12, 2.0 ** -12), 1.0 + 2.0 ** -22),
+    ((1.0, 2.0 ** -12, 2.0 ** -40), 1.0 + 2.0 ** -23),
+    ((1.0, 2.0 ** -12, 2.0 ** -12, 2.0 ** -12 * (1.0 - 2.0 ** -23)),
+     1.0 + 2.0 ** -23)]
+
+
+def _split_layout(case: str):
+    """GDI's sweep inputs at a small shape: K3's prefix sums ``csum`` over
+    a leaf-grouped layout, the leaf totals ``tot`` taken at each leaf's
+    last row as the sweep takes them, and ``row_seg``. ``empty``: half the
+    leaves hold no row; ``padding``: a third of the rows weigh 0 (their
+    prefixes repeat); ``midpoint``: ``csum = -row`` with a zero ``tot``,
+    so that prefix and suffix are the rows of ``_MIDPOINT_ROWS``."""
+    if case == "midpoint":
+        rows = np.zeros((len(_MIDPOINT_ROWS), 8), np.float32)
+        for i, (terms, _) in enumerate(_MIDPOINT_ROWS):
+            rows[i, :len(terms)] = terms
+        csum = -torch.tensor(rows)
+        return csum, torch.zeros(1, 8), torch.zeros(len(rows),
+                                                     dtype=torch.int64)
+    rng = np.random.RandomState(len(case))
+    n, d, k, bn = 400, 23, 12, 8
+    x = torch.tensor((rng.randn(n, d) * 10.0 ** rng.randint(-3, 4, (n, 1)))
+                     .astype(np.float32))
+    a = torch.tensor(rng.randint(0, k // 2 if case == "empty" else k, n)
+                     .astype(np.int32))
+    perm, b2s = group_by_cluster_device(a, k, bn)
+    w = (perm >= 0).float()
+    if case == "padding":
+        w = w * torch.tensor(rng.rand(w.shape[0]) > 0.33).float()
+    xg = x[perm.clamp(min=0).long()]
+    csum = ref.segmented_scan_ref(xg, w, b2s, bn)[0]
+    row_seg = torch.repeat_interleave(b2s.long(), bn)
+    last = torch.full((k,), -1, dtype=torch.int64).scatter_reduce_(
+        0, row_seg, torch.arange(row_seg.shape[0]), "amax")
+    tot = torch.where((last >= 0)[:, None], csum[last.clamp(min=0)], 0.0)
+    return csum, tot, row_seg
+
+
+@pytest.mark.parametrize("case", ["gdi", "empty", "padding", "midpoint"])
+def test_exact_split_sqnorms_is_the_two_norms(case):
+    """GDI's split-score norms are ``exact_sqnorm`` of the prefixes and of
+    the suffixes ``tot[row_seg] - csum`` bit for bit, on the CPU path
+    too; at midpoints they are the oracle's values."""
+    csum, tot, row_seg = _split_layout(case)
+    want = (ref.exact_sqnorm(csum), ref.exact_sqnorm(tot[row_seg] - csum))
+    for got in (ref.exact_split_sqnorms(csum, tot, row_seg),
+                exact_round.exact_split_sqnorms(csum, tot, row_seg)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    if case == "midpoint":
+        rows = (-csum).numpy()
+        for i, (_, value) in enumerate(_MIDPOINT_ROWS):
+            assert _oracle_dot(rows[i], rows[i]) == value
+            assert float(want[0][i]) == value and float(want[1][i]) == value
+
+
+def test_exact_sqdist_screens_with_the_rounded_norms():
+    """The squared distances bound the products' screen by the rounded
+    squared norms (``ref.sqnorm_bound``, at least the f64 norms): the
+    same values as with the f64 norms, also at f32 midpoints."""
+    x, c, _ = rounding_fixture(60, 10, 40, seed=1, device="cpu")
+    got = ref.exact_sqdist(x, c)
+    cross = ref.exact_cross(x, c.T)
+    xsq, csq = ref.exact_sqnorm(x), ref.exact_sqnorm(c)
+    want = torch.clamp(xsq[:, None] - 2.0 * cross + csq, min=0.0)
+    assert torch.equal(got, want)
+    assert bool((ref.sqnorm_bound(xsq)
+                 >= torch.linalg.vector_norm(x.double(), dim=1)).all())
+    assert torch.equal(ref.exact_cross(x, c.T, asq=xsq), cross)
+    assert torch.equal(ref.exact_cross(x, c.T, asq=xsq, bsq=csq), cross)
+
+
 @pytest.mark.parametrize("source", ["fixture", "wide"])
 def test_plain_versions_of_k1_k5_k7_agree(source):
     """K5's, K7's and K1's plain versions, given every center as the
