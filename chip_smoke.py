@@ -65,21 +65,24 @@ Phases (any failure exits non-zero, without the final result line):
    host reads are 1 per decode step, and that a small serve (the smoke
    config in f32) on the card agrees with the plain CPU path;
 3. hold each kernel against its plain version on tensors of those runs
-   (K2 on the final centers, K1 over the final resident arena with no
+   (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
+   equal to the CPU's; K1 over the final resident arena with no
    block skipped and over one predict batch's grouped layout, K3 on the
    GDI leaf-grouped layout and on one segment over every block, each
    launched twice and held bit-equal to itself, K4 on one int8 predict
    batch, K5 on x and the Lloyd++ centers, K7 over the arena, K6 on
    layer 0's cluster-major tables at a decode step; K1, K5 and K7 also on
    ``data.rounding_fixture`` rows, whose own-center products sit at f32
-   rounding midpoints; the rounding kernels on the final centers, GDI's
-   split norms on the GDI layout, a predict batch's products with the
-   centers and with the router's centroids; the ordered segment sums over
-   the final arena) and
+   rounding midpoints, and K2 on those rows and centers as one center
+   set; the rounding kernels on the final centers, GDI's split norms on
+   the GDI layout, a predict batch's products with the centers and with
+   the router's centroids; the ordered segment sums over the final arena
+   and at the second fit's delta call over the most moved rows) and
    time both with CUDA events, beside one library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
-   sheet's peak for their type: 67 TFLOP/s FP32, 1979 TOP/s int8); K6
+   sheet's peak for their type: 67 TFLOP/s FP32 and FP64 tensor, 1979
+   TOP/s int8); K6
    and its yardsticks are timed with the L2 cache flushed before each
    launch, as a decode step finds it (the other layers' weights pass
    through it in between);
@@ -110,6 +113,7 @@ LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_DECODE, LM_FOLD = (
     "qwen3-8b", 4, 2, 65536, 64, 32)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
+FP64_TC_FLOP_PER_S = 67e12         # H100 SXM, FP64 tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
 
 FIT_KERNELS = ("center_sqdist", "candidate_assign_tiled", "segmented_scan",
@@ -158,6 +162,7 @@ def main() -> int:
                                       center_knn_graph, clustering_energy,
                                       fit, fit_elkan, fit_k2means, fit_lloyd,
                                       initialize, kmeanspp_init)
+        from repro_torch.core import engine
         from repro_torch.core.model import _RESOLVE_RERANK as rerank
         from repro_torch.data import gmm_blobs, rounding_fixture
         from repro_torch.kernels import _build, exact_round, quant, ref
@@ -248,9 +253,24 @@ def main() -> int:
     check(all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
           "energy history non-increasing (rel 1e-6)")
     check(res.energy < e_init, "final energy below the GDI init's")
-    again = fit(x, K, method="k2means", init="gdi", kn=KN,
-                max_iters=MAX_ITERS, device=dev,
-                generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    # the second fit also records the engine's delta sums (phase 3 holds
+    # the one over the most moved rows against its plain version)
+    deltas = []
+    engine_sums = engine.segment_sum_blocks
+
+    def record(xx, b2s, k, bn, *, w=None, perm=None):
+        if bn == 1:
+            deltas.append(((xx.clone(), b2s.clone(), k, bn),
+                           dict(w=w.clone(), perm=perm.clone())))
+        return engine_sums(xx, b2s, k, bn, w=w, perm=perm)
+    engine.segment_sum_blocks = record
+    try:
+        again = fit(x, K, method="k2means", init="gdi", kn=KN,
+                    max_iters=MAX_ITERS, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 1))
+    finally:
+        engine.segment_sum_blocks = engine_sums
     same = (bool(torch.equal(again.assignment, res.assignment))
             and bool(torch.equal(again.centers, res.centers))
             and again.energy == res.energy
@@ -446,25 +466,27 @@ def main() -> int:
 
     # --- 3. each kernel against its plain version -----------------------
     kernels = []
-    cmax = float((c * c).sum(1).max())
 
-    # K2: center_sqdist on the final centers
-    got = center_sqdist(c)
-    want = ref.center_sqdist_ref(c)
-    err = float((got - want).abs().max())
-    check(bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * cmax).all()),
-          f"K2 center_sqdist vs plain: max abs err {err:.3g} "
-          f"(rtol 1e-5, atol 1e-5*max|c|^2 = {1e-5 * cmax:.3g})")
-    b_ms, b_by = bound((K * D + K * K) * 4.0, 2.0 * K * K * D + 2.0 * K * D)
-    kernels.append(dict(
-        name="center_sqdist", route="cuda",
-        source="src/repro_torch/kernels/csrc/center_knn.cu",
-        replaces="src/repro/kernels/center_knn.py:26",
-        launches=launches["center_sqdist"], max_abs_err=err,
-        ms=time_ms(lambda: center_sqdist(c), torch),
-        plain_ms=time_ms(lambda: ref.center_sqdist_ref(c), torch),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.cdist(c, c) ** 2, torch)))
+    # K2: center_sqdist on the final centers, bit-equal to its plain
+    # version; the k_n-NN graph built on the card is the CPU's. Its bound:
+    # the k (k + 1) / 2 products of the upper triangle (the matrix is
+    # symmetric; its diagonal products are the norms), on the f64 tensor
+    # cores, and one read of c and one write of the matrix
+    kernels.append(_against_plain(
+        torch, check, f"K2 center_sqdist on the final centers ({K} x {D})",
+        functools.partial(center_sqdist, c),
+        functools.partial(ref.center_sqdist_ref, c),
+        dict(name="center_sqdist",
+             source="src/repro_torch/kernels/csrc/center_knn.cu",
+             replaces="src/repro/kernels/center_knn.py:26",
+             launches=launches["center_sqdist"]),
+        bound((K * D + K * K) * 4.0, K * (K + 1) / 2 * 2.0 * D,
+              FP64_TC_FLOP_PER_S),
+        library=lambda: torch.cdist(c, c) ** 2))
+    graph_cpu = center_knn_graph(c.cpu(), KN)
+    check(bool(torch.equal(center_knn_graph(c, KN).cpu(), graph_cpu)),
+          f"the k_n-NN graph of the final centers (k={K}, kn={KN}) on the "
+          f"card equals the CPU's")
 
     # K1: candidate_assign_tiled over the final resident arena, no skips
     knp = cidx.shape[1]
@@ -594,7 +616,7 @@ def main() -> int:
     _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,
                     center_knn_graph, pad_candidates, candidate_tables,
                     candidate_assign_tiled, candidate_assign_rowwise,
-                    distance_argmin, ref)
+                    distance_argmin, center_sqdist, ref)
 
     # the kernels of the torch paths: the correct rounding of the centers'
     # norms (every iteration's candidate tables) and of a predict batch's
@@ -665,6 +687,30 @@ def main() -> int:
         library=lambda: torch.zeros(K + 1, D, device=dev).index_add_(
             0, seg, st.xg * st.wg[:, None])))
     del st, seg
+    if deltas:                         # the delta over the most moved rows
+        # (its bound: each moved row read once, though two lanes name it;
+        # b2s for every lane, perm and w for the live ones; the outputs)
+        (dx, db2s, dk, _), dkw = max(
+            deltas, key=lambda call: int((call[0][1] >= 0).sum()))
+        live = int((db2s >= 0).sum())
+        dseg = torch.where(db2s >= 0, db2s, dk).long()
+        kernels.append(_against_plain(
+            torch, check, f"segment_sum_blocks at a delta call ({live} moved "
+                          f"lanes into {dk} segments)",
+            functools.partial(segment_sum_blocks, dx, db2s, dk, 1, **dkw),
+            functools.partial(ref.segment_sum_blocks_ref, dx, db2s, dk, 1,
+                              **dkw),
+            dict(name="segment_sum_blocks[delta]",
+                 source="src/repro_torch/kernels/csrc/segment_sum.cu",
+                 replaces="src/repro/core/engine.py:264",
+                 launches=launches["segment_sum_blocks"]),
+            bound(live / 2 * D * 4.0 + db2s.shape[0] * 4.0 + live * 8.0
+                  + dk * (D + 1) * 4.0, 2.0 * live * D),
+            library=lambda: torch.zeros(dk + 1, D, device=dev).index_add_(
+                0, dseg, dx[dkw["perm"].long()] * dkw["w"][:, None])))
+    else:
+        check(False, "the second fit made a delta call")
+    del deltas
     for kr in kernels:
         print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
@@ -1097,10 +1143,11 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
 def _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,
                     center_knn_graph, pad_candidates, candidate_tables,
                     candidate_assign_tiled, candidate_assign_rowwise,
-                    distance_argmin, ref) -> None:
+                    distance_argmin, center_sqdist, ref) -> None:
     """K5, K1 and K7 against their plain versions on rows whose products
     with their own centers sit just above f32 rounding midpoints (f64
-    sums in different orders round them apart): bit-equal."""
+    sums in different orders round them apart), and K2 on those rows and
+    centers taken together as one center set: bit-equal."""
     k, kn = 64, 8
     x, c, a = rounding_fixture(k * 40, k, D, seed=17, device=dev)
     same5 = all(bool(torch.equal(g, w)) for g, w in zip(
@@ -1128,6 +1175,12 @@ def _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,
           f"K5, K1 and K7 on the rounding fixture ({x.shape[0]} rows at f32 "
           f"rounding midpoints, k={k}, d={D}) vs plain: bit-equal "
           f"({same5}, {same1}, {same7})")
+    cs = torch.cat([x, c]).contiguous()
+    got, want = center_sqdist(cs), ref.center_sqdist_ref(cs)
+    check(bool(torch.equal(got, want)),
+          f"K2 on the rounding fixture's rows and centers ({cs.shape[0]} x "
+          f"{D}, products at f32 midpoints) vs plain: bit-equal, max abs err "
+          f"{float((got - want).abs().max()):.3g}")
 
 
 def _finite(v: float) -> bool:

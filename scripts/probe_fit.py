@@ -8,7 +8,9 @@
 - k²-means (``fit_k2means``) three times from one shared init: 1000
   random rows as centers, each row assigned to its nearest by K5, so two
   checkouts start from the same state: ms per iteration (the fit's wall
-  time over its iterations), iterations and energy.
+  time over its iterations), iterations and energy; then once under
+  ``torch.profiler``: the loop's device busy time and its kernels by
+  device time.
 
 Run from the root of a checkout on a machine with one CUDA card; to time
 another checkout (say a parent's, unpacked with ``git archive``), name
@@ -98,14 +100,27 @@ def main() -> int:
         fits.append(dict(ms_per_iteration=(time.perf_counter() - t0)
                          / r.iterations * 1e3,
                          iterations=r.iterations, energy=r.energy))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = fit_k2means(x, c0, a0, kn=KN, max_iters=30, device=dev)
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    loop_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    loop_top = [(e.key[:80], e.count, dev_us(e) / 1e3)
+                for e in sorted(on_dev, key=dev_us, reverse=True)[:8]]
     out = dict(label=args.label, gdi_s=gdi_s, gdi_device_busy_ms=busy_ms,
                gdi_peak_mib=gdi_peak_mib, gdi_top_kernels=top,
-               k2means_from_a_shared_init=fits)
+               k2means_from_a_shared_init=fits,
+               k2means_device_busy_ms=loop_ms,
+               k2means_profiled_iterations=r.iterations,
+               k2means_top_kernels=loop_top)
     print(f"{args.label}: GDI {[round(s, 4) for s in gdi_s]} s (device busy "
           f"{busy_ms:.1f} ms, peak +{gdi_peak_mib:.1f} MiB); k2-means "
           f"ms/iteration "
-          f"{[round(f['ms_per_iteration'], 3) for f in fits]}")
-    for name, count, ms in top:
+          f"{[round(f['ms_per_iteration'], 3) for f in fits]} (device busy "
+          f"{loop_ms:.2f} ms over {r.iterations} iterations)")
+    for name, count, ms in top + loop_top:
         print(f"  {ms:9.3f} ms x{count:<5d} {name}")
     print(json.dumps(out))
     return 0

@@ -2,8 +2,13 @@
 
 Port of ``repro.kernels.center_knn``. CUDA tensors go through the
 hand-written kernel ``csrc/center_knn.cu``; CPU tensors through the
-plain version ``ref.center_sqdist_ref``. The top-k_n selection stays
-outside the kernel (``core.engine.center_knn_graph``).
+plain version ``ref.center_sqdist_ref``. Both give every distance as
+``max((|c_i|^2 - 2 c_i.c_j) + |c_j|^2, 0)`` in f32 from the correctly
+rounded norms and products (``csrc/common.cuh``), so the card's matrix
+is the CPU's bit for bit and no permutation of d changes it. The kernel
+forms the f64 products on the tensor cores, only for the tiles on and
+above the diagonal, and writes each product both ways. The top-k_n
+selection stays outside the kernel (``core.engine.center_knn_graph``).
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def center_sqdist(c: torch.Tensor) -> torch.Tensor:
-    """(k, d) f32 -> (k, k) squared distances, clamped at 0."""
+    """(k, d) f32 -> (k, k) squared distances, clamped at 0. A call runs
+    the rows' rounded squared norms, then the tiles, and counts once."""
     if c.device.type == "cpu":
         return center_sqdist_ref(c)
     if c.dtype != torch.float32 or c.dim() != 2 or not c.is_contiguous():

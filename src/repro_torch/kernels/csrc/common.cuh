@@ -5,6 +5,8 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <mutex>
 
 #define K2_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -16,10 +18,51 @@ static inline cudaError_t k2_set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// True when p may be read in 16-byte pieces.
+static inline bool k2_aligned16(const void* p) {
+  return (uintptr_t)p % 16 == 0;
+}
+
+// Blocks of a kernel (nt threads, smem bytes of dynamic shared memory)
+// that can be resident at once on the current device, after opting the
+// kernel into its shared memory there; asked of the CUDA runtime once per
+// kernel and device (the queries cost more host time than a launch).
+template <typename K>
+static long long k2_resident_blocks(K kernel, int nt, size_t smem,
+                                    cudaError_t& err) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    long long slots;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  static std::mutex lock;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == (const void*)kernel && cache[i].dev == dev)
+      return cache[i].slots;
+  int sms = 0, per_sm = 0;
+  err = k2_set_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                        smem);
+  if (err != cudaSuccess) return 0;
+  const long long slots = (long long)sms * max(per_sm, 1);
+  if (used < 64) cache[used++] = Entry{(const void*)kernel, dev, slots};
+  return slots;
+}
+
 // cp.async of one 16- or 4-byte piece into shared memory; with valid
 // false it reads nothing and fills the piece with zeros. Then commit a
-// group, and wait until at most N groups are in flight. (K1 and K5 keep
-// their own copies of these and of k2_dmma.)
+// group, and wait until at most N groups are in flight. (K2, exact_cross
+// and segment_sum_blocks use these and k2_dmma; K1 and K5 keep their own
+// copies.)
 __device__ __forceinline__ void k2_cp_async(float* dst, const float* src,
                                             bool valid, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -320,6 +363,26 @@ __device__ __forceinline__ float k2_round_sum_uniform(double s, double e,
 __device__ __forceinline__ float k2_round_sqnorm(double s, const float* x,
                                                  int d) {
   return k2_round_sum(s, k2_gamma(d) * s, x, 1, x, 1, d);
+}
+
+// Each row's squared norm, correctly rounded: one warp a row (NT / 32 rows
+// a block), lanes striding over d, an f64 sum joined by a butterfly,
+// screened and, where the screen cannot decide, recomputed exactly by the
+// warp. Bound by bytes: one read of x, one f32 written per row.
+template <int NT>
+__global__ void __launch_bounds__(NT)
+k2_exact_sqnorm_kernel(const float* __restrict__ x, float* __restrict__ out,
+                       long long rows, int d) {
+  const long long r = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;               // a whole warp
+  const float* xr = x + r * d;
+  double s = 0.0;
+  for (int j = lane; j < d; j += 32) s = fma((double)xr[j], (double)xr[j], s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float v = k2_round_sum_uniform(s, k2_gamma(d) * s, xr, 1, xr, 1, d);
+  if (lane == 0) out[r] = v;
 }
 
 // A bound >= sum c_i^2 from its correctly rounded f32 value: at most

@@ -61,26 +61,10 @@
 // multiply exactly in f64 in the wrapper.
 #include <limits.h>
 #include <stdint.h>
-#include <mutex>
 #include "common.cuh"
 
 namespace {
 constexpr int NT = 256;
-
-__global__ void __launch_bounds__(NT)
-exact_sqnorm_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    long long rows, int d) {
-  const long long r = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;               // a whole warp
-  const float* xr = x + r * d;
-  double s = 0.0;
-  for (int j = lane; j < d; j += 32) s = fma((double)xr[j], (double)xr[j], s);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const float v = k2_round_sum_uniform(s, k2_gamma(d) * s, xr, 1, xr, 1, d);
-  if (lane == 0) out[r] = v;
-}
 
 // The suffix's element i as both factors of its square: the f32
 // difference tot[i] - csum[i], rounded to nearest.
@@ -396,40 +380,6 @@ exact_rowdot_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (lane == 0) out[r] = v;
 }
 
-// Blocks of a kernel (nt threads, smem bytes of dynamic shared memory)
-// that can be resident at once on the current device, after opting the
-// kernel into its shared memory there; asked of the driver once per
-// kernel and device (the queries cost more host time than a launch).
-template <typename K>
-long long resident_blocks(K kernel, int nt, size_t smem, cudaError_t& err) {
-  struct Entry {
-    const void* fn;
-    int dev;
-    long long slots;
-  };
-  static Entry cache[64];
-  static int used = 0;
-  static std::mutex lock;
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return 0;
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < used; ++i)
-    if (cache[i].fn == (const void*)kernel && cache[i].dev == dev)
-      return cache[i].slots;
-  int sms = 0, per_sm = 0;
-  err = k2_set_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
-                                                        smem);
-  if (err != cudaSuccess) return 0;
-  const long long slots = (long long)sms * max(per_sm, 1);
-  if (used < 64) cache[used++] = Entry{(const void*)kernel, dev, slots};
-  return slots;
-}
-
 template <int VEC, int BN>
 int launch_cross(const Operand& A, const Operand& B, const float* asq,
                  const float* bsq, float* out, int nbat, int m, int k,
@@ -437,7 +387,7 @@ int launch_cross(const Operand& A, const Operand& B, const float* asq,
   using T = CrossTile<BN>;
   auto* kernel = &exact_cross_kernel<VEC, BN>;
   cudaError_t err;
-  const long long slots = resident_blocks(kernel, T::NT, T::SMEM, err);
+  const long long slots = k2_resident_blocks(kernel, T::NT, T::SMEM, err);
   if (err != cudaSuccess) return (int)err;
   // column tiles per block: the fewest waves of resident blocks, each
   // block's steps plus one tile for its ring's fill, fewer splits on a tie
@@ -469,8 +419,6 @@ int launch_cross(const Operand& A, const Operand& B, const float* asq,
   }
   return (int)cudaSuccess;
 }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 }  // namespace
 
 // x: (rows, d) f32 contiguous; out: (rows,) f32.
@@ -478,8 +426,9 @@ K2_EXPORT int k2_exact_sqnorm(const float* x, float* out, long long rows,
                               int d, cudaStream_t stream) {
   if (rows < 0 || d < 0) return (int)cudaErrorInvalidValue;
   if (rows > 0)
-    exact_sqnorm_kernel<<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT,
-                          0, stream>>>(x, out, rows, d);
+    k2_exact_sqnorm_kernel<NT>
+        <<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
+            x, out, rows, d);
   return (int)cudaGetLastError();
 }
 
@@ -493,10 +442,10 @@ K2_EXPORT int k2_exact_split_sqnorms(const float* csum, const float* tot,
   if (rows < 0 || d < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   cudaError_t err;
-  const bool vec = d % 4 == 0 && aligned16(csum) && aligned16(tot);
+  const bool vec = d % 4 == 0 && k2_aligned16(csum) && k2_aligned16(tot);
   auto* kernel = vec ? &exact_split_sqnorms_kernel<4>
                      : &exact_split_sqnorms_kernel<1>;
-  const long long slots = resident_blocks(kernel, NT, 0, err);
+  const long long slots = k2_resident_blocks(kernel, NT, 0, err);
   if (err != cudaSuccess) return (int)err;
   const long long need = (rows + NT / 32 - 1) / (NT / 32);
   kernel<<<(unsigned)min(need, slots), NT, 0, stream>>>(csum, tot, row_seg,
@@ -536,8 +485,8 @@ K2_EXPORT int k2_exact_cross(const float* a, const float* b, const float* asq,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const bool vec = d % 4 == 0 && sad == 1 && sbd == 1 && aligned16(a) &&
-                   aligned16(b) && sam % 4 == 0 && sbk % 4 == 0 &&
+  const bool vec = d % 4 == 0 && sad == 1 && sbd == 1 && k2_aligned16(a) &&
+                   k2_aligned16(b) && sam % 4 == 0 && sbk % 4 == 0 &&
                    sat % 4 == 0 && sbt % 4 == 0;
   if (k <= 64)
     return vec ? launch_cross<4, 64>(A, B, asq, bsq, out, nbat, m, k, d,

@@ -16,9 +16,16 @@ PAD_SQDIST = 1e30
 
 
 def center_sqdist_ref(c: torch.Tensor) -> torch.Tensor:
-    """(k, d) -> (k, k) squared center distances, clamped at 0."""
-    sq = torch.sum(c * c, dim=-1)
-    return torch.clamp(sq[:, None] - 2.0 * (c @ c.T) + sq[None, :], min=0.0)
+    """(k, d) -> (k, k) squared center distances ``max((|c_i|^2 - 2 c_i.c_j)
+    + |c_j|^2, 0)`` in f32 from the correctly rounded norms and products
+    (:func:`exact_sqnorm`, :func:`exact_cross`): values no order of
+    summation changes, so K2 gives them bit for bit and a permutation of
+    d leaves them as they are. The products are symmetric and x_ii is
+    |c_i|^2; each of (i, j) and (j, i) is composed from its own side, as
+    written, so the matrix need not be symmetric in its last bit."""
+    sq = exact_sqnorm(c)
+    x = exact_cross(c, c.T, asq=sq, bsq=sq)
+    return torch.clamp((sq[:, None] - 2.0 * x) + sq[None, :], min=0.0)
 
 
 # The screen's relative error of an f64 sum of exact products, in any

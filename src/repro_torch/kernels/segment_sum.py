@@ -16,13 +16,14 @@ therefore keeps four sums, each where its cost and its order fit:
   router's group centroids and the KV clustering's centroids.
 - :func:`segment_sum_blocks` (``csrc/segment_sum.cu``): the k²-means
   engine's center sums over its resident arena (init, full recomputes)
-  and its moved rows' deltas. One thread a (segment, column) chain walks
-  the segment's blocks in order and adds its rows as the CPU's row-order
+  and its moved rows' deltas. Each (segment, column) chain walks the
+  segment's blocks in order and adds its rows as the CPU's row-order
   scatter-add does, so the card gives the CPU's bits in every run, where
-  the ordered sum everywhere doubled the fit's time per iteration. CPU
-  tensors go through the plain version ``ref.segment_sum_blocks_ref``.
-  Not a port of a TPU kernel: the reference takes these sums with
-  ``jax.ops.segment_sum``.
+  the ordered sum everywhere doubled the fit's time per iteration. The
+  kernel finds each segment's blocks itself (no sort of the layout) and
+  streams their rows through shared memory. CPU tensors go through the
+  plain version ``ref.segment_sum_blocks_ref``. Not a port of a TPU
+  kernel: the reference takes these sums with ``jax.ops.segment_sum``.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch
 from . import _build
 from . import ref
 
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def segment_sum(v: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
@@ -100,19 +101,14 @@ def segment_sum_blocks(x, b2s, k: int, bn: int, *, w=None, perm=None):
         if t is not None:
             _build.require("segment_sum_blocks", name, t, dt, shape)
     dev = x.device
-    # each segment's blocks in block order: a stable sort of b2s (blocks
-    # of no segment sort last and are never visited)
-    seg, blist = torch.sort(torch.where(b2s >= 0, b2s, k), stable=True)
-    blist = blist.to(i32)
-    boff = torch.searchsorted(seg, torch.arange(k + 1, dtype=i32, device=dev),
-                              out_int32=True)
     sums = torch.empty((k, d), dtype=f32, device=dev)
     cnt = torch.empty((k,), dtype=f32, device=dev)
+    scratch = torch.empty((1 + 3 * k,), dtype=i32, device=dev)
     p = _build.ptr
     opt = lambda t: None if t is None else p(t)  # noqa: E731
     fn = _build.function("segment_sum", "k2_segment_sum_blocks", _ARGS)
-    _build.check(fn(p(x), opt(w), opt(perm), p(blist), p(boff), p(sums),
-                    p(cnt), k, bn, d, _build.stream_ptr(dev)),
+    _build.check(fn(p(x), opt(w), opt(perm), p(b2s), p(scratch), p(sums),
+                    p(cnt), k, nb, bn, d, _build.stream_ptr(dev)),
                  "segment_sum_blocks")
     _build.count("segment_sum_blocks")
     return sums, cnt

@@ -102,14 +102,44 @@ def test_cuda_candidate_assign_tiled(cuda, n, k, d, kn, bn, bkn):
         assert torch.equal(g.cpu(), w)
 
 
+def _k2_centers(case, k, d):
+    if case == "midpoint":     # rows and their centers: products at midpoints
+        x, c, _ = rounding_fixture(k - k // 5, k // 5, d, seed=k,
+                                   device="cpu")
+        return torch.cat([x, c])
+    if case == "mixture":      # many close pairs: lists decided by rounding
+        rng = np.random.RandomState(k)
+        mus = rng.randn(128, d) * 4.0
+        return torch.tensor((mus[rng.randint(0, 128, k)]
+                             + rng.randn(k, d)).astype(np.float32))
+    return torch.tensor(np.random.RandomState(k).randn(k, d)
+                        .astype(np.float32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,d", [(100, 784), (1000, 64), (64, 3)])
-def test_cuda_center_sqdist(cuda, k, d):
-    c = np.random.RandomState(k).randn(k, d).astype(np.float32)
-    got = center_sqdist(torch.tensor(c, device=cuda)).cpu().numpy()
-    want = center_sqdist(torch.tensor(c)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5,
-                               atol=1e-5 * float(np.max(np.sum(c * c, 1))))
+@pytest.mark.parametrize("case,k,d", [("normal", 100, 784),
+                                      ("normal", 1000, 64),
+                                      ("normal", 64, 3),
+                                      ("normal", 997, 784),   # no tile fits
+                                      ("normal", 1, 5),
+                                      ("normal", 130, 13),    # d % 4 != 0
+                                      ("midpoint", 200, 784),
+                                      ("midpoint", 95, 40),
+                                      ("mixture", 1000, 784)])
+def test_cuda_center_sqdist(cuda, case, k, d):
+    """K2 on the card is its plain version on the CPU bit for bit, and so
+    is the k_n-NN graph built on it."""
+    c = _k2_centers(case, k, d)
+    before = _build.launches()["center_sqdist"]
+    got = center_sqdist(c.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.launches()["center_sqdist"] == before + 1
+    want = center_sqdist(c)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ref.center_sqdist_ref(c.to(cuda)), got)
+    kn = min(30, k)
+    assert torch.equal(center_knn_graph(c.to(cuda), kn).cpu(),
+                       center_knn_graph(c, kn))
 
 
 @pytest.mark.cuda
@@ -601,6 +631,37 @@ def test_cuda_segment_sum_blocks_matches_cpu(cuda, n, d, k, bn, weighted):
             x, b2s, k, bn, perm=perm)[0])
         assert torch.equal(want[0], torch.zeros(k, d).index_add_(
             0, a.long(), x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_cuda_segment_sum_blocks_skewed(cuda, shuffled):
+    """One segment of 20,000 slots beside 999 short ones (1 to 20 rows),
+    with the layout's blocks in cluster order or shuffled over the whole
+    arena (as repairs leave it): the card's sums are the plain version's
+    bit for bit."""
+    rng = np.random.RandomState(20000 + shuffled)
+    k, d, bn = 1000, 784, 32
+    a = np.concatenate([np.zeros(20000, np.int32),
+                        np.repeat(np.arange(1, k, dtype=np.int32),
+                                  rng.randint(1, 21, k - 1))])
+    a = torch.tensor(rng.permutation(a))
+    n = a.shape[0]
+    x = torch.tensor((rng.randn(n, d) * 10.0 ** rng.randint(-3, 4, (n, 1)))
+                     .astype(np.float32))
+    perm, b2s = group_by_cluster_device(a, k, bn)
+    if shuffled:
+        order = torch.tensor(rng.permutation(b2s.shape[0]))
+        b2s = b2s[order].contiguous()
+        perm = perm.reshape(-1, bn)[order].reshape(-1).contiguous()
+    w = torch.tensor(rng.rand(perm.shape[0]).astype(np.float32)) * (perm >= 0)
+    want = segment_sum_blocks(x, b2s, k, bn, w=w, perm=perm)
+    before = _build.launches()["segment_sum_blocks"]
+    got = segment_sum_blocks(x.to(cuda), b2s.to(cuda), k, bn, w=w.to(cuda),
+                             perm=perm.to(cuda))
+    assert _build.launches()["segment_sum_blocks"] == before + 1
+    for g, wv in zip(got, want):
+        assert torch.equal(g.cpu(), wv)
 
 
 @pytest.mark.cuda

@@ -304,6 +304,71 @@ def test_plain_versions_of_k1_k5_k7_agree(source):
     assert torch.equal(d5, d7) and torch.equal(d5, d1)
 
 
+def _mixture_centers(k: int, d: int, comps: int, seed: int):
+    """k centers drawn from a comps-component Gaussian mixture with
+    power-law weights (spread 4, noise 1), as numpy f32: many close
+    pairs, whose distances order the k_n-NN lists within rounding."""
+    rng = np.random.RandomState(seed)
+    mus = rng.randn(comps, d) * 4.0
+    p = 1.0 / np.arange(1, comps + 1)
+    comp = rng.choice(comps, k, p=p / p.sum())
+    return (mus[comp] + rng.randn(k, d)).astype(np.float32)
+
+
+def test_center_sqdist_is_invariant_under_permutations_of_d():
+    """K2's plain version at the mnist cell's k=1000, d=784 on a
+    128-component mixture: permuting the d columns leaves every distance
+    and every k_n-NN list (kn=30) as it was (ROADMAP §3 entry 10: the f32
+    product of the CPU's BLAS changed about half of the distances and
+    reordered lists)."""
+    from repro_torch.core.engine import center_knn_graph
+    c = torch.tensor(_mixture_centers(1000, 784, 128, seed=0))
+    perm = torch.tensor(np.random.RandomState(1).permutation(784))
+    cp = c[:, perm].contiguous()
+    assert torch.equal(ref.center_sqdist_ref(cp), ref.center_sqdist_ref(c))
+    assert torch.equal(center_knn_graph(cp, 30), center_knn_graph(c, 30))
+
+
+def _center_sets(case: str):
+    if case == "wide":
+        return torch.tensor(_wide(np.random.RandomState(9), 10, 37, lo=-20,
+                                  hi=20))
+    if case == "mixture":
+        return torch.tensor(_mixture_centers(12, 40, 3, seed=4))
+    # rows with their own centers: products at f32 midpoints
+    x, c, _ = rounding_fixture(24, 6, 40, seed=5, device="cpu")
+    return torch.cat([x, c])
+
+
+@pytest.mark.parametrize("case", ["wide", "mixture", "midpoint"])
+def test_center_sqdist_matches_the_oracle(case):
+    """Every distance is the f32 composition (|c_i|^2 - 2 x_ij) + |c_j|^2,
+    clamped at 0, of the oracle's RN_f32 norms and products; the products
+    are symmetric with x_ii = |c_i|^2, so the diagonal is +0; and neither
+    a permutation of d nor of the centers changes a value."""
+    c = _center_sets(case)
+    k = c.shape[0]
+    rows = c.numpy()
+    sq = np.array([_oracle_dot(r, r) for r in rows], np.float32)
+    x = np.array([[_oracle_dot(rows[i], rows[j]) for j in range(k)]
+                  for i in range(k)], np.float32)
+    assert (x == x.T).all() and (np.diag(x) == sq).all()
+    want = np.maximum((sq[:, None] - np.float32(2.0) * x) + sq[None, :],
+                      np.float32(0.0))
+    got = ref.center_sqdist_ref(c)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (np.signbit(np.diag(got.numpy())) == 0).all()
+    assert (np.diag(got.numpy()) == 0).all()
+    sqt = ref.exact_sqnorm(c)
+    cross = ref.exact_cross(c, c.T, asq=sqt, bsq=sqt)
+    assert torch.equal(cross, cross.T) and torch.equal(cross.diagonal(), sqt)
+    rng = np.random.RandomState(k)
+    pd = torch.tensor(rng.permutation(c.shape[1]))
+    pk = torch.tensor(rng.permutation(k))
+    assert torch.equal(ref.center_sqdist_ref(c[:, pd].contiguous()), got)
+    assert torch.equal(ref.center_sqdist_ref(c[pk]), got[pk][:, pk])
+
+
 def _k3_forward_fold(lanes, b2s, bn, tr, stops):
     """K3's arithmetic, tile by tile, in numpy: f64 running sums down each
     tile of TR rows (the aggregate records are their totals), f64
