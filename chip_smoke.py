@@ -71,7 +71,8 @@ Phases (any failure exits non-zero, without the final result line):
    GDI leaf-grouped layout and on one segment over every block, each
    launched twice and held bit-equal to itself, K4 on one int8 predict
    batch, K5 on x and the Lloyd++ centers, K7 over the arena, K6 on
-   layer 0's cluster-major tables at a decode step; K1, K5 and K7 also on
+   layer 0's cluster-major tables at a decode step, launched twice and
+   held bit-identical to itself; K1, K5 and K7 also on
    ``data.rounding_fixture`` rows, whose own-center products sit at f32
    rounding midpoints, and K2 on those rows and centers as one center
    set; the rounding kernels on the final centers, GDI's split norms on
@@ -85,7 +86,9 @@ Phases (any failure exits non-zero, without the final result line):
    TOP/s int8); K6
    and its yardsticks are timed with the L2 cache flushed before each
    launch, as a decode step finds it (the other layers' weights pass
-   through it in between);
+   through it in between); K4 and K6 also with the profiler's device
+   time (``device_ms`` in their entries), since events around a short
+   kernel also time its launcher's host work;
 4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` adds, after phase 3, the fit, one
@@ -165,7 +168,7 @@ def main() -> int:
         from repro_torch.core import engine
         from repro_torch.core.model import _RESOLVE_RERANK as rerank
         from repro_torch.data import gmm_blobs, rounding_fixture
-        from repro_torch.kernels import _build, exact_round, quant, ref
+        from repro_torch.kernels import _build, exact_round, ref
         from repro_torch.kernels.candidate_assign import (
             candidate_assign_int8_tiled, candidate_assign_rowwise,
             candidate_assign_tiled, candidate_tables, pad_candidates)
@@ -579,26 +582,21 @@ def main() -> int:
               2.0 * live * knp * D + 2.0 * live * D)))
     del ctab, args
 
-    qg, b2c, skip, bnp, live, slabs = _predict_layout(
-        torch, model, qb, "int8", choose_group_bn, group_by_cluster_device)
-    xq, xsc = quant.quantize_rows(qg)
-    args = (xq, xsc, quant.residual_norm(qg, xq, xsc),
-            *quant.quantized_candidate_slabs(model._quant_tables()[0], cidx),
-            b2c, skip)
+    args, bnp, k4_bound = k4_inputs(torch, model, qb)
+    kern = functools.partial(candidate_assign_int8_tiled, *args, bn=bnp,
+                             bkn=BKN, r=rerank)
     kernels.append(_against_plain(
-        torch, check, f"K4 at the predict layout (bn={bnp})",
-        functools.partial(candidate_assign_int8_tiled, *args, bn=bnp,
-                          bkn=BKN, r=rerank),
+        torch, check, f"K4 at the predict layout (bn={bnp})", kern,
         functools.partial(ref.candidate_assign_int8_tiled_ref, *args, bnp,
                           rerank),
         dict(name="candidate_assign_int8_tiled",
              source="src/repro_torch/kernels/csrc/candidate_assign_int8.cu",
              replaces="src/repro/kernels/candidate_assign.py:282",
              launches=served["int8"]["launches"][
-                 "candidate_assign_int8_tiled"]),
-        bound(live * (D + 8.0) + slabs * knp * (D + 12.0)
-              + b2c.shape[0] * 8.0 + xq.shape[0] * (4.0 * rerank + 8.0),
-              2.0 * live * knp * D, INT8_OP_PER_S)))
+                 "candidate_assign_int8_tiled"],
+             device_ms=device_ms(kern, torch)),
+        k4_bound))
+    del args, kern
     # K5: distance_argmin on x and the Lloyd++ centers
     c_l = res_l.centers.contiguous()
     kernels.append(_against_plain(
@@ -712,7 +710,9 @@ def main() -> int:
         check(False, "the second fit made a delta call")
     del deltas
     for kr in kernels:
-        print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain "
+        dev_t = (f" (profiler's device time {kr['device_ms']:.4f} ms)"
+                 if "device_ms" in kr else "")
+        print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms{dev_t}, plain "
               f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
               f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}), launches "
               f"{kr['launches']}")
@@ -802,6 +802,30 @@ def _predict_layout(torch, model, qb, prec, choose_group_bn,
     slabs = int(torch.unique(b2c[skip == 0]).numel())
     return (qb[perm.clamp(min=0).long()].contiguous(), b2c, skip, bn, live,
             slabs)
+
+
+def k4_inputs(torch, model, qb):
+    """K4's arguments at the first int8 predict batch's layout, grouped by
+    its routed centers as ``bounded_predict_assign_int8`` groups it (bn=8
+    at this shape), and its bound: (args, bn, (bound ms, what bounds it))
+    from the live blocks' rows and the distinct slabs they name."""
+    from repro_torch.core.model import _RESOLVE_RERANK as rerank
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.candidate_assign import pad_candidates
+    from repro_torch.kernels.ops import (choose_group_bn,
+                                         group_by_cluster_device)
+    cidx = pad_candidates(model.neighbors, BKN).contiguous()
+    knp = cidx.shape[1]
+    qg, b2c, skip, bnp, live, slabs = _predict_layout(
+        torch, model, qb, "int8", choose_group_bn, group_by_cluster_device)
+    xq, xsc = quant.quantize_rows(qg)
+    args = (xq, xsc, quant.residual_norm(qg, xq, xsc),
+            *quant.quantized_candidate_slabs(model._quant_tables()[0], cidx),
+            b2c, skip)
+    return args, bnp, bound(
+        live * (D + 8.0) + slabs * knp * (D + 12.0) + b2c.shape[0] * 8.0
+        + xq.shape[0] * (4.0 * rerank + 8.0), 2.0 * live * knp * D,
+        INT8_OP_PER_S)
 
 
 def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,
@@ -930,6 +954,27 @@ def _neighborhood_min(torch, q, c, nbh, chunk: int = 8192):
               + csq[ids]).clamp(min=0.0)
         out.append(sq.min(1).values)
     return torch.cat(out)
+
+
+def device_ms(fn, torch, reps: int = 20, flush: bool = False) -> float:
+    """The profiler's device time of ``fn`` per call in ms (every kernel
+    it launches), over ``reps`` calls after a warm-up. With ``flush`` the
+    L2 cache is flushed before each call as in :func:`time_ms_cold` (a
+    fill kernel, which is not counted: ``fn`` must launch none)."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.empty((256 << 20) // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush:
+                buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if not (flush and "FillFunctor" in e.key)) / 1e3 / reps
 
 
 def time_ms_cold(fn, torch, reps: int = 10, warmup: int = 2,
@@ -1062,11 +1107,11 @@ def _small_serve_agrees(torch, dev, serve, check) -> None:
                        f"rel err {err:.3g} (<= 1e-4)")
 
 
-def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
-    """K6 on layer 0's cluster-major tables at a decode step (the layer's
-    query for the last decoded token, its top-p selection) against its
-    plain version; its bound and SDPA over the pre-gathered blocks."""
-    import torch.nn.functional as F
+def k6_inputs(torch, lm):
+    """K6's arguments on layer 0's cluster-major tables at a decode step
+    of phase 2e (``lm``: ``serve.run``'s result with its ``cfg``): the
+    layer's query for the last decoded token, f32 (B*H, dh), the tables
+    (B*Hkv*kc, cap, dh), its top-p selection (B*H, p) and the sizes."""
     from repro_torch.kernels.cluster_attend import select_clusters
     from repro_torch.models import attention as attn
     from repro_torch.models.layers import rmsnorm
@@ -1084,6 +1129,18 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
     kt = st["kt"][0].reshape(-1, cap, dh)
     vt = st["vt"][0].reshape(-1, cap, dh)
     sizes = st["sizes"][0].reshape(-1)
+    return qf, kt, vt, sel, sizes
+
+
+def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
+    """K6 on layer 0's cluster-major tables at a decode step (the layer's
+    query for the last decoded token, its top-p selection) against its
+    plain version, launched twice and held bit-identical to itself; its
+    bound and SDPA over the pre-gathered blocks."""
+    import torch.nn.functional as F
+    qf, kt, vt, sel, sizes = k6_inputs(torch, lm)
+    B, H, p = lm["prompt"].shape[0], lm["cfg"].n_heads, sel.shape[1]
+    cap, dh = kt.shape[1:]
 
     def kern():
         return cluster_attend_partial(qf, kt, vt, sel, sizes=sizes)
@@ -1109,6 +1166,10 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
               f"the plain max), acc within atol 1e-5 of the row's sum of "
               f"w|v|, empty rows exact; "
               f"attention output max abs err {err:.3g}")
+    again = kern()
+    same = all(bool(torch.equal(a, b)) for a, b in zip((m, l, acc), again))
+    check(same, f"K6 launched twice on layer 0's tables: bit-identical "
+                f"({same})")
     # bound: the distinct selected blocks' live rows of K and V (bf16),
     # q, sel and the sizes read, the outputs written; 4 dh FLOPs per
     # (query row, live row) pair
@@ -1123,7 +1184,7 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
     s = sel.long()
     kk = kt[s].reshape(B * H, 1, p * cap, dh)
     vv = vt[s].reshape(B * H, 1, p * cap, dh)
-    mask = (torch.arange(cap, device=h.device)
+    mask = (torch.arange(cap, device=qf.device)
             < sizes.long()[s][..., None]).reshape(B * H, 1, 1, p * cap)
     qb = qf.to(torch.bfloat16).reshape(B * H, 1, 1, dh)
     print(f"  K6 at the decode step: {live_rows} distinct live rows in "
@@ -1134,8 +1195,9 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
         source="src/repro_torch/kernels/csrc/cluster_attend.cu",
         replaces="src/repro/kernels/cluster_attend.py:67",
         launches=lm["launches_all"]["cluster_attend"], max_abs_err=err,
-        ms=time_ms_cold(kern, torch), plain_ms=time_ms_cold(plain, torch),
-        bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms_cold(kern, torch),
+        device_ms=device_ms(kern, torch, flush=True),
+        plain_ms=time_ms_cold(plain, torch), bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms_cold(lambda: F.scaled_dot_product_attention(
             qb, kk, vv, attn_mask=mask), torch))
 

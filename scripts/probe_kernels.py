@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Probe what bounds K1 (candidate_assign_tiled), K2 (center_sqdist), K3
-(segmented_scan), K5 (distance_argmin), the rounding kernels
+(segmented_scan), K4 (candidate_assign_int8_tiled), K5 (distance_argmin),
+K6 (cluster_attend), the rounding kernels
 (exact_round: exact_cross at a predict batch's 8192 x 1000 and 8192 x
 63) and the engine's ordered center sums (segment_sum_blocks) on one
 CUDA card, at chip_smoke.py's shapes (n=60000, d=784, k=1000; bn=32; K1
@@ -13,9 +14,21 @@ Run from the root of the repository on a machine with one CUDA card:
 
 ``--only`` times one kernel and its variants (``distance_argmin``,
 ``segmented_scan``, ``candidate_assign_tiled``, ``exact_round``,
-``center_sqdist``, ``segment_sum_blocks`` or ``all``). ``--root`` imports
-the kernels of another checkout (say a parent's, unpacked with ``git
-archive``) and times them without variants.
+``center_sqdist``, ``segment_sum_blocks``, ``candidate_assign_int8_tiled``,
+``cluster_attend`` or ``all``, which leaves out the last two). ``--root``
+imports the kernels of another checkout (say a parent's, unpacked with
+``git archive``) and times them without variants.
+
+``candidate_assign_int8_tiled`` (K4) and ``cluster_attend`` (K6) replay
+chip_smoke.py's own inputs: K4 at the first int8 predict batch's layout
+after the same fit and model (bn=8, kn_pad=32, d=784), K6 on layer 0's
+cluster-major tables at phase 2e's decode step after the same serve run
+(64 rows, p=16, cap 512, dh 128, bf16, sizes). Each gives the profiler's
+device time per call beside CUDA events over back-to-back calls (K4) or
+around each call with the L2 cache flushed before it (K6), since events
+around such short kernels also time their launchers' host work. K6 also
+reports how far its state, and its plain version's, lie from the same
+softmax taken in f64.
 
 ``segment_sum_blocks`` is timed on the calls the main path makes: one
 ``fit(init="gdi", method="k2means")`` is run with the engine's calls
@@ -76,6 +89,13 @@ _SSB_RING = ("constexpr int R = 8;            // slots a ring stage holds\n"
              "constexpr int STAGES = 3;")
 _K2_LOADS = _LOADS.replace("LD", "T::LD")
 _K2_CFG = "constexpr int CFG_BT = 32, CFG_S = 2, CFG_DC = 64;"
+
+_K4_A = ("            for (int q = 0; q < 4; ++q) a[q] = lds16(sa + (g + 8 "
+         "* q) * 64);")
+_K4_B = "              const uint4 x = lds16(sb + (8 * ni + g) * 64);"
+_CP16 = '    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"'
+_K4_NW = "constexpr int NW = 4;                // warps (units) a CUDA block"
+_K6_PLAN = "constexpr int MAX_SPLITS = 8;"
 
 # (kernel timed, source file, label) -> substitutions; "exact" variants
 # must give the kernels' own answers
@@ -200,6 +220,44 @@ VARIANTS = {
      "exact: ring of 4 stages of 8 slots"): {
         _SSB_RING: "constexpr int R = 8;            // slots a ring stage "
                    "holds\nconstexpr int STAGES = 4;"},
+    ("candidate_assign_int8_tiled", "candidate_assign_int8.cu",
+     "MMAs fed constants"): {
+        _K4_A: "            for (int q = 0; q < 4; ++q) a[q] = "
+               "make_uint4(q + 1, 2, 3, 4);",
+        _K4_B: "              const uint4 x = make_uint4(1, 2, 3, ni + 1);"},
+    ("candidate_assign_int8_tiled", "candidate_assign_int8.cu",
+     "no epilogue (copies, MMAs and the tile store only)"): {
+        "  for (int pass = 0; pass < 2; ++pass) {":
+        "  for (int pass = 0; pass < 1; ++pass) {",
+        "          if (row >= nrow) continue;\n          const float s =":
+        "          if (row >= nrow || acc[0][0][0] != -12345) continue;\n"
+        "          const float s ="},
+    ("candidate_assign_int8_tiled", "candidate_assign_int8.cu",
+     "exact: 2 warps a CUDA block"): {_K4_NW: _K4_NW.replace("4", "2")},
+    **{("candidate_assign_int8_tiled", "candidate_assign_int8.cu",
+        f"exact: {n} stages of {dc} bytes of d"): {
+        "constexpr int DC = 64;": f"constexpr int DC = {dc};",
+        "constexpr int STAGES = 4;": f"constexpr int STAGES = {n};"}
+       for dc, n in ((128, 3), (64, 3), (64, 6))},
+    ("candidate_assign_int8_tiled", "common.cuh",
+     "exact: 16-byte cp.async with a 256-byte L2 prefetch"): {
+        _CP16: _CP16.replace("global [", "global.L2::256B [")},
+    ("cluster_attend", "cluster_attend.cu",
+     "no combine (partials written; no ticket, no fold)"): {
+        "  if (tid == 0) s_last = atomicAdd(tickets + row, 1) == S - 1;":
+        "  if (tid == 0) s_last = 0;"},
+    **{("cluster_attend", "cluster_attend.cu", f"S = {n}"): {
+        _K6_PLAN: f"constexpr int MAX_SPLITS = {n};"}
+       for n in (1, 2, 4, 8, 16)},
+    ("cluster_attend", "cluster_attend.cu", "exact: 2 stages"): {
+        "constexpr int STAGES = 3;": "constexpr int STAGES = 2;"},
+    ("cluster_attend", "cluster_attend.cu", "exact: 4 stages"): {
+        "constexpr int STAGES = 3;": "constexpr int STAGES = 4;"},
+    ("cluster_attend", "cluster_attend.cu", "8 warps a CUDA block"): {
+        "constexpr int NW = 4;": "constexpr int NW = 8;"},
+    ("cluster_attend", "cluster_attend.cu", "tiles of 16 rows"): {
+        "constexpr int TILE_BYTES = 2048;": "constexpr int TILE_BYTES = 4096;",
+        "constexpr int MAX_STEPS = 4;": "constexpr int MAX_STEPS = 8;"},
     ("all", "common.cuh", "exact: no double-double tier"): {
         "  if (!k2_refine_dot_warp(pair, d, v)) v = k2_exact_dot_warp(pair, "
         "d);": "  v = k2_exact_dot_warp(pair, d);"},
@@ -229,7 +287,7 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import time_ms
+    from chip_smoke import device_ms, time_ms
     from repro_torch.core import K2Step, center_knn_graph, engine, fit
     from repro_torch.data import gmm_blobs
     from repro_torch.kernels import _build, exact_round, ref
@@ -248,6 +306,11 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     dev = torch.device("cuda")
+    if only in _REPLAYED:
+        out, timer, answers = _REPLAYED[only](torch, dev)
+        timer()            # the card's clocks rise over the first timings
+        out[only] = timer()
+        return _finish(torch, _build, args, out, {only: timer}, answers)
     gen = torch.Generator(device=dev).manual_seed(0)
     x = gmm_blobs(60000, 784, 128, generator=gen, device=dev)
     c = x[torch.randperm(60000, generator=gen, device=dev)[:1000]] \
@@ -317,8 +380,7 @@ def main() -> int:
     def k2():
         return {"center_sqdist (1000 x 784)": time_ms(
                     lambda: center_sqdist(c), torch, reps=50),
-                "device": _device_ms(torch, profile, ProfilerActivity,
-                                     lambda: center_sqdist(c))}
+                "device": device_ms(lambda: center_sqdist(c), torch)}
 
     def k2_answers():
         got = center_sqdist(c)
@@ -373,25 +435,31 @@ def main() -> int:
         out["segment_sum_blocks bit-equal to its plain version"] = same
         if "arena" in ssb_calls:
             out["segment_sum_blocks by segment order"] = _ssb_order(
-                torch, profile, ProfilerActivity, segment_sum_blocks,
-                ssb_calls["arena"])
+                torch, segment_sum_blocks, ssb_calls["arena"])
     if only == "center_sqdist":
         out["K2 ptxas"] = [
             ln.strip() for ln in _build.build_log("center_knn").splitlines()
             if "registers" in ln or "spill" in ln]
     out.update(timers[only or "all"]())
-    if args.root is not None or only not in (
-            {None, "all"} | {n for n, _, _ in VARIANTS}):
-        for key, val in out.items():
-            print(f"{key}: {val}")
-        print(json.dumps(out))
-        return 0
     if only == "center_sqdist":
         answers = k2_answers
     elif only == "segment_sum_blocks":
         def answers():
             return [segment_sum_blocks(*a, **kw)
                     for a, kw in ssb_calls.values()]
+    return _finish(torch, _build, args, out, timers, answers)
+
+
+def _finish(torch, _build, args, out, timers, answers) -> int:
+    """Time the variants of the kernel ``--only`` names against the
+    sources as they are (none with ``--root``), print, and return 0."""
+    only = args.only
+    if args.root is not None or only not in (
+            {None, "all"} | {n for n, _, _ in VARIANTS}):
+        for key, val in out.items():
+            print(f"{key}: {val}")
+        print(json.dumps(out))
+        return 0
     want = answers()
     orig = _build.CSRC, _build.BUILD_DIR
     try:
@@ -411,6 +479,14 @@ def main() -> int:
             src.write_text(text)
             _use_sources(_build, vdir, vdir / "build")
             out[f"{name}: {label}"] = timers[name]()
+            print(f"{name}: {label}: {out[f'{name}: {label}']}",
+                  file=sys.stderr, flush=True)
+            if name in _REPLAYED:
+                out[f"{name}: {label}: ptxas"] = [
+                    ln.strip() for ln in (vdir / "build" /
+                                          f"{_REPLAYED_LIB[name]}.log")
+                    .read_text().splitlines()
+                    if "registers" in ln or "spill" in ln]
             if label.startswith("exact"):
                 same = all(torch.equal(g, w) for gs, ws in
                            zip(answers(), want) for g, w in zip(gs, ws))
@@ -435,16 +511,138 @@ def main() -> int:
     return 0
 
 
-def _device_ms(torch, profile, activity, fn, reps: int = 20) -> float:
-    """The profiler's device time of ``fn`` per call, over ``reps``
-    calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[activity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_dev_us(e) for e in prof.key_averages()) / 1e3 / reps
+def _int8_predict(torch, dev):
+    """K4 at chip_smoke.py's first int8 predict batch: the same rows, fit
+    and model (deterministic from the seeds), grouped at bn=8. Returns
+    (facts, timer, answers): the timer gives CUDA events over back-to-back
+    calls and the profiler's device time per call."""
+    from chip_smoke import (BATCH, BKN, D, K, KN, MAX_ITERS, N, NQ, SEED,
+                            TRUE_K, device_ms, k4_inputs, time_ms)
+    from repro_torch.core import KMeansModel, fit
+    from repro_torch.core.model import _RESOLVE_RERANK as rerank
+    from repro_torch.data import gmm_blobs
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.candidate_assign import \
+        candidate_assign_int8_tiled
+    allx = gmm_blobs(N + NQ, D, TRUE_K, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    x, queries = allx[:N], allx[N:]
+    res = fit(x, K, method="k2means", init="gdi", kn=KN,
+              max_iters=MAX_ITERS, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    model = KMeansModel.from_result(res, x, kn=KN, device=dev)
+    args, bn, (b_ms, b_by) = k4_inputs(torch, model, queries[:BATCH])
+    del allx, x, res
+
+    def kern():
+        return candidate_assign_int8_tiled(*args, bn=bn, bkn=BKN, r=rerank)
+    skip, rowsel = args[-1], args[-2]
+    live = skip == 0
+    same = all(bool(torch.equal(g, w)) for g, w in zip(
+        kern(), ref.candidate_assign_int8_tiled_ref(*args, bn, rerank)))
+    out = {"K4 layout": dict(
+        bn=bn, kn_pad=int(args[4].shape[1]), d=int(args[0].shape[1]),
+        r=rerank, blocks=int(skip.numel()), live_blocks=int(live.sum()),
+        distinct_slabs=int(torch.unique(rowsel[live]).numel()),
+        on_previous_blocks_slab=float(
+            (rowsel[1:] == rowsel[:-1]).float().mean()),
+        bound_ms=b_ms, bound_by=b_by),
+        "K4 bit-equal to its plain version": same,
+        "K4 ptxas": [ln.strip() for ln in _build.build_log(
+            "candidate_assign_int8").splitlines()
+            if "registers" in ln or "spill" in ln]}
+
+    def timer():
+        return {"events": time_ms(kern, torch, reps=50),
+                "device": device_ms(kern, torch, reps=50)}
+    return out, timer, lambda: [kern()]
+
+
+def _decode_step(torch, dev):
+    """K6 at chip_smoke.py's phase-2e decode step: ``serve.run`` at the
+    same config and seed, then layer 0's tables, query and selection.
+    Returns (facts, timer, answers): the timer gives CUDA events and the
+    profiler's device time per call with the L2 cache flushed before
+    each call, and the device time with it warm."""
+    import dataclasses
+    from chip_smoke import (LM_ARCH, LM_BATCH, LM_DECODE, LM_FOLD,
+                            LM_LAYERS, LM_PROMPT, SEED, device_ms, k6_inputs,
+                            time_ms_cold)
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.cluster_attend import cluster_attend_partial
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    r = serve.run(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                  decode_len=LM_DECODE, fold_every=LM_FOLD, device=dev,
+                  seed=SEED, echo=lambda line: None)
+    qf, kt, vt, sel, sizes = k6_inputs(torch, dict(r, cfg=cfg))
+    del r
+
+    def kern():
+        return cluster_attend_partial(qf, kt, vt, sel, sizes=sizes)
+    first, again = kern(), kern()
+    n = sizes.long()[sel.long()]
+    plain = ref.cluster_attend_ref(qf, kt, vt, sel, sizes=sizes)
+    out = {"K6 inputs": dict(
+        rows=int(qf.shape[0]), p=int(sel.shape[1]), cap=int(kt.shape[1]),
+        dh=int(kt.shape[2]), table=str(kt.dtype),
+        live_rows_per_query_row=float(n.sum(1).float().mean()),
+        largest_block=int(n.max()),
+        distinct_live_rows=int(sizes.long()[torch.unique(sel.long())]
+                               .sum())),
+        "K6 two launches bit-identical": all(
+            bool(torch.equal(a, b)) for a, b in zip(first, again)),
+        "K6 against an f64 softmax": _k6_f64_error(torch, first, qf, kt,
+                                                   vt, sel, sizes),
+        "K6 plain version against an f64 softmax": _k6_f64_error(
+            torch, plain, qf, kt, vt, sel, sizes),
+        "K6 ptxas": [ln.strip() for ln in _build.build_log(
+            "cluster_attend").splitlines()
+            if "registers" in ln or "spill" in ln]}
+
+    def timer():
+        return {"events, L2 flushed": time_ms_cold(kern, torch, reps=20),
+                "device, L2 flushed": device_ms(kern, torch, flush=True),
+                "device, L2 warm": device_ms(kern, torch)}
+    return out, timer, lambda: [kern()]
+
+
+def _k6_f64_error(torch, state, qf, kt, vt, sel, sizes) -> dict:
+    """How far a K6 state (m, l, acc) lies from the same softmax taken in
+    f64 over the same live rows: the largest |m - m64|, the largest
+    relative error of l rescaled to m64, and the largest error of the
+    output acc / l over the row's largest |output| in f64."""
+    m, l, acc = (x.double() for x in state)
+    s = sel.long()
+    cap, dh = kt.shape[1], kt.shape[2]
+    ok = torch.arange(cap, device=qf.device) < sizes.long()[s][..., None]
+    lg = torch.einsum("nd,npcd->npc", qf.double(), kt[s].double()) \
+        * dh ** -0.5
+    lg = torch.where(ok, lg, -torch.inf).reshape(qf.shape[0], -1)
+    m64 = torch.amax(lg, dim=-1)
+    live = torch.isfinite(m64)
+    w = torch.where(torch.isfinite(lg), torch.exp(lg - torch.where(
+        live, m64, 0.0)[:, None]), 0.0)
+    l64 = w.sum(-1)
+    o64 = torch.einsum("nm,nmd->nd", w, vt[s].double().reshape(
+        qf.shape[0], -1, dh)) / l64.clamp(min=1e-300)[:, None]
+    o = acc / l.clamp(min=1e-300)[:, None]
+    scale = o64[live].abs().amax(-1)
+    return dict(
+        rows=int(live.sum()),
+        max_abs_m=float((m - m64)[live].abs().max()),
+        max_rel_l=float(((l * torch.exp(m - m64))[live] / l64[live] - 1)
+                        .abs().max()),
+        max_rel_out=float(((o - o64)[live].abs().amax(-1) / scale).max()),
+        mean_rel_out=float(((o - o64)[live].abs().amax(-1) / scale).mean()))
+
+
+# kernels timed on inputs that replay chip_smoke.py's own
+_REPLAYED = {"candidate_assign_int8_tiled": _int8_predict,
+             "cluster_attend": _decode_step}
+_REPLAYED_LIB = {"candidate_assign_int8_tiled": "candidate_assign_int8",
+                 "cluster_attend": "cluster_attend"}
 
 
 def _dev_us(e) -> float:
@@ -534,7 +732,7 @@ def _ssb_split(torch, profile, activity, segment_sum_blocks, calls,
     return out
 
 
-def _ssb_order(torch, profile, activity, segment_sum_blocks, call):
+def _ssb_order(torch, segment_sum_blocks, call):
     """Does the order in which the kernel takes its segments matter? The
     arena's call is replayed with its blocks regrouped so that segments
     come in the block list as the layout has them, longest first, or
@@ -543,6 +741,7 @@ def _ssb_order(torch, profile, activity, segment_sum_blocks, call):
     kernel lists the segments about in the order of their first blocks
     (one thread a block appends with an atomic), and its persistent
     blocks take the listed items in turn. Device ms per call."""
+    from chip_smoke import device_ms
     (xx, b2s, k, bn), kw = call
     dev, nb = b2s.device, b2s.numel()
     seg = b2s.long()
@@ -576,29 +775,26 @@ def _ssb_order(torch, profile, activity, segment_sum_blocks, call):
         got = segment_sum_blocks(*a, **kw2)
         out[label + ": bit-equal"] = all(
             torch.equal(g, w) for g, w in zip(got, want))
-        out[label] = _device_ms(torch, profile, activity,
-                                lambda: segment_sum_blocks(*a, **kw2))
+        out[label] = device_ms(lambda: segment_sum_blocks(*a, **kw2), torch)
     top = int(torch.argmax(nblk))
     alone = torch.where(seg == top, b2s, torch.full_like(b2s, -1))
     got = segment_sum_blocks(xx, alone, k, bn, **kw)
     out["longest alone: bit-equal"] = bool(
         torch.equal(got[0][top], want[0][top])
         and torch.equal(got[1][top], want[1][top]))
-    out["longest alone"] = _device_ms(
-        torch, profile, activity,
-        lambda: segment_sum_blocks(xx, alone, k, bn, **kw))
+    out["longest alone"] = device_ms(
+        lambda: segment_sum_blocks(xx, alone, k, bn, **kw), torch)
     return out
 
 
 def _ssb_times(torch, time_ms, segment_sum_blocks, calls):
-    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import device_ms
     out = {}
     for label, (a, kw) in calls.items():
         def fn():
             return segment_sum_blocks(*a, **kw)
         out[label] = time_ms(fn, torch, reps=50)
-        out[label + ", device"] = _device_ms(torch, profile,
-                                             ProfilerActivity, fn)
+        out[label + ", device"] = device_ms(fn, torch)
     return out
 
 

@@ -28,9 +28,23 @@ from ..device import host_input
 from . import _build
 from .ref import cluster_attend_ref
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 6
          + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 _TABLE_TYPES = {torch.bfloat16: 1, torch.float32: 0}
+_TICKETS: dict[tuple, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, bh: int) -> torch.Tensor:
+    """The per-row tickets of the kernel's split combine: zero between
+    launches (the last block of each row resets its own), so they are
+    made once per device and stream and reused by the launches that run
+    there in order."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < bh:
+        t = torch.zeros((max(bh, 256),), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def cluster_attend_partial(q: torch.Tensor, k_table: torch.Tensor,
@@ -79,13 +93,18 @@ def cluster_attend_partial(q: torch.Tensor, k_table: torch.Tensor,
     m = torch.empty((bh,), dtype=torch.float32, device=q.device)
     l = torch.empty((bh,), dtype=torch.float32, device=q.device)
     acc = torch.empty((bh, dh), dtype=torch.float32, device=q.device)
+    splits = _build.function("cluster_attend", "k2_cluster_attend_splits",
+                             [ctypes.c_int])(p)
+    ws = torch.empty((bh, splits, dh + 2), dtype=torch.float32,
+                     device=q.device)
+    stream = _build.stream_ptr(q.device)
     fn = _build.function("cluster_attend", "k2_cluster_attend", _ARGS)
     ptr = _build.ptr
     _build.check(fn(ptr(qf), ptr(k_table), ptr(v_table), ptr(vs),
                     int(sizes is not None), ptr(sel), ptr(m), ptr(l),
-                    ptr(acc), bh, rows, cap, dh, p,
-                    _TABLE_TYPES[k_table.dtype], dh ** -0.5,
-                    _build.stream_ptr(q.device)), name)
+                    ptr(acc), ptr(ws), ptr(_tickets(q.device, stream, bh)),
+                    bh, rows, cap, dh, p, _TABLE_TYPES[k_table.dtype],
+                    dh ** -0.5, stream), name)
     _build.count("cluster_attend")
     return m, l, acc
 

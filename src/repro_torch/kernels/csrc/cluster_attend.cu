@@ -19,199 +19,423 @@
 // (rows, cap) mask or as per-block sizes (slot < size); with sizes the row
 // loop stops at the block's size, so a block filled to 32 of its 512 slots
 // costs 32 rows of traffic, not the whole capacity the TPU kernel streams.
+// At the decode step (64 query rows, p = 16 blocks of ~32 live rows, dh =
+// 128, bf16) that is ~16 MB: a few microseconds, so the launch, the first
+// dependent loads (sel, then sizes, then the rows) and the combine are most
+// of the kernel's time.
 //
-// Design: one block of 128 threads per query row, looping over its p
-// blocks, and within a block over tiles of TR = 64 rows. A tile of K and V
-// (TR x dh, contiguous in the table) is staged into shared memory with
-// 16-byte loads where the layout allows; each warp computes the logits of
-// every fourth row (lanes stride dh, shuffle sum); warp 0 takes the tile's
-// max, the weights exp(logit - m) and the running sum; then every thread
-// updates the accumulator of its own dh columns (registers, at most two
-// per thread for dh <= 256) from the staged V tile. Tiles with no valid
-// row are skipped, which is the TPU kernel's masked-block guard. Shared
-// memory: dh + TR floats plus 2 TR dh elements (33 KB at bf16, dh = 128).
-//
-// A fast version would split each row's p blocks over several CUDA blocks
-// with a combine pass (flash-decoding), since 64 rows leave most of the 132
-// SMs idle at the decode shape, and would double-buffer the tiles with TMA
-// loads and an mbarrier so that the next tile streams while this one is
-// reduced.
+// Design: flash-decoding in one launch. Each query row's p blocks are split
+// into S contiguous slices, one CUDA block of NW = 4 warps each (S from p
+// alone, so that a row's bits depend neither on the batch nor on the card).
+// Within a CUDA block each warp takes its own tiles of TRW rows (tile t of
+// the slice's j-th block goes to warp (j + t) % NW, so a block's tiles
+// spread over the warps and the schedule does not depend on the validity
+// form), streams them through its own ring of STAGES stages with cp.async
+// (16-byte pieces where rows and tables allow, else one element a piece:
+// 4-byte cp.async for f32, plain 2-byte copies for bf16), and keeps its
+// own online-softmax state with no block-wide barrier: lanes are grouped
+// LPR to a row, each lane a few 16-byte pieces of it, the group's dot
+// product is a shuffle tree, the tile's max a warp shuffle, then every lane
+// rescales and accumulates its own columns. The warps' states meet in
+// shared memory in warp order. A block with S > 1 writes its (m, l, acc) to
+// a workspace (bh, S, dh + 2), then bumps its row's ticket after
+// __threadfence(); the last block of the row folds the S partials in slice
+// order 0, 1, ..., S-1 (m = max, each scaled by exp(m_s - m), a slice with
+// no valid row adds nothing) and resets the ticket. No float atomics: the
+// order of every sum is fixed by p alone, so two launches give the same
+// bits, a row gives the same bits in any batch, and both validity forms
+// agree too (a row past the size or masked adds nothing, and a tile with
+// no valid row is skipped).
+// A row whose blocks are all empty gives (-inf, 0, 0) exactly. Shared
+// memory: NW STAGES 2 TILE_BYTES for the rings plus NW (dh + 2) floats,
+// the attribute set once per device and kernel.
 #include <math.h>
 #include <stdint.h>
 #include <cuda_bf16.h>
 #include "common.cuh"
 
 namespace {
-constexpr int NT = 128;
-constexpr int NW = NT / 32;
-constexpr int TR = 64;
+constexpr int NW = 4;
+constexpr int NT = 32 * NW;
 constexpr int MAX_DH = 256;
-constexpr int EPT = MAX_DH / NT;
+constexpr int STAGES = 3;
+constexpr int TILE_BYTES = 2048;     // of K (and of V) a warp stage holds
+constexpr int MAX_STEPS = 4;         // row groups a tile holds
+constexpr int MAX_SPLITS = 8;
+constexpr size_t SMEM_MAX =
+    (size_t)NW * STAGES * 2 * TILE_BYTES + NW * (MAX_DH + 2) * sizeof(float);
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// The lanes' layout over a row of rb bytes in pieces of VB bytes: LPR
+// lanes a row (RG = 32 / LPR rows at once), CPL pieces a lane, TRW rows a
+// tile. Computed once per launch on the host.
+struct Lanes {
+  int lpr, cpl, trw;
+};
 
-__device__ __forceinline__ float warp_allsum(float v) {
+// The VE floats of one piece of a staged row.
+template <typename T, int VB>
+__device__ __forceinline__ void load_piece(const unsigned char* p, float* f) {
+  if constexpr (sizeof(T) == 4 && VB == 16) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  } else if constexpr (sizeof(T) == 4) {
+    f[0] = *reinterpret_cast<const float*>(p);
+  } else if constexpr (VB == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_allmax(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Copy n contiguous elements from global to shared memory, by 16 bytes
-// when both ends allow it.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, int n) {
-  const bool vec = (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
-                   ((n * sizeof(T)) % 16 == 0);
-  if (vec) {
-    const int nv = (int)(n * sizeof(T) / 16);
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < nv; i += NT) d[i] = __ldg(s + i);
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
   } else {
-    for (int i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
+    f[0] = __uint_as_float((unsigned)*reinterpret_cast<const uint16_t*>(p)
+                           << 16);
   }
 }
 
-template <typename T>
+// The rows of one block of the slice that the kernel reads: the block's
+// size (or its capacity, with a validity mask), 0 for an id outside
+// [0, rows).
+__device__ __forceinline__ int block_rows(const int* sel_r, int j,
+                                          const int* vs, int by_sizes,
+                                          int rows, int cap, int& id) {
+  id = sel_r[j];
+  if (id < 0 || id >= rows) return 0;
+  return by_sizes ? min(max(vs[id], 0), cap) : cap;
+}
+
+// The next tile of the slice [j, j1) that this warp owns, after (j, t):
+// tile t of block j belongs to warp (j - j0 + t) % NW. False past the end.
+__device__ __forceinline__ bool next_tile(int& j, int& t, int& id, int& n,
+                                          int j0, int j1, int warp,
+                                          const int* sel_r, const int* vs,
+                                          int by_sizes, int rows, int cap,
+                                          int trw) {
+  t += NW;
+  while (j < j1) {
+    if (t * trw < n) return true;
+    if (++j >= j1) break;
+    n = block_rows(sel_r, j, vs, by_sizes, rows, cap, id);
+    t = ((warp - (j - j0)) % NW + NW) % NW;
+  }
+  return false;
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void fill_stage(unsigned char* st, const T* kt,
+                                           const T* vt, int id, int cap,
+                                           int dh, int r0, int nr, int lane) {
+  const size_t rb = (size_t)dh * sizeof(T);
+  const unsigned char* ks = reinterpret_cast<const unsigned char*>(kt) +
+                            ((size_t)id * cap + r0) * rb;
+  const unsigned char* vsrc = reinterpret_cast<const unsigned char*>(vt) +
+                              ((size_t)id * cap + r0) * rb;
+  const int pieces = (int)(nr * rb / VB);
+  for (int e = lane; e < pieces; e += 32) {
+    const size_t o = (size_t)e * VB;
+    if constexpr (VB == 2) {
+      *reinterpret_cast<uint16_t*>(st + o) =
+          *reinterpret_cast<const uint16_t*>(ks + o);
+      *reinterpret_cast<uint16_t*>(st + TILE_BYTES + o) =
+          *reinterpret_cast<const uint16_t*>(vsrc + o);
+    } else {
+      k2_cp_async(reinterpret_cast<float*>(st + o),
+                  reinterpret_cast<const float*>(ks + o), true, VB);
+      k2_cp_async(reinterpret_cast<float*>(st + TILE_BYTES + o),
+                  reinterpret_cast<const float*>(vsrc + o), true, VB);
+    }
+  }
+}
+
+template <typename T, int VB>
 __global__ void __launch_bounds__(NT)
 cluster_attend_kernel(const float* __restrict__ q, const T* __restrict__ kt,
                       const T* __restrict__ vt, const int* __restrict__ vs,
                       int by_sizes, const int* __restrict__ sel,
                       float* __restrict__ m_out, float* __restrict__ l_out,
-                      float* __restrict__ acc_out, int rows, int cap, int dh,
-                      int p, float scale) {
+                      float* __restrict__ acc_out, float* __restrict__ ws,
+                      int* __restrict__ tickets, int rows, int cap, int dh,
+                      int p, float scale, int S, Lanes ln) {
+  constexpr int VE = VB / (int)sizeof(T);     // elements a piece
+  constexpr int CMAX = 8 / VE;                // pieces a lane, at most
+  constexpr int EL = CMAX * VE;               // elements a lane, at most
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dh4 = (dh + 3) & ~3;
-  float* qs = reinterpret_cast<float*>(smem);
-  float* wl = qs + dh4;                                   // TR logits/weights
-  T* ks = reinterpret_cast<T*>(wl + TR);
-  T* vsm = ks + (size_t)TR * dh;
-  __shared__ float s_corr;
-  __shared__ int s_live;
-
-  const size_t row = blockIdx.x;
+  __shared__ int s_last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < dh; e += NT) qs[e] = q[row * dh + e];
-  float acc[EPT];
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;        // meaningful in warp 0
+  const int row = blockIdx.x / S, slice = blockIdx.x % S;
+  const int j0 = (int)((long long)slice * p / S);
+  const int j1 = (int)((long long)(slice + 1) * p / S);
+  const int* sel_r = sel + (size_t)row * p;
+  const int lpr = ln.lpr, cpl = ln.cpl, trw = ln.trw, rg = 32 / lpr;
+  const int grp = lane / lpr, sub = lane % lpr;
+  const size_t rb = (size_t)dh * sizeof(T);
+  const int cpr = (int)(rb / VB);             // pieces a row
+  unsigned char* ring = smem + (size_t)warp * STAGES * 2 * TILE_BYTES;
+  float* mrg = reinterpret_cast<float*>(smem + (size_t)NW * STAGES * 2 *
+                                                   TILE_BYTES);
 
-  for (int j = 0; j < p; ++j) {
-    const int id = sel[row * p + j];
-    if (id < 0 || id >= rows) continue;                  // uniform
-    const int n = by_sizes ? min(max(vs[id], 0), cap) : cap;
-    const int* vrow = by_sizes ? nullptr : vs + (size_t)id * cap;
-    const T* kb = kt + (size_t)id * cap * dh;
-    const T* vb = vt + (size_t)id * cap * dh;
-    for (int r0 = 0; r0 < n; r0 += TR) {
-      const int nr = min(TR, n - r0);
-      __syncthreads();                 // the last tile's readers are done
-      stage(ks, kb + (size_t)r0 * dh, nr * dh);
-      stage(vsm, vb + (size_t)r0 * dh, nr * dh);
-      __syncthreads();
-      for (int r = warp; r < nr; r += NW) {
-        const T* kr = ks + (size_t)r * dh;
-        float s = 0.f;
-        for (int e = lane; e < dh; e += 32) s = fmaf(qs[e], to_f(kr[e]), s);
-        s = warp_allsum(s);
-        if (lane == 0) {
-          const bool ok = vrow == nullptr || vrow[r0 + r] > 0;
-          wl[r] = ok ? s * scale : -INFINITY;
-        }
-      }
-      __syncthreads();
-      if (warp == 0) {
-        const float x0 = lane < nr ? wl[lane] : -INFINITY;
-        const float x1 = lane + 32 < nr ? wl[lane + 32] : -INFINITY;
-        const float mt = warp_allmax(fmaxf(x0, x1));
-        if (mt == -INFINITY) {
-          if (lane == 0) s_live = 0;   // a fully masked tile: keep the stats
-        } else {
-          const float m_new = fmaxf(m, mt);
-          const float corr = m == -INFINITY ? 0.f : expf(m - m_new);
-          const float w0 = x0 == -INFINITY ? 0.f : expf(x0 - m_new);
-          const float w1 = x1 == -INFINITY ? 0.f : expf(x1 - m_new);
-          if (lane < nr) wl[lane] = w0;
-          if (lane + 32 < nr) wl[lane + 32] = w1;
-          l = l * corr + warp_allsum(w0 + w1);
-          m = m_new;
-          if (lane == 0) {
-            s_corr = corr;
-            s_live = 1;
-          }
-        }
-      }
-      __syncthreads();
-      if (s_live) {
-        const float corr = s_corr;
+  float qv[EL], acc[EL];
 #pragma unroll
-        for (int i = 0; i < EPT; ++i) {
-          const int e = tid + i * NT;
-          if (e < dh) {
-            float a = acc[i] * corr;
-            for (int r = 0; r < nr; ++r)
-              a = fmaf(wl[r], to_f(vsm[(size_t)r * dh + e]), a);
-            acc[i] = a;
+  for (int c = 0; c < CMAX; ++c)
+#pragma unroll
+    for (int i = 0; i < VE; ++i) {
+      const int ch = sub + c * lpr;
+      qv[c * VE + i] =
+          c < cpl && ch < cpr ? q[(size_t)row * dh + ch * VE + i] : 0.f;
+      acc[c * VE + i] = 0.f;
+    }
+  float m = -INFINITY, l = 0.f;          // l: this lane's row group's sum
+
+  // two walks over this warp's tiles: one starts copies STAGES - 1 ahead
+  int ij = j0, it = 0, iid = 0, in = 0;  // the copy side
+  if (ij < j1) {
+    in = block_rows(sel_r, ij, vs, by_sizes, rows, cap, iid);
+    it = warp - NW;                      // next_tile adds NW
+  }
+  bool ihave = ij < j1 && next_tile(ij, it, iid, in, j0, j1, warp, sel_r, vs,
+                                    by_sizes, rows, cap, trw);
+  int cj = ij, ct = it, cid = iid, cn = in;  // the compute side
+  bool chave = ihave;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (ihave) {
+      fill_stage<T, VB>(ring + s * 2 * TILE_BYTES, kt, vt, iid, cap, dh,
+                        it * trw, min(trw, in - it * trw), lane);
+      ihave = next_tile(ij, it, iid, in, j0, j1, warp, sel_r, vs, by_sizes,
+                        rows, cap, trw);
+    }
+    k2_cp_commit();
+  }
+  for (int i = 0; chave; ++i) {
+    k2_cp_wait<STAGES - 2>();
+    __syncwarp();
+    if (ihave) {
+      fill_stage<T, VB>(ring + (i + STAGES - 1) % STAGES * 2 * TILE_BYTES, kt,
+                        vt, iid, cap, dh, it * trw, min(trw, in - it * trw),
+                        lane);
+      ihave = next_tile(ij, it, iid, in, j0, j1, warp, sel_r, vs, by_sizes,
+                        rows, cap, trw);
+    }
+    k2_cp_commit();
+    const unsigned char* kb = ring + i % STAGES * 2 * TILE_BYTES;
+    const unsigned char* vb = kb + TILE_BYTES;
+    const int r0 = ct * trw, nr = min(trw, cn - r0);
+    const int* vrow = by_sizes ? nullptr : vs + (size_t)cid * cap + r0;
+    const int nsteps = (nr + rg - 1) / rg;
+    float lg[MAX_STEPS];
+    float mt = -INFINITY;
+#pragma unroll
+    for (int st = 0; st < MAX_STEPS; ++st) {
+      lg[st] = -INFINITY;
+      if (st >= nsteps) continue;              // warp-uniform
+      const int r = st * rg + grp;
+      float s = 0.f;
+      if (r < nr) {
+#pragma unroll
+        for (int c = 0; c < CMAX; ++c) {
+          const int ch = sub + c * lpr;
+          if (c < cpl && ch < cpr) {
+            float f[VE];
+            load_piece<T, VB>(kb + r * rb + (size_t)ch * VB, f);
+#pragma unroll
+            for (int e = 0; e < VE; ++e) s = fmaf(qv[c * VE + e], f[e], s);
           }
         }
       }
+      for (int o = lpr / 2; o > 0; o >>= 1)
+        s += __shfl_xor_sync(FULL, s, o);
+      if (r < nr && (vrow == nullptr || vrow[r] > 0)) lg[st] = s * scale;
+      mt = fmaxf(mt, lg[st]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, o));
+    if (mt != -INFINITY) {                     // else: keep the state
+      const float m_new = fmaxf(m, mt);
+      const float corr = m == -INFINITY ? 0.f : expf(m - m_new);
+      l *= corr;
+#pragma unroll
+      for (int e = 0; e < EL; ++e) acc[e] *= corr;
+#pragma unroll
+      for (int st = 0; st < MAX_STEPS; ++st) {
+        if (lg[st] == -INFINITY) continue;
+        const float w = expf(lg[st] - m_new);
+        const int r = st * rg + grp;
+        l += w;
+#pragma unroll
+        for (int c = 0; c < CMAX; ++c) {
+          const int ch = sub + c * lpr;
+          if (c < cpl && ch < cpr) {
+            float f[VE];
+            load_piece<T, VB>(vb + r * rb + (size_t)ch * VB, f);
+#pragma unroll
+            for (int e = 0; e < VE; ++e)
+              acc[c * VE + e] = fmaf(w, f[e], acc[c * VE + e]);
+          }
+        }
+      }
+      m = m_new;
+    }
+    chave = next_tile(cj, ct, cid, cn, j0, j1, warp, sel_r, vs, by_sizes,
+                      rows, cap, trw);
+    __syncwarp();                              // the slot is refilled next
+  }
+  k2_cp_wait<0>();
+  // the row groups' sums (same m), then the warps' states in warp order
+  for (int o = lpr; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(FULL, l, o);
+#pragma unroll
+    for (int e = 0; e < EL; ++e) acc[e] += __shfl_xor_sync(FULL, acc[e], o);
+  }
+  float* mw = mrg + warp * (dh + 2);
+  if (lane == 0) {
+    mw[0] = m;
+    mw[1] = l;
+  }
+  if (grp == 0)
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      const int ch = sub + c * lpr;
+      if (c < cpl && ch < cpr)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) mw[2 + ch * VE + e] = acc[c * VE + e];
+    }
+  __syncthreads();
+  float mm = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) mm = fmaxf(mm, mrg[w * (dh + 2)]);
+  float f[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const float mw_ = mrg[w * (dh + 2)];
+    f[w] = mw_ == -INFINITY ? 0.f : expf(mw_ - mm);
+  }
+  float* out = S == 1 ? nullptr : ws + ((size_t)row * S + slice) * (dh + 2);
+  for (int e = tid; e < dh + 1; e += NT) {     // e = 0: l; e >= 1: acc
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) a = fmaf(mrg[w * (dh + 2) + 1 + e], f[w], a);
+    if (S == 1) {
+      if (e == 0) {
+        m_out[row] = mm;
+        l_out[row] = a;
+      } else {
+        acc_out[(size_t)row * dh + e - 1] = a;
+      }
+    } else {
+      if (e == 0) out[0] = mm;
+      out[1 + e] = a;
     }
   }
-  if (tid == 0) {
-    m_out[row] = m;
-    l_out[row] = l;
+  if (S == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(tickets + row, 1) == S - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block of the row: the S partials in slice order
+  const float* part = ws + (size_t)row * S * (dh + 2);
+  float mx = -INFINITY;
+  for (int s = 0; s < S; ++s) mx = fmaxf(mx, __ldcg(part + s * (dh + 2)));
+  for (int e = tid; e < dh + 1; e += NT) {
+    float a = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float ms = __ldcg(part + s * (dh + 2));
+      const float fs = ms == -INFINITY ? 0.f : expf(ms - mx);
+      a = fmaf(__ldcg(part + s * (dh + 2) + 1 + e), fs, a);
+    }
+    if (e == 0) {
+      m_out[row] = mx;
+      l_out[row] = a;
+    } else {
+      acc_out[(size_t)row * dh + e - 1] = a;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const int e = tid + i * NT;
-    if (e < dh) acc_out[row * dh + e] = acc[i];
-  }
+  if (tid == 0) tickets[row] = 0;
+}
+
+// S for rows of p blocks: the largest power of two at most p and
+// MAX_SPLITS. A function of p alone: the split fixes the order of the
+// combine, so a row's bits must not follow the batch it comes in or the
+// card's SM count. S = 8 measured fastest at the decode step (64 rows,
+// p = 16: 512 CUDA blocks, 4 resident an SM on 132 SMs; S = 4 and 16
+// slower).
+int plan_splits(int p) {
+  int s = 1;
+  while (s < MAX_SPLITS && s * 2 <= p) s *= 2;
+  return s;
+}
+
+template <typename T, int VB>
+cudaError_t launch(const float* q, const void* kt, const void* vt,
+                   const int* vs, int by_sizes, const int* sel, float* m,
+                   float* l, float* acc, float* ws, int* tickets, int bh,
+                   int rows, int cap, int dh, int p, float scale,
+                   cudaStream_t stream) {
+  auto kernel = cluster_attend_kernel<T, VB>;
+  cudaError_t err;
+  k2_resident_blocks(kernel, NT, SMEM_MAX, err);  // opts in once
+  if (err != cudaSuccess) return err;
+  const int S = plan_splits(p);
+  const int rb = dh * (int)sizeof(T), cpr = rb / VB;
+  Lanes ln;
+  ln.lpr = 1;
+  while (ln.lpr < 32 && ln.lpr < cpr) ln.lpr *= 2;
+  ln.cpl = (cpr + ln.lpr - 1) / ln.lpr;
+  int trw = 1;
+  while (trw * 2 * rb <= TILE_BYTES) trw *= 2;
+  ln.trw = min(trw, MAX_STEPS * (32 / ln.lpr));
+  const size_t smem =
+      (size_t)NW * STAGES * 2 * TILE_BYTES + NW * (dh + 2) * sizeof(float);
+  kernel<<<(unsigned)((long long)bh * S), NT, smem, stream>>>(
+      q, static_cast<const T*>(kt), static_cast<const T*>(vt), vs, by_sizes,
+      sel, m, l, acc, ws, tickets, rows, cap, dh, p, scale, S, ln);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const float* q, const void* kt, const void* vt,
-                   const int* vs, int by_sizes, const int* sel, float* m,
-                   float* l, float* acc, int bh, int rows, int cap, int dh,
-                   int p, float scale, cudaStream_t stream) {
-  const size_t smem = ((dh + 3) & ~3) * sizeof(float) + TR * sizeof(float) +
-                      2 * (size_t)TR * dh * sizeof(T);
-  cudaError_t err = k2_set_smem(cluster_attend_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  cluster_attend_kernel<T><<<bh, NT, smem, stream>>>(
-      q, static_cast<const T*>(kt), static_cast<const T*>(vt), vs, by_sizes,
-      sel, m, l, acc, rows, cap, dh, p, scale);
-  return cudaGetLastError();
+cudaError_t launch_any(const float* q, const void* kt, const void* vt,
+                       const int* vs, int by_sizes, const int* sel, float* m,
+                       float* l, float* acc, float* ws, int* tickets, int bh,
+                       int rows, int cap, int dh, int p, float scale,
+                       cudaStream_t stream) {
+  const int rb = dh * (int)sizeof(T);
+  const uintptr_t both = (uintptr_t)kt | (uintptr_t)vt;
+  if (rb % 16 == 0 && both % 16 == 0)
+    return launch<T, 16>(q, kt, vt, vs, by_sizes, sel, m, l, acc, ws, tickets,
+                         bh, rows, cap, dh, p, scale, stream);
+  return launch<T, (int)sizeof(T)>(q, kt, vt, vs, by_sizes, sel, m, l, acc,
+                                   ws, tickets, bh, rows, cap, dh, p, scale,
+                                   stream);
 }
 }  // namespace
 
 // q: (bh, dh) f32; kt, vt: (rows, cap, dh) bf16 (table_bf16 = 1) or f32;
 // vs: (rows,) int32 sizes when by_sizes, else (rows, cap) int32 validity;
 // sel: (bh, p) int32 table rows (rows outside [0, rows) are skipped);
-// outputs m, l (bh,) f32 and acc (bh, dh) f32. dh <= 256.
+// outputs m, l (bh,) f32 and acc (bh, dh) f32; ws: (bh, S, dh + 2) f32
+// scratch, S = k2_cluster_attend_splits(p); tickets: (bh,) int32, zero
+// before the launch and after it. dh <= 256.
+K2_EXPORT int k2_cluster_attend_splits(int p) { return plan_splits(p); }
+
 K2_EXPORT int k2_cluster_attend(const float* q, const void* kt,
                                 const void* vt, const int* vs, int by_sizes,
                                 const int* sel, float* m, float* l,
-                                float* acc, int bh, int rows, int cap, int dh,
-                                int p, int table_bf16, float scale,
+                                float* acc, float* ws, int* tickets, int bh,
+                                int rows, int cap, int dh, int p,
+                                int table_bf16, float scale,
                                 cudaStream_t stream) {
   if (bh < 0 || rows < 0 || cap < 0 || dh < 1 || dh > MAX_DH || p < 0)
     return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaGetLastError();
   return table_bf16
-             ? (int)launch<__nv_bfloat16>(q, kt, vt, vs, by_sizes, sel, m, l,
-                                          acc, bh, rows, cap, dh, p, scale,
-                                          stream)
-             : (int)launch<float>(q, kt, vt, vs, by_sizes, sel, m, l, acc, bh,
-                                  rows, cap, dh, p, scale, stream);
+             ? (int)launch_any<__nv_bfloat16>(q, kt, vt, vs, by_sizes, sel, m,
+                                              l, acc, ws, tickets, bh, rows,
+                                              cap, dh, p, scale, stream)
+             : (int)launch_any<float>(q, kt, vt, vs, by_sizes, sel, m, l, acc,
+                                      ws, tickets, bh, rows, cap, dh, p,
+                                      scale, stream);
 }

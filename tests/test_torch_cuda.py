@@ -15,9 +15,12 @@ bit-equal, also on rows built to sit at f32 rounding midpoints
 the ordered segment sums are held bit-equal to their plain versions, K3
 to its plain version on the CPU (where torch's cumsum adds in K3's
 order) and to itself across launches, the whole fit to itself across
-runs, and GDI plus k²-means to the CPU's. K6 carries an online softmax over
-tiles of 64 rows where its plain version takes one softmax over all
-slots, and sums its dot products in another order: its m, and its l
+runs, and GDI plus k²-means to the CPU's. K6 carries an online softmax
+per warp over its tiles, merged across warps and across the CUDA blocks
+that split a row's blocks in a fixed order, where its plain version
+takes one softmax over all slots, and sums its dot products in another
+order (so it is held bit-identical to itself and across its two
+validity forms, and within tolerances of its plain version): its m, and its l
 rescaled to the plain version's max, are held to rtol 1e-5; its acc,
 rescaled the same way, to 1e-5 times the row's sum of w |v| plus 1e-6,
 since acc sums terms of both signs and its error scales with their
@@ -224,6 +227,47 @@ def test_cuda_candidate_assign_int8_tiled_wide_slab(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [784, 785, 788])
+@pytest.mark.parametrize("kn", [30, 60, 384])
+@pytest.mark.parametrize("bn", [8, 128])
+def test_cuda_candidate_assign_int8_tiled_layouts(cuda, bn, kn, d):
+    """K4 bit-equal to its plain version at kn_pad 32, 64 and 384 (one
+    pass over the slab, or a pass for the min and one for the survivors)
+    with 16-byte (d = 784) and byte (785, 788) copies, over 7 point
+    blocks: not a multiple of the units a CUDA block takes."""
+    r = 16
+    args = [a.to(cuda) for a in _int8_inputs(bn * 7, 400, d, kn, bn, 8,
+                                             seed=bn + kn + d)]
+    assert args[4].shape[1] == -(-kn // 8) * 8
+    _build.reset_launches()
+    got = candidate_assign_int8_tiled(*args, bn=bn, bkn=8, r=r)
+    torch.cuda.synchronize()
+    assert _build.launches()["candidate_assign_int8_tiled"] == 1
+    want = ref.candidate_assign_int8_tiled_ref(*args, bn, r)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][:bn] > r).all(), "block 0 did not overflow the width"
+    assert (got[1][-bn:] == 0).all() and (got[0][-bn:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [8, 128])
+def test_cuda_candidate_assign_int8_tiled_all_skipped(cuda, bn):
+    """Every block skipped: (-1, 0, PAD_SQDIST) for every row, as the plain
+    version gives."""
+    args = [a.to(cuda) for a in _int8_inputs(bn * 5, 40, 784, 12, bn, 8,
+                                             seed=bn)]
+    args[-1] = torch.ones_like(args[-1])
+    got = candidate_assign_int8_tiled(*args, bn=bn, bkn=8, r=8)
+    torch.cuda.synchronize()
+    want = ref.candidate_assign_int8_tiled_ref(*args, bn, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0] == -1).all() and (got[1] == 0).all()
+    assert (got[2] == ref.PAD_SQDIST).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,k,d,dups", [
     (1000, 333, 17, (166,)), (4097, 1000, 784, (500,)),
     (130, 65, 3072, (32,)), (64, 1, 5, ()), (700, 129, 784, (64,)),
@@ -413,6 +457,59 @@ def test_cuda_cluster_attend_decode_shape(cuda):
                                                sizes=sizes)[2])
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh", [16, 64])
+@pytest.mark.parametrize("p", [1, 16, 17, 40])
+def test_cuda_cluster_attend_splits(cuda, p, bh, dtype):
+    """Each row's p blocks split over several CUDA blocks (p = 17 and 40
+    do not divide into the split), with ids outside [0, rows) skipped and
+    rows whose blocks are all empty: one launch and one count per call,
+    two launches bit-identical, the sizes and valid forms equal, and the
+    state within the plain version's tolerances (an out-of-range id
+    stands there for an empty block)."""
+    rows = 300
+    q, kt, vt, sel, sizes, valid = _attend_inputs(bh, rows, 96, 128, p,
+                                                  dtype, p + bh, cuda)
+    sel[1, 0] = -1
+    sel[2, -1] = rows
+    sel[3] = rows + 7                      # every id out of range
+    _build.reset_launches()
+    a = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    b = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    c = cluster_attend_partial(q, kt, vt, sel, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()["cluster_attend"] == 3
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    sel_p = torch.where((sel >= 0) & (sel < rows), sel, 0)   # block 0 empty
+    _assert_state_close(a, ref.cluster_attend_ref(q, kt, vt, sel_p,
+                                                  sizes=sizes),
+                        ref.cluster_attend_ref(q, kt, vt.abs(), sel_p,
+                                               sizes=sizes)[2])
+    for i in (0, 3):
+        assert torch.isinf(a[0][i]) and a[1][i] == 0 and (a[2][i] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [3, 16, 40])
+def test_cuda_cluster_attend_rows_independent_of_batch(cuda, p, dtype):
+    """A row's state does not depend on the rows batched with it: the
+    same rows at bh = 64, 16, 2 and 1 (and in reverse order) give the same
+    bits, since the split of a row's blocks follows p alone."""
+    q, kt, vt, sel, sizes, _ = _attend_inputs(64, 300, 96, 128, p, dtype,
+                                              p + 1, cuda)
+    whole = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    for rows in (torch.arange(16), torch.arange(5, 7), torch.arange(9, 10),
+                 torch.arange(63, -1, -1)):
+        rows = rows.to(cuda)
+        part = cluster_attend_partial(q[rows].contiguous(), kt, vt,
+                                      sel[rows].contiguous(), sizes=sizes)
+        for x, y in zip(part, whole):
+            assert torch.equal(x, y[rows])
 
 
 @pytest.mark.cuda
