@@ -86,7 +86,7 @@ Phases (any failure exits non-zero, without the final result line):
    TOP/s int8); K6
    and its yardsticks are timed with the L2 cache flushed before each
    launch, as a decode step finds it (the other layers' weights pass
-   through it in between); K4 and K6 also with the profiler's device
+   through it in between); K4, K6 and K7 also with the profiler's device
    time (``device_ms`` in their entries), since events around a short
    kernel also time its launcher's host work;
 4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
@@ -432,20 +432,8 @@ def main() -> int:
     # --- 2d. the assignment bench: K7 rowwise beside K1 tiled -----------
     c = res.centers.contiguous()
     sb = K2Step(k=K, kn=KN, bkn=BKN)
-    st = sb.init_resident(x, torch.ones(N, device=dev), c, res.assignment)
-    nb = st.b2c.shape[0]
-    bn = st.pid.shape[0] // nb
-    graph = center_knn_graph(c, KN)
-    cidx = pad_candidates(graph, BKN).contiguous()
-    ctab, csqtab = candidate_tables(c, cidx)
-    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
-    cand = graph[rowsel.long()].contiguous()
-    s_rows = st.pid.shape[0]
-    zi = torch.zeros(s_rows, dtype=torch.int32, device=dev)
-    zf = torch.zeros(s_rows, device=dev)
-    noskip = torch.zeros(nb, dtype=torch.int32, device=dev)
-    args = (st.xg, ctab, csqtab, cidx, rowsel, noskip, zi, zf, zf)
-    args7 = (st.xg, c, cand, noskip, zi, zf)
+    args, args7, bn, k7_bound = k7_inputs(torch, x, c, res.assignment)
+    s_rows, nb = args[0].shape[0], args[4].shape[0]
     torch.cuda.synchronize()
     _build.reset_launches()
     a_t, d_t, _ = candidate_assign_tiled(*args, bn=bn, bkn=BKN)
@@ -492,8 +480,8 @@ def main() -> int:
           f"card equals the CPU's")
 
     # K1: candidate_assign_tiled over the final resident arena, no skips
-    knp = cidx.shape[1]
-    rows_read = int(torch.unique(rowsel).numel())
+    knp = args[3].shape[1]
+    rows_read = int(torch.unique(args[4]).numel())
     kernels.append(_against_plain(
         torch, check, f"K1 over the final resident arena ({s_rows} rows, "
                       f"bn={bn}, no block skipped)",
@@ -508,21 +496,20 @@ def main() -> int:
               2.0 * s_rows * knp * D + 2.0 * s_rows * D)))
 
     # K7: candidate_assign_rowwise over the same arena and lists
-    rows7 = int(torch.unique(cand).numel())
+    k7 = functools.partial(candidate_assign_rowwise, *args7, bn=bn)
     kernels.append(_against_plain(
         torch, check, f"K7 over the final resident arena ({s_rows} rows, "
-                      f"bn={bn}, kn={KN})",
-        functools.partial(candidate_assign_rowwise, *args7, bn=bn),
+                      f"bn={bn}, kn={KN})", k7,
         functools.partial(ref.candidate_assign_ref, *args7, bn),
         dict(name="candidate_assign_rowwise",
              source="src/repro_torch/kernels/csrc/candidate_assign_rowwise.cu",
              replaces="src/repro/kernels/candidate_assign.py:401",
-             launches=bench["candidate_assign_rowwise"]),
-        bound(s_rows * D * 4.0 + rows7 * (D + 1) * 4.0 + nb * (KN + 1) * 4.0
-              + s_rows * 8.0 * 2, 2.0 * s_rows * KN * D)))
+             launches=bench["candidate_assign_rowwise"],
+             device_ms=device_ms(k7, torch)),
+        k7_bound))
     print(f"  tiled_vs_rowwise_wall (K7 ms / K1 ms over the arena): "
           f"{kernels[-1]['ms'] / kernels[-2]['ms']:.3f}")
-    del st, args, args7, ctab
+    del args, args7, k7
 
     # K3: segmented_scan on the GDI leaf-grouped layout, and on the first
     # GDI round's layout (one segment over every block: the longest chains
@@ -628,7 +615,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/exact_round.cu",
              replaces="src/repro/kernels/candidate_assign.py:79",
              launches=launches["exact_sqnorm"]),
-        bound(K * D * 4.0 + K * 4.0, 2.0 * K * D)))
+        bound(K * D * 4.0 + K * 4.0, 2.0 * K * D),
+        library=lambda: torch.linalg.vecdot(c, c)))
     # exact_cross at both of predict's shapes: a batch against every
     # center (the re-rank's distances) and against the router's group
     # centroids, each given the squared norms that quant.sqdist_exact
@@ -651,7 +639,8 @@ def main() -> int:
                  replaces="src/repro/core/model.py:151",
                  launches=served["f32"]["launches"]["exact_cross"]),
             bound((BATCH * D + kk * D + BATCH * kk) * 4.0,
-                  2.0 * BATCH * kk * D)))
+                  2.0 * BATCH * kk * D),
+            library=lambda: qb @ ct))   # f32: TF32 is off (device.py)
     proj_dirs = (c - c.roll(1, 0)).contiguous()    # a direction per leaf
     kernels.append(_against_plain(
         torch, check, f"exact_rowdot of the rows ({N} x {D}) with their "
@@ -826,6 +815,37 @@ def k4_inputs(torch, model, qb):
         live * (D + 8.0) + slabs * knp * (D + 12.0) + b2c.shape[0] * 8.0
         + xq.shape[0] * (4.0 * rerank + 8.0), 2.0 * live * knp * D,
         INT8_OP_PER_S)
+
+
+def k7_inputs(torch, x, c, assignment):
+    """The assignment bench's inputs (phase 2d): the resident arena of
+    ``x`` under ``assignment`` and the centers ``c`` (bn=32 at the fit's
+    shape), no block skipped, with K1's candidate table of the k_n-NN
+    graph and K7's per-block lists ``cand = graph[rowsel]`` (the same
+    lists), and K7's bound from the arena's rows, the distinct center
+    rows the lists name and the outputs: (K1's args, K7's args, bn,
+    (bound ms, what bounds it))."""
+    from repro_torch.core import K2Step, center_knn_graph
+    from repro_torch.kernels.candidate_assign import (candidate_tables,
+                                                      pad_candidates)
+    dev = x.device
+    st = K2Step(k=K, kn=KN, bkn=BKN).init_resident(
+        x, torch.ones(x.shape[0], device=dev), c, assignment)
+    nb, rows = st.b2c.shape[0], st.pid.shape[0]
+    graph = center_knn_graph(c, KN)
+    cidx = pad_candidates(graph, BKN).contiguous()
+    ctab, csqtab = candidate_tables(c, cidx)
+    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
+    cand = graph[rowsel.long()].contiguous()
+    zi = torch.zeros(rows, dtype=torch.int32, device=dev)
+    zf = torch.zeros(rows, device=dev)
+    noskip = torch.zeros(nb, dtype=torch.int32, device=dev)
+    distinct = int(torch.unique(cand).numel())
+    return ((st.xg, ctab, csqtab, cidx, rowsel, noskip, zi, zf, zf),
+            (st.xg, c, cand, noskip, zi, zf), rows // nb,
+            bound(rows * D * 4.0 + distinct * (D + 1) * 4.0
+                  + nb * (KN + 1) * 4.0 + rows * 8.0 * 2,
+                  2.0 * rows * KN * D, FP64_TC_FLOP_PER_S))
 
 
 def _against_plain(torch, check, what, kern, plain, entry, bound_ms_by,

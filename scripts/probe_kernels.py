@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe what bounds K1 (candidate_assign_tiled), K2 (center_sqdist), K3
 (segmented_scan), K4 (candidate_assign_int8_tiled), K5 (distance_argmin),
-K6 (cluster_attend), the rounding kernels
+K6 (cluster_attend), K7 (candidate_assign_rowwise), the rounding kernels
 (exact_round: exact_cross at a predict batch's 8192 x 1000 and 8192 x
 63) and the engine's ordered center sums (segment_sum_blocks) on one
 CUDA card, at chip_smoke.py's shapes (n=60000, d=784, k=1000; bn=32; K1
@@ -15,20 +15,26 @@ Run from the root of the repository on a machine with one CUDA card:
 ``--only`` times one kernel and its variants (``distance_argmin``,
 ``segmented_scan``, ``candidate_assign_tiled``, ``exact_round``,
 ``center_sqdist``, ``segment_sum_blocks``, ``candidate_assign_int8_tiled``,
-``cluster_attend`` or ``all``, which leaves out the last two). ``--root``
-imports the kernels of another checkout (say a parent's, unpacked with
-``git archive``) and times them without variants.
+``cluster_attend``, ``candidate_assign_rowwise`` or ``all``, which leaves
+out the last three). ``--root`` imports the kernels of another checkout
+(say a parent's, unpacked with ``git archive``) and times them without
+variants, except K7's where that checkout still holds the warp-a-row K7
+of PR 20 and before: there the variants of ROOT_VARIANTS are built from
+its sources.
 
-``candidate_assign_int8_tiled`` (K4) and ``cluster_attend`` (K6) replay
-chip_smoke.py's own inputs: K4 at the first int8 predict batch's layout
-after the same fit and model (bn=8, kn_pad=32, d=784), K6 on layer 0's
-cluster-major tables at phase 2e's decode step after the same serve run
-(64 rows, p=16, cap 512, dh 128, bf16, sizes). Each gives the profiler's
-device time per call beside CUDA events over back-to-back calls (K4) or
-around each call with the L2 cache flushed before it (K6), since events
-around such short kernels also time their launchers' host work. K6 also
-reports how far its state, and its plain version's, lie from the same
-softmax taken in f64.
+``candidate_assign_int8_tiled`` (K4), ``cluster_attend`` (K6) and
+``candidate_assign_rowwise`` (K7) replay chip_smoke.py's own inputs: K4
+at the first int8 predict batch's layout after the same fit and model
+(bn=8, kn_pad=32, d=784), K6 on layer 0's cluster-major tables at phase
+2e's decode step after the same serve run (64 rows, p=16, cap 512, dh
+128, bf16, sizes), K7 at phase 2d's assignment bench after the same fit
+(the resident arena, bn=32, per-block lists ``graph[rowsel]`` with
+kn=30, d=784, no block skipped; K1 timed beside it on the same lists).
+Each gives the profiler's device time per call beside CUDA events over
+back-to-back calls (K4, K7) or around each call with the L2 cache
+flushed before it (K6), since events around such short kernels also
+time their launchers' host work. K6 also reports how far its state, and
+its plain version's, lie from the same softmax taken in f64.
 
 ``segment_sum_blocks`` is timed on the calls the main path makes: one
 ``fit(init="gdi", method="k2means")`` is run with the engine's calls
@@ -96,6 +102,8 @@ _K4_B = "              const uint4 x = lds16(sb + (8 * ni + g) * 64);"
 _CP16 = '    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"'
 _K4_NW = "constexpr int NW = 4;                // warps (units) a CUDA block"
 _K6_PLAN = "constexpr int MAX_SPLITS = 8;"
+_K7_NO_EPI = "      // --- epilogue of chunk ci"
+_K7_NO_EPI_SUB = "      if (acc[0][0][0] != -1.2345) continue;\n" + _K7_NO_EPI
 
 # (kernel timed, source file, label) -> substitutions; "exact" variants
 # must give the kernels' own answers
@@ -258,9 +266,62 @@ VARIANTS = {
     ("cluster_attend", "cluster_attend.cu", "tiles of 16 rows"): {
         "constexpr int TILE_BYTES = 2048;": "constexpr int TILE_BYTES = 4096;",
         "constexpr int MAX_STEPS = 4;": "constexpr int MAX_STEPS = 8;"},
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "MMAs fed constants"): {
+        _LOADS.replace("        ", "            "): "\n".join(
+            f"            af[i][{e}] = {e + 1}.0;" for e in range(4)),
+        _K1_LOADS.replace("        ", "            "):
+        "            bf[j][0] = 1.0;\n            bf[j][1] = 2.0;"},
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "no epilogue (copies and MMAs only)"): {_K7_NO_EPI: _K7_NO_EPI_SUB},
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "copies only (no fragments, MMAs or epilogue)"): {
+        _K7_NO_EPI: _K7_NO_EPI_SUB,
+        "          if (t0 + kk * 8 >= d) break;":
+        "          if (t0 + kk * 8 >= -1) break;"},
+    # (without the epilogue: stale rows would send every pair to the
+    # exact recompute)
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "center rows not copied, no epilogue"): {
+        _K7_NO_EPI: _K7_NO_EPI_SUB,
+        _K1_STAGE: "  for (int e = threadIdx.x; e < BR * PER_ROW; e += NT) {"},
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "x rows not copied, no epilogue"): {
+        _K7_NO_EPI: _K7_NO_EPI_SUB,
+        _K1_STAGE: "  for (int e = threadIdx.x + BR * PER_ROW; "
+                   "e < (BR + KC) * PER_ROW; e += NT) {"},
+    **{("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+        f"exact: {n} stages"): {
+        "constexpr int STAGES = 4;": f"constexpr int STAGES = {n};"}
+       for n in (3,)},
     ("all", "common.cuh", "exact: no double-double tier"): {
         "  if (!k2_refine_dot_warp(pair, d, v)) v = k2_exact_dot_warp(pair, "
         "d);": "  v = k2_exact_dot_warp(pair, d);"},
+}
+
+# K7 as it stood up to PR 20 (one warp a row walking the list, f64 sums
+# on the CUDA cores joined by xor shuffles, the screen in every lane),
+# timed with --root on such a checkout (and skipped on any other): which
+# of the shuffles and the screen hold it, or the list's rows read again
+# for every row
+_K7_SHFL = ("#pragma unroll\n  for (int o = 16; o > 0; o >>= 1) v += "
+            "__shfl_xor_sync(0xffffffffu, v, o);\n")
+_K7_XS2 = ("    const float xs2 = k2_round_sum_uniform(s2, k2_gamma(d) * s2, "
+           "xr, 1, xr,\n                                           1, d);")
+_K7_CROSS = ("      const float cross = k2_round_sum_uniform(\n"
+             "          warp_sum_all(t), k2_gamma(d) * sqrt(s2 * "
+             "k2_sqnorm_up(csq[ci])), xr,\n          1, cr, 1, d);")
+ROOT_VARIANTS = {
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "no screen (f64 sums rounded to nearest)"): {
+        _K7_XS2: "    const float xs2 = (float)s2;",
+        _K7_CROSS: "      const float cross = (float)warp_sum_all(t);"},
+    ("candidate_assign_rowwise", "candidate_assign_rowwise.cu",
+     "no shuffles (each lane screens its own part; no exact recompute)"): {
+        _K7_SHFL: "",
+        _K7_XS2: "    float xs2;\n    k2_screen(s2, k2_gamma(d) * s2, xs2);",
+        _K7_CROSS: "      float cross;\n      k2_screen(warp_sum_all(t), "
+                   "k2_gamma(d) * sqrt(s2 * k2_sqnorm_up(csq[ci])), cross);"},
 }
 
 
@@ -454,8 +515,16 @@ def _finish(torch, _build, args, out, timers, answers) -> int:
     """Time the variants of the kernel ``--only`` names against the
     sources as they are (none with ``--root``), print, and return 0."""
     only = args.only
-    if args.root is not None or only not in (
-            {None, "all"} | {n for n, _, _ in VARIANTS}):
+    variants = VARIANTS
+    if args.root is not None:         # only where the checkout still
+        variants = {                  # holds the kernel they were written for
+            key: subs for key, subs in ROOT_VARIANTS.items()
+            if (_build.CSRC / key[1]).is_file() and all(
+                old in (_build.CSRC / key[1]).read_text() for old in subs)}
+    takes = {n for n, _, _ in variants}
+    if args.root is None:
+        takes |= {None, "all"}
+    if only not in takes:
         for key, val in out.items():
             print(f"{key}: {val}")
         print(json.dumps(out))
@@ -463,7 +532,7 @@ def _finish(torch, _build, args, out, timers, answers) -> int:
     want = answers()
     orig = _build.CSRC, _build.BUILD_DIR
     try:
-        for (name, fname, label), subs in VARIANTS.items():
+        for (name, fname, label), subs in variants.items():
             if only is not None and name != only:
                 continue
             vdir = ROOT / "build" / "probe" / f"{name}-{len(out)}"
@@ -638,11 +707,63 @@ def _k6_f64_error(torch, state, qf, kt, vt, sel, sizes) -> dict:
         mean_rel_out=float(((o - o64)[live].abs().amax(-1) / scale).mean()))
 
 
+def _assign_bench(torch, dev):
+    """K7 at chip_smoke.py's phase 2d: the same rows and fit
+    (deterministic from the seeds), the resident arena over the final
+    centers, the lists ``graph[rowsel]``, no block skipped. Returns
+    (facts, timer, answers): the timer gives CUDA events over
+    back-to-back calls and the profiler's device time per call, of K7
+    and of K1 on the same lists."""
+    from chip_smoke import (D, K, KN, MAX_ITERS, N, NQ, SEED, TRUE_K,
+                            device_ms, k7_inputs, time_ms)
+    from repro_torch.core import fit
+    from repro_torch.data import gmm_blobs
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.candidate_assign import (
+        candidate_assign_rowwise, candidate_assign_tiled)
+    x = gmm_blobs(N + NQ, D, TRUE_K, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)[:N]
+    res = fit(x, K, method="k2means", init="gdi", kn=KN,
+              max_iters=MAX_ITERS, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    args1, args7, bn, (b_ms, b_by) = k7_inputs(
+        torch, x, res.centers.contiguous(), res.assignment)
+    del x, res
+
+    def kern():
+        return candidate_assign_rowwise(*args7, bn=bn)
+
+    def k1():
+        return candidate_assign_tiled(*args1, bn=bn, bkn=8)
+    got, tiled = kern(), k1()
+    out = {"K7 layout": dict(
+        rows=int(args7[0].shape[0]), bn=bn, blocks=int(args7[2].shape[0]),
+        kn=int(args7[2].shape[1]), d=int(args7[0].shape[1]),
+        distinct_center_rows=int(torch.unique(args7[2]).numel()),
+        bound_ms=b_ms, bound_by=b_by),
+        "K7 bit-equal to its plain version": all(
+            bool(torch.equal(g, w)) for g, w in zip(
+                got, ref.candidate_assign_ref(*args7, bn))),
+        "K7 equal to K1 on the same lists": bool(
+            torch.equal(got[0], tiled[0]) and torch.equal(got[1], tiled[1])),
+        "K7 ptxas": [ln.strip() for ln in _build.build_log(
+            "candidate_assign_rowwise").splitlines()
+            if "registers" in ln or "spill" in ln]}
+
+    def timer():
+        return {"events": time_ms(kern, torch, reps=50),
+                "device": device_ms(kern, torch, reps=50),
+                "K1 device, same lists": device_ms(k1, torch, reps=50)}
+    return out, timer, lambda: [kern()]
+
+
 # kernels timed on inputs that replay chip_smoke.py's own
 _REPLAYED = {"candidate_assign_int8_tiled": _int8_predict,
-             "cluster_attend": _decode_step}
+             "cluster_attend": _decode_step,
+             "candidate_assign_rowwise": _assign_bench}
 _REPLAYED_LIB = {"candidate_assign_int8_tiled": "candidate_assign_int8",
-                 "cluster_attend": "cluster_attend"}
+                 "cluster_attend": "cluster_attend",
+                 "candidate_assign_rowwise": "candidate_assign_rowwise"}
 
 
 def _dev_us(e) -> float:

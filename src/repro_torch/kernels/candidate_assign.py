@@ -13,7 +13,8 @@ candidate list, ``cidx[rowsel[b]]`` (K1, K4) or ``cand[b]`` (K7); blocks
 need not be cluster contiguous or hole free, which is what lets the
 resident layout repair blocks in place. A block with ``skip[b] != 0``
 emits ``prev_*`` (K1, K7) or no survivors (K4). K1 and K4 take any
-kn_pad: both walk it in 32-column chunks.
+kn_pad and K7 any kn: each walks it in 32-column chunks. K7 also takes
+any bn, splitting a block of more than 32 rows among CUDA blocks.
 """
 from __future__ import annotations
 

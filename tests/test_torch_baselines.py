@@ -71,6 +71,10 @@ def near_ties(x, c, cand=None, tol=1e-6):
                                 + cs, 0.0))
     if cand is not None:
         sq = np.take_along_axis(sq, cand, axis=1)
+        # an id the list names twice is one candidate, not a tie
+        first = ((cand[:, :, None] == cand[:, None, :]).argmax(2)
+                 == np.arange(cand.shape[1]))
+        sq = np.where(first, sq, np.inf)
     top2 = np.sort(sq, axis=1)[:, :2]
     return top2[:, 1] - top2[:, 0] < tol * top2[:, 0]
 
@@ -141,9 +145,12 @@ def test_distance_argmin_chunks_agree_and_ties_go_first():
     (256, 64, 48, 8, 64),
     (512, 128, 16, 16, 128),
     (128, 32, 200, 4, 32),
+    (512, 30, 48, 33, 256),         # the reference's default bn; kn > k,
+    (768, 32, 20, 33, 256),         # so every list names ids twice
 ])
 def test_candidate_assign_rowwise_matches_pallas(n, k, d, kn, bn):
-    """test_kernels.py's rowwise sweep shapes, with skipped blocks."""
+    """test_kernels.py's rowwise sweep shapes, with skipped blocks, and
+    the reference's default bn with lists that name ids twice."""
     rng = np.random.RandomState(n * k)
     nb = n // bn
     x = rng.randn(n, d).astype(np.float32)

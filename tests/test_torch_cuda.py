@@ -293,27 +293,117 @@ def test_cuda_distance_argmin(cuda, n, k, d, dups):
     assert int(got[0][n // 3]) == 0 and float(got[1][n // 3]) == 0.0
 
 
+def _rowwise_inputs(case, bn, kn, d):
+    """K7's arguments (numpy) for one contract case: random lists
+    ("random"); ids named twice ("dups"); two ids with equal rows, the
+    larger id first, nearest every row ("equal_rows"); such a pair at
+    positions 31 and 32, either side of a chunk's end ("chunk_tie");
+    ``data.rounding_fixture`` rows, each block's list led by its rows' own
+    centers, whose products sit at f32 rounding midpoints ("fixture");
+    such rows of one center, copied to two ids named in turn, so that every
+    pair goes to the exact recompute, more than the kernel's flag list
+    holds for a chunk, and the first entry must win ("flush"); every other
+    row with |x|^2 on an f32 rounding midpoint, which sends all its pairs
+    there ("midpoint"). Every third block is skipped. Returns (x, c, cand,
+    skip, prev_a, prev_d, (position, id) that must win, or None)."""
+    rng = np.random.RandomState(bn * 1000 + kn * 10 + d)
+    nb = 37 if bn == 1 else 4
+    n, k = nb * bn, 200
+    if case == "fixture":
+        x, c, a = (v.numpy() for v in rounding_fixture(n, 64, d, seed=d,
+                                                       device="cpu"))
+        k = 64
+        cand = rng.randint(0, k, (nb, kn)).astype(np.int32)
+        own = a.reshape(nb, bn)[:, :kn]
+        cand[:, :own.shape[1]] = own
+    elif case == "flush":
+        x, c, _ = (v.numpy() for v in rounding_fixture(n, 1, d, seed=d,
+                                                       device="cpu"))
+        c, k = np.concatenate([c, c]), 2
+        cand = np.tile(1 - np.arange(kn) % 2, (nb, 1)).astype(np.int32)
+    else:
+        x = rng.randn(n, d).astype(np.float32)
+        c = rng.randn(k, d).astype(np.float32)
+        cand = rng.randint(0, k, (nb, kn)).astype(np.int32)
+    wins = (0, 1) if case == "flush" else None
+    if case == "midpoint":              # |x|^2 = s^2 (1 + 2^-24)
+        for i in range(0, n, 2):
+            j, s = rng.randint(0, d - 1), 2.0 ** rng.randint(-3, 4)
+            x[i] = 0.0
+            x[i, j], x[i, j + 1] = s, s * 2.0 ** -12
+    if case == "dups":
+        cand = rng.randint(0, max(2, kn // 3), (nb, kn)).astype(np.int32)
+    elif case in ("equal_rows", "chunk_tie"):
+        p1, p2 = (31, 32) if case == "chunk_tie" else (kn // 3, 2 * kn // 3)
+        j1, j2 = 150, 7                 # the larger id comes first
+        c[j2] = c[j1]
+        cand[(cand == j1) | (cand == j2)] = 3     # named nowhere else
+        cand[:, p1], cand[:, p2] = j1, j2
+        x = (c[j1] + 0.01 * rng.randn(n, d)).astype(np.float32)
+        wins = (p1, j1)
+    skip = (np.arange(nb) % 3 == 1).astype(np.int32)
+    prev_a = rng.randint(0, k, n).astype(np.int32)
+    prev_d = np.full(n, 7.0, np.float32)
+    return x, c, cand, skip, prev_a, prev_d, wins
+
+
+def _offset(t):
+    """``t`` copied into a view that starts one float past a 16-byte
+    boundary: contiguous, but only the 4-byte copies may read it."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    v = buf[1:1 + t.numel()].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 == 4
+    return v
+
+
+_ROWWISE_CASES = (
+    [("random", bn, kn, d) for bn in (1, 8, 32, 128, 256)
+     for kn in (1, 30, 33, 100) for d in (3, 48, 784, 785, 3072)]
+    + [("dups", 32, 30, 784), ("dups", 256, 33, 48), ("dups", 1, 100, 785),
+       ("equal_rows", 8, 33, 785), ("equal_rows", 128, 100, 48),
+       ("equal_rows", 256, 30, 3),
+       ("chunk_tie", 32, 33, 784), ("chunk_tie", 256, 100, 3),
+       ("chunk_tie", 1, 64, 785), ("chunk_tie", 8, 33, 48),
+       ("offset_x", 32, 30, 784), ("offset_x", 8, 33, 48),
+       ("offset_x", 256, 100, 3072), ("offset_c", 32, 30, 784),
+       ("fixture", 8, 30, 784), ("fixture", 32, 33, 784),
+       ("fixture", 256, 30, 96), ("fixture", 1, 30, 785),
+       ("random", 16, 30, 784), ("random", 64, 33, 785),
+       ("random", 32, 300, 784), ("dups", 8, 300, 48),
+       ("equal_rows", 64, 300, 785), ("chunk_tie", 16, 33, 784),
+       ("flush", 32, 40, 784), ("flush", 64, 100, 96),
+       ("flush", 16, 300, 48), ("flush", 256, 33, 785),
+       ("midpoint", 32, 33, 784), ("midpoint", 64, 30, 48),
+       ("midpoint", 8, 300, 785), ("midpoint", 256, 100, 3072)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,d,kn,bn", [(256, 64, 48, 8, 64),
-                                         (320, 100, 784, 30, 32),
-                                         (96, 40, 3072, 5, 8)])
-def test_cuda_candidate_assign_rowwise(cuda, n, k, d, kn, bn):
-    rng = np.random.RandomState(n * kn)
-    nb = n // bn
-    t = lambda v: torch.tensor(v, device=cuda)   # noqa: E731
-    args = (t(rng.randn(n, d).astype(np.float32)),
-            t(rng.randn(k, d).astype(np.float32)),
-            t(rng.randint(0, k, (nb, kn)).astype(np.int32)),
-            t((np.arange(nb) % 3 == 1).astype(np.int32)),
-            t(rng.randint(0, k, n).astype(np.int32)),
-            t(np.full(n, 7.0, np.float32)))
+@pytest.mark.parametrize("case,bn,kn,d", _ROWWISE_CASES)
+def test_cuda_candidate_assign_rowwise(cuda, case, bn, kn, d):
+    """K7 bit-equal to its plain version over its contract (any bn, kn
+    and d, ids named twice, equal rows, ties either side of a chunk's
+    end, unaligned rows, rows at f32 rounding midpoints, more undecided
+    pairs than one chunk's flag list holds, lists read from global memory
+    above 256 entries), the first of two equal entries winning, and two
+    launches bit-identical."""
+    *inp, wins = _rowwise_inputs(case, bn, kn, d)
+    args = [torch.tensor(v, device=cuda) for v in inp]
+    if case == "offset_x":
+        args[0] = _offset(args[0])
+    elif case == "offset_c":
+        args[1] = _offset(args[1])
     before = _build.launches()["candidate_assign_rowwise"]
     got = candidate_assign_rowwise(*args, bn=bn)
+    again = candidate_assign_rowwise(*args, bn=bn)
     torch.cuda.synchronize()
-    assert _build.launches()["candidate_assign_rowwise"] == before + 1
+    assert _build.launches()["candidate_assign_rowwise"] == before + 2
     want = ref.candidate_assign_ref(*args, bn)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for g, h, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(h, g)
+    if wins is not None:
+        live = np.repeat(inp[3] == 0, bn)
+        assert (got[0].cpu().numpy()[live] == wins[1]).all()
 
 
 @pytest.mark.cuda
