@@ -33,6 +33,26 @@ Phases (any failure exits non-zero, without the final result line):
    a small predict against the plain PyTorch path; print queries/s,
    recall@1 against the brute-force argmin, host reads per call and peak
    device memory;
+2f. (run right after 2b) the streaming model: ``KMeansModel.from_result
+   (result, x, capacity=2n, window=4, half_life=8, count_floor=0.25,
+   refresh_every=4, drift_guard=True)``, then the 65536 held-out rows as
+   8 ``partial_fit`` batches of 8192 in f32 (K1) and in int8 (K4), counts
+   set to 0 before each batch; from batch 5 the window evicts the
+   training rows (``segment_sum_blocks``), K2 rebuilds the graph at each
+   refresh; check after every batch the arena's and the stream's
+   invariant counters, the live rows against the window's, the count
+   floor and the launches; check that each int8 fold assigns what the
+   int8 path gives on its state and that it parts from the f32 path only
+   where the f32 route's stale bounds pruned a nearer center (ROADMAP §3
+   entry 13); ``predict(stream=)`` cold, then warm on the same batch (1
+   counted distance a warm row; rows whose best two tie stay cold), both
+   equal to a cold predict; ``save`` under ``build/`` and ``restore``
+   onto the card, both models then folding two more batches bit-
+   identically; a small drifting stream with center repairs (K3 in the
+   splits) on the card against the plain CPU path, bit for bit; print ms
+   per batch (append and re-sort batches apart), rows/s, evictions,
+   re-sorts, host reads per call, the warm and cold charges and
+   queries/s, the checkpoint's seconds and bytes and peak device memory;
 2c. the paper's baselines on the same rows: ``kmeanspp_init`` at k=1000,
    then ``fit(method="lloyd", init="kmeanspp")`` (every assignment step
    through K5) and ``fit(method="elkan", init="kmeanspp")`` for a few
@@ -77,8 +97,9 @@ Phases (any failure exits non-zero, without the final result line):
    rounding midpoints, and K2 on those rows and centers as one center
    set; the rounding kernels on the final centers, GDI's split norms on
    the GDI layout, a predict batch's products with the centers and with
-   the router's centroids; the ordered segment sums over the final arena
-   and at the second fit's delta call over the most moved rows) and
+   the router's centroids; the ordered segment sums over the final arena,
+   at the second fit's delta call over the most moved rows and at phase
+   2f's first eviction delta) and
    time both with CUDA events, beside one library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
@@ -89,11 +110,14 @@ Phases (any failure exits non-zero, without the final result line):
    through it in between); K4, K6 and K7 also with the profiler's device
    time (``device_ms`` in their entries), since events around a short
    kernel also time its launcher's host work;
-4. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+4. print the kernels' JSON line (``launches_stream``: a kernel's launches
+   in phase 2f's 8 batches, K4's in its int8 leg), then ``{"ok": true,
+   "device": ...}``.
 
-``python3 chip_smoke.py --profile`` adds, after phase 3, the fit, one
-predict in each precision, one Lloyd++ fit, and phase 2e's full and
-k²-attention decode (8 steps each) and a ring fold under ``torch.profiler``:
+``python3 chip_smoke.py --profile`` adds one ``partial_fit`` batch in
+phase 2f and, after phase 3, the fit, one predict in each precision, one
+Lloyd++ fit, and phase 2e's full and k²-attention decode (8 steps each)
+and a ring fold under ``torch.profiler``:
 device time by kernel, the device's busy share of the host clock, and
 the host synchronisations.
 """
@@ -114,6 +138,8 @@ LLOYD_ITERS, ELKAN_ITERS = 300, 5   # Lloyd++ runs to convergence here
 # phase 2e: Qwen3-8B's width, depth cut to 4 of 36 layers
 LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_DECODE, LM_FOLD = (
     "qwen3-8b", 4, 2, 65536, 64, 32)
+# phase 2f: the streaming model (window in epochs = partial_fit batches)
+STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
 FP64_TC_FLOP_PER_S = 67e12         # H100 SXM, FP64 tensor cores
@@ -355,6 +381,15 @@ def main() -> int:
     _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,
                           check)
 
+    # --- 2f. the streaming served model: partial_fit, checkpoints -------
+    t0 = time.perf_counter()
+    print(f"phase 2f: streaming model from the fit (capacity {2 * N}, "
+          f"window {STREAM_WINDOW}, half-life {STREAM_HALF_LIFE}, floor "
+          f"{STREAM_FLOOR}, refresh every {STREAM_REFRESH}, drift guard) "
+          f"over the {NQ} held-out rows in batches of {BATCH}")
+    stream = _stream_phase(torch, dev, res, x, queries, check)
+    print(f"  phase 2f wall {time.perf_counter() - t0:.1f} s")
+
     # --- 2c. the paper's baselines: k-means++, Lloyd++ and Elkan --------
     def pp_gen():
         return torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -470,7 +505,8 @@ def main() -> int:
         dict(name="center_sqdist",
              source="src/repro_torch/kernels/csrc/center_knn.cu",
              replaces="src/repro/kernels/center_knn.py:26",
-             launches=launches["center_sqdist"]),
+             launches=launches["center_sqdist"],
+             launches_stream=stream["launches"]["center_sqdist"]),
         bound((K * D + K * K) * 4.0, K * (K + 1) / 2 * 2.0 * D,
               FP64_TC_FLOP_PER_S),
         library=lambda: torch.cdist(c, c) ** 2))
@@ -490,7 +526,8 @@ def main() -> int:
         dict(name="candidate_assign_tiled",
              source="src/repro_torch/kernels/csrc/candidate_assign.cu",
              replaces="src/repro/kernels/candidate_assign.py:130",
-             launches=launches["candidate_assign_tiled"]),
+             launches=launches["candidate_assign_tiled"],
+             launches_stream=stream["launches"]["candidate_assign_tiled"]),
         bound(s_rows * D * 4.0 + rows_read * knp * (D + 2) * 4.0
               + nb * 8.0 + s_rows * 12.0 * 2,
               2.0 * s_rows * knp * D + 2.0 * s_rows * D)))
@@ -540,7 +577,9 @@ def main() -> int:
         name="segmented_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/segmented_scan.cu",
         replaces="src/repro/kernels/segmented_scan.py:60",
-        launches=launches["segmented_scan"], max_abs_err=err,
+        launches=launches["segmented_scan"],
+        launches_stream=stream["launches"]["segmented_scan"],
+        max_abs_err=err,
         ms=time_ms(lambda: segmented_scan(xg, w, b2s, bn=bn3), torch),
         plain_ms=time_ms(lambda: ref.segmented_scan_ref(xg, w, b2s, bn3),
                          torch),
@@ -580,6 +619,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/candidate_assign_int8.cu",
              replaces="src/repro/kernels/candidate_assign.py:282",
              launches=served["int8"]["launches"][
+                 "candidate_assign_int8_tiled"],
+             launches_stream=stream["launches_int8"][
                  "candidate_assign_int8_tiled"],
              device_ms=device_ms(kern, torch)),
         k4_bound))
@@ -668,7 +709,8 @@ def main() -> int:
         dict(name="segment_sum_blocks",
              source="src/repro_torch/kernels/csrc/segment_sum.cu",
              replaces="src/repro/core/engine.py:264",
-             launches=launches["segment_sum_blocks"]),
+             launches=launches["segment_sum_blocks"],
+             launches_stream=stream["launches"]["segment_sum_blocks"]),
         bound(s_rows * (D + 1) * 4.0 + nb * 4.0 + K * (D + 1) * 4.0,
               2.0 * s_rows * D),
         library=lambda: torch.zeros(K + 1, D, device=dev).index_add_(
@@ -698,6 +740,32 @@ def main() -> int:
     else:
         check(False, "the second fit made a delta call")
     del deltas
+    if stream["evict"] is not None:    # phase 2f's first eviction delta
+        # (its bound: the evicted slots' rows and weights, every slot's
+        # weight and block ids once, the outputs)
+        (ex, eb2s, ek, ebn), ekw = stream["evict"]
+        ew = ekw["w"]
+        n_ev = int((ew > 0).sum())
+        eseg = torch.repeat_interleave(eb2s.long(), ebn)
+        eseg = torch.where((eseg >= 0) & (ew > 0), eseg, ek)
+        kernels.append(_against_plain(
+            torch, check, f"segment_sum_blocks at phase 2f's eviction delta "
+                          f"({ex.shape[0]} slots, bn={ebn}, {n_ev} evicted)",
+            functools.partial(segment_sum_blocks, ex, eb2s, ek, ebn, **ekw),
+            functools.partial(ref.segment_sum_blocks_ref, ex, eb2s, ek, ebn,
+                              **ekw),
+            dict(name="segment_sum_blocks[evict]",
+                 source="src/repro_torch/kernels/csrc/segment_sum.cu",
+                 replaces="src/repro/core/engine.py:333",
+                 launches=stream["launches"]["segment_sum_blocks"]),
+            bound(n_ev * D * 4.0 + ew.shape[0] * 4.0 + eb2s.shape[0] * 4.0
+                  + ek * (D + 1) * 4.0, 2.0 * n_ev * D),
+            library=lambda: torch.zeros(ek + 1, D, device=dev).index_add_(
+                0, eseg, ex * ew[:, None])))
+        del ex, ew, eseg
+    else:
+        check(False, "phase 2f made an eviction delta call")
+    stream.pop("evict", None)
     for kr in kernels:
         dev_t = (f" (profiler's device time {kr['device_ms']:.4f} ms)"
                  if "device_ms" in kr else "")
@@ -1317,6 +1385,265 @@ def _small_gdi_fit_agrees(torch, dev, fit_k2means, check) -> None:
           f"plain CPU path: GDI assignments {same_init}, k2-means "
           f"assignments {same}, iterations {r_gpu.iterations} vs "
           f"{r_cpu.iterations}, energy rel diff {rel:.2g}")
+
+
+def _stream_phase(torch, dev, res, x, queries, check) -> dict:
+    """Phase 2f: the streaming served model at the mnist shape. Builds it
+    from phase 2's fit (capacity 2n, window 4 epochs, half-life 8, count
+    floor 0.25, refresh every 4 batches, drift guard on) and streams the
+    held-out rows through ``partial_fit`` in batches of BATCH, counts set
+    to 0 before each batch; then the same in int8, ``predict(stream=)``
+    cold and warm, a checkpoint round trip onto the card, and a small
+    stream on the card against the CPU. Returns the launch counts of the
+    f32 stream and the inputs of the eviction delta's kernel check."""
+    import shutil
+    from repro_torch.core import KMeansModel, OpCounter
+    from repro_torch.ft.invariants import (resident_violations,
+                                           streaming_violations)
+    from repro_torch.kernels import _build
+    from repro_torch.core import engine as eng
+
+    kw = dict(kn=KN, capacity=2 * N, window=STREAM_WINDOW,
+              half_life=STREAM_HALF_LIFE, count_floor=STREAM_FLOOR,
+              refresh_every=STREAM_REFRESH, drift_guard=True, device=dev)
+    batches = [queries[lo:lo + BATCH] for lo in range(0, NQ, BATCH)]
+    evict_calls = []
+    real_evict = eng.segment_sum_blocks
+
+    def record(*args, **kwargs):
+        if not evict_calls and kwargs.get("w") is not None:
+            evict_calls.append((tuple(a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args),
+                {k: v.clone() for k, v in kwargs.items()}))
+        return real_evict(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = KMeansModel.from_result(res, x, **kw)
+    legs = {}
+    for prec, kernel in (("f32", "candidate_assign_tiled"),
+                         ("int8", "candidate_assign_int8_tiled")):
+        m = model if prec == "f32" else KMeansModel.from_result(
+            res, x, precision="int8", **kw)
+        rows = []
+        eng.segment_sum_blocks = record
+        try:
+            for b, xb in enumerate(batches):
+                if prec == "int8":     # both paths on the pre-fold state
+                    pre = [(m._predict_batch(xb, precision=p)[0],
+                            *m.route_batch(xb, precision=p)[:2])
+                           for p in ("int8", "f32")]
+                counter = OpCounter()
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                a = m.partial_fit(xb, counter=counter)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                got = _build.launches()
+                rows.append(dict(a=a, secs=secs, launches=got,
+                                 resorted=counter.bytes_sorted > 0,
+                                 evicted=counter.evicted_rows))
+                if prec == "int8":
+                    (a8, r8, u8), (a32, r32, u32) = pre
+                    differ = a8 != a32
+                    rows[-1].update(
+                        own=bool(torch.equal(a, a8)),
+                        differ=int(differ.sum()),
+                        nearer=bool((r8[differ] != r32[differ]).all()
+                                    and (u8[differ] <= u32[differ]).all()))
+                lo = max(0, b - STREAM_WINDOW + 1)   # oldest live epoch
+                want_live = (N if lo == 0 else 0) + BATCH * (b - lo + 1)
+                vio = resident_violations(m.state, n=m.capacity,
+                                          owned=m.w_pts > 0).tolist()
+                svio = streaming_violations(
+                    m.state, m.e_pts, m.w_pts, m.batches_seen - 1,
+                    m.count_floor, window=m.window).tolist()
+                refresh = m.batches_seen % m.refresh_every == 0
+                check(vio == [0, 0, 0, 0] and svio == [0, 0, 0]
+                      and m.live_rows() == want_live
+                      and float(m.counts.min()) >= STREAM_FLOOR * (1 - 1e-6)
+                      and got[kernel] > 0
+                      and (got["center_sqdist"] > 0) == refresh
+                      and (got["segment_sum_blocks"] > 0)
+                      == (b >= STREAM_WINDOW),
+                      f"stream {prec} batch {b}: invariants {vio}, stream "
+                      f"{svio}, live rows {m.live_rows()} (window's "
+                      f"{want_live}), least count {float(m.counts.min()):.4g}"
+                      f" (floor {STREAM_FLOOR}), {kernel} {got[kernel]}, "
+                      f"center_sqdist {got['center_sqdist']} (refresh "
+                      f"{refresh}), segment_sum_blocks "
+                      f"{got['segment_sum_blocks']}")
+        finally:
+            eng.segment_sum_blocks = real_evict
+        legs[prec] = (m, rows)
+    m32, rows32 = legs["f32"]
+    m8, rows8 = legs["int8"]
+    peak = torch.cuda.max_memory_allocated() - base
+    # the int8 route re-ranks every survivor of the probed lists, while the
+    # f32 route prunes with closure bounds built at the last refresh,
+    # which go stale as folds move the centers (ROADMAP §3 entry 13): the
+    # two paths agree on a fresh model and part only where the f32 route
+    # pruned a nearer center
+    differ = [r["differ"] for r in rows8]
+    check(all(r["own"] and r["nearer"] for r in rows8) and differ[0] == 0,
+          f"int8 stream: each fold assigns what the int8 path gives on its "
+          f"state; the f32 path on the same state differs in {differ} rows "
+          f"per batch (none on the fresh model), each routed by int8 to a "
+          f"center at least as near as the f32 route's")
+    n_differ = sum(int((r["a"] != q["a"]).sum())
+                   for r, q in zip(rows32, rows8))
+    print(f"  f32 and int8 streams: {n_differ} of {NQ} assignments differ "
+          f"once the two trajectories part")
+    want_ev = N + BATCH * (len(batches) - STREAM_WINDOW)
+    check(m32.evicted_rows == m8.evicted_rows == want_ev,
+          f"evicted rows {m32.evicted_rows}, {m8.evicted_rows} (training "
+          f"rows and batches older than the window: {want_ev})")
+    launches, launches_int8 = {}, {}
+    for rows, tot in ((rows32, launches), (rows8, launches_int8)):
+        for r in rows:
+            for k, v in r["launches"].items():
+                tot[k] = tot.get(k, 0) + v
+    for prec, rows in (("f32", rows32), ("int8", rows8)):
+        app = [r["secs"] for r in rows if not r["resorted"]]
+        srt = [r["secs"] for r in rows if r["resorted"]]
+        total = sum(r["secs"] for r in rows)
+        print(f"  partial_fit {prec}: {total / len(rows) * 1e3:.3f} ms per "
+              f"{BATCH}-row batch ({len(batches)} batches; append batches "
+              + ", ".join(f"{s * 1e3:.3f}" for s in app) + " ms; re-sort "
+              f"batches " + ", ".join(f"{s * 1e3:.3f}" for s in srt)
+              + f" ms), {NQ / total:.1f} rows/s, evicted "
+              f"{sum(r['evicted'] for r in rows):.0f} rows, re-sorts "
+              f"{len(srt)}")
+    print(f"  phase 2f launches (f32 stream, all batches): {launches}; "
+          f"per batch: " + "; ".join(
+              f"b{b} K1 {r['launches']['candidate_assign_tiled']} K2 "
+              f"{r['launches']['center_sqdist']} K3 "
+              f"{r['launches']['segmented_scan']} sums "
+              f"{r['launches']['segment_sum_blocks']}"
+              for b, r in enumerate(rows32)))
+    print(f"  int8 stream launches per batch: K4 " + ", ".join(
+        str(r["launches"]["candidate_assign_int8_tiled"]) for r in rows8))
+    print(f"  peak device memory +{peak / 2 ** 20:.1f} MiB (both models)")
+    del m8, legs, rows8
+
+    # predict(stream=): cold, then warm on the same batch, and plain
+    qb = batches[0]
+    cold_c, warm_c = OpCounter(), OpCounter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_cold = m32.predict(qb, batch_size=BATCH, stream="s", counter=cold_c)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    a_warm = m32.predict(qb, batch_size=BATCH, stream="s", counter=warm_c)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    a_plain = m32.predict(qb, batch_size=BATCH)
+    # a row is warm when its bounds prove its center (u < lo): rows whose
+    # two best candidates tie in f32 stay cold and pay the cold charge
+    rec = m32._streams[("s", 0)]
+    warm = rec["u"] < rec["lo"]
+    n_warm = int(warm.sum())
+    want_c = n_warm + int(m32._predict_batch(qb)[3][~warm].sum())
+    print(f"  predict(stream=) on {BATCH} rows: cold {BATCH / (t1 - t0):.1f} "
+          f"queries/s charging {cold_c.distances / BATCH:.3f} distances a "
+          f"row, warm {BATCH / (t2 - t1):.1f} queries/s charging "
+          f"{warm_c.distances / BATCH:.3f} ({n_warm} rows warm at 1 "
+          f"distance, {BATCH - n_warm} with tied best two cold)")
+    check(bool(torch.equal(a_cold, a_plain)) and bool(torch.equal(
+        a_warm, a_plain)) and warm_c.distances == want_c
+          and n_warm >= BATCH * 0.99,
+          f"predict(stream=) cold and warm equal a cold predict "
+          f"({int((a_warm != a_plain).sum())} warm rows differ); warm "
+          f"charge {warm_c.distances:.0f} = 1 a warm row + the cold charge "
+          f"of the {BATCH - n_warm} tied rows ({want_c})")
+
+    # save, restore onto the card, and the next two batches on both
+    ckpt = ROOT / "build" / "stream_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m32.save(str(ckpt), step=m32.batches_seen)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+        t0 = time.perf_counter()
+        back = KMeansModel.restore(str(ckpt), device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  checkpoint: save {t_save:.3f} s, restore onto the card "
+          f"{t_restore:.3f} s, {nbytes} bytes")
+    reads = []
+    for b, xb in enumerate(batches[:2]):
+        a1 = m32.partial_fit(xb)
+        holder = {}
+        reads.append(_host_reads(torch, lambda: holder.setdefault(
+            "a", back.partial_fit(xb))))
+        a2 = holder["a"]
+        same = (bool(torch.equal(a1, a2))
+                and all(bool(torch.equal(getattr(m32.state, f),
+                                         getattr(back.state, f)))
+                        for f in ("sums", "counts", "c"))
+                and bool(torch.equal(m32.e_pts, back.e_pts)))
+        check(back.centers.device.type == "cuda" and same,
+              f"restored model on the card and the original take batch "
+              f"{len(batches) + b} alike: assignments, sums, counts, "
+              f"centers and e_pts bit-identical ({same})")
+    print(f"  host reads per partial_fit call: {reads}")
+    if "--profile" in sys.argv[1:]:
+        _profile(torch, "partial_fit (one 8192-row batch)",
+                 lambda: m32.partial_fit(batches[2]))
+    del back, m32
+    _small_stream_agrees(torch, dev, check)
+    return dict(launches=launches, launches_int8=launches_int8,
+                evict=evict_calls[0] if evict_calls else None)
+
+
+def _small_stream_agrees(torch, dev, check) -> None:
+    """A small windowed stream with the drift guard on and drifting
+    batches (tests/test_streaming.py's shape: n=256, d=8, k=8, capacity
+    1024, window 6, half-life 8, floor 0.25; 40 batches of 32), so that
+    centers are re-seated: the card against the plain CPU path, same
+    assignments, repairs and evictions, and counts, sums and centers bit
+    for bit. K3 must launch in the card's run (the splits)."""
+    from repro_torch.core import KMeansModel, fit_k2means
+    from repro_torch.kernels import _build
+    g = torch.Generator().manual_seed(5)
+    mus = torch.randn(8, 8, generator=g) * 8
+    x = torch.round(mus[torch.randint(0, 8, (256,), generator=g)]
+                    + torch.randn(256, 8, generator=g) * 2)
+    ramp = torch.linspace(0.0, 30.0, 40)
+    batches = [torch.round(torch.randn(32, 8, generator=g) * 4) + ramp[i]
+               for i in range(40)]
+    init = x[:8]
+    a0 = torch.cdist(x, init).argmin(1).to(torch.int32)
+    res = fit_k2means(x, init, a0, kn=4, max_iters=10, device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        m = KMeansModel.from_result(res, x, kn=4, capacity=1024, window=6,
+                                    half_life=8.0, count_floor=0.25,
+                                    drift_guard=True, device=where)
+        _build.reset_launches()
+        a = [m.partial_fit(xb, on_full="degrade").cpu() for xb in batches]
+        out[str(where)] = (a, m, _build.launches())
+    (a_c, m_c, _), (a_g, m_g, got) = out["cpu"], out[str(dev)]
+    same_a = all(bool(torch.equal(p, q)) for p, q in zip(a_c, a_g))
+    same = all(bool(torch.equal(getattr(m_g.state, f).cpu(),
+                                getattr(m_c.state, f)))
+               for f in ("counts", "sums", "c"))
+    check(same_a and same and m_c.repaired_centers > 0
+          and m_g.repaired_centers == m_c.repaired_centers
+          and m_g.evicted_rows == m_c.evicted_rows
+          and got["segmented_scan"] > 0,
+          f"small stream (n=256, d=8, k=8, 40 drifting batches) on the card "
+          f"equals the plain CPU path: assignments {same_a}, counts, sums "
+          f"and centers {same}, repaired centers {m_g.repaired_centers} vs "
+          f"{m_c.repaired_centers}, evicted {m_g.evicted_rows} vs "
+          f"{m_c.evicted_rows}, K3 launches {got['segmented_scan']}")
 
 
 def _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,

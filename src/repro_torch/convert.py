@@ -20,10 +20,13 @@ def model_from_reference(model, *, device):
 
     Reads every array through ``numpy.asarray`` (so this module imports
     nothing of the reference): centers, graph and ``nb_dist``, the five
-    ``Router`` fields, sums and counts, the arena's slot arrays and the
-    insertion-order mirrors, and the read side's static config."""
+    ``Router`` fields, sums and counts, the arena's slot arrays, the
+    insertion-order mirrors with the epoch clock ``e_pts``, the motion
+    clock ``c_motion``, the drift guard's EWMA state when it has one, and
+    the static config and stream counters."""
     from .core.engine import ResidentState
     from .core.model import KMeansModel, Router
+    from .ft.invariants import DriftGuard
 
     def t(v, dtype=torch.float32):
         return torch.tensor(np.asarray(v), dtype=dtype, device=device)
@@ -39,12 +42,23 @@ def model_from_reference(model, *, device):
     rt = model.router
     router = Router(t(rt.gc), t(rt.members, i32), t(rt.mdist),
                     t(rt.mowner, i32), t(rt.modist))
+    dg = model._dg
+    if dg is not None:
+        dg = DriftGuard(t(dg.cnt_ewma), t(dg.en_ewma), int(np.asarray(dg.it)))
     return KMeansModel(
         state=state, router=router, nb_dist=t(model.nb_dist),
         x_pts=t(model.x_pts), a_pts=t(model.a_pts, i32), w_pts=t(model.w_pts),
         kn=model.kn, bn=model.bn, bkn=model.bkn,
         route_probes=model.route_probes, router_iters=model.router_iters,
-        precision=model.precision, n_rows=model.n_rows)
+        refresh_every=model.refresh_every, decay=model.decay,
+        precision=model.precision, n_rows=model.n_rows,
+        batches_seen=model.batches_seen,
+        degraded_folds=model.degraded_folds, window=model.window,
+        half_life=model.half_life, count_floor=model.count_floor,
+        drift_guard=model.drift_guard, rows_streamed=model.rows_streamed,
+        evicted_rows=model.evicted_rows,
+        repaired_centers=model.repaired_centers,
+        e_pts=t(model.e_pts, i32), c_motion=t(model.c_motion), _dg=dg)
 
 
 def _tensor_from_numpy(v, device):

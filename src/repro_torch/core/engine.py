@@ -15,6 +15,9 @@ only the rows whose assignment changed, with an incremental delta
 center update and a full re-sort every ``regroup_every`` iterations, on
 move-buffer overflow, or when the free-block pool would run out.
 
+:func:`resident_evict` is the streaming model's sliding-window eviction
+on the same arena (``core.model.KMeansModel.partial_fit``).
+
 Differences from the reference, none of which changes what is computed:
 - the reference's two ``lax.cond``s become one host read per resident
   iteration of ``(overflow, pool exhausted, rows changed)``; the time
@@ -44,9 +47,9 @@ from ..kernels.candidate_assign import (candidate_assign_tiled,
                                         candidate_tables, pad_candidates)
 from ..kernels.center_knn import center_sqdist
 from ..kernels.ops import (choose_group_bn, compact, k2_bounded_assign,
-                           plan_layout_repair, resident_capacity,
-                           resident_regroup, scatter_from_grouped,
-                           segment_sum_ordered)
+                           plan_layout_evict, plan_layout_repair,
+                           resident_capacity, resident_regroup,
+                           scatter_from_grouped, segment_sum_ordered)
 from ..kernels.segment_sum import segment_sum_blocks
 from .distance import bottom_k, sqnorm
 
@@ -174,6 +177,83 @@ def resident_assignment(state: ResidentState, n: int) -> torch.Tensor:
     return scatter_from_grouped(state.pid, a_slot.to(torch.int32),
                                 torch.zeros((n,), dtype=torch.int32,
                                             device=state.pid.device))
+
+
+def f32(v: float) -> float:
+    """``v`` rounded to the nearest f32, as a Python float: the value the
+    reference's ``jnp.float32(v)`` holds."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def decay_pow(decay: float, age: torch.Tensor, max_age: int) -> torch.Tensor:
+    """``decay ** age`` in f64 for integer ages in [0, ``max_age``]: binary
+    exponentiation of the f64 value ``decay`` (the squarings and the
+    products in one fixed order, each an IEEE multiplication), so every
+    device gives these bits. The callers round once where the reference
+    works in f32: the eviction raises the f32 decay and rounds the power
+    to f32 (the reference's ``jnp.power`` in f32), the drift repair
+    raises the f64 decay and keeps f64 (the reference's ``np.power``).
+    Either may differ from the reference's power in the last bit."""
+    a = torch.clamp(age.to(torch.int64), min=0)
+    p = torch.tensor(decay, dtype=torch.float64, device=age.device)
+    out = torch.ones(age.shape, dtype=torch.float64, device=age.device)
+    for bit in range(max(int(max_age), 0).bit_length()):
+        out = torch.where((a >> bit) & 1 == 1, out * p, out)
+        p = p * p
+    return out
+
+
+def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
+                   epoch_now: int, decay: float, floor: float):
+    """Sliding-window eviction on the resident arena.
+
+    Retires every live slot whose stream epoch ``eg`` (S,) predates
+    ``cutoff`` (:func:`kernels.ops.plan_layout_evict`: the slots become
+    holes, reclaimed at the next full re-sort) and subtracts the evicted
+    rows from the center sums and counts as an incremental delta, so the
+    surviving statistics match a fold of the window (bit for bit at
+    ``decay == 1`` on exactly representable data). A row folded at epoch
+    ``e`` has decayed to weight ``w * decay^(epoch_now - e)``
+    (:func:`decay_pow` of the f32 ``decay``, rounded to f32), which is
+    what is subtracted. ``floor`` is the fold's count floor: a center
+    whose mass dips under it is frozen at the floor with its sums
+    re-anchored (``sums = c * floor``).
+
+    The delta sums walk each cluster's blocks in slot order
+    (``segment_sum_blocks`` with the decayed weights, 0 on every slot not
+    evicted, blocks without an evicted slot left out): the reference's
+    row-order ``segment_sum`` over slots, the CPU's bits on the card. A
+    weight-0 slot adds ``0 * x``, a signed zero, which changes no partial
+    sum (they start at +0, and only two -0 terms make a -0), so leaving
+    such slots in or out gives the same bits. The rows are read from the
+    f32 arena ``xg``, which holds the mirror's rows bit for bit (the
+    reference's ``masters=`` is for the int8 arena, ROADMAP §1 item 7b).
+    Returns ``(state', evict (S,) bool, n_evicted device scalar)``.
+    """
+    k = state.c.shape[0]
+    nbt = state.b2c.shape[0]
+    bn = state.pid.shape[0] // nbt
+    evict, pid2, wg2, n_ev = plan_layout_evict(state.pid, state.wg, eg,
+                                               cutoff)
+    age = torch.clamp(epoch_now - eg.to(torch.int64), min=0)
+    pw = decay_pow(f32(decay), age, epoch_now).to(torch.float32)
+    w_eff = torch.where(evict, state.wg * pw, 0.0).contiguous()
+    # blocks without an evicted slot add only zeros: leave them out of
+    # the chains (cluster 0's parked pool alone spans most of the arena)
+    b2s = torch.where(torch.any(evict.reshape(nbt, bn), dim=1), state.b2c,
+                      -1).to(torch.int32).contiguous()
+    d_sums, d_counts = segment_sum_blocks(state.xg, b2s, k, bn, w=w_eff)
+    floor_t = torch.tensor(f32(floor), device=state.c.device)
+    sums2 = state.sums - d_sums
+    counts2 = torch.clamp(state.counts - d_counts, min=0.0)
+    frozen = counts2 < floor_t
+    counts2 = torch.where(frozen, torch.maximum(floor_t, counts2), counts2)
+    sums2 = torch.where(frozen[:, None], state.c * counts2[:, None], sums2)
+    c2 = torch.where(counts2[:, None] > 0,
+                     sums2 / torch.clamp(counts2, min=1e-12)[:, None],
+                     state.c)
+    return (state._replace(c=c2, sums=sums2, counts=counts2, pid=pid2,
+                           wg=wg2), evict, n_ev)
 
 
 def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,

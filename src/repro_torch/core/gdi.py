@@ -13,6 +13,12 @@ step takes optional ``draws`` (the two (n,) uniform vectors of
 Algorithm 3 line 2); tests feed it the reference's to compare leaf for
 leaf. The sort by (leaf, projection) is two stable sorts: projection
 first, then leaf.
+
+:func:`projective_split` is Algorithm 3 on one masked subset (port of
+the reference's ``projective_split``), the Lemma-1 split that the
+streaming model's drift repair re-seats a center with. Its two member
+draws go through :func:`_split_draws`, which tests replace with the
+reference's draws.
 """
 from __future__ import annotations
 
@@ -114,6 +120,81 @@ def segmented_split_sweep(x, a, c_a, c_b, *, k: int, bn: int = 8):
     out = _segmented_sweep(x, a, row_seg, valid, perm, b2s, c_a - c_b,
                            sizes >= 2, k=k, bn=bn)
     return out[2:]
+
+
+def _split_draws(mask: torch.Tensor, generator: torch.Generator):
+    """Algorithm 3 line 2: two members of ``mask`` (n,) bool drawn
+    uniformly, the second among the others (the reference's two
+    ``jax.random.choice`` draws). Inverse CDF over the 0/1 weights, whose
+    f64 cumulative sums are exact in any order; the two uniforms come
+    from ``generator``, a CPU generator, so the card draws the members
+    the CPU draws. Returns (i_a, i_b), (1,) int64 tensors on mask's
+    device."""
+    u = torch.rand((2,), generator=generator, dtype=torch.float64)
+    u = u.to(mask.device)
+    w = mask.to(torch.float64)
+    cdf = torch.cumsum(w, 0)
+    i_a = torch.searchsorted(cdf, cdf[-1:] * (1.0 - u[:1]))
+    w2 = w.clone()
+    w2[torch.clamp(i_a, max=w.shape[0] - 1)] = 0.0
+    cdf2 = torch.cumsum(w2, 0)
+    i_b = torch.searchsorted(cdf2, cdf2[-1:] * (1.0 - u[1:]))
+    n = w.shape[0]
+    return torch.clamp(i_a, max=n - 1), torch.clamp(i_b, max=n - 1)
+
+
+def projective_split(x: torch.Tensor, mask: torch.Tensor,
+                     generator: torch.Generator | None = None,
+                     iters: int = 2):
+    """Min-energy split of the rows ``mask`` (n,) bool selects along the
+    c_a - c_b direction (Algorithm 3 with Lemma 1's prefix identity),
+    ``iters`` sweeps from two drawn members (:func:`_split_draws`, from
+    ``generator``, a CPU ``torch.Generator``; seed 0 when None).
+
+    Each sweep projects the rows on the direction (correctly rounded,
+    ``exact_rowdot``), sorts the members by projection (stable; other
+    rows last), and takes the running sums of x, |x|^2 and the count as
+    one segment through K3 (``segmented_scan``: one fixed f64 order,
+    so the card gives the CPU's sums); the split scores' squared norms
+    are correctly rounded (``exact_split_sqnorms``). The split is the
+    first row of least score. Returns (mask_a, mask_b, c_a, c_b, phi_a,
+    phi_b)."""
+    n, d = x.shape
+    dev = x.device
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    i_a, i_b = _split_draws(mask, generator)
+    c_a, c_b = x[i_a][0], x[i_b][0]
+    fmask = mask.to(x.dtype)
+    # one segment over ceil(n / bn) blocks: pad rows sort last at weight 0
+    bn = 64
+    r = -(-n // bn) * bn
+    b2s = torch.zeros((r // bn,), dtype=torch.int32, device=dev)
+    row_seg = torch.zeros((r,), dtype=torch.int64, device=dev)
+    zeros = torch.zeros((n,), dtype=torch.int64, device=dev)
+    rows = torch.arange(r, device=dev)
+    for _ in range(iters):
+        proj = exact_rowdot(x, (c_a - c_b)[None], zeros)
+        order = torch.sort(torch.where(mask, proj, _INF), stable=True).indices
+        xs = torch.zeros((r, d), dtype=x.dtype, device=dev)
+        xs[:n] = x[order]
+        ms = torch.zeros((r,), dtype=x.dtype, device=dev)
+        ms[:n] = fmask[order]
+        csum, qsum, cnt = segmented_scan(xs, ms, b2s, bn=bn)
+        tot_s, tot_q, tot_c = csum[-1], qsum[-1], cnt[-1]
+        sq_p, sq_s = exact_split_sqnorms(csum, tot_s[None], row_seg)
+        phi_p = qsum - sq_p / torch.clamp(cnt, min=1.0)
+        sc = tot_c - cnt
+        phi_s = (tot_q - qsum) - sq_s / torch.clamp(sc, min=1.0)
+        valid = (cnt >= 1.0) & (sc >= 1.0) & (ms > 0)
+        l_ = torch.argmin(torch.where(valid, phi_p + phi_s, _INF))
+        c_a = csum[l_] / torch.clamp(cnt[l_], min=1.0)
+        c_b = (tot_s - csum[l_]) / torch.clamp(tot_c - cnt[l_], min=1.0)
+        in_a = ((rows <= l_) & (ms > 0))[:n]
+        mask_a = torch.zeros((n,), dtype=torch.bool, device=dev)
+        mask_a[order] = in_a
+        phi_a, phi_b = phi_p[l_], phi_s[l_]
+    return mask_a, mask & ~mask_a, c_a, c_b, phi_a, phi_b
 
 
 def gdi_round_step(x, a, centers, energies, sizes, nleaf, *, k: int,

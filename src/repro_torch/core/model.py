@@ -1,7 +1,9 @@
-"""Query-time subsystem: the served model and its bounded ``predict``
-(port of the read side of ``repro.core.model``, DESIGN.md §10 and §13).
+"""Query-time subsystem: the served model, its bounded ``predict`` and its
+streaming ``partial_fit`` (port of ``repro.core.model``, DESIGN.md §10,
+§13 and §14).
 
-After ``fit`` the clustering becomes a served structure:
+After ``fit`` the clustering becomes a served structure, read by
+``predict`` and written by ``partial_fit``:
 :class:`KMeansModel` holds the centers, the center k_n-NN graph, the
 per-cluster statistics and, when built from the training points, the
 resident grouped arena (:class:`core.engine.ResidentState`).
@@ -19,23 +21,61 @@ assignments. Triangle-inequality bounds make the *counted* distance
 charge smaller than the dense scan; they change the charge, never the
 assignment.
 
+``partial_fit`` is the streaming side (Sculley's per-center running
+means, ``centers = sums / counts``, with exponential forgetting): each
+batch is assigned by the bounded route, folded into the statistics as an
+incremental delta, and appended into the resident arena by the sparse
+repair (``kernels.ops.plan_layout_repair``; a full re-sort when the free
+pool runs out). The center graph (K2) and the router are rebuilt every
+``refresh_every`` batches. Every batch is one stream epoch: with
+``window = W`` rows older than the W newest epochs are evicted from the
+arena (``engine.resident_evict``) and their decayed weight subtracted,
+ring ids recycle mirror rows modulo the capacity; ``half_life`` sets the
+decay per epoch, ``count_floor`` freezes starved counts, and
+``drift_guard`` flags dying centers and re-seats them at refresh cadence
+(``ft.invariants.repair_dying_centers``). ``predict(stream=)`` and
+``partial_fit(stream=)`` carry warm-start Hamerly bounds per named
+stream. ``save``/``restore`` write the reference's checkpoint format
+(``checkpoint``), so each package restores the other's.
+
 Idioms that differ from the reference:
 - every ``lax.top_k`` selection is a stable sort (``distance.bottom_k``);
 - every norm, product and sum on the path accumulates in f64 and is
   rounded once to f32, as K1 does: the f32 and int8 paths give a (query,
   center) pair one distance, and the card and the CPU give one result;
   candidate products are one (m, k) product whose columns are gathered
-  (``quant.rerank_exact``), never an (m, P, d) gather;
+  (``quant.rerank_exact``), never an (m, P, d) gather. The norms that
+  feed the stream bounds (the query motion ``dq`` and the center motion
+  ``c_motion``) are the square roots of correctly rounded squared norms
+  (``exact_sqnorm``);
+- the Sculley sums of a fold, the drift guard's per-center energy and
+  the eviction's delta add each cluster's rows in row (slot) order on
+  every device (``segment_sum_ordered``, ``segment_sum_blocks``), the
+  CPU's bits on the card, never with ``index_add_``'s atomics;
+- ``decay^age`` is ``engine.decay_pow``: the f32 decay raised by binary
+  exponentiation in f64 and rounded once to f32 (the drift repair keeps
+  the f64 decay and the f64 power), so the card and the CPU weigh a row
+  alike; the reference's ``jnp.power`` may differ in the last bit, so at
+  decay < 1 the decayed statistics match the reference's within a few
+  ulps, not bit for bit;
 - the router's strided warm start follows XLA's folded f32 linspace;
 - ``predict`` reads the device once per call for the input validation
   and once for the counted charge (summed on the device); the int8 route
   reads its all-rows-proven flag once per batch. The int8 resolution
   re-ranks against each query block's own f32 slab and selects its
-  overflow rows on the device, with no host read.
+  overflow rows on the device, with no host read. ``partial_fit`` reads
+  it once for the batch's live and non-finite rows, once for the
+  eviction count, the ring clash and the free pool together, once at a
+  refresh for the drift guard's flags, and once for the charge;
+- the sparse-repair append writes the arena in place once the free pool
+  is known to suffice;
+- there is one resolution path (the kernels), so the checkpoint's
+  ``backend`` reads "pallas", the reference's name for it, and restore
+  takes "pallas" or "xla".
 
-Not ported in this slice: ``partial_fit`` and ``save``/``restore``
-(ROADMAP §1 item 6) and per-stream warm starts (``stream=``, item 8);
-each raises ``NotImplementedError``.
+Not ported in this slice: the chaos hooks of ``predict`` and
+``partial_fit`` (``ft.chaos`` faults, the retry envelope) wait for fault
+tolerance (ROADMAP §1 item 9).
 """
 from __future__ import annotations
 
@@ -48,17 +88,22 @@ import torch
 from ..device import as_tensor, resolve
 from ..kernels import quant
 from ..kernels.center_knn import center_sqdist
+from ..kernels.exact_round import exact_sqnorm
 from ..kernels.ops import (bincount, bounded_predict_assign,
-                           bounded_predict_assign_int8, choose_group_bn,
-                           resident_capacity, resident_regroup,
-                           segment_sum, segment_sum_f64)
+                           bounded_predict_assign_int8,
+                           bounded_predict_assign_top2, choose_group_bn,
+                           plan_layout_repair, resident_capacity,
+                           resident_regroup, scatter_drop, segment_sum,
+                           segment_sum_f64, segment_sum_ordered)
 from .distance import bottom_k
-from .engine import ResidentState
+from .engine import ResidentState, f32, resident_evict
 from .lloyd import KMeansResult
-from .opcount import OpCounter
+from .opcount import LAYOUT_STATE_LANES, OpCounter
 
 _VALIDATE_MODES = ("raise", "sanitize", "none")
 _PRECISIONS = ("f32", "int8")
+_BACKENDS = ("pallas", "xla")      # a checkpoint's backend (module doc)
+_INT32_MAX = torch.iinfo(torch.int32).max
 # static f32 re-rank width of the quantized resolution scan (DESIGN.md
 # §13): survivor sets beyond it fall back to a full-kn exact re-rank
 _RESOLVE_RERANK = 16
@@ -243,17 +288,134 @@ def _arena_resort(x_pts, a_pts, w_pts, *, k: int, bn: int, nbt: int):
     return xg, perm, wg, b2c, fill, openb
 
 
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Row norms of ``v`` (m, d): the square root of the correctly rounded
+    squared norm, the same bits on every device."""
+    return torch.sqrt(exact_sqnorm(v))
+
+
+def _delta_update(c, sums, counts, xb, wb, ab, decay: float, floor: float):
+    """Sculley's per-center running means as an incremental delta: the
+    statistics decay by ``decay`` and absorb the batch, every touched
+    center lands on its new mean. Each cluster's rows are added in row
+    order onto its decayed sum (``segment_sum_ordered`` from ``init``):
+    XLA folds the reference's ``sums * decay + segment_sum(...)`` into
+    one scatter-add that starts from the decayed sums, and these are its
+    bits. A center whose decayed mass dips under ``floor`` is frozen at
+    it with its sums re-anchored (``sums = c * floor``); ``floor = 0``
+    leaves an empty center where it is. Returns (c', sums', counts')."""
+    k = c.shape[0]
+    dev = c.device
+    dec = torch.tensor(f32(decay), dtype=torch.float32, device=dev)
+    fl = torch.tensor(f32(floor), dtype=torch.float32, device=dev)
+    al = ab.long()
+    sums2 = segment_sum_ordered(xb * wb[:, None], al, k, init=sums * dec)
+    counts2 = segment_sum_ordered(wb, al, k, init=counts * dec)
+    frozen = counts2 < fl
+    counts2 = torch.where(frozen, torch.maximum(fl, counts2), counts2)
+    sums2 = torch.where(frozen[:, None], c * counts2[:, None], sums2)
+    c2 = torch.where(counts2[:, None] > 0,
+                     sums2 / torch.clamp(counts2, min=1e-12)[:, None], c)
+    return c2, sums2, counts2
+
+
+def _batch_ids(wb: torch.Tensor, n_rows: int, cap: int = 0) -> torch.Tensor:
+    """Insertion ids of the live batch rows: dense from ``n_rows`` in lane
+    order, -1 for weight-0 padding lanes (they take no id and no room).
+    With ``cap`` the ids wrap modulo the capacity (the windowed ring):
+    ``n_rows`` is then the rows-streamed clock, and a recycled id is only
+    legal once the window has evicted its previous occupant (the caller
+    checks)."""
+    live = wb > 0
+    ids = n_rows + torch.cumsum(live.to(torch.int64), 0) - 1
+    if cap:
+        ids = ids % cap
+    return torch.where(live, ids, -1).to(torch.int32)
+
+
+def _update_mirrors(x_pts, a_pts, w_pts, e_pts, xb, wb, ab, ids,
+                    epoch: int):
+    """Write the live batch rows into the insertion-order mirrors and
+    stamp their stream epoch; padding lanes (id -1) drop."""
+    idx = torch.where(ids >= 0, ids.long(), x_pts.shape[0])
+    return (scatter_drop(x_pts, idx, xb.to(x_pts.dtype)),
+            scatter_drop(a_pts, idx, ab.to(torch.int32)),
+            scatter_drop(w_pts, idx, wb.to(w_pts.dtype)),
+            scatter_drop(e_pts, idx, epoch))
+
+
+def _evict_mirrors(a_pts, w_pts, pid_old, evict):
+    """Park the evicted rows in the mirrors (weight 0, cluster 0, the
+    parked-capacity convention), so the next full re-sort reclaims their
+    holes into cluster 0's parked pool."""
+    idx = torch.where(evict & (pid_old >= 0), pid_old.long(),
+                      a_pts.shape[0])
+    return scatter_drop(a_pts, idx, 0), scatter_drop(w_pts, idx, 0.0)
+
+
+def _slot_epochs(pid: torch.Tensor, e_pts: torch.Tensor) -> torch.Tensor:
+    """Per-slot stream epochs from the epoch mirror; free slots read as
+    INT32_MAX, never older than an eviction cutoff."""
+    cap = e_pts.shape[0]
+    if not cap:
+        return torch.full_like(pid, _INT32_MAX)
+    eg = e_pts[torch.clamp(pid, 0, cap - 1).long()]
+    return torch.where(pid >= 0, eg, _INT32_MAX)
+
+
+def _append_plan(state: ResidentState, wb, ab, *, bn: int):
+    """The sparse-repair plan of one batch's append (every live row moves
+    from its parked slot to its cluster's watermark): ``(active,
+    dst_slot, b2c', fill', openb', total_new, n_free)``; the free pool
+    suffices when ``total_new <= n_free``."""
+    active = wb > 0
+    return (active,) + plan_layout_repair(state.b2c, state.fill, state.openb,
+                                          active, ab, bn=bn)
+
+
+def _arena_append(state: ResidentState, xb, wb, ids, plan, *, cap: int,
+                  all_live: bool):
+    """Carry out :func:`_append_plan`'s plan in place: each live row's
+    parked source slot (found by inverting ``pid``) becomes a hole, its
+    destination slot takes the row, its id and weight. A recycled ring id
+    whose slot the window already made a hole has no source: its
+    destination, a free slot, stands in. ``all_live``: no padding lanes
+    (else they are listed first, one host read). Returns (xg, pid, wg,
+    b2c, fill, openb)."""
+    active, dst_slot, b2c2, fill2, openb2, _, _ = plan
+    s_total = state.pid.shape[0]
+    dev = state.pid.device
+    slot_of = torch.full((cap + 1,), s_total, dtype=torch.int64, device=dev)
+    slot_of[torch.where(state.pid >= 0, state.pid.long(), cap)] = \
+        torch.arange(s_total, device=dev)
+    ids_l, dst = ids.long(), dst_slot.long()
+    if not all_live:
+        lanes = torch.nonzero(active).flatten()
+        ids_l, dst, xb, wb = ids_l[lanes], dst[lanes], xb[lanes], wb[lanes]
+    src = slot_of[torch.clamp(ids_l, 0, cap - 1)]
+    src = torch.where(src < s_total, src, dst)
+    pid, xg, wg = state.pid, state.xg, state.wg
+    pid[src] = -1
+    wg[src] = 0.0
+    pid[dst] = ids_l.to(torch.int32)
+    xg[dst] = xb.to(xg.dtype)
+    wg[dst] = wb.to(wg.dtype)
+    return xg, pid, wg, b2c2, fill2, openb2
+
+
 @dataclasses.dataclass
 class KMeansModel:
     """A served clustering: centers + center kNN graph + per-cluster
     stats (+ the resident member arena when built from the points).
+    Mutable: ``partial_fit`` updates it in place; ``predict`` only reads
+    (and caches per-stream bounds).
 
     ``state`` is a :class:`core.engine.ResidentState`: ``c`` the centers,
     ``prev_nb`` the kNN graph, ``sums``/``counts`` the per-cluster
     statistics, and the slot arrays the member arena (zero slots for
-    predict-only models). ``x_pts``/``a_pts``/``w_pts`` are the arena's
-    insertion-order mirrors, with the capacity tail parked in cluster 0
-    at weight 0."""
+    predict-only models). ``x_pts``/``a_pts``/``w_pts``/``e_pts`` are the
+    arena's insertion-order mirrors, with the capacity tail parked in
+    cluster 0 at weight 0 (epoch -1)."""
     state: ResidentState
     router: Router
     nb_dist: torch.Tensor       # (k, kn) center-to-neighbor distances
@@ -265,11 +427,43 @@ class KMeansModel:
     bkn: int = 8
     route_probes: int = 2       # groups scanned per query
     router_iters: int = 8       # tiny-k-means iterations per router build
+    refresh_every: int = 8      # partial_fit batches between graph builds
+    decay: float = 1.0          # exponential forgetting of sums/counts
     precision: str = "f32"      # default predict scan precision (§13)
     n_rows: int = 0             # rows in the arena and the mirrors' prefix
-    # lazily built int8 scan tables (centers, group centroids)
+    batches_seen: int = 0
+    degraded_folds: int = 0     # arena-full batches folded stats-only
+    # lazily built int8 scan tables (centers, group centroids), dropped
+    # whenever the centers move
     _qt: typing.Any = dataclasses.field(default=None, repr=False,
                                         compare=False)
+    # -- streaming / drift (DESIGN.md §14) --------------------------------
+    window: int = 0             # sliding window in stream epochs (0 = off)
+    half_life: float = 0.0      # decay half-life in epochs (0: raw decay)
+    count_floor: float = 0.0    # freeze floor for decayed counts
+    drift_guard: bool = False   # EWMA drift detection + center repair
+    rows_streamed: int = 0      # monotonic live-row clock (ring ids)
+    evicted_rows: int = 0       # rows retired by the sliding window
+    repaired_centers: int = 0   # centers re-seated by the drift guard
+    e_pts: torch.Tensor | None = None     # (cap,) int32 epoch mirror
+    c_motion: torch.Tensor | None = None  # (k,) cumulative center drift
+    # the drift guard's EWMA state and the per-stream warm-start bounds:
+    # runtime caches, not checkpointed
+    _dg: typing.Any = dataclasses.field(default=None, repr=False,
+                                        compare=False)
+    _streams: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
+
+    def __post_init__(self):
+        dev = self.x_pts.device
+        if self.e_pts is None:
+            self.e_pts = torch.full((self.capacity,), -1, dtype=torch.int32,
+                                    device=dev)
+        if self.c_motion is None:
+            self.c_motion = torch.zeros((self.k,), dtype=torch.float32,
+                                        device=dev)
+        if self.rows_streamed < self.n_rows:
+            self.rows_streamed = self.n_rows
 
     # -- construction ------------------------------------------------------
 
@@ -278,14 +472,22 @@ class KMeansModel:
                     capacity: int | None = None, bkn: int = 8,
                     route_groups: int | None = None,
                     route_cap: int | None = None, route_probes: int = 2,
-                    router_iters: int = 8, bn: int | None = None,
-                    precision: str = "f32", device=None) -> "KMeansModel":
+                    router_iters: int = 8, refresh_every: int = 8,
+                    decay: float = 1.0, bn: int | None = None,
+                    precision: str = "f32", window: int = 0,
+                    half_life: float = 0.0, count_floor: float = 0.0,
+                    drift_guard: bool = False,
+                    device=None) -> "KMeansModel":
         """Build a model from a :class:`KMeansResult` on ``device``
-        (default ``cuda``). Without ``x`` the model is predict-only (counts
-        from the fit assignment, sums ``centers * counts``); with ``x`` the
-        resident arena is built over the training rows with room for
-        ``capacity`` rows in all (default 2n)."""
+        (default ``cuda``). Without ``x`` the model is predict-only, with
+        stats-only ``partial_fit`` (counts from the fit assignment, sums
+        ``centers * counts``); with ``x`` the resident arena is built over
+        the training rows with room for ``capacity`` rows in all (default
+        2n), the training rows at stream epoch 0."""
         _check_precision(precision)
+        if window < 0 or half_life < 0 or count_floor < 0:
+            raise ValueError("window, half_life and count_floor must be "
+                             ">= 0")
         dev = resolve(device)
         c = as_tensor(result.centers, dev)
         k, d = c.shape
@@ -298,7 +500,10 @@ class KMeansModel:
         counts = bincount(a0.long(), k).to(torch.float32)
         common = dict(router=router, nb_dist=nb_dist, kn=kn, bkn=bkn,
                       route_probes=route_probes, router_iters=router_iters,
-                      precision=precision)
+                      refresh_every=refresh_every, decay=decay,
+                      precision=precision, window=window,
+                      half_life=half_life, count_floor=count_floor,
+                      drift_guard=drift_guard)
         zi = lambda size: torch.zeros(size, dtype=torch.int32,  # noqa: E731
                                       device=dev)
         zf = lambda size: torch.zeros(size, device=dev)         # noqa: E731
@@ -317,9 +522,11 @@ class KMeansModel:
             raise ValueError(f"capacity={cap} < n={n} training rows")
         bn = bn or choose_group_bn(cap, k, d, bkn=bkn)
         x_pts, a_pts, w_pts = zf((cap, d)), zi(cap), zf(cap)
+        e_pts = zi(cap) - 1
         x_pts[:n] = x
         a_pts[:n] = a0
         w_pts[:n] = 1.0
+        e_pts[:n] = 0
         xg, pid, wg, b2c, fill, openb = _arena_resort(
             x_pts, a_pts, w_pts, k=k, bn=bn,
             nbt=resident_capacity(cap, k, bn))
@@ -328,7 +535,7 @@ class KMeansModel:
             it=0, first=False, xg=xg, pid=pid, ug=zf(pid.shape[0]),
             lo_g=zf(pid.shape[0]), wg=wg, b2c=b2c, fill=fill, openb=openb)
         return cls(state=state, x_pts=x_pts, a_pts=a_pts, w_pts=w_pts,
-                   bn=bn, n_rows=n, **common)
+                   bn=bn, n_rows=n, e_pts=e_pts, rows_streamed=n, **common)
 
     # -- read-side properties ---------------------------------------------
 
@@ -365,8 +572,22 @@ class KMeansModel:
         return self.state.pid.shape[0] > 0
 
     def assignment(self) -> torch.Tensor:
-        """Insertion-order assignment of the arena's rows, (n_rows,)."""
+        """Insertion-order assignment of every streamed row, (n_rows,).
+        A windowed model parks evicted rows at weight 0 in cluster 0:
+        filter by ``w_pts > 0`` (or :meth:`live_rows`)."""
         return self.a_pts[:self.n_rows]
+
+    @property
+    def stream_decay(self) -> float:
+        """Forgetting factor per epoch: ``2^(-1/half_life)`` when a
+        half-life (in epochs) is set, else ``decay``."""
+        if self.half_life > 0:
+            return float(2.0 ** (-1.0 / self.half_life))
+        return self.decay
+
+    def live_rows(self) -> int:
+        """Rows alive in the mirrors (streamed, not evicted)."""
+        return int(torch.sum(self.w_pts > 0))
 
     @property
     def route_groups(self) -> int:
@@ -439,6 +660,54 @@ class KMeansModel:
         return bounded_predict_assign(qb, self.state.c, self.state.prev_nb,
                                       routed, bn=bn, bkn=self.bkn)
 
+    def _resolve_top2(self, qb: torch.Tensor, routed: torch.Tensor):
+        """Resolution with the two best squared distances over the routed
+        center's k_n-neighborhood (K1's second output, the Hamerly bound
+        pair): ``(a, d1_sq, d2_sq)``."""
+        bn = choose_group_bn(qb.shape[0], self.k, self.d, bkn=self.bkn)
+        return bounded_predict_assign_top2(qb, self.state.c,
+                                           self.state.prev_nb, routed,
+                                           bn=bn, bkn=self.bkn)
+
+    def _assign_stream(self, qb: torch.Tensor, stream):
+        """Bounded assignment with warm-start Hamerly bounds per stream
+        (DESIGN.md §14): a correlated query stream carries ``(a, u, lo)``
+        across batches keyed by ``stream``. On re-contact the bounds
+        inflate by the query's own motion ``|q - q_prev|`` and the
+        centers' drift since (``c_motion`` deltas, a triangle-inequality
+        bound); a row whose inflated ``u < lo`` keeps its previous center
+        within the k_n-restricted contract and charges 1 distance. Cold
+        rows pay the bounded route plus the top-2 resolution and re-arm
+        their bounds. Returns (a, d1_sq, n_counted)."""
+        m = qb.shape[0]
+        routed, u_routed, n_scan = _route(qb, self.state.c, self.router,
+                                          self.route_probes)
+        a, d1_sq, d2_sq = self._resolve_top2(qb, routed)
+        u_new = torch.sqrt(d1_sq)
+        lo_new = torch.sqrt(d2_sq)
+        n_nb = torch.clamp(torch.sum(self.nb_dist[routed.long()]
+                                     < 2.0 * u_routed[:, None], dim=1) - 1,
+                           min=0)
+        n_counted = n_scan + n_nb
+        rec = self._streams.get(stream)
+        if rec is not None and rec["a"].shape[0] == m \
+                and rec["q"].shape == qb.shape:
+            drift = self.c_motion - rec["motion"]
+            dq = _norm(qb - rec["q"])
+            a_prev = rec["a"].long()
+            u_b = rec["u"] + dq + drift[a_prev]
+            lo_b = rec["lo"] - dq - torch.amax(
+                drift[self.state.prev_nb[a_prev].long()], dim=1)
+            warm = u_b < lo_b
+            a = torch.where(warm, rec["a"], a)
+            d1_sq = torch.where(warm, u_b * u_b, d1_sq)
+            u_new = torch.where(warm, u_b, u_new)
+            lo_new = torch.where(warm, torch.clamp(lo_b, min=0.0), lo_new)
+            n_counted = torch.where(warm, 1, n_counted)
+        self._streams[stream] = {"q": qb, "a": a, "u": u_new, "lo": lo_new,
+                                 "motion": self.c_motion}
+        return a, d1_sq, n_counted
+
     def _predict_batch(self, qb: torch.Tensor, probes: int | None = None,
                        precision: str | None = None):
         """Route + resolve one batch. Returns (a, sqdist, routed,
@@ -489,13 +758,13 @@ class KMeansModel:
         ``counter.bytes_scanned``. ``validate``: "raise" rejects
         non-finite rows, "sanitize" zeroes them, "none" skips the check.
         bf16/f16 queries are upcast to f32 once, here; integer queries are
-        rejected. There is no chaos or retry envelope around a batch
-        until fault tolerance is ported (ROADMAP §1 item 9).
+        rejected. ``stream`` names a correlated query stream: the f32 path
+        then carries warm-start Hamerly bounds across calls
+        (:meth:`_assign_stream`), so a repeat batch charges 1 distance a
+        warm row; the int8 path ignores it. There is no chaos or retry
+        envelope around a batch until fault tolerance is ported (ROADMAP
+        §1 item 9).
         """
-        if stream is not None:
-            raise NotImplementedError(
-                "per-stream warm starts (stream=) are not ported yet "
-                "(ROADMAP §1 item 8)")
         q = torch.as_tensor(queries)
         if not torch.is_floating_point(q):
             raise TypeError(f"predict queries must be floating point, got "
@@ -516,7 +785,10 @@ class KMeansModel:
             m = qb.shape[0]
             if m < bs:                       # pad the tail batch
                 qb = torch.nn.functional.pad(qb, (0, 0, 0, bs - m))
-            a_b, d_b, _, n_c = self._predict_batch(qb, precision=prec)
+            if stream is not None and prec == "f32":
+                a_b, d_b, n_c = self._assign_stream(qb, (stream, lo // bs))
+            else:
+                a_b, d_b, _, n_c = self._predict_batch(qb, precision=prec)
             a_parts.append(a_b[:m])
             d_parts.append(d_b[:m])
             counted += torch.sum(n_c[:m])
@@ -535,23 +807,349 @@ class KMeansModel:
         a = torch.cat(a_parts)
         return (a, torch.cat(d_parts)) if return_sqdist else a
 
-    # -- not ported yet ----------------------------------------------------
+    # -- partial_fit -------------------------------------------------------
 
-    def partial_fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "partial_fit (streaming updates) is not ported yet (ROADMAP §1 "
-            "item 6)")
+    def partial_fit(self, batch, w=None, *, counter: OpCounter | None = None,
+                    validate: str = "raise", on_full: str = "raise",
+                    stream: str | None = None) -> torch.Tensor:
+        """Fold one streamed mini-batch (m, d) into the served clustering.
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(
-            "model checkpoints (save/restore) are not ported yet (ROADMAP "
-            "§1 item 6)")
+        Assigns the batch by the bounded route (K1), applies the
+        incremental per-center running-mean update, appends the rows into
+        the resident arena (sparse repair; a full re-sort when the free
+        pool runs out) and rebuilds the center graph (K2) and the router
+        every ``refresh_every`` batches. ``w`` (m,): row weights, 0 for
+        padding rows (which take no id and no room). Returns the batch's
+        assignment (m,) int32.
+
+        ``validate``: "raise" rejects a batch with non-finite live rows,
+        naming them; "sanitize" quarantines them at weight 0 (counted on
+        ``counter.sanitized_rows``); "none" skips the check. ``on_full``:
+        when the batch would overflow the arena (or the ring, windowed),
+        "raise" refuses it (after the fold and the eviction, as the
+        reference does), "degrade" keeps the fold and drops the rows,
+        counted on ``degraded_folds``.
+
+        Every batch is one stream epoch. With ``window = W`` the rows
+        older than the W newest epochs leave the arena before the append,
+        their decayed weight subtracted from the statistics
+        (``engine.resident_evict``; at ``decay = 1`` the statistics equal
+        a fold of the surviving window bit for bit), and ring ids recycle
+        mirror rows modulo the capacity. ``half_life`` sets the decay to
+        ``2^(-1/half_life)`` per epoch, ``count_floor`` freezes starved
+        counts. With ``drift_guard`` each fold feeds the EWMA bands
+        (``ft.invariants.drift_guard_step``) and, at refresh cadence, the
+        flagged centers are re-seated by Lemma-1 splits of the
+        highest-energy donors (``ft.invariants.repair_dying_centers``, K3
+        inside ``gdi.projective_split``). ``stream`` names a correlated
+        stream whose warm-start bounds carry across folds
+        (:meth:`_assign_stream`). No chaos hooks until fault tolerance is
+        ported (ROADMAP §1 item 9).
+        """
+        if on_full not in ("raise", "degrade"):
+            raise ValueError(f"on_full must be 'raise' or 'degrade', "
+                             f"got {on_full!r}")
+        if validate not in _VALIDATE_MODES:
+            raise ValueError(f"validate must be one of {_VALIDATE_MODES}, "
+                             f"got {validate!r}")
+        dev = self.centers.device
+        xb = as_tensor(batch, dev)
+        if xb.ndim != 2 or xb.shape[1] != self.d:
+            raise ValueError(f"batch shape {tuple(xb.shape)} != (m, "
+                             f"{self.d})")
+        m = xb.shape[0]
+        wb = torch.ones((m,), device=dev) if w is None else as_tensor(w, dev)
+        live = wb > 0
+        # the batch's one read: non-finite live rows and live rows
+        bad = ~torch.isfinite(xb).all(dim=1) if validate != "none" \
+            else torch.zeros((m,), dtype=torch.bool, device=dev)
+        n_bad, m_live = torch.stack([torch.sum(bad & live),
+                                     torch.sum(live)]).tolist()
+        if n_bad:
+            if validate == "raise":
+                idx = torch.nonzero(bad).flatten()[:8].tolist()
+                raise ValueError(
+                    f"partial_fit batch {self.batches_seen}: {n_bad} "
+                    f"non-finite rows (first at {idx}); pass "
+                    f"validate='sanitize' to quarantine them")
+            xb = torch.where(bad[:, None], 0.0, xb)
+            wb = torch.where(bad, 0.0, wb)
+            m_live -= n_bad
+            if counter is not None:
+                counter.count_sanitized_rows(n_bad)
+
+        if stream is not None:
+            ab, d1_sq, n_counted = self._assign_stream(xb, ("fit", stream))
+        else:
+            ab, d1_sq, _, n_counted = self._predict_batch(xb)
+
+        c_entry = self.state.c
+        decay, floor = self.stream_decay, self.count_floor
+        c2, sums2, counts2 = _delta_update(
+            self.state.c, self.state.sums, self.state.counts, xb, wb, ab,
+            decay, floor)
+        st = self.state._replace(c=c2, sums=sums2, counts=counts2,
+                                 it=self.state.it + 1)
+
+        # sliding-window eviction: the fold above applied this epoch's
+        # decay, so a row folded at epoch e weighs w decay^(now - e)
+        epoch_now = self.batches_seen
+        n_ev_dev = None
+        if self.window and self.has_arena and m_live:
+            cutoff = epoch_now - self.window + 1
+            if cutoff > 0:
+                pid_old = st.pid
+                st, evict, n_ev_dev = resident_evict(
+                    st, _slot_epochs(st.pid, self.e_pts), cutoff, epoch_now,
+                    decay, floor)
+                self.a_pts, self.w_pts = _evict_mirrors(
+                    self.a_pts, self.w_pts, pid_old, evict)
+
+        resorted = degraded = False
+        ids = plan = None
+        if self.has_arena and m_live:
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            clash = zero
+            if self.window:
+                ids = _batch_ids(wb, self.rows_streamed, cap=self.capacity)
+                # a recycled ring id whose previous occupant is still live
+                # means the window outgrew the capacity
+                held = self.w_pts[torch.clamp(ids, 0,
+                                              self.capacity - 1).long()]
+                clash = torch.sum((ids >= 0) & (held > 0))
+            plan = _append_plan(st, wb, ab, bn=self.bn)
+            # the second read: evicted rows, ring clash, free pool
+            n_ev, clash, ok = torch.stack([
+                zero if n_ev_dev is None else n_ev_dev, clash,
+                (plan[5] <= plan[6]).to(torch.int64)]).tolist()
+            if n_ev:
+                self.evicted_rows += n_ev
+                if counter is not None:
+                    counter.count_evicted_rows(n_ev)
+                    # subtracting the delta re-reduces sums/counts
+                    counter.add_additions(2 * n_ev)
+                    # pid + wg lanes cleared per retired slot
+                    counter.add_scatter_bytes(n_ev * 8)
+            if self.window:
+                full = clash > 0
+                full_msg = (
+                    f"arena ring full: {clash} of {m_live} batch rows "
+                    f"would overwrite live rows (window {self.window} "
+                    f"epochs x batch size > capacity {self.capacity})")
+            else:
+                full = self.n_rows + m_live > self.capacity
+                full_msg = (f"arena full: {self.n_rows} rows + batch "
+                            f"{m_live} > capacity {self.capacity}")
+            if full:
+                if on_full == "raise":
+                    raise ValueError(full_msg)
+                # the fold above already absorbed the batch
+                degraded = True
+                self.degraded_folds += 1
+                if counter is not None:
+                    counter.count_degraded_fold()
+        if self.has_arena and m_live and not degraded:
+            if ids is None:
+                ids = _batch_ids(wb, self.n_rows)
+            self.x_pts, self.a_pts, self.w_pts, self.e_pts = \
+                _update_mirrors(self.x_pts, self.a_pts, self.w_pts,
+                                self.e_pts, xb, wb, ab, ids, epoch_now)
+            if ok:
+                xg, pid, wg, b2c, fill, openb = _arena_append(
+                    st, xb, wb, ids, plan, cap=self.capacity,
+                    all_live=m_live == m)
+            else:
+                resorted = True
+                xg, pid, wg, b2c, fill, openb = _arena_resort(
+                    self.x_pts, self.a_pts, self.w_pts, k=self.k,
+                    bn=self.bn, nbt=st.b2c.shape[0])
+            st = st._replace(xg=xg, pid=pid, wg=wg, b2c=b2c, fill=fill,
+                             openb=openb)
+            self.n_rows = min(self.rows_streamed + m_live, self.capacity) \
+                if self.window else self.n_rows + m_live
+        self.rows_streamed += m_live
+        self.batches_seen += 1
+        self.state = st
+
+        dying = None
+        if self.drift_guard and m_live:
+            from ..ft import invariants as _inv
+            if self._dg is None:
+                self._dg = _inv.init_drift_guard(self.k, device=dev)
+            eb = segment_sum_ordered(torch.clamp(d1_sq, min=0.0) * wb, ab,
+                                     self.k)
+            self._dg, dying = _inv.drift_guard_step(
+                self._dg, self.state.counts, eb, floor)
+        refreshed = self.batches_seen % self.refresh_every == 0
+        if refreshed and dying is not None and bool(torch.any(dying)):
+            from ..ft.invariants import repair_dying_centers
+            self.repaired_centers += repair_dying_centers(
+                self, dying, counter=counter)
+        if refreshed:
+            # the center graph (resolution) and the router (routing)
+            # re-sync with the moved centers
+            nb, self.nb_dist = _graph_with_dists(self.state.c, self.kn)
+            self.state = self.state._replace(prev_nb=nb)
+            self.router = _build_router(self.state.c, self.route_groups,
+                                        self.route_cap, self.router_iters)
+        self._qt = None     # the centers moved: the int8 tables are stale
+        # one net-displacement increment per fold (a triangle-inequality
+        # bound on the motion); the stream bounds inflate by its deltas
+        self.c_motion = self.c_motion + _norm(self.state.c - c_entry)
+
+        if counter is not None:
+            # weight-0 padding rows charge nothing
+            counter.add_distances(int(torch.sum(torch.where(
+                wb > 0, n_counted, 0))))
+            counter.add_additions(2 * m_live)       # incremental delta
+            if refreshed:                           # graph + router build
+                counter.add_distances(
+                    self.k * self.k
+                    + (self.router_iters + 1) * self.route_groups * self.k)
+            if self.has_arena and m_live and not degraded:
+                moved = self.capacity if resorted else m_live
+                row_bytes = (self.d + LAYOUT_STATE_LANES) * 4
+                counter.add_gather_bytes(moved * row_bytes)
+                counter.add_scatter_bytes(moved * row_bytes)
+                if resorted:
+                    counter.add_sort_bytes(
+                        moved * 8 * max(1.0, math.log2(max(moved, 2))))
+        return ab
+
+    # -- checkpointing -----------------------------------------------------
+
+    def _config(self) -> dict:
+        """The static config and clocks a restore needs, as the
+        reference's ``_config`` writes them (``backend`` "pallas")."""
+        return {"k": self.k, "d": self.d, "kn": self.kn, "bn": self.bn,
+                "nbt": int(self.state.b2c.shape[0]),
+                "capacity": self.capacity, "backend": "pallas",
+                "bkn": self.bkn, "route_groups": self.route_groups,
+                "route_cap": self.route_cap,
+                "route_probes": self.route_probes,
+                "router_iters": self.router_iters,
+                "refresh_every": self.refresh_every,
+                "decay": float(self.decay), "precision": self.precision,
+                "n_rows": self.n_rows, "batches_seen": self.batches_seen,
+                # the stream leaves (the epoch and motion clocks) ride
+                # every checkpoint, as the reference's stream_v2 format
+                "stream_v2": True,
+                "window": self.window, "half_life": float(self.half_life),
+                "count_floor": float(self.count_floor),
+                "drift_guard": bool(self.drift_guard),
+                "rows_streamed": self.rows_streamed,
+                "evicted_rows": self.evicted_rows,
+                "repaired_centers": self.repaired_centers,
+                "degraded_folds": self.degraded_folds}
+
+    def _tree(self) -> dict:
+        """The model's arrays in the reference's tree: the state's ``it``
+        and ``first`` as 0-d int32 and bool arrays; an int8 model's
+        quantization scales, which restore checks against tables
+        recomputed from the centers."""
+        st = self.state
+        dev = st.c.device
+        state = st._replace(
+            it=torch.tensor(int(st.it), dtype=torch.int32, device=dev),
+            first=torch.tensor(bool(st.first), device=dev))
+        tree = {"state": state, "router": self.router,
+                "nb_dist": self.nb_dist, "x_pts": self.x_pts,
+                "a_pts": self.a_pts, "w_pts": self.w_pts,
+                "stream": {"e_pts": self.e_pts, "c_motion": self.c_motion}}
+        if self.precision == "int8":
+            cq, gq = self._quant_tables()
+            tree["qscale"] = {"c": cq.scale, "gc": gq.scale}
+        return tree
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "model checkpoints (save/restore) are not ported yet (ROADMAP "
-            "§1 item 6)")
+    def _like_tree(cls, cfg: dict) -> dict:
+        """Shapes and types of a checkpoint's tree, on the ``meta``
+        device (no memory)."""
+        k, d, kn = cfg["k"], cfg["d"], cfg["kn"]
+        nbt, bn, cap = cfg["nbt"], cfg["bn"], cfg["capacity"]
+        s = nbt * bn if nbt else 0
+        f, i = torch.float32, torch.int32
 
+        def z(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        state = ResidentState(
+            c=z((k, d), f), prev_nb=z((k, kn), i), sums=z((k, d), f),
+            counts=z((k,), f), it=z((), i), first=z((), torch.bool),
+            xg=z((s, d), f), pid=z((s,), i), ug=z((s,), f),
+            lo_g=z((s,), f), wg=z((s,), f), b2c=z((nbt,), i),
+            fill=z((k,), i), openb=z((k,), i))
+        g, rcap = cfg["route_groups"], cfg["route_cap"]
+        router = Router(gc=z((g, d), f), members=z((g, rcap), i),
+                        mdist=z((g, rcap), f), mowner=z((g, rcap), i),
+                        modist=z((g, rcap), f))
+        tree = {"state": state, "router": router, "nb_dist": z((k, kn), f),
+                "x_pts": z((cap, d), f), "a_pts": z((cap,), i),
+                "w_pts": z((cap,), f)}
+        if cfg.get("stream_v2"):
+            tree["stream"] = {"e_pts": z((cap,), i),
+                              "c_motion": z((k,), f)}
+        if cfg.get("precision", "f32") == "int8":
+            tree["qscale"] = {"c": z((k,), f), "gc": z((g,), f)}
+        return tree
+
+    def save(self, ckpt_dir: str, step: int = 0) -> str:
+        """Atomic checkpoint of the whole model (arrays + config), in the
+        reference's format. Returns the step's directory."""
+        from ..checkpoint import save_checkpoint
+        return save_checkpoint(ckpt_dir, step, self._tree(),
+                               extra_meta={"kmeans_model": self._config()})
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, step: int | None = None, *,
+                device=None) -> "KMeansModel":
+        """The model saved at ``step`` (default: the newest complete one),
+        by this package or the reference, on ``device`` (default
+        ``cuda``). An int8 model's stored scales must equal those of the
+        tables recomputed from its centers."""
+        from ..checkpoint import (CheckpointCorruptError, latest_step,
+                                  load_meta, restore_checkpoint)
+        dev = resolve(device)
+        if step is None:
+            step = latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+        cfg = load_meta(ckpt_dir, step)["extra"]["kmeans_model"]
+        if cfg.get("backend", "pallas") not in _BACKENDS:
+            raise ValueError(f"checkpoint step {step}: unknown backend "
+                             f"{cfg['backend']!r}; expected one of "
+                             f"{_BACKENDS}")
+        tree = restore_checkpoint(ckpt_dir, step, cls._like_tree(cfg),
+                                  device=dev)
+        st = tree["state"]
+        st = st._replace(it=int(st.it), first=bool(st.first))
+        stream = tree.get("stream", {})
+        model = cls(state=st, router=tree["router"],
+                    nb_dist=tree["nb_dist"], x_pts=tree["x_pts"],
+                    a_pts=tree["a_pts"], w_pts=tree["w_pts"],
+                    kn=cfg["kn"], bn=cfg["bn"], bkn=cfg["bkn"],
+                    route_probes=cfg["route_probes"],
+                    router_iters=cfg["router_iters"],
+                    refresh_every=cfg["refresh_every"], decay=cfg["decay"],
+                    precision=cfg.get("precision", "f32"),
+                    n_rows=cfg["n_rows"], batches_seen=cfg["batches_seen"],
+                    window=cfg.get("window", 0),
+                    half_life=cfg.get("half_life", 0.0),
+                    count_floor=cfg.get("count_floor", 0.0),
+                    drift_guard=cfg.get("drift_guard", False),
+                    rows_streamed=cfg.get("rows_streamed", cfg["n_rows"]),
+                    evicted_rows=cfg.get("evicted_rows", 0),
+                    repaired_centers=cfg.get("repaired_centers", 0),
+                    degraded_folds=cfg.get("degraded_folds", 0),
+                    e_pts=stream.get("e_pts"),
+                    c_motion=stream.get("c_motion"))
+        if "qscale" in tree:
+            cq, gq = model._quant_tables()
+            if not (torch.equal(cq.scale, tree["qscale"]["c"])
+                    and torch.equal(gq.scale, tree["qscale"]["gc"])):
+                raise CheckpointCorruptError(
+                    f"checkpoint step {step}: stored quantization scales "
+                    f"do not match tables recomputed from the restored "
+                    f"centers")
+        return model
 
 __all__ = ["KMeansModel", "Router"]

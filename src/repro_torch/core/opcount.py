@@ -1,9 +1,11 @@
 """Vector-operation accounting following the paper's methodology.
 
 A copy of the reference's counter (``repro.core.opcount``), cut to the
-lanes the ported fit and predict paths charge: the paper's vector-op
-metric (distances, inner products, additions, sorts as ``m log2 m / d``
-equivalents), the int8 scan lane, and the memory-traffic lanes.
+lanes the ported fit, predict and ``partial_fit`` paths charge: the
+paper's vector-op metric (distances, inner products, additions, sorts as
+``m log2 m / d`` equivalents), the int8 scan lane, the memory-traffic
+lanes, and the streaming model's robustness lanes (the repair rungs,
+arena-full folds, quarantined and evicted rows).
 Charges are pure Python on host integers, so the port and the reference
 compare exactly equal on the same trajectory.
 """
@@ -33,7 +35,16 @@ class OpCounter:
     bytes_scanned: float = 0.0
     rows_moved: float = 0.0
     resorts: float = 0.0
+    # robustness lane (DESIGN.md §11): one counter per rung of the repair
+    # lattice, arena-full folds taken stats-only, quarantined rows
+    repairs: dict = dataclasses.field(
+        default_factory=lambda: {"bound_reset": 0, "regroup": 0,
+                                 "split": 0, "restore": 0})
+    degraded_folds: float = 0.0
     sanitized_rows: float = 0.0
+    # streaming lane (DESIGN.md §14): rows retired by the sliding window
+    # (their subtraction deltas charge ``additions``)
+    evicted_rows: float = 0.0
     wall_t0: float = dataclasses.field(default_factory=time.perf_counter)
 
     @property
@@ -90,8 +101,26 @@ class OpCounter:
     def add_sort_bytes(self, b: float) -> None:
         self.bytes_sorted += float(b)
 
+    @property
+    def total_repairs(self) -> int:
+        return int(sum(self.repairs.values()))
+
+    def count_repair(self, kind: str, n: int = 1) -> None:
+        """Record ``n`` repairs of one lattice rung (``bound_reset`` |
+        ``regroup`` | ``split`` | ``restore``)."""
+        if kind not in self.repairs:
+            raise ValueError(f"unknown repair kind {kind!r}; expected one "
+                             f"of {sorted(self.repairs)}")
+        self.repairs[kind] += int(n)
+
+    def count_degraded_fold(self, n: int = 1) -> None:
+        self.degraded_folds += int(n)
+
     def count_sanitized_rows(self, n: int) -> None:
         self.sanitized_rows += int(n)
+
+    def count_evicted_rows(self, n: int) -> None:
+        self.evicted_rows += int(n)
 
     def snapshot(self) -> float:
         return self.total
@@ -112,7 +141,11 @@ class OpCounter:
             "bytes_scanned": self.bytes_scanned,
             "rows_moved": self.rows_moved,
             "resorts": self.resorts,
+            "repairs": dict(self.repairs),
+            "total_repairs": self.total_repairs,
+            "degraded_folds": self.degraded_folds,
             "sanitized_rows": self.sanitized_rows,
+            "evicted_rows": self.evicted_rows,
             "wall_s": self.wall,
         }
 

@@ -1,9 +1,10 @@
 """Operations around the kernels (port of ``repro.kernels.ops`` without
 its ungrouped paths): the fused nearest-center assignment (K5),
 block-size selection, the cluster-grouped layout, the resident arena's
-re-sort and sparse repair plan, the rebuild iteration's bound-gated
-assignment, and the query-time resolution in f32 (K1) and int8 (K4 +
-exact f32 re-rank).
+re-sort, sparse repair and sliding-window eviction plans, the rebuild
+iteration's bound-gated assignment, and the query-time resolution in
+f32 (K1, also with the second-best distance) and int8 (K4 + exact f32
+re-rank).
 
 Idioms that differ from the reference, kept exact:
 - sorts are stable everywhere the reference's are (``jnp.argsort`` is
@@ -225,6 +226,21 @@ def plan_layout_repair(b2c: torch.Tensor, fill: torch.Tensor,
     return dst_slot, b2c2, fill2, openb2, total_new, n_free
 
 
+def plan_layout_evict(pid: torch.Tensor, wg: torch.Tensor, eg: torch.Tensor,
+                      cutoff: int):
+    """Sliding-window eviction plan over the resident arena: retire every
+    live slot (``pid >= 0`` and ``wg > 0``) whose stream epoch ``eg`` (S,)
+    predates ``cutoff``. A retired slot becomes a hole below its
+    cluster's watermark (``pid = -1``, ``wg = 0``), as a departing row of
+    a sparse repair does; ``b2c``/``fill``/``openb`` are untouched and the
+    next full re-sort reclaims the holes. Returns ``(evict (S,) bool,
+    pid2, wg2, n_evicted)``, the count a device scalar."""
+    evict = (pid >= 0) & (wg > 0) & (eg < cutoff)
+    pid2 = torch.where(evict, -1, pid).to(torch.int32)
+    wg2 = torch.where(evict, 0.0, wg).to(wg.dtype)
+    return evict, pid2, wg2, torch.sum(evict)
+
+
 def k2_assign_grouped(x, c, neighbors, perm, block2cluster, skip, prev_a,
                       prev_d1, prev_d2, *, bn: int, bkn: int = 8):
     """Full k²-means assignment through the tiled kernel over a grouped
@@ -289,6 +305,21 @@ def bounded_predict_assign(q, c, neighbors, routed, *, bn: int = 128,
                                  routed.to(torch.int32), zeros, zeros,
                                  bn=bn, bkn=bkn)
     return a, d1
+
+
+def bounded_predict_assign_top2(q, c, neighbors, routed, *, bn: int = 128,
+                                bkn: int = 8):
+    """:func:`bounded_predict_assign` that also returns the second-best
+    squared distance within the routed k_n-neighborhood (K1's second
+    output), the Hamerly lower bound of the per-stream warm starts.
+    Returns (assignment (m,) int32, best sqdist (m,), second-best sqdist
+    (m,)) in query order."""
+    m = q.shape[0]
+    perm, b2c, skip = _route_grouping(routed, c.shape[0], bn)
+    zeros = torch.zeros((m,), dtype=torch.float32, device=q.device)
+    return k2_assign_grouped(q, c, neighbors, perm, b2c, skip,
+                             routed.to(torch.int32), zeros, zeros,
+                             bn=bn, bkn=bkn)
 
 
 def quantized_scan_rerank(xf, xq, xsc, c, cq, cidx, rowsel, skip, prev_a,

@@ -56,8 +56,8 @@ def segment_sum_f64(v: torch.Tensor, seg: torch.Tensor,
     return segment_sum_ordered(v.double(), seg, k).to(v.dtype)
 
 
-def segment_sum_ordered(v: torch.Tensor, seg: torch.Tensor,
-                        k: int) -> torch.Tensor:
+def segment_sum_ordered(v: torch.Tensor, seg: torch.Tensor, k: int,
+                        init: torch.Tensor | None = None) -> torch.Tensor:
     """``jax.ops.segment_sum`` with each segment's rows added in row order
     on every device, so the card gives the CPU's bits, and the CPU's bits
     are XLA's: ``index_add_`` on the CPU, which adds the rows in order; on
@@ -65,8 +65,17 @@ def segment_sum_ordered(v: torch.Tensor, seg: torch.Tensor,
     stable radix sort and adds each segment's rows in that order, one warp
     per segment (fast for many small segments, slow for a few large ones).
     Its kernel for one-value rows reduces across the warp, out of order,
-    so such rows go in beside a column of zeros."""
+    so such rows go in beside a column of zeros.
+
+    ``init`` (k, ...): values each segment's chain starts from, as XLA
+    folds ``init + segment_sum(...)`` into one scatter-add onto ``init``.
+    They go in as each segment's first rows (onto zeros), since the
+    card's kernel for narrow rows adds a segment's rows together before
+    it adds them to what the output holds."""
     seg = seg.long()
+    if init is not None:
+        v = torch.cat([init.to(v.dtype), v])
+        seg = torch.cat([torch.arange(k, device=seg.device), seg])
     if v.device.type == "cpu":
         out = torch.zeros((k,) + v.shape[1:], dtype=v.dtype, device=v.device)
         return out.index_add_(0, seg, v)

@@ -929,3 +929,113 @@ def test_cuda_exact_rowdot_matches_plain(cuda, n, m, d):
     want = ref.exact_rowdot(x, c, a)
     got = exact_round.exact_rowdot(x.to(cuda), c.to(cuda), a.to(cuda))
     assert torch.equal(got.cpu(), want)
+
+
+def _stream_model(dev, **kw):
+    """A small served model over integer-valued blobs (the streaming
+    tests' shape: n=256, d=8, k=8), built from one CPU fit on ``dev``."""
+    rng = np.random.RandomState(5)
+    mus = rng.randn(8, 8) * 8
+    x = np.round(mus[rng.randint(0, 8, 256)]
+                 + rng.randn(256, 8) * 2).astype(np.float32)
+    init = x[:8]
+    a0 = torch.cdist(torch.tensor(x), torch.tensor(init)).argmin(1)
+    res = fit_k2means(x, init, a0.to(torch.int32), kn=4, max_iters=10,
+                      device="cpu")
+    return KMeansModel.from_result(res, x, kn=4, device=dev, **kw)
+
+
+def _stream_batches(nb, shift=30.0):
+    rng = np.random.RandomState(6)
+    ramp = np.linspace(0.0, shift, nb).astype(np.float32)
+    return [np.round(rng.randn(32, 8) * 4).astype(np.float32) + ramp[i]
+            for i in range(nb)]
+
+
+@pytest.mark.cuda
+def test_cuda_top2_matches_plain(cuda):
+    """K1 with its second output (the stream bounds' resolution) on the
+    card: ids and both distances bit-equal to the plain version."""
+    from repro_torch.kernels.ops import bounded_predict_assign_top2
+    model = _stream_model("cpu")
+    q = torch.tensor(np.random.RandomState(3).randn(700, 8) * 8,
+                     dtype=torch.float32)
+    routed = model.route(q)
+    want = bounded_predict_assign_top2(q, model.centers, model.neighbors,
+                                       routed, bn=8)
+    got = bounded_predict_assign_top2(q.to(cuda), model.centers.to(cuda),
+                                      model.neighbors.to(cuda),
+                                      routed.to(cuda), bn=8)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [1.0, 2.0 ** -0.125])
+def test_cuda_eviction_delta_matches_cpu(cuda, decay):
+    """``engine.resident_evict`` on the card (``segment_sum_blocks`` with
+    the decayed weights, 0 on the slots it keeps) gives the CPU's sums,
+    counts and centers bit for bit."""
+    from repro_torch.core.engine import resident_evict
+    from repro_torch.core.model import _slot_epochs
+    model = _stream_model("cpu", capacity=1024, window=3)
+    for xb in _stream_batches(6, shift=0.0):
+        model.partial_fit(xb)
+    st = model.state
+    eg = _slot_epochs(st.pid, model.e_pts)
+    out = {}
+    for dev in ("cpu", cuda):
+        s = type(st)(*(v.to(dev) if isinstance(v, torch.Tensor) else v
+                       for v in st))
+        s2, evict, n_ev = resident_evict(s, eg.to(dev), 5, 6, decay, 0.25)
+        out[dev] = (s2.sums.cpu(), s2.counts.cpu(), s2.c.cpu(),
+                    evict.cpu(), int(n_ev))
+    assert out["cpu"][4] > 0
+    for g, w in zip(out[cuda][:4], out["cpu"][:4]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_restores_a_cpu_checkpoint(cuda, tmp_path):
+    """A checkpoint written on the CPU restores onto the card (the
+    default device): every leaf equal, and both then fold the same
+    batches bit for bit."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    cpu = _stream_model("cpu", capacity=1024, window=6, half_life=8.0,
+                        count_floor=0.25)
+    batches = _stream_batches(10, shift=0.0)
+    for xb in batches[:5]:
+        cpu.partial_fit(xb)
+    cpu.save(str(tmp_path), step=5)
+    gpu = KMeansModel.restore(str(tmp_path))
+    assert gpu.centers.device.type == "cuda"
+    for a, b in zip(_flatten(gpu._tree())[0], _flatten(cpu._tree())[0]):
+        assert torch.equal(a.cpu(), b)
+    for xb in batches[5:]:
+        assert torch.equal(gpu.partial_fit(xb).cpu(), cpu.partial_fit(xb))
+    for a, b in zip(_flatten(gpu._tree())[0], _flatten(cpu._tree())[0]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_small_stream_matches_cpu(cuda):
+    """A windowed stream with the drift guard on and drifting batches,
+    so that centers are re-seated (K3 inside the splits): the card and
+    the CPU give the same assignments, repairs, evictions, and counts,
+    sums and centers bit for bit."""
+    out = {}
+    for dev in ("cpu", cuda):
+        model = _stream_model(dev, capacity=1024, window=6, half_life=8.0,
+                              count_floor=0.25, drift_guard=True)
+        _build.reset_launches()
+        a = [model.partial_fit(xb, on_full="degrade").cpu()
+             for xb in _stream_batches(40)]
+        out[dev] = (a, model, _build.launches())
+    (a_c, m_c, _), (a_g, m_g, launched) = out["cpu"], out[cuda]
+    assert m_c.repaired_centers > 0 and launched["segmented_scan"] > 0
+    assert all(torch.equal(x, y) for x, y in zip(a_c, a_g))
+    assert (m_g.repaired_centers, m_g.evicted_rows) == \
+        (m_c.repaired_centers, m_c.evicted_rows)
+    for f in ("counts", "sums", "c", "pid", "wg", "b2c"):
+        assert torch.equal(getattr(m_g.state, f).cpu(),
+                           getattr(m_c.state, f)), f

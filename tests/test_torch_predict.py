@@ -300,15 +300,3 @@ def test_predict_validate_modes(fitted):
     with pytest.raises(ValueError, match="precision"):
         pm.predict(q[:4], precision="fp8")
     assert pm.predict(q[:0]).shape == (0,)
-
-
-@pytest.mark.parametrize("call,item", [
-    (lambda m, q: m.partial_fit(q), "item 6"),
-    (lambda m, q: m.save("/nonexistent"), "item 6"),
-    (lambda m, q: KMeansModel.restore("/nonexistent"), "item 6"),
-    (lambda m, q: m.predict(q, stream="s"), "item 8"),
-], ids=["partial_fit", "save", "restore", "stream"])
-def test_unported_methods_name_their_roadmap_item(fitted, call, item):
-    _, q, _, _, pm = fitted
-    with pytest.raises(NotImplementedError, match=item):
-        call(pm, q[:8])
