@@ -53,6 +53,31 @@ Phases (any failure exits non-zero, without the final result line):
    per batch (append and re-sort batches apart), rows/s, evictions,
    re-sorts, host reads per call, the warm and cold charges and
    queries/s, the checkpoint's seconds and bytes and peak device memory;
+2g. (after 2f) the int8 fit arena: ``fit(..., precision="int8")`` from
+   phase 2's generator seed, counts set to 0 just before: check it
+   bit-identical to phase 2's f32 fit (assignments, centers, energy,
+   iterations), K4 once per iteration and K1 never, int8 ops counted,
+   fewer f32 distances, and moved rows at d + 16 bytes against 4 (d + 3);
+   print ms per iteration beside phase 2's and K4's launches;
+2h. fault tolerance at the mnist shape, from phase 2's GDI init: (a) a
+   rebuild fit checkpointing every 3 iterations (under ``build/``),
+   killed by ``FaultInjector(preempt_at=5)`` and resumed: check the
+   assignment equal to the uninterrupted fit's and one restore; (b) a
+   resident fit with ``guards=True`` under NaN rows, poisoned centers and
+   poisoned slots: check the regroup and split rungs healed (K3 in the
+   splits), the NaN rows quarantined, the result finite and guard-clean;
+   (c) (b)'s kind of schedule on ROADMAP §3 entry 9's integer blobs (n =
+   3000, d = 16, k = 48) on the card and on the CPU: check the same
+   events, repairs and final assignment;
+2i. the serving plane: a ``ServeExecutor`` over phase 2's model (predict
+   only) takes a Poisson trace of the held-out queries (requests of 256
+   rows, half the sustainable rate, a burst at 8x) under poisoned
+   queries, a slow consumer and transient ``serve_predict`` failures,
+   twice: check identical responses, rung transcripts and events, every
+   request answered or typed, the ladder up to ROUTE_ONLY and back to
+   FULL, retries and quarantined rows counted, FULL and INT8_SCAN answers
+   equal to ``model.predict``'s, K1 and K4 launched; print the wall time
+   per batch beside the virtual clock's;
 2c. the paper's baselines on the same rows: ``kmeanspp_init`` at k=1000,
    then ``fit(method="lloyd", init="kmeanspp")`` (every assignment step
    through K5) and ``fit(method="elkan", init="kmeanspp")`` for a few
@@ -80,17 +105,24 @@ Phases (any failure exits non-zero, without the final result line):
    the prefill and attach seconds, tokens dropped by full clusters, ms
    per decode token, token agreement, member rows absorbed by the folds,
    attention reads per token, peak device memory and host reads per
-   decode step; check that K6 launched once per layer per clustered
-   token and nothing else launched, that every logit is finite, that
-   host reads are 1 per decode step, and that a small serve (the smoke
-   config in f32) on the card agrees with the plain CPU path;
+   decode step; the clustered decode and its folds go through the
+   serving executor's envelope (``ex.call``); check that K6 launched
+   once per layer per clustered token and nothing else launched, that
+   every logit is finite, that host reads are 1 per decode step (also
+   through the envelope), that every step and fold went through the
+   executor, that a small serve (the smoke config in f32) on the card
+   agrees with the plain CPU path, and that a short decode through the
+   envelope equals the direct calls; print ms per token through the
+   envelope beside direct calls on the same cache;
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
    block skipped and over one predict batch's grouped layout, K3 on the
    GDI leaf-grouped layout and on one segment over every block, each
    launched twice and held bit-equal to itself, K4 on one int8 predict
-   batch, K5 on x and the Lloyd++ centers, K7 over the arena, K6 on
+   batch and over the int8 fit arena (bn = 32, every block; with the
+   re-rank's ``slab_sqdist`` timed beside it), K5 on x and the Lloyd++
+   centers, K7 over the arena, K6 on
    layer 0's cluster-major tables at a decode step, launched twice and
    held bit-identical to itself; K1, K5 and K7 also on
    ``data.rounding_fixture`` rows, whose own-center products sit at f32
@@ -111,8 +143,8 @@ Phases (any failure exits non-zero, without the final result line):
    time (``device_ms`` in their entries), since events around a short
    kernel also time its launcher's host work;
 4. print the kernels' JSON line (``launches_stream``: a kernel's launches
-   in phase 2f's 8 batches, K4's in its int8 leg), then ``{"ok": true,
-   "device": ...}``.
+   in phase 2f's 8 batches, K4's in its int8 leg; ``launches_exec``: in
+   phase 2i's first run), then ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` adds one ``partial_fit`` batch in
 phase 2f and, after phase 3, the fit, one predict in each precision, one
@@ -390,6 +422,21 @@ def main() -> int:
     stream = _stream_phase(torch, dev, res, x, queries, check)
     print(f"  phase 2f wall {time.perf_counter() - t0:.1f} s")
 
+    # --- 2g. the int8 fit arena (K4 on the fit) -------------------------
+    t0 = time.perf_counter()
+    fit8 = _int8_fit_phase(torch, dev, x, res, check)
+    print(f"  phase 2g wall {time.perf_counter() - t0:.1f} s")
+
+    # --- 2h. fault tolerance: resume, a chaos fit, card against CPU ------
+    t0 = time.perf_counter()
+    _ft_phase(torch, dev, x, check)
+    print(f"  phase 2h wall {time.perf_counter() - t0:.1f} s")
+
+    # --- 2i. the serving plane over phase 2's model ---------------------
+    t0 = time.perf_counter()
+    served_exec = _serve_phase(torch, dev, res, queries, check)
+    print(f"  phase 2i wall {time.perf_counter() - t0:.1f} s")
+
     # --- 2c. the paper's baselines: k-means++, Lloyd++ and Elkan --------
     def pp_gen():
         return torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -602,7 +649,9 @@ def main() -> int:
         dict(name="candidate_assign_tiled[predict]",
              source="src/repro_torch/kernels/csrc/candidate_assign.cu",
              replaces="src/repro/kernels/candidate_assign.py:130",
-             launches=served["f32"]["launches"]["candidate_assign_tiled"]),
+             launches=served["f32"]["launches"]["candidate_assign_tiled"],
+             launches_exec=served_exec["launches"][
+                 "candidate_assign_tiled"]),
         bound(live * D * 4.0 + slabs * knp * (D + 2) * 4.0
               + b2c.shape[0] * 8.0 + qg.shape[0] * 12.0 * 2,
               2.0 * live * knp * D + 2.0 * live * D)))
@@ -622,9 +671,41 @@ def main() -> int:
                  "candidate_assign_int8_tiled"],
              launches_stream=stream["launches_int8"][
                  "candidate_assign_int8_tiled"],
+             launches_exec=served_exec["launches"][
+                 "candidate_assign_int8_tiled"],
              device_ms=device_ms(kern, torch)),
         k4_bound))
     del args, kern
+    # K4 over the int8 fit arena (bn = 32, every block), and the exact
+    # re-rank's slab distances, which the int8 fit forms for every row
+    args, bn8, k4f_bound, slab_in = k4_fit_inputs(torch, x, c,
+                                                   res.assignment)
+    kern = functools.partial(candidate_assign_int8_tiled, *args, bn=bn8,
+                             bkn=BKN, r=8)
+    kernels.append(_against_plain(
+        torch, check, f"K4 over the int8 fit arena ({args[0].shape[0]} "
+                      f"slots, bn={bn8}, no block skipped)", kern,
+        functools.partial(ref.candidate_assign_int8_tiled_ref, *args, bn8,
+                          8),
+        dict(name="candidate_assign_int8_tiled[fit]",
+             source="src/repro_torch/kernels/csrc/candidate_assign_int8.cu",
+             replaces="src/repro/kernels/candidate_assign.py:282",
+             launches=fit8["launches"]["candidate_assign_int8_tiled"],
+             device_ms=device_ms(kern, torch)),
+        k4f_bound))
+    slab = functools.partial(exact_round.slab_sqdist, *slab_in, bn8)
+    s_rows, knp8 = slab_in[0].shape[0], slab_in[1].shape[1]
+    slab_bound = bound(s_rows * D * 4.0 + int(torch.unique(slab_in[3])
+                                              .numel()) * knp8 * (D + 1) * 4.0
+                       + s_rows * knp8 * 4.0, 2.0 * s_rows * knp8 * D,
+                       FP64_TC_FLOP_PER_S)
+    print(f"  slab_sqdist over the int8 fit arena (the re-rank's distances "
+          f"of every slot to its {knp8} slab rows): "
+          f"{time_ms(slab, torch, reps=5):.4f} ms, device "
+          f"{device_ms(slab, torch, reps=5):.4f} ms, bound "
+          f"{slab_bound[0]:.4f} ms ({slab_bound[1]}); a fit iteration "
+          f"{fit8['ms']:.3f} ms")
+    del args, kern, slab, slab_in
     # K5: distance_argmin on x and the Lloyd++ centers
     c_l = res_l.centers.contiguous()
     kernels.append(_against_plain(
@@ -1152,8 +1233,73 @@ def _lm_serve(torch, dev, serve, check) -> dict:
           f"the folds took {r['folded']} ring slots, one per layer per "
           f"decoded token, and left the ring empty")
     check(reads == 2, f"host reads: 1 per decode step ({reads} for 2)")
+    # the clustered decode through the executor envelope (ex.call) against
+    # direct calls on the same cache, 8 steps each, in turns
+    ex = r["executor"]
+    st_ex = ex.stats()
+    pos += 2
+    reads_ex = _host_reads(torch, lambda: serve.decode(
+        cfg, r["params"], r["cache"], tok, pos, 2, executor=ex))
+    pos += 2
+    per = {}
+    for via in (None, ex, ex, None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.decode(cfg, r["params"], r["cache"], tok, pos, 8, executor=via)
+        torch.cuda.synchronize()
+        per.setdefault("envelope" if via else "direct", []).append(
+            (time.perf_counter() - t0) / 8 * 1e3)
+        pos += 8
+    print(f"  the decode through the executor: {st_ex['admitted']} requests"
+          f" admitted in the run ({LM_DECODE} decode steps and "
+          f"{st_ex['admitted'] - LM_DECODE} folds), max queue depth "
+          f"{st_ex['max_queue_depth']}/{st_ex['queue_bound']}, retries "
+          f"{st_ex['retries']}; ms per token through the envelope "
+          f"{', '.join(f'{v:.3f}' for v in per['envelope'])}, direct "
+          f"{', '.join(f'{v:.3f}' for v in per['direct'])}; host reads "
+          f"{reads_ex} for 2 steps")
+    check(st_ex["admitted"] == LM_DECODE + LM_DECODE // LM_FOLD + 1
+          and st_ex["rejected"] == 0 and reads_ex == 2,
+          f"every decode step and fold went through ex.call "
+          f"({st_ex['admitted']} admitted), 1 host read per step "
+          f"({reads_ex} for 2)")
     _small_serve_agrees(torch, dev, serve, check)
+    _envelope_agrees(torch, dev, serve, check)
     return dict(r, cfg=cfg, launches_all=launches)
+
+
+def _envelope_agrees(torch, dev, serve, check) -> None:
+    """A short run (the smoke config, 12 clustered steps, a fold every 4)
+    on the card through the executor envelope and through direct calls,
+    from copies of one cluster-major cache: the same tokens, logits and
+    tables."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import init_cache, init_params
+    cfg = get_smoke_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = init_params(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (2, 48), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cache = init_cache(cfg, 2, 48 + 13, clustered=False, device=dev)
+    _, cache = serve.prefill_into_cache(cfg, params, cache, prompt)
+    cache = serve.attach_clusters(cfg, cache, length=48)
+    out = []
+    for ex in (None, serve.serve_executor(cfg, params)):
+        c = {"stack": {k: v.clone() for k, v in cache["stack"].items()}}
+        c.update({k: v for k, v in cache.items() if k != "stack"})
+        counts = c["stack"]["sizes"].float()
+        toks, logits, c, _, folded = serve.decode(
+            cfg, params, c, prompt[:, -1:], 48, 12, fold_every=4,
+            counts=counts, executor=ex)
+        out.append((toks, logits, c, folded))
+    (t0, l0, c0, f0), (t1, l1, c1, f1) = out
+    same = (all((a == b).all() for a, b in zip(t0, t1))
+            and bool(torch.equal(l0, l1)) and f0 == f1
+            and all(bool(torch.equal(c0["stack"][k], c1["stack"][k]))
+                    for k in ("kt", "vt", "cent", "sizes")))
+    check(same, "a short clustered decode (smoke config, 12 steps, folds "
+                "every 4) through the executor envelope equals the direct "
+                "calls: tokens, logits and tables")
 
 
 def _small_serve_agrees(torch, dev, serve, check) -> None:
@@ -1335,6 +1481,339 @@ def _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,
 
 def _finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
+
+
+def _int8_fit_phase(torch, dev, x, res, check) -> dict:
+    """Phase 2g: the int8 fit arena. ``fit(..., precision="int8")`` from
+    phase 2's generator seed (GDI on the card is reproducible, so from
+    phase 2's init), counts set to 0 just before: bit-identical to phase
+    2's f32 fit, with the scan on the int8 lanes and moved rows at
+    d + 16 bytes against 4 (d + 3). Returns its result and launches."""
+    from repro_torch.core import fit, fit_k2means, initialize, OpCounter
+    from repro_torch.kernels import _build
+    c0, a0 = initialize(x, K, "gdi",
+                        torch.Generator(device=dev).manual_seed(SEED + 1),
+                        OpCounter())
+    fit_k2means(x, c0, a0, kn=KN, max_iters=2, precision="int8",
+                device=dev)                                     # warm-up
+    del c0, a0
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    r8 = fit(x, K, method="k2means", init="gdi", kn=KN, max_iters=MAX_ITERS,
+             precision="int8", device=dev, profile=True,
+             generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    p8, pf = r8.profile, res.profile
+    ms8 = p8["iterate_s"] / max(r8.iterations, 1) * 1e3
+    ms32 = pf["iterate_s"] / max(res.iterations, 1) * 1e3
+    k4 = launches["candidate_assign_int8_tiled"]
+    print(f"phase 2g: int8 fit n={N} d={D} k={K} kn={KN}: {r8.iterations} "
+          f"iterations, {ms8:.2f} ms/iteration (phase 2's f32 fit "
+          f"{ms32:.2f}), GDI {p8['init_s']:.3f} s, energy {r8.energy:.6g}; "
+          f"K4 launches {k4} ({k4 / max(r8.iterations, 1):.2f} per "
+          f"iteration), launches {launches}")
+    print(f"  counted f32 distances {p8['distances']:.6g} (f32 fit "
+          f"{pf['distances']:.6g}), int8 ops {p8['int8_ops']:.6g}, scan "
+          f"bytes {p8['bytes_scanned']:.6g} (f32 {pf['bytes_scanned']:.6g},"
+          f" ratio {p8['bytes_scanned'] / pf['bytes_scanned']:.4f}), layout "
+          f"bytes gathered {p8['bytes_gathered']:.6g} (f32 "
+          f"{pf['bytes_gathered']:.6g}, ratio "
+          f"{p8['bytes_gathered'] / max(pf['bytes_gathered'], 1):.4f})")
+    same = (bool(torch.equal(r8.assignment, res.assignment))
+            and bool(torch.equal(r8.centers, res.centers))
+            and r8.energy == res.energy and r8.iterations == res.iterations)
+    check(same, f"the int8 fit is bit-identical to phase 2's f32 fit: "
+                f"{int((r8.assignment != res.assignment).sum())} assignments"
+                f" differ, centers equal "
+                f"{bool(torch.equal(r8.centers, res.centers))}, energy "
+                f"{r8.energy:.9g} vs {res.energy:.9g}, iterations "
+                f"{r8.iterations} vs {res.iterations}")
+    check(k4 == r8.iterations and launches["candidate_assign_tiled"] == 0,
+          f"K4 launched once per int8 iteration and K1 not at all ({k4} "
+          f"for {r8.iterations}, K1 {launches['candidate_assign_tiled']})")
+    check(p8["int8_ops"] > 0 and pf["int8_ops"] == 0
+          and p8["distances"] < pf["distances"],
+          f"int8 ops counted ({p8['int8_ops']:.6g}) and fewer f32 distances"
+          f" than the f32 fit ({p8['distances']:.6g} < "
+          f"{pf['distances']:.6g})")
+    check(all(p8[lane] * 4 * (D + 3) == pf[lane] * (D + 16)
+              for lane in ("bytes_gathered", "bytes_scattered")),
+          f"moved rows cost d + 16 = {D + 16} bytes against 4 (d + 3) = "
+          f"{4 * (D + 3)}: bytes_gathered {p8['bytes_gathered']:.6g} vs "
+          f"{pf['bytes_gathered']:.6g}, bytes_scattered "
+          f"{p8['bytes_scattered']:.6g} vs {pf['bytes_scattered']:.6g}")
+    return dict(launches=launches, ms=ms8, iterations=r8.iterations)
+
+
+def k4_fit_inputs(torch, x, c, assignment):
+    """K4's arguments over the int8 fit arena of ``x`` under
+    ``assignment`` and the centers ``c`` (bn = 32, 92,000 slots at the
+    fit's shape), no block skipped, with the re-rank's f32 masters and
+    slab tables, and its bound: (args, bn, (bound ms, what bounds it),
+    (xf, ctab, csqtab, rowsel) for ``slab_sqdist``)."""
+    from repro_torch.core import K2Step, center_knn_graph
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.candidate_assign import (candidate_tables,
+                                                      pad_candidates)
+    dev = x.device
+    st = K2Step(k=K, kn=KN, bkn=BKN, precision="int8").init_resident(
+        x, torch.ones(x.shape[0], device=dev), c, assignment)
+    nb, rows = st.b2c.shape[0], st.pid.shape[0]
+    bn = rows // nb
+    xf = torch.where((st.pid >= 0)[:, None],
+                     x[st.pid.clamp(min=0).long()], 0.0).contiguous()
+    cidx = pad_candidates(center_knn_graph(c, KN), BKN).contiguous()
+    knp = cidx.shape[1]
+    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
+    noskip = torch.zeros(nb, dtype=torch.int32, device=dev)
+    args = (st.xg, st.xsc, quant.residual_norm(xf, st.xg, st.xsc),
+            *quant.quantized_candidate_slabs(quant.center_quant(c), cidx),
+            rowsel, noskip)
+    slabs = int(torch.unique(rowsel).numel())
+    ctab, csqtab = candidate_tables(c, cidx)
+    return args, bn, bound(
+        rows * (D + 8.0) + slabs * knp * (D + 12.0) + nb * 8.0
+        + rows * (4.0 * 8 + 8.0), 2.0 * rows * knp * D, INT8_OP_PER_S), \
+        (xf, ctab, csqtab, rowsel)
+
+
+def _guard_clean(torch, x, res, sb_kw, n):
+    """The guard's counters over the arena a fit's result rebuilds
+    (non-finite rows quarantined at weight 0)."""
+    from repro_torch.core import K2Step
+    from repro_torch.ft.invariants import make_guard
+    sb = K2Step(**sb_kw)
+    w = torch.isfinite(x).all(1).to(torch.float32)
+    xs = torch.where(w[:, None] > 0, x, 0.0)
+    st = sb.init_resident(xs, w, res.centers, res.assignment)
+    return make_guard(sb, n)(st).cpu().tolist()
+
+
+def _ft_phase(torch, dev, x, check) -> dict:
+    """Phase 2h: fault tolerance at the mnist shape, from phase 2's GDI
+    init. (a) a rebuild fit checkpointing every 3 iterations, killed by a
+    ``FaultInjector(preempt_at=5)``, resumed: equal to the uninterrupted
+    fit, one restore. (b) a guarded resident fit under NaN rows, a
+    poisoned center and poisoned slots: regroup and split each heal, the
+    result guard-clean and finite. (c) (b)'s schedule at a small shape
+    (ROADMAP §3 entry 9's integer blobs) on the card and on the CPU: the
+    same events, repairs and final assignment."""
+    import shutil
+    from repro_torch.core import OpCounter, fit_k2means, initialize
+    from repro_torch.ft import FaultInjector, Preemption
+    from repro_torch.kernels import _build
+    c0, a0 = initialize(x, K, "gdi",
+                        torch.Generator(device=dev).manual_seed(SEED + 1),
+                        OpCounter())
+    out = {}
+    # (a) kill and resume, rebuild residency
+    ckpt = ROOT / "build" / "fit_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(kn=KN, max_iters=MAX_ITERS, residency="rebuild", device=dev)
+    t0 = time.perf_counter()
+    base = fit_k2means(x, c0, a0, **kw)
+    torch.cuda.synchronize()
+    t_base = time.perf_counter() - t0
+    preempted = False
+    try:
+        with FaultInjector(seed=0, preempt_at=5):
+            fit_k2means(x, c0, a0, ckpt_dir=str(ckpt), ckpt_every=3, **kw)
+    except Preemption:
+        preempted = True
+    ctr = OpCounter()
+    t0 = time.perf_counter()
+    resumed = fit_k2means(x, c0, a0, ckpt_dir=str(ckpt), ckpt_every=3,
+                          resume=True, counter=ctr, **kw)
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    same = bool(torch.equal(resumed.assignment, base.assignment))
+    print(f"phase 2h: (a) rebuild fit {base.iterations} iterations in "
+          f"{t_base:.3f} s; killed before iteration 5, resumed from the "
+          f"step-3 checkpoint: {resumed.iterations} more iterations in "
+          f"{t_res:.3f} s (checkpoint read included), repairs "
+          f"{ctr.repairs}")
+    check(preempted and same and ctr.repairs["restore"] == 1
+          and base.iterations >= 5
+          and resumed.iterations == base.iterations - 3,
+          f"kill and resume: preempted {preempted}, the resumed fit's "
+          f"assignment equals the uninterrupted one "
+          f"({int((resumed.assignment != base.assignment).sum())} differ), "
+          f"restores {ctr.repairs['restore']}")
+    del base, resumed
+    # (b) a chaos fit with guards, resident f32
+    sched = dict(nan_rows={2: 16}, poison_centers={4: 3},
+                 poison_slots={6: 16})
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ctr = OpCounter()
+    t0 = time.perf_counter()
+    with FaultInjector(seed=SEED, **sched) as inj:
+        r = fit_k2means(x, c0, a0, kn=KN, max_iters=MAX_ITERS, guards=True,
+                        counter=ctr, key=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_chaos = time.perf_counter() - t0
+    launches = _build.launches()
+    vio = _guard_clean(torch, x, r, dict(k=K, kn=KN, bkn=BKN), N)
+    print(f"  (b) guarded chaos fit ({sched}): {r.iterations} iterations in "
+          f"{t_chaos:.3f} s, events {inj.events}, repairs {ctr.repairs}, "
+          f"quarantined rows {int(ctr.sanitized_rows)}, energy "
+          f"{r.energy:.6g}, guard on the result {vio}, launches {launches}")
+    check(ctr.repairs["regroup"] >= 1 and ctr.repairs["split"] >= 1
+          and ctr.sanitized_rows == 16,
+          f"the chaos fit healed by regroup ({ctr.repairs['regroup']}) and "
+          f"split ({ctr.repairs['split']}) and quarantined the 16 NaN rows "
+          f"({int(ctr.sanitized_rows)})")
+    check(_finite(r.energy) and bool(torch.isfinite(r.centers).all())
+          and sum(vio) == 0,
+          f"the chaos fit ends finite and guard-clean (energy "
+          f"{r.energy:.6g}, guard {vio})")
+    check(launches["segmented_scan"] > 0
+          and launches["candidate_assign_tiled"] > 0,
+          f"the split rung ran K3 ({launches['segmented_scan']}) and the fit"
+          f" K1 ({launches['candidate_assign_tiled']})")
+    out["chaos_launches"] = launches
+    del r, c0, a0
+    # (c) the schedule at a small shape, card against CPU
+    rng = torch.Generator().manual_seed(2)
+    mus = torch.round(torch.randn(12, 16, generator=rng) * 12)
+    xs = torch.round(mus[torch.randint(0, 12, (3000,), generator=rng)]
+                     + torch.randn(3000, 16, generator=rng) * 1.5)
+    xs[::5] = xs[1::5][:len(xs[::5])]
+    init = xs[torch.randperm(3000, generator=rng)[:48]]
+    a_s = torch.cdist(xs, init).argmin(1).to(torch.int32)
+    small = dict(nan_rows={2: 8}, poison_centers={4: 2}, poison_slots={6: 5})
+    got = {}
+    for where in ("cpu", dev):
+        ctr = OpCounter()
+        with FaultInjector(seed=5, **small) as inj:
+            rs = fit_k2means(xs, init, a_s, kn=8, max_iters=20, guards=True,
+                             counter=ctr, key=1, device=where)
+        got[str(where)] = (rs.assignment.cpu(), ctr.repairs, inj.events,
+                           int(ctr.sanitized_rows))
+    (ac, rc, ec, sc), (ag, rg, eg, sg) = got["cpu"], got[str(dev)]
+    print(f"  (c) small chaos fit (n=3000, d=16, k=48, {small}): repairs "
+          f"{rg} (CPU {rc}), events {eg}")
+    check(ec == eg and rc == rg and sc == sg and bool(torch.equal(ac, ag))
+          and rg["regroup"] >= 1 and rg["split"] >= 1,
+          f"the small chaos fit on the card equals the CPU's: events "
+          f"{ec == eg}, repairs {rc == rg}, quarantined {sg} vs {sc}, "
+          f"assignments {int((ac != ag).sum())} differ")
+    return out
+
+
+def _exec_run(torch, dev, res, trace, sched, pool_rows):
+    """One executor run over the predict-only model built from ``res``
+    (fresh, so a replay starts from the same state) under a chaos
+    schedule (transient failures retried after 0.05 and 0.1 s)."""
+    from repro_torch.core import KMeansModel, OpCounter
+    from repro_torch.ft import FaultInjector
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (ServeConfig, ServeExecutor,
+                                   requests_from_trace)
+    model = KMeansModel.from_result(res, kn=KN, device=dev)
+    ex = ServeExecutor(model, ServeConfig(retries=3), OpCounter())
+    ex.warmup()
+    reqs = requests_from_trace(trace, pool_rows)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with FaultInjector(seed=SEED, **sched) as inj:
+        resps = ex.run_trace(reqs)
+    torch.cuda.synchronize()
+    return dict(model=model, ex=ex, reqs=reqs, resps=resps, inj=inj,
+                wall=time.perf_counter() - t0, launches=_build.launches())
+
+
+def _serve_phase(torch, dev, res, queries, check) -> dict:
+    """Phase 2i: the serving plane over phase 2's model. A Poisson trace
+    of the held-out queries (requests of 256 rows) with a burst at 4x the
+    sustainable rate, under poisoned queries, a slow consumer and
+    transient ``serve_predict`` failures, replayed twice: identical
+    responses and rung transcripts; FULL and INT8_SCAN answers equal
+    ``model.predict``'s; every request answered or typed; the ladder
+    climbs and recovers; retries and quarantined rows counted."""
+    from repro_torch.core import KMeansModel
+    from repro_torch.ft import poisson_trace
+    from repro_torch.serve import (FULL, INT8_SCAN, ROUTE_ONLY, Overloaded,
+                                   ServeConfig, ServeExecutor)
+    rows = 256
+    probe = ServeExecutor(KMeansModel.from_result(res, kn=KN, device=dev),
+                          ServeConfig())
+    qps = probe.sustainable_qps()
+    del probe
+    rate = 0.5 * qps / rows                      # requests/s, calm
+    horizon = NQ / rows / rate / 2.3             # about the pool, burst in
+    trace = poisson_trace(SEED, rate=rate, horizon=horizon, rows=rows,
+                          deadline=0.005,
+                          bursts=((0.3 * horizon, 0.5 * horizon, 8.0),))
+    sched = dict(poison_queries={5: 7, 40: 3}, slow_consumer={12: 0.02},
+                 fail_calls={"serve_predict": (3, 30)})
+    pool = queries.cpu().numpy()
+    runs = [_exec_run(torch, dev, res, trace, sched, pool)
+            for _ in range(2)]
+    r1, r2 = runs
+    ex, resps, reqs = r1["ex"], r1["resps"], r1["reqs"]
+    same = len(r1["resps"]) == len(r2["resps"]) and all(
+        (a.rid, a.status, a.rung, a.t_done, a.reason)
+        == (b.rid, b.status, b.rung, b.t_done, b.reason)
+        and (a.result is None) == (b.result is None)
+        and (a.result is None or (a.result == b.result).all())
+        for a, b in zip(r1["resps"], r2["resps"]))
+    same = same and ex.ladder.transcript == r2["ex"].ladder.transcript \
+        and r1["inj"].events == r2["inj"].events
+    st = ex.stats()
+    n_rows = sum(r.rows for r in reqs)
+    print(f"phase 2i: executor over phase 2's model, {len(reqs)} requests x "
+          f"{rows} rows ({n_rows} rows) at {rate * rows:.0f} rows/s, burst "
+          f"x8 over [{0.3 * horizon:.4f}, {0.5 * horizon:.4f}] s; "
+          f"sustainable {qps:.0f} rows/s; {st['batches']} batches; virtual "
+          f"clock {ex.now:.4f} s ({ex.now / max(st['batches'], 1) * 1e3:.3f} "
+          f"ms a batch), wall {r1['wall']:.3f} s "
+          f"({ex.wall_s / max(st['batches'], 1) * 1e3:.3f} ms a batch in "
+          f"the executed batches, replay {r2['wall']:.3f} s)")
+    print(f"  responses ok {st['responses_ok']}, overloaded "
+          f"{st['responses_overloaded']}, rejected {st['responses_rejected']};"
+          f" degrades {st['degrades']}; retries {st['retries']}, quarantined "
+          f"rows {st['sanitized_rows']}; rung transitions "
+          f"{len(ex.ladder.transcript)}: "
+          f"{[(o, n) for _, o, n, _ in ex.ladder.transcript]}; launches "
+          f"{r1['launches']}")
+    check(same, "two replays of the trace give identical responses, rung "
+                "transcripts and events")
+    answered = len(resps) == len(reqs) and all(
+        r.status in ("ok", "rejected")
+        or (r.status == "overloaded" and isinstance(r, Overloaded))
+        for r in resps)
+    check(answered, f"every request answered ok, rejected or typed "
+                    f"Overloaded ({len(resps)} responses for {len(reqs)})")
+    moves = [(o, n) for _, o, n, _ in ex.ladder.transcript]
+    top = max((n for _, n in moves), default=0)
+    peak = max((i for i, (_, n) in enumerate(moves) if n == top), default=0)
+    back = any(n == FULL for _, n in moves[peak:])
+    check(top >= ROUTE_ONLY and back,
+          f"the ladder climbed to rung {top} (>= ROUTE_ONLY) under the "
+          f"burst and came back to FULL after it ({back})")
+    check(st["retries"] >= 2 and st["sanitized_rows"] == 10,
+          f"retries ({st['retries']}) and quarantined rows "
+          f"({st['sanitized_rows']}) counted")
+    want = r1["model"].predict(queries, batch_size=BATCH).cpu().numpy()
+    poisoned = set(sched["poison_queries"])
+    checked = differ = 0
+    for r, q in zip(resps, reqs):
+        if r.ok and r.rung in (FULL, INT8_SCAN) and q.rid not in poisoned:
+            checked += 1
+            differ += int((r.result != want[q.meta]).sum())
+    check(checked > 0 and differ == 0,
+          f"FULL and INT8_SCAN answers equal model.predict's ({checked} "
+          f"requests, {differ} rows differ)")
+    lc = r1["launches"]
+    check(lc["candidate_assign_tiled"] > 0
+          and lc["candidate_assign_int8_tiled"] > 0,
+          f"the executor's FULL rung ran K1 ({lc['candidate_assign_tiled']})"
+          f" and its int8 rungs K4 ({lc['candidate_assign_int8_tiled']})")
+    return dict(launches=lc, max_rung=top, shed=st["degrades"]["shed"])
 
 
 def _small_fit_agrees(torch, dev, fit_k2means, check) -> None:

@@ -1,6 +1,6 @@
-"""k²-means core library (PyTorch port): the single-device f32 fit
-(k²-means, Lloyd, Elkan; random, k-means++ and GDI inits) and the served
-model's predict and streaming partial_fit."""
+"""k²-means core library (PyTorch port): the single-device fit
+(k²-means on an f32 or int8 arena, Lloyd, Elkan; random, k-means++ and
+GDI inits) and the served model's predict and streaming partial_fit."""
 from .api import INITS, METHODS, fit, initialize
 from .distance import clustering_energy, sqnorm
 from .elkan import elkan_step, fit_elkan

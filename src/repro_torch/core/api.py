@@ -62,7 +62,8 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     ``generator`` (default: a new one on the device seeded with ``seed``)
     drives the init's draws. Extra keywords flow to the method's fit
     function: :func:`core.k2means.fit_k2means` (``residency``,
-    ``monitor_every``, ``regroup_every``, ``bn``, ...),
+    ``monitor_every``, ``regroup_every``, ``bn``, ``precision``,
+    ``guards``, ``ckpt_dir``, ``ckpt_every``, ``resume``, ``key``, ...),
     :func:`core.lloyd.fit_lloyd` (``callback``) or
     :func:`core.elkan.fit_elkan`. ``profile=True`` attaches the
     counter's op and memory-traffic breakdown plus the host-clock seconds

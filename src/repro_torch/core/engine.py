@@ -13,7 +13,11 @@ scratch every iteration.
 lives in :class:`ResidentState` and is repaired each iteration by moving
 only the rows whose assignment changed, with an incremental delta
 center update and a full re-sort every ``regroup_every`` iterations, on
-move-buffer overflow, or when the free-block pool would run out.
+move-buffer overflow, or when the free-block pool would run out. With
+``precision="int8"`` (DESIGN.md §13) the arena holds int8 rows and
+per-slot scales: the scan is K4 plus an exact f32 re-rank of its
+survivors against the f32 masters, so the trajectory is the f32
+engine's bit for bit.
 
 :func:`resident_evict` is the streaming model's sliding-window eviction
 on the same arena (``core.model.KMeansModel.partial_fit``).
@@ -43,13 +47,15 @@ import typing
 
 import torch
 
+from ..kernels import quant
 from ..kernels.candidate_assign import (candidate_assign_tiled,
                                         candidate_tables, pad_candidates)
 from ..kernels.center_knn import center_sqdist
 from ..kernels.ops import (choose_group_bn, compact, k2_bounded_assign,
                            plan_layout_evict, plan_layout_repair,
-                           resident_capacity, resident_regroup,
-                           scatter_from_grouped, segment_sum_ordered)
+                           quantized_scan_rerank, resident_capacity,
+                           resident_regroup, scatter_from_grouped,
+                           segment_sum_ordered)
 from ..kernels.segment_sum import segment_sum_blocks
 from .distance import bottom_k, sqnorm
 
@@ -83,6 +89,9 @@ class ResidentState(typing.NamedTuple):
     b2c: torch.Tensor      # (nb_total,) int32 block -> cluster, -1 = free
     fill: torch.Tensor     # (k,) int32 open-block watermark in [0, bn]
     openb: torch.Tensor    # (k,) int32 open block per cluster, -1 = none
+    # the int8 arena (precision="int8"): ``xg`` holds int8 rows and
+    # ``xsc`` their per-slot scales; None on the f32 arena
+    xsc: torch.Tensor | None = None
 
 
 class StepStats(typing.NamedTuple):
@@ -93,6 +102,9 @@ class StepStats(typing.NamedTuple):
     energy: torch.Tensor    # clustering energy after the update step
     moved: torch.Tensor     # rows moved through the layout
     resorted: torch.Tensor  # 1 if the layout was fully re-sorted
+    # the int8 engine's f32 distances (survivors re-ranked, the whole
+    # list on fallback rows); 0 on the f32 paths
+    reranked: typing.Any = 0
 
 
 def init_state(centers: torch.Tensor, assignment: torch.Tensor,
@@ -147,10 +159,13 @@ def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
 
 def init_resident_state(x: torch.Tensor, w: torch.Tensor,
                         centers: torch.Tensor, assignment: torch.Tensor, *,
-                        kn: int, bn: int, nb_total: int) -> ResidentState:
+                        kn: int, bn: int, nb_total: int,
+                        precision: str = "f32") -> ResidentState:
     """Build the resident layout once from an initial assignment (one
     grouping pass + one full segment-sum); stale-zero bounds with
-    ``first`` forcing a full recompute on iteration 1."""
+    ``first`` forcing a full recompute on iteration 1. Under
+    ``precision="int8"`` the arena rows are quantized per row and carry
+    their scales in ``xsc``; ``x`` stays the f32 master copy."""
     k = centers.shape[0]
     a = assignment.to(torch.int32)
     perm, b2c, fill, openb = resident_regroup(a, k, bn, nb_total)
@@ -162,11 +177,14 @@ def init_resident_state(x: torch.Tensor, w: torch.Tensor,
                         device=centers.device)
     # each cluster's rows in row order: the arena lists them so
     sums, counts = segment_sum_blocks(xg, b2c, k, bn, w=wg)
+    xsc = None
+    if precision == "int8":
+        xg, xsc = quant.quantize_rows(xg)
     return ResidentState(
         centers, torch.full((k, kn), -1, dtype=torch.int32,
                             device=centers.device),
         sums, counts, 0, True, xg, perm, zeros, zeros.clone(), wg, b2c, fill,
-        openb)
+        openb, xsc)
 
 
 def resident_assignment(state: ResidentState, n: int) -> torch.Tensor:
@@ -203,8 +221,27 @@ def decay_pow(decay: float, age: torch.Tensor, max_age: int) -> torch.Tensor:
     return out
 
 
+def _masters(x: torch.Tensor, pid: torch.Tensor) -> torch.Tensor:
+    """The f32 master rows in slot order (zero on free slots)."""
+    sp = torch.clamp(pid, 0, x.shape[0] - 1).long()
+    return torch.where((pid >= 0)[:, None], x[sp], 0.0).contiguous()
+
+
+def decay_pow_f32(decay: float, age: torch.Tensor,
+                  max_age: int) -> torch.Tensor:
+    """The eviction's ``decay ** age`` in f32: :func:`decay_pow` of the f32
+    ``decay``, rounded once to f32, with subnormal results flushed to
+    zero as the reference's f32 ``jnp.power`` flushes them (XLA runs with
+    denormals off). It then differs from the reference's power only in
+    the last bit of a normal result, where binary exponentiation and
+    libm's ``pow`` round apart (ROADMAP §3 entry 11)."""
+    pw = decay_pow(f32(decay), age, max_age).to(torch.float32)
+    return torch.where(pw < torch.finfo(torch.float32).tiny, 0.0, pw)
+
+
 def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
-                   epoch_now: int, decay: float, floor: float):
+                   epoch_now: int, decay: float, floor: float,
+                   masters: torch.Tensor | None = None):
     """Sliding-window eviction on the resident arena.
 
     Retires every live slot whose stream epoch ``eg`` (S,) predates
@@ -214,7 +251,7 @@ def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
     surviving statistics match a fold of the window (bit for bit at
     ``decay == 1`` on exactly representable data). A row folded at epoch
     ``e`` has decayed to weight ``w * decay^(epoch_now - e)``
-    (:func:`decay_pow` of the f32 ``decay``, rounded to f32), which is
+    (:func:`decay_pow_f32`), which is
     what is subtracted. ``floor`` is the fold's count floor: a center
     whose mass dips under it is frozen at the floor with its sums
     re-anchored (``sums = c * floor``).
@@ -225,9 +262,10 @@ def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
     row-order ``segment_sum`` over slots, the CPU's bits on the card. A
     weight-0 slot adds ``0 * x``, a signed zero, which changes no partial
     sum (they start at +0, and only two -0 terms make a -0), so leaving
-    such slots in or out gives the same bits. The rows are read from the
-    f32 arena ``xg``, which holds the mirror's rows bit for bit (the
-    reference's ``masters=`` is for the int8 arena, ROADMAP §1 item 7b).
+    such slots in or out gives the same bits. The rows are read from
+    ``masters`` (the f32 point-order rows, gathered through ``pid``) when
+    given, else from the arena: ``xg`` itself on the f32 arena (it holds
+    the mirror's rows bit for bit), its dequantized rows on an int8 one.
     Returns ``(state', evict (S,) bool, n_evicted device scalar)``.
     """
     k = state.c.shape[0]
@@ -236,13 +274,19 @@ def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
     evict, pid2, wg2, n_ev = plan_layout_evict(state.pid, state.wg, eg,
                                                cutoff)
     age = torch.clamp(epoch_now - eg.to(torch.int64), min=0)
-    pw = decay_pow(f32(decay), age, epoch_now).to(torch.float32)
+    pw = decay_pow_f32(decay, age, epoch_now)
     w_eff = torch.where(evict, state.wg * pw, 0.0).contiguous()
     # blocks without an evicted slot add only zeros: leave them out of
     # the chains (cluster 0's parked pool alone spans most of the arena)
     b2s = torch.where(torch.any(evict.reshape(nbt, bn), dim=1), state.b2c,
                       -1).to(torch.int32).contiguous()
-    d_sums, d_counts = segment_sum_blocks(state.xg, b2s, k, bn, w=w_eff)
+    if masters is not None:
+        rows = _masters(masters, state.pid)
+    elif state.xsc is not None:
+        rows = quant.dequantize_rows(state.xg, state.xsc).contiguous()
+    else:
+        rows = state.xg
+    d_sums, d_counts = segment_sum_blocks(rows, b2s, k, bn, w=w_eff)
     floor_t = torch.tensor(f32(floor), device=state.c.device)
     sums2 = state.sums - d_sums
     counts2 = torch.clamp(state.counts - d_counts, min=0.0)
@@ -258,7 +302,8 @@ def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
 
 def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
                           state: ResidentState, *, kn: int, bkn: int = 8,
-                          regroup_every: int = 16, move_cap: int = 1024
+                          regroup_every: int = 16, move_cap: int = 1024,
+                          precision: str = "f32", rerank_r: int = 8
                           ) -> tuple[ResidentState, StepStats]:
     """One iteration over the resident grouped layout.
 
@@ -270,6 +315,16 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     move-buffer overflow, or when the free-block pool would run out.
     ``x``/``w`` are the point-order arrays, read only by re-sorts. ``bn``
     is a property of the arena and is read from its shapes.
+
+    ``precision="int8"`` scans the quantized arena (``xg`` int8, ``xsc``
+    its scales): K4 emits each row's margin survivors, which are
+    re-ranked exactly against the f32 masters ``x[pid]``
+    (``ops.quantized_scan_rerank``; rows with more than ``rerank_r``
+    survivors take their whole list). The center deltas, the full
+    recompute and the energy read the masters, never dequantized rows,
+    and a re-sort re-quantizes from them, so the assignments and centers
+    are the f32 engine's. ``d2`` is floored by the non-survivors' margin
+    bound, a valid (possibly looser) Hamerly bound.
     """
     k = state.c.shape[0]
     n = x.shape[0]
@@ -279,6 +334,7 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     c = state.c
     dev = c.device
     wpos = state.wg > 0
+    int8 = precision == "int8"
 
     # --- 1. k_n-NN graph over centers ----------------------------------
     neighbors = center_knn_graph(c, kn)
@@ -290,11 +346,24 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
             | state.first) & wpos
     skip = (~torch.any(need.reshape(nbt, bn), dim=1)).to(torch.int32)
     cidx = pad_candidates(neighbors, bkn).contiguous()
-    ctab, csqtab = candidate_tables(c, cidx)
     rowsel = torch.clamp(state.b2c, min=0).to(torch.int32).contiguous()
-    a_g, d1_sq, d2_sq = candidate_assign_tiled(
-        state.xg, ctab, csqtab, cidx, rowsel, skip, a_slot.to(torch.int32),
-        state.ug * state.ug, state.lo_g * state.lo_g, bn=bn, bkn=bkn)
+    reranked = torch.zeros((), dtype=torch.int64, device=dev)
+    if int8:
+        xf = _masters(x, state.pid)
+        a_g, d1_sq, d2_sq, nsv, fb = quantized_scan_rerank(
+            xf, state.xg, state.xsc, c, quant.center_quant(c), cidx, rowsel,
+            skip, a_slot.to(torch.int32), state.ug * state.ug,
+            state.lo_g * state.lo_g, bn=bn, bkn=bkn, r=rerank_r)
+        # f32 distances of the exact stage: min(n_surv, r) a re-ranked
+        # row, the whole candidate list on a fallback row
+        reranked = torch.sum(torch.where(fb, cidx.shape[1],
+                                         torch.clamp(nsv, max=rerank_r)))
+    else:
+        ctab, csqtab = candidate_tables(c, cidx)
+        a_g, d1_sq, d2_sq = candidate_assign_tiled(
+            state.xg, ctab, csqtab, cidx, rowsel, skip,
+            a_slot.to(torch.int32), state.ug * state.ug,
+            state.lo_g * state.lo_g, bn=bn, bkn=bkn)
     fresh = torch.repeat_interleave(skip == 0, bn)
     u_new = torch.where(fresh, torch.sqrt(d1_sq), state.ug)
     lo_new = torch.where(fresh, torch.sqrt(d2_sq), state.lo_g)
@@ -320,8 +389,10 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     seg2 = torch.cat([torch.where(active, dst_c, -1),
                       torch.where(active, src_c + k, -1)]).to(torch.int32)
     lanes = torch.arange(cap, dtype=torch.int32, device=dev).repeat(2)
+    # (the int8 arena reads the masters: centers carry no quantization
+    # error)
     sums_mv, counts_mv = segment_sum_blocks(
-        state.xg[mvs].contiguous(), seg2, 2 * k, 1,
+        (xf if int8 else state.xg)[mvs].contiguous(), seg2, 2 * k, 1,
         w=torch.cat([w_mv, w_mv]), perm=lanes)
     delta_sums = sums_mv[:k] - sums_mv[k:]
     delta_counts = counts_mv[:k] - counts_mv[k:]
@@ -352,6 +423,9 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
         wg2 = torch.where(valid2, w[sp], 0.0)
         ug2 = torch.where(valid2, u_pt[sp], 0.0)
         lo2 = torch.where(valid2, lo_pt[sp], 0.0)
+        xf2, xsc2 = xg2, None
+        if int8:     # re-quantized from the f32 masters
+            xg2, xsc2 = quant.quantize_rows(xf2)
     else:
         src, dst = mv[:n_mv], dst_slot[:n_mv]
         pid2, xg2, wg2 = state.pid, state.xg, state.wg
@@ -365,13 +439,17 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
         ug2[dst] = u_new[src]
         lo2[dst] = lo_new[src]
         b2c2, fill2, openb2 = b2c_rep, fill_rep, openb_rep
+        xsc2 = state.xsc
+        if int8:     # the moved rows' scales travel with them
+            xsc2[dst] = xsc2[src]
+        xf2 = _masters(x, pid2) if int8 else xg2
     a_slot2 = torch.repeat_interleave(torch.clamp(b2c2, min=0), bn).long()
 
     # --- 7. center update: incremental delta, or exact recompute ---------
     if full_update:
         # per cluster, a chain over its blocks in slot order: the CPU's
         # row-order scatter-add, bit for bit, on the card
-        sums2, counts2 = segment_sum_blocks(xg2, b2c2, k, bn, w=wg2)
+        sums2, counts2 = segment_sum_blocks(xf2, b2c2, k, bn, w=wg2)
     else:
         sums2 = state.sums + delta_sums
         counts2 = state.counts + delta_counts
@@ -385,13 +463,13 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     lo_adj = lo2 - delta_nb[a_slot2]
 
     # --- 9. device-resident step statistics ------------------------------
-    energy = torch.sum(wg2 * sqnorm(xg2 - c_next[a_slot2]))
+    energy = torch.sum(wg2 * sqnorm(xf2 - c_next[a_slot2]))
     moved = torch.sum(state.pid >= 0) if resort else n_changed
     stats = StepStats(torch.sum(need), n_changed, energy, moved,
-                      torch.tensor(int(resort), device=dev))
+                      torch.tensor(int(resort), device=dev), reranked)
     return ResidentState(c_next, neighbors, sums2, counts2, state.it + 1,
                          False, xg2, pid2, u_adj, lo_adj, wg2, b2c2, fill2,
-                         openb2), stats
+                         openb2, xsc2), stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -411,6 +489,7 @@ class K2Step:
     residency: str = "resident"   # "rebuild" | "resident"
     regroup_every: int = 16       # resident: full re-sort period
     move_cap: int | None = None   # resident: move-buffer rows (None: auto)
+    precision: str = "f32"        # "f32" | "int8" quantized arena (§13)
 
     def _validate(self):
         if self.residency not in ("rebuild", "resident"):
@@ -419,6 +498,14 @@ class K2Step:
         if self.residency == "resident" and self.regroup_every < 1:
             raise ValueError("regroup_every must be >= 1, got "
                              f"{self.regroup_every}")
+        if self.precision not in ("f32", "int8"):
+            raise ValueError(f"unknown precision {self.precision!r}; "
+                             "expected 'f32' or 'int8'")
+        if self.precision == "int8" and self.residency != "resident":
+            raise ValueError("precision='int8' requires the resident "
+                             "arena (residency='resident'): the rebuild "
+                             "engines would re-quantize the whole layout "
+                             "every iteration")
 
     def _bn(self, n: int, d: int | None = None) -> int:
         return self.bn or choose_group_bn(n, self.k, d, bkn=self.bkn)
@@ -435,7 +522,8 @@ class K2Step:
             def step(x, w, state):
                 return k2_resident_iteration(
                     x, w, state, kn=kn, bkn=self.bkn,
-                    regroup_every=regroup_every, move_cap=move_cap)
+                    regroup_every=regroup_every, move_cap=move_cap,
+                    precision=self.precision)
             return step
         bn = self._bn(n, d)
 
@@ -452,7 +540,8 @@ class K2Step:
         bn = self._bn(n, d)
         return init_resident_state(
             x, w, centers, assignment, kn=min(self.kn, self.k), bn=bn,
-            nb_total=resident_capacity(n, self.k, bn))
+            nb_total=resident_capacity(n, self.k, bn),
+            precision=self.precision)
 
     def final_assignment(self, state: ResidentState, n: int) -> torch.Tensor:
         """Point-order assignment of a resident state, (n,) int32."""

@@ -53,7 +53,8 @@ Idioms that differ from the reference:
   every device (``segment_sum_ordered``, ``segment_sum_blocks``), the
   CPU's bits on the card, never with ``index_add_``'s atomics;
 - ``decay^age`` is ``engine.decay_pow``: the f32 decay raised by binary
-  exponentiation in f64 and rounded once to f32 (the drift repair keeps
+  exponentiation in f64 and rounded once to f32, subnormal results
+  flushed to zero as XLA flushes them (the drift repair keeps
   the f64 decay and the f64 power), so the card and the CPU weigh a row
   alike; the reference's ``jnp.power`` may differ in the last bit, so at
   decay < 1 the decayed statistics match the reference's within a few
@@ -71,11 +72,10 @@ Idioms that differ from the reference:
   is known to suffice;
 - there is one resolution path (the kernels), so the checkpoint's
   ``backend`` reads "pallas", the reference's name for it, and restore
-  takes "pallas" or "xla".
-
-Not ported in this slice: the chaos hooks of ``predict`` and
-``partial_fit`` (``ft.chaos`` faults, the retry envelope) wait for fault
-tolerance (ROADMAP §1 item 9).
+  takes "pallas" or "xla";
+- an installed ``ft.chaos.FaultInjector``'s ``exhaust_arena`` fault is
+  applied after the batch's free-pool read, and the append plan is then
+  made again (one more host read, only under that fault).
 """
 from __future__ import annotations
 
@@ -743,7 +743,8 @@ class KMeansModel:
     def predict(self, queries, *, batch_size: int = 8192,
                 counter: OpCounter | None = None,
                 return_sqdist: bool = False, validate: str = "raise",
-                precision: str | None = None, stream: str | None = None):
+                retries: int = 3, precision: str | None = None,
+                stream: str | None = None):
         """Bounded nearest-center assignment of ``queries`` (n, d).
 
         Runs ``batch_size`` queries at a time (the tail batch is padded
@@ -761,9 +762,12 @@ class KMeansModel:
         rejected. ``stream`` names a correlated query stream: the f32 path
         then carries warm-start Hamerly bounds across calls
         (:meth:`_assign_stream`), so a repeat batch charges 1 distance a
-        warm row; the int8 path ignores it. There is no chaos or retry
-        envelope around a batch until fault tolerance is ported (ROADMAP
-        §1 item 9).
+        warm row; the int8 path ignores it. Transient per-batch failures
+        (``ft.chaos.TransientError``, which an installed
+        ``ft.chaos.FaultInjector`` raises on its scheduled ``"predict"``
+        calls) are retried up to ``retries`` times a batch with
+        exponential backoff (``ft.retry_transient``, each retry counted
+        on ``counter.retries``); any other exception propagates.
         """
         q = torch.as_tensor(queries)
         if not torch.is_floating_point(q):
@@ -777,6 +781,8 @@ class KMeansModel:
             empty_a = torch.zeros((0,), dtype=torch.int32, device=q.device)
             return (empty_a, torch.zeros((0,), device=q.device)) \
                 if return_sqdist else empty_a
+        from ..ft import chaos as _chaos
+        from ..ft.runtime import retry_transient
         bs = min(batch_size, nq)
         a_parts, d_parts = [], []
         counted = torch.zeros((), dtype=torch.int64, device=q.device)
@@ -785,10 +791,20 @@ class KMeansModel:
             m = qb.shape[0]
             if m < bs:                       # pad the tail batch
                 qb = torch.nn.functional.pad(qb, (0, 0, 0, bs - m))
-            if stream is not None and prec == "f32":
-                a_b, d_b, n_c = self._assign_stream(qb, (stream, lo // bs))
-            else:
+            warm_key = (stream, lo // bs) \
+                if stream is not None and prec == "f32" else None
+
+            def _one_batch(qb=qb, warm_key=warm_key):
+                inj = _chaos.active()
+                if inj is not None:
+                    inj.maybe_fail("predict")
+                if warm_key is not None:
+                    return self._assign_stream(qb, warm_key)
                 a_b, d_b, _, n_c = self._predict_batch(qb, precision=prec)
+                return a_b, d_b, n_c
+
+            a_b, d_b, n_c = retry_transient(_one_batch, retries=retries,
+                                            counter=counter)
             a_parts.append(a_b[:m])
             d_parts.append(d_b[:m])
             counted += torch.sum(n_c[:m])
@@ -843,8 +859,11 @@ class KMeansModel:
         highest-energy donors (``ft.invariants.repair_dying_centers``, K3
         inside ``gdi.projective_split``). ``stream`` names a correlated
         stream whose warm-start bounds carry across folds
-        (:meth:`_assign_stream`). No chaos hooks until fault tolerance is
-        ported (ROADMAP §1 item 9).
+        (:meth:`_assign_stream`). An installed ``ft.chaos.FaultInjector``
+        corrupts the batch first (``corrupt_batch``: late delivery, drift
+        bursts, duplicate floods, NaN rows) and may exhaust the arena's
+        free pool before the append (``corrupt_arena``), forcing the full
+        re-sort.
         """
         if on_full not in ("raise", "degrade"):
             raise ValueError(f"on_full must be 'raise' or 'degrade', "
@@ -859,6 +878,10 @@ class KMeansModel:
                              f"{self.d})")
         m = xb.shape[0]
         wb = torch.ones((m,), device=dev) if w is None else as_tensor(w, dev)
+        from ..ft import chaos as _chaos
+        inj = _chaos.active()
+        if inj is not None:
+            xb = inj.corrupt_batch(xb)
         live = wb > 0
         # the batch's one read: non-finite live rows and live rows
         bad = ~torch.isfinite(xb).all(dim=1) if validate != "none" \
@@ -954,6 +977,12 @@ class KMeansModel:
             self.x_pts, self.a_pts, self.w_pts, self.e_pts = \
                 _update_mirrors(self.x_pts, self.a_pts, self.w_pts,
                                 self.e_pts, xb, wb, ab, ids, epoch_now)
+            if inj is not None:
+                st_c = inj.corrupt_arena(st)
+                if st_c is not st:           # the pool was exhausted
+                    st = st_c
+                    plan = _append_plan(st, wb, ab, bn=self.bn)
+                    ok = bool(plan[5] <= plan[6])
             if ok:
                 xg, pid, wg, b2c, fill, openb = _arena_append(
                     st, xb, wb, ids, plan, cap=self.capacity,

@@ -1,11 +1,12 @@
 """Vector-operation accounting following the paper's methodology.
 
 A copy of the reference's counter (``repro.core.opcount``), cut to the
-lanes the ported fit, predict and ``partial_fit`` paths charge: the
-paper's vector-op metric (distances, inner products, additions, sorts as
-``m log2 m / d`` equivalents), the int8 scan lane, the memory-traffic
-lanes, and the streaming model's robustness lanes (the repair rungs,
-arena-full folds, quarantined and evicted rows).
+lanes the ported fit, predict, ``partial_fit`` and serving paths
+charge: the paper's vector-op metric (distances, inner products,
+additions, sorts as ``m log2 m / d`` equivalents), the int8 scan lane,
+the memory-traffic lanes, the robustness lanes (the repair rungs,
+arena-full folds, retries, quarantined and evicted rows) and the serving
+plane's degradation rungs.
 Charges are pure Python on host integers, so the port and the reference
 compare exactly equal on the same trajectory.
 """
@@ -41,10 +42,16 @@ class OpCounter:
         default_factory=lambda: {"bound_reset": 0, "regroup": 0,
                                  "split": 0, "restore": 0})
     degraded_folds: float = 0.0
+    retries: float = 0.0
     sanitized_rows: float = 0.0
     # streaming lane (DESIGN.md §14): rows retired by the sliding window
     # (their subtraction deltas charge ``additions``)
     evicted_rows: float = 0.0
+    # serving-plane degradation lane (DESIGN.md §12): requests served on
+    # each rung of the executor's ladder, and load-shed requests
+    degrades: dict = dataclasses.field(
+        default_factory=lambda: {"int8_scan": 0, "probe_shrink": 0,
+                                 "route_only": 0, "shed": 0})
     wall_t0: float = dataclasses.field(default_factory=time.perf_counter)
 
     @property
@@ -116,6 +123,21 @@ class OpCounter:
     def count_degraded_fold(self, n: int = 1) -> None:
         self.degraded_folds += int(n)
 
+    @property
+    def total_degrades(self) -> int:
+        return int(sum(self.degrades.values()))
+
+    def count_degrade(self, kind: str, n: int = 1) -> None:
+        """Record ``n`` requests served on one degradation rung
+        (``int8_scan`` | ``probe_shrink`` | ``route_only`` | ``shed``)."""
+        if kind not in self.degrades:
+            raise ValueError(f"unknown degrade kind {kind!r}; expected one "
+                             f"of {sorted(self.degrades)}")
+        self.degrades[kind] += int(n)
+
+    def count_retry(self, n: int = 1) -> None:
+        self.retries += int(n)
+
     def count_sanitized_rows(self, n: int) -> None:
         self.sanitized_rows += int(n)
 
@@ -144,6 +166,9 @@ class OpCounter:
             "repairs": dict(self.repairs),
             "total_repairs": self.total_repairs,
             "degraded_folds": self.degraded_folds,
+            "degrades": dict(self.degrades),
+            "total_degrades": self.total_degrades,
+            "retries": self.retries,
             "sanitized_rows": self.sanitized_rows,
             "evicted_rows": self.evicted_rows,
             "wall_s": self.wall,
@@ -156,21 +181,34 @@ LAYOUT_STATE_LANES = 3
 
 
 def charge_iteration(counter: OpCounter, *, n: int, d: int, k: int, kn: int,
-                     stats, resident: bool = False) -> float:
+                     stats, resident: bool = False,
+                     precision: str = "f32") -> float:
     """Charge one k²-means iteration from its host-read ``StepStats``
-    values ``(n_need, changed, energy, moved, resorted)``.
+    values ``(n_need, changed, energy, moved, resorted[, reranked])``.
 
     Paper ops: the k²-NN graph build, k_n candidate distances per
     recomputed point, k movement norms, and the mean update's additions
     (``n`` for a full re-reduction, ``2*moved`` for the resident engine's
     incremental delta). Memory traffic: ``moved`` rows × (d + state lanes)
-    gathered and scattered, plus m·log2(m) key passes over them. Returns
-    the iteration's post-update energy.
+    gathered and scattered, plus m·log2(m) key passes over them. Under
+    ``precision="int8"`` the k_n candidate scan charges int8 ops instead
+    of f32 distances (only the ``reranked`` survivors cost f32
+    distances), the scan reads d + 4 bytes a candidate plus 4d a
+    re-ranked one, and a moved arena row carries d int8 bytes and one f32
+    scale lane beside its state lanes. Returns the iteration's
+    post-update energy.
     """
     n_need, changed, energy, moved, resorted = (float(s) for s in stats[:5])
-    counter.add_distances(k * k + n_need * kn + k)
-    counter.add_scan_bytes(n_need * kn * 4 * d)
-    row_bytes = (d + LAYOUT_STATE_LANES) * 4
+    reranked = float(stats[5]) if len(stats) > 5 else 0.0
+    if precision == "int8":
+        counter.add_distances(k * k + k + reranked)
+        counter.add_int8_ops(n_need * kn)
+        counter.add_scan_bytes(n_need * kn * (d + 4) + reranked * 4 * d)
+        row_bytes = d + (LAYOUT_STATE_LANES + 1) * 4
+    else:
+        counter.add_distances(k * k + n_need * kn + k)
+        counter.add_scan_bytes(n_need * kn * 4 * d)
+        row_bytes = (d + LAYOUT_STATE_LANES) * 4
     full_update = (not resident) or resorted > 0
     counter.add_additions(n if full_update else 2.0 * moved)
     counter.rows_moved += moved

@@ -1,11 +1,19 @@
-"""Invariant counters and the drift guard of the streaming model (port of
-the streaming part of ``repro.ft.invariants``, DESIGN.md §11 and §14).
+"""Runtime invariant guards, self-heal for the fit engines, and the drift
+guard of the streaming model (port of ``repro.ft.invariants``, DESIGN.md
+§11 and §14).
 
 - :func:`resident_violations`: the §9.1 slot-ownership invariants of a
   resident arena as device counters, lanes ``[centers, sums, bounds,
   arena]`` (non-finite centers; non-finite or negative sums and counts;
   non-finite bound lanes; index-range, ownership and watermark
-  violations);
+  violations); :func:`k2_violations`, the rebuild residency's lanes;
+  :func:`make_guard`, the fit loop's guard over either;
+- the repair lattice of a fit (:func:`heal_fit`): ``bound_reset`` (the
+  stale-zero loose bounds with ``first``), ``regroup`` (quarantine
+  non-finite rows, recover the assignment from the surviving slots
+  (:func:`recover_assignment_np`), re-assign the untrusted rows exactly,
+  rebuild the arena), ``split`` (:func:`split_repair`: a non-finite
+  center re-seated by one Lemma-1 split of the highest-energy donor);
 - :func:`streaming_violations`: the eviction-side counters ``[stale,
   occupancy, floor]``;
 - :class:`DriftGuard`, :func:`init_drift_guard`, :func:`drift_guard_step`:
@@ -22,9 +30,16 @@ where ``decay^age`` is :func:`core.engine.decay_pow` (f64 binary
 exponentiation, the one form the port uses, in place of the reference's
 ``np.power``).
 
-Not ported here: the fit-time guards (``k2_violations``, ``make_guard``),
-``recover_assignment_np``, ``split_repair`` and ``heal_fit``, which wait
-for fault tolerance (ROADMAP §1 item 9).
+The heal is host-side and rare, as the reference's. It differs from the
+reference in its arithmetic only where the port's paths do everywhere:
+the donors' energies are correctly rounded squared distances summed in
+f64 in row order, the untrusted rows are re-assigned through K5 (the
+correctly rounded argmin), and the split runs
+:func:`core.gdi.projective_split` (K3), its two member draws from a CPU
+``torch.Generator`` (``gdi._split_draws``) where the reference folds the
+split's index into a ``jax.random`` key. The mesh branches of
+``make_guard`` and ``heal_fit`` wait for multi-GPU placement (ROADMAP §1
+item 12).
 """
 from __future__ import annotations
 
@@ -33,7 +48,9 @@ import typing
 import numpy as np
 import torch
 
-from ..core.engine import ResidentState, decay_pow, f32
+from ..core.engine import K2State, ResidentState, decay_pow, f32, init_state
+from ..kernels.exact_round import exact_sqnorm
+from ..kernels.ops import assign_nearest_kernel
 from ..kernels.segment_sum import segment_sum_f64
 
 VIOLATION_LANES = ("centers", "sums", "bounds", "arena")
@@ -106,6 +123,175 @@ def streaming_violations(state: ResidentState, e_pts: torch.Tensor,
                       device=state.counts.device)
     under = torch.sum(state.counts < fl - 1e-6 * (1.0 + fl))
     return torch.stack([stale, occ, under]).to(torch.int64)
+
+
+def k2_violations(state: K2State, *, n: int) -> torch.Tensor:
+    """(4,) int64 violation counters of a rebuild-residency state (no
+    arena and no running sums: the sums lane counts out-of-range
+    assignments, the arena lane is 0)."""
+    del n
+    k = state.c.shape[0]
+    nonfinite = lambda t: torch.sum(~torch.isfinite(t))  # noqa: E731
+    return torch.stack([
+        nonfinite(state.c), torch.sum((state.a < 0) | (state.a >= k)),
+        nonfinite(state.u) + nonfinite(state.lo),
+        torch.zeros((), dtype=torch.int64, device=state.c.device)]
+    ).to(torch.int64)
+
+
+def make_guard(sb, n: int):
+    """``guard(state) -> (4,)`` violation counters for a
+    :class:`core.engine.K2Step` (single device)."""
+    fn = resident_violations if sb.residency == "resident" \
+        else k2_violations
+
+    def guard(state):
+        return fn(state, n=n)
+    return guard
+
+
+def recover_assignment_np(pid, b2c, bn: int, n: int) -> np.ndarray:
+    """Best-effort point-order assignment from a (possibly corrupted)
+    arena, on the host. Rows claimed by zero or several slots, or by a
+    slot of an out-of-range cluster, come back as -1: *untrusted*, to be
+    re-assigned exactly by the healer."""
+    pid = np.asarray(pid).astype(np.int64)
+    b2c = np.asarray(b2c).astype(np.int64)
+    a = np.full((n,), -1, np.int64)
+    a_slot = np.repeat(np.clip(b2c, 0, None), bn)
+    owned = (pid >= 0) & (pid < n)
+    occ = np.zeros((n,), np.int64)
+    np.add.at(occ, pid[owned], 1)
+    trust = occ[pid[owned]] == 1
+    a[pid[owned][trust]] = a_slot[owned][trust]
+    return a
+
+
+def split_repair(x, w, a, c, bad, generator: torch.Generator | None = None,
+                 counter=None):
+    """Quarantine the ``bad`` (non-finite) centers and re-seat each with
+    one Lemma-1 split of the highest-energy healthy donor cluster
+    (``core.gdi.projective_split``): the donor keeps side A, the repaired
+    center takes side B and its members. Without a donor of >= 2 members
+    the center is re-seated on a live row. ``generator``: the CPU
+    generator of the splits' draws. Returns (c, a); every split lands on
+    ``counter.repairs["split"]``."""
+    from ..core.gdi import projective_split
+    k = c.shape[0]
+    c = torch.where(torch.isfinite(c), c, 0.0)
+    a = a.to(torch.int32)
+    bad_set = set(int(b) for b in bad)
+    wpos = w > 0
+    live = np.flatnonzero(wpos.cpu().numpy())
+    for i, j in enumerate(sorted(bad_set)):
+        d2 = exact_sqnorm(x - c[a.long()])
+        if counter is not None:   # donor-energy scan: n residual distances
+            counter.add_distances(x.shape[0])
+        e = segment_sum_f64(w * d2, a.long(), k).cpu().numpy()
+        e = e.astype(np.float64)
+        cnt = segment_sum_f64(w, a.long(), k).cpu().numpy()
+        e[list(bad_set)] = -np.inf
+        e[cnt < 2] = -np.inf
+        donor = int(np.argmax(e))
+        if not np.isfinite(e[donor]):
+            seat = int(live[i % max(live.size, 1)]) if live.size else 0
+            c = c.clone()
+            c[j] = x[seat]
+        else:
+            mask = (a == donor) & wpos
+            _ma, mb, ca, cb, _pa, _pb = projective_split(x, mask, generator)
+            c = c.clone()
+            c[donor] = ca
+            c[j] = cb
+            a = torch.where(mb, j, a).to(torch.int32)
+        bad_set.discard(j)
+        if counter is not None:
+            counter.count_repair("split")
+    return c, a
+
+
+def heal_fit(x, w, state, sb, n: int, counter, generator, vio):
+    """Repair a fit loop's (x, w, state) after a guard fired.
+
+    ``sb`` is the :class:`core.engine.K2Step` the loop built its step
+    from; ``vio`` the host (4,) violation counters; ``generator`` the CPU
+    generator of the split rung's draws. Takes the cheapest sufficient
+    rung of the repair lattice (module docstring) and returns the healed
+    (x, w, state), which always carries ``first=True``, so the next
+    iteration recomputes every live row exactly.
+    """
+    resident = sb.residency == "resident"
+    vio = np.asarray(vio)
+    dev = x.device
+    only_bounds = bool(vio[2]) and not (vio[0] or vio[1] or vio[3])
+    if only_bounds:
+        # cheapest rung: the stale-zero safe loose state
+        if resident:
+            zeros = torch.zeros_like(state.ug)
+            state = state._replace(ug=zeros, lo_g=zeros.clone(), first=True)
+        else:
+            zeros = torch.zeros_like(state.u)
+            state = state._replace(u=zeros, lo=zeros.clone(), first=True)
+        counter.count_repair("bound_reset")
+        return x, w, state
+
+    k = state.c.shape[0]
+    x_h = x.cpu().numpy().astype(np.float32)
+    w_h = w.cpu().numpy().astype(np.float32)
+
+    # 1. quarantine non-finite rows (weight 0, zeroed features)
+    bad_rows = ~np.isfinite(x_h).all(axis=1)
+    n_sanitized = int((bad_rows & (w_h > 0)).sum())
+    if bad_rows.any():
+        x_h[bad_rows] = 0.0
+        w_h[bad_rows] = 0.0
+    if n_sanitized:
+        counter.count_sanitized_rows(n_sanitized)
+
+    # 2. best-effort assignment recovery from the surviving state
+    if resident:
+        pid_h, b2c_h = state.pid.cpu().numpy(), state.b2c.cpu().numpy()
+        a_h = recover_assignment_np(pid_h, b2c_h,
+                                    pid_h.shape[0] // b2c_h.shape[0], n)
+    else:
+        a_h = state.a.cpu().numpy().astype(np.int64)
+    a_h[(a_h < 0) | (a_h >= k)] = -1
+    untrusted = a_h < 0
+    a_h[untrusted] = 0                    # placeholder until re-assigned
+
+    # 3. quarantine + split-repair non-finite centers
+    c_h = state.c.cpu().numpy().astype(np.float32)
+    bad_centers = np.flatnonzero(~np.isfinite(c_h).all(axis=1))
+    c_dev = torch.from_numpy(np.where(np.isfinite(c_h), c_h, 0.0)).to(dev)
+    x_dev = torch.from_numpy(x_h).to(dev)
+    if bad_centers.size:
+        # untrusted rows must not anchor a split: weight them out of the
+        # donor-energy scan (they are re-assigned exactly right after)
+        w_trust = torch.from_numpy(np.where(untrusted, 0.0, w_h).astype(
+            np.float32)).to(dev)
+        c_dev, a_dev = split_repair(
+            x_dev, w_trust, torch.from_numpy(a_h.astype(np.int32)).to(dev),
+            c_dev, bad_centers, generator, counter)
+        a_h = a_dev.cpu().numpy().astype(np.int64)
+
+    # 4. exact re-assignment of the untrusted live rows
+    unc = np.flatnonzero(untrusted & (w_h > 0))
+    if unc.size:
+        au, _ = assign_nearest_kernel(x_dev[torch.from_numpy(unc).to(dev)],
+                                      c_dev)
+        counter.add_distances(int(unc.size) * k)
+        a_h[unc] = au.cpu().numpy()
+    a_dev = torch.from_numpy(a_h.astype(np.int32)).to(dev)
+
+    # 5. rebuild the loop state from the healed primals
+    w_dev = torch.from_numpy(w_h).to(dev)
+    if resident:
+        state = sb.init_resident(x_dev, w_dev, c_dev, a_dev)
+        counter.count_repair("regroup")
+    else:
+        state = init_state(c_dev, a_dev, min(sb.kn, k))
+        counter.count_repair("bound_reset")
+    return x_dev, w_dev, state
 
 
 class DriftGuard(typing.NamedTuple):

@@ -7,7 +7,10 @@
 // cidx[rowsel[b]] (a (kn_pad, d) slab of the per-cluster table ctab);
 // best and second-best squared distance and the argbest candidate id;
 // flat first-min ties; skip[b] != 0 passes prev_* through untouched;
-// padding columns carry csqtab = 1e30 and never win.
+// padding columns carry csqtab = 1e30 and never win. A non-finite
+// distance (a NaN row or center, which only fault injection brings in)
+// stays NaN through the clamp and never wins: a row with no finite
+// distance keeps column 0 with best and second-best +inf.
 //
 // Bound on an H100: bytes. A fully recomputed pass reads every arena row
 // once (n d 4 bytes) plus the distinct candidate slabs the blocks name,
@@ -57,6 +60,9 @@
 #include <math.h>
 #include <stdint.h>
 #include "common.cuh"
+
+// max(t, 0) that keeps a NaN (fmaxf would turn it into 0, a winner)
+__device__ __forceinline__ float clamp0(float t) { return t < 0.f ? 0.f : t; }
 
 namespace {
 constexpr int NT = 256, NW = NT / 32;
@@ -301,9 +307,8 @@ candidate_assign_tiled_kernel(const float* __restrict__ x,
         flagged |= 1u << m;
         continue;
       }
-      vt[r * KC + cand] = fmaxf(
-          __fadd_rn(__fsub_rn(xs2[r], __fmul_rn(2.f, cross)), csq[c0 + cand]),
-          0.f);
+      vt[r * KC + cand] = clamp0(
+          __fadd_rn(__fsub_rn(xs2[r], __fmul_rn(2.f, cross)), csq[c0 + cand]));
     }
     while (__any_sync(0xffffffffu, flagged)) {
       const bool need = flagged != 0;
@@ -318,10 +323,9 @@ candidate_assign_tiled_kernel(const float* __restrict__ x,
           k2_exact_dot_lanes(need, x + (row0 + r) * d, 1,
                              slab + (size_t)(c0 + cand) * d, 1, d);
       if (need)
-        vt[r * KC + cand] = fmaxf(
+        vt[r * KC + cand] = clamp0(
             __fadd_rn(__fsub_rn(xs2[r], __fmul_rn(2.f, cross)),
-                      csq[c0 + cand]),
-            0.f);
+                      csq[c0 + cand]));
     }
     __syncthreads();
     if (threadIdx.x < bn) {

@@ -15,9 +15,12 @@ Idioms that differ from the reference, kept exact:
 - ``.at[idx].set(v, mode="drop")`` becomes :func:`scatter_drop`, a
   scatter into one extra trailing slot that is sliced off, so sentinel
   writes never alias a real slot;
-- the int8 re-rank's ``lax.cond`` on overflowing rows becomes one host
-  read per call that lists those rows, and only they take the full
-  exact pass (:func:`quantized_scan_rerank`).
+- the int8 re-rank's ``lax.cond`` on overflowing rows becomes a
+  selection on the device: the exact distances of every row's whole
+  slab row are formed once (``exact_round.slab_sqdist``), the survivors
+  are re-ranked from them and the overflowing rows take their exact
+  top-2 over the whole row, with no host read
+  (:func:`quantized_scan_rerank`).
 """
 from __future__ import annotations
 
@@ -140,10 +143,18 @@ def group_by_cluster_device(a: torch.Tensor, k: int, bn: int):
 def scatter_from_grouped(perm: torch.Tensor, values: torch.Tensor,
                          prev: torch.Tensor) -> torch.Tensor:
     """Scatter grouped-layout ``values`` (one per perm row) back to point
-    order on top of ``prev``; padding rows (perm == -1) are dropped."""
+    order on top of ``prev``; padding rows (perm == -1) are dropped. A
+    point that several rows name (a corrupted arena) takes the last of
+    them, as a row-order scatter does, on every device (a scatter of
+    duplicate indices on the card writes in no fixed order)."""
     n = prev.shape[0]
     idx = torch.where(perm >= 0, perm.long(), n)
-    return scatter_drop(prev, idx, values.to(prev.dtype))
+    rows = torch.arange(perm.shape[0], device=perm.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64,
+                      device=perm.device).scatter_reduce_(0, idx, rows,
+                                                          "amax")[:n]
+    vals = values.to(prev.dtype)[torch.clamp(last, min=0)]
+    return torch.where(last >= 0, vals, prev)
 
 
 def resident_capacity(n: int, k: int, bn: int,

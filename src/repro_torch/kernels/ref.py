@@ -295,10 +295,13 @@ def candidate_assign_tiled_ref(x, ctab, csqtab, cidx, rowsel, skip, prev_a,
     of ``x`` (bn rows) competes among ``cidx[rowsel[b]]`` with the
     distances of :func:`slab_sqdist`. Returns (argbest id int32, best
     sqdist, second-best sqdist), with ``prev_*`` on rows of skipped
-    blocks. Ties take the first column."""
+    blocks. Ties take the first column. A NaN distance (a non-finite row
+    or center, which only fault injection brings in) never wins, as in
+    the kernel: it counts as +inf."""
     nb = x.shape[0] // bn
     rs = rowsel.long()
     sq = slab_sqdist(x, ctab, csqtab, rowsel, bn).reshape(nb, bn, -1)
+    sq = torch.where(torch.isnan(sq), float("inf"), sq)
     loc = torch.argmin(sq, dim=-1)                   # first-min
     a = torch.gather(cidx[rs], 1, loc).reshape(-1).to(torch.int32)
     if sq.shape[-1] >= 2:

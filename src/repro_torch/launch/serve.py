@@ -16,12 +16,18 @@ recent-token ring (the tables are read-only in a step), and every
 ``kv_partial_fit``. Each decode step reads one thing back to the host,
 the greedy token.
 
-Differences from the reference: the prompt fills the flat cache from
-one chunked prefill forward (the reference steps ``serve_step`` over the
-prompt, which 65,536 tokens make too slow); the decode and fold steps
-are called directly, without the reference's ``ServeExecutor`` envelope
-(admission queue, retries; ROADMAP §1 item 10), so its ``--retries``
-flag and its queue and fault counter lines are left out.
+The clustered decode and fold loop rides the serving executor (DESIGN.md
+§12): ``decode_step`` and ``fold_ring`` are registered ops submitted
+through :meth:`repro_torch.serve.ServeExecutor.call`, so the KV workload
+shares the bounded admission queue, the transient-retry envelope
+(``ft.retry_transient``, budget ``--retries``; chaos ``fail_calls=
+{"decode_step"|"fold_ring": ...}`` exercises it) and the counted-op
+accounting of the predict/partial_fit traffic; the end-of-run lines
+print the queue and the fault counters.
+
+Difference from the reference: the prompt fills the flat cache from one
+chunked prefill forward (the reference steps ``serve_step`` over the
+prompt, which 65,536 tokens make too slow).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from ..kernels import _build
 from ..models.kv_cluster import build_cluster_major, kv_partial_fit
 from ..models.model import (forward_prefill, init_cache, init_params,
                             serve_step)
+from ..serve import ServeConfig, ServeExecutor
 
 
 def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
@@ -102,20 +109,50 @@ def fold_ring(cache, counts):
     return cache, counts, sum(fills)
 
 
+def serve_executor(cfg, params, retries: int = 3) -> ServeExecutor:
+    """A bare :class:`ServeExecutor` with the KV workload's two ops
+    registered: ``decode_step`` (payload ``{"cache", "tok", "i"}`` ->
+    ``(logits, cache)``) and ``fold_ring`` (``{"cache", "counts"}`` ->
+    ``(cache, counts, slots folded)``)."""
+    ex = ServeExecutor(config=ServeConfig(queue_bound=8, retries=retries))
+    ex.register("decode_step", lambda p: serve_step(cfg, params, p["cache"],
+                                                    p["tok"], p["i"]))
+    ex.register("fold_ring", lambda p: fold_ring(p["cache"], p["counts"]))
+    return ex
+
+
+def _guarded(ex: ServeExecutor, op: str, payload):
+    """``ex.call`` that raises unless the request was answered ``ok``."""
+    resp = ex.call(op, payload)
+    if not resp.ok:
+        raise RuntimeError(f"{op} request {resp.rid}: {resp.status} "
+                           f"({resp.reason})")
+    return resp.result
+
+
 def decode(cfg, params, cache, tok, start: int, n: int, *,
-           fold_every: int = 0, counts=None):
+           fold_every: int = 0, counts=None, executor=None):
     """Greedy-decode ``n`` tokens after ``tok`` (B, 1), the first at slot
     ``start``. One host read per step (the token); with ``fold_every``,
-    the ring folds into the tables every that many steps. Returns
-    (tokens: list of (B,) int arrays, last logits, cache, counts,
-    slots folded)."""
+    the ring folds into the tables every that many steps. With
+    ``executor`` (:func:`serve_executor`) every step and fold is a
+    request through its ``call``. Returns (tokens: list of (B,) int
+    arrays, last logits, cache, counts, slots folded)."""
+    if executor is None:
+        step = lambda c, t, i: serve_step(cfg, params, c, t, i)  # noqa: E731
+        fold = fold_ring
+    else:
+        step = lambda c, t, i: _guarded(  # noqa: E731
+            executor, "decode_step", {"cache": c, "tok": t, "i": i})
+        fold = lambda c, n_: _guarded(  # noqa: E731
+            executor, "fold_ring", {"cache": c, "counts": n_})
     toks, folded, logits = [], 0, None
     for i in range(n):
-        logits, cache = serve_step(cfg, params, cache, tok, start + i)
+        logits, cache = step(cache, tok, start + i)
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         toks.append(tok[:, 0].cpu().numpy())
         if fold_every and (i + 1) % fold_every == 0:
-            cache, counts, f = fold_ring(cache, counts)
+            cache, counts, f = fold(cache, counts)
             folded += f
     return toks, logits, cache, counts, folded
 
@@ -126,11 +163,13 @@ def _sync(dev):
 
 
 def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
-        fold_every: int = 0, device=None, seed: int = 0, echo=print) -> dict:
+        fold_every: int = 0, device=None, seed: int = 0, retries: int = 3,
+        echo=print) -> dict:
     """Prefill a random prompt, decode with full attention, cluster the
-    cache, decode again with k²-attention (folding the ring every
-    ``fold_every`` steps, default the ring size) and report. Returns the
-    measurements, the params and both caches."""
+    cache, decode again with k²-attention through the serving executor
+    (folding the ring every ``fold_every`` steps, default the ring size;
+    ``retries`` transient failures absorbed a call) and report. Returns
+    the measurements, the params, both caches and the executor."""
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, gen, device=dev)
@@ -159,13 +198,15 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     counts = cache2["stack"]["sizes"].float()
     fold_every = fold_every or cfg.cluster_ring
     sizes0 = int(torch.sum(cache2["stack"]["sizes"]))
+    ex = serve_executor(cfg, params, retries)
     before = _build.launches()
     t0 = time.perf_counter()
     clus_toks, clus_logits, cache2, counts, folded = decode(
         cfg, params, cache2, prompt[:, -1:], prompt_len, decode_len,
-        fold_every=fold_every, counts=counts)
+        fold_every=fold_every, counts=counts, executor=ex)
     t_loop = time.perf_counter() - t0
-    cache2, counts, tail = fold_ring(cache2, counts)      # drain the tail
+    cache2, counts, tail = _guarded(                       # drain the tail
+        ex, "fold_ring", {"cache": cache2, "counts": counts})
     _sync(dev)
     t_clus = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in _build.launches().items()}
@@ -186,6 +227,19 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
          f"fold every {fold_every} steps")
     echo(f"attention reads/token: full={reads_full} "
          f"clustered={reads_clus} ({reads_full / reads_clus:.1f}x fewer)")
+    # the queue and the healing counters: nothing the execution layer
+    # absorbed stays invisible
+    st = ex.stats()
+    prof = ex.counter.profile()
+    echo(f"serve queue: admitted={st['admitted']} "
+         f"rejected={st['rejected']} "
+         f"max_depth={st['max_queue_depth']}/{st['queue_bound']}")
+    echo(f"ft counters: retries={int(prof['retries'])} "
+         f"(budget {retries}/call) repairs={st['repairs']} "
+         f"degraded_folds={st['degraded_folds']} "
+         f"evicted_rows={st['evicted_rows']} "
+         f"sanitized_rows={st['sanitized_rows']} "
+         f"sheds={prof['degrades']['shed']}")
     return dict(
         params=params, cache=cache2, flat_cache=cache, counts=counts,
         prompt=prompt,
@@ -196,7 +250,7 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
         sizes0=sizes0, sizes1=sizes1,
         dropped=prompt_len * batch * cfg.n_kv_heads * n_layers - sizes0,
         reads_full=reads_full, reads_clus=reads_clus, launches=launched,
-        fold_every=fold_every)
+        fold_every=fold_every, executor=ex)
 
 
 def main(argv=None):
@@ -210,6 +264,9 @@ def main(argv=None):
                     help="decode steps between partial_fit folds of the "
                          "ring into the cluster tables (0: the ring "
                          "size, i.e. fold just before it would wrap)")
+    ap.add_argument("--retries", type=int, default=3,
+                    help="transient-failure retry budget per decode/fold "
+                         "call (ft.retry_transient)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -217,7 +274,7 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run(cfg, batch=args.batch, prompt_len=args.prompt_len,
         decode_len=args.decode, fold_every=args.fold_every,
-        device=args.device)
+        device=args.device, retries=args.retries)
 
 
 if __name__ == "__main__":

@@ -1039,3 +1039,172 @@ def test_cuda_small_stream_matches_cpu(cuda):
     for f in ("counts", "sums", "c", "pid", "wg", "b2c"):
         assert torch.equal(getattr(m_g.state, f).cpu(),
                            getattr(m_c.state, f)), f
+
+
+def _mixture(n, d, k, seed):
+    rng = np.random.RandomState(seed)
+    mus = rng.randn(k, d) * 4.0
+    return (mus[rng.randint(0, k, n)] + rng.randn(n, d)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_at_the_int8_fit_arena(cuda):
+    """K4 over an int8 fit arena at the fit's shape (n = 60,000 rows of a
+    128-component mixture, d = 784, k = 1000, kn = 30: bn = 32, 92,000
+    slots), no block skipped: survivors, counts and lower bounds
+    bit-equal to the plain version, and the engine's re-rank over them
+    to the f32 arena's K1."""
+    n, d, k, kn, bkn = 60000, 784, 1000, 30, 8
+    x = torch.tensor(_mixture(n, d, 128, 0), device=cuda)
+    c = x[torch.randperm(n, generator=torch.Generator().manual_seed(1))[:k]
+          .to(cuda)].contiguous()
+    a = distance_argmin(x, c)[0]
+    sb = K2Step(k=k, kn=kn, bkn=bkn, precision="int8")
+    st = sb.init_resident(x, torch.ones(n, device=cuda), c, a)
+    s_rows, nb = st.pid.shape[0], st.b2c.shape[0]
+    bn = s_rows // nb
+    assert (bn, s_rows) == (32, 92000) and st.xg.dtype == torch.int8
+    xf = torch.where((st.pid >= 0)[:, None], x[st.pid.clamp(min=0).long()],
+                     0.0).contiguous()
+    cidx = pad_candidates(center_knn_graph(c, kn), bkn).contiguous()
+    rowsel = st.b2c.clamp(min=0).to(torch.int32).contiguous()
+    noskip = torch.zeros(nb, dtype=torch.int32, device=cuda)
+    args = (st.xg, st.xsc, quant.residual_norm(xf, st.xg, st.xsc),
+            *quant.quantized_candidate_slabs(quant.center_quant(c), cidx),
+            rowsel, noskip)
+    before = _build.launches()["candidate_assign_int8_tiled"]
+    got = candidate_assign_int8_tiled(*args, bn=bn, bkn=bkn, r=8)
+    torch.cuda.synchronize()
+    assert _build.launches()["candidate_assign_int8_tiled"] == before + 1
+    want = ref.candidate_assign_int8_tiled_ref(*args, bn, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    from repro_torch.kernels.ops import quantized_scan_rerank
+    zi = torch.zeros(s_rows, dtype=torch.int32, device=cuda)
+    zf = torch.zeros(s_rows, device=cuda)
+    a8, d8, _, _, _ = quantized_scan_rerank(
+        xf, st.xg, st.xsc, c, quant.center_quant(c), cidx, rowsel, noskip,
+        zi, zf, zf, bn=bn, bkn=bkn, r=8)
+    ctab, csqtab = candidate_tables(c, cidx)
+    a1, d1, _ = candidate_assign_tiled(xf, ctab, csqtab, cidx, rowsel,
+                                       noskip, zi, zf, zf, bn=bn, bkn=bkn)
+    live = st.wg > 0
+    assert torch.equal(a8[live], a1[live]) and torch.equal(d8[live],
+                                                           d1[live])
+
+
+@pytest.mark.cuda
+def test_cuda_int8_fit_matches_cpu(cuda):
+    """The int8 fit on the card and on the CPU from one init: identical
+    assignments, centers, iterations and counted lanes, energies (sums
+    over the rows in each device's order) within rel 1e-5; and the
+    card's int8 fit equals its f32 fit."""
+    x = _mixture(4096, 64, 40, 3)
+    init = x[np.random.RandomState(4).choice(4096, 64, replace=False)]
+    a0 = torch.cdist(torch.tensor(x), torch.tensor(init)).argmin(1).to(
+        torch.int32)
+    out = {}
+    for dev, prec in (("cpu", "int8"), (cuda, "int8"), (cuda, "f32")):
+        ctr = OpCounter()
+        _build.reset_launches()
+        r = fit_k2means(x, init, a0, kn=10, max_iters=25, precision=prec,
+                        counter=ctr, device=dev)
+        out[(str(dev), prec)] = (r, ctr, _build.launches())
+    (rc, cc, _), (rg, cg, launched), (rf, _, _) = (
+        out[("cpu", "int8")], out[(str(cuda), "int8")],
+        out[(str(cuda), "f32")])
+    assert launched["candidate_assign_int8_tiled"] == rg.iterations
+    assert launched["candidate_assign_tiled"] == 0
+    assert rc.iterations == rg.iterations == rf.iterations
+    for r in (rg, rf):
+        assert torch.equal(r.assignment.cpu(), rc.assignment)
+        assert torch.equal(r.centers.cpu(), rc.centers)
+    assert rg.energy == pytest.approx(rc.energy, rel=1e-5)
+    assert cg.profile() | {"wall_s": 0} == cc.profile() | {"wall_s": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_k1_on_non_finite_rows_and_centers(cuda):
+    """K1 with NaN rows and a NaN center in the candidate lists (what a
+    fault brings in before the guard heals it): a NaN distance never
+    wins, on the card as in the plain version, bit for bit."""
+    inp = list(_assign_inputs(512, 100, 96, 16, 32, 8, seed=7))
+    inp[0][[3, 40, 41]] = np.nan
+    inp[4][:] = 0                                   # no block skipped
+    bad = {int(inp[2][inp[3][0], 0]), int(inp[2][inp[3][2], 5])}
+    inp[1][sorted(bad)] = np.nan
+    got = _torch_assign(*inp, 32, 8, device=cuda)
+    want = _torch_assign(*inp, 32, 8)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    finite = np.ones(512, bool)
+    finite[[3, 40, 41]] = False          # no finite distance: column 0
+    assert torch.isinf(want[1][~torch.tensor(finite)]).all()
+    assert not np.isin(want[0].numpy()[finite], sorted(bad)).any()
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_chaos_fit_matches_cpu(cuda):
+    """A guarded resident fit under NaN rows, a poisoned center and
+    poisoned slots on ROADMAP §3 entry 9's integer blobs (n = 3000,
+    d = 16, k = 48): the card and the CPU fire the same faults, heal by
+    the same rungs (K3 inside the split) and end with the same
+    assignment."""
+    from repro_torch.ft import FaultInjector
+    x = _tied_blobs(3000, 16, 12, 2)
+    init = x[np.random.RandomState(3).choice(3000, 48, replace=False)]
+    a0 = torch.cdist(torch.tensor(x), torch.tensor(init)).argmin(1).to(
+        torch.int32)
+    sched = dict(nan_rows={2: 8}, poison_centers={4: 2}, poison_slots={6: 5})
+    out = {}
+    for dev in ("cpu", cuda):
+        ctr = OpCounter()
+        with FaultInjector(seed=5, **sched) as inj:
+            r = fit_k2means(x, init, a0, kn=8, max_iters=20, guards=True,
+                            counter=ctr, key=1, device=dev)
+        out[str(dev)] = (r, ctr, inj.events)
+    (rc, cc, ec), (rg, cg, eg) = out["cpu"], out[str(cuda)]
+    assert ec == eg and cc.repairs == cg.repairs
+    assert cg.repairs["regroup"] >= 1 and cg.repairs["split"] >= 1
+    assert cc.sanitized_rows == cg.sanitized_rows == 8
+    assert torch.equal(rg.assignment.cpu(), rc.assignment)
+    assert np.isfinite(rg.energy)
+
+
+@pytest.mark.cuda
+def test_cuda_executor_matches_cpu(cuda):
+    """One chaos trace through the serving executor over one model on
+    the card and on the CPU: identical responses and transcripts."""
+    from repro_torch.ft import FaultInjector, poisson_trace
+    from repro_torch.serve import (ServeConfig, ServeExecutor,
+                                   requests_from_trace)
+    allx = _mixture(3072, 16, 32, 8)
+    res = fit_k2means(allx[:2048], allx[:32], torch.cdist(
+        torch.tensor(allx[:2048]), torch.tensor(allx[:32])).argmin(1).to(
+        torch.int32), kn=8, max_iters=10, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = KMeansModel.from_result(res, kn=8, device=dev)
+        ex = ServeExecutor(model, ServeConfig(queue_bound=64,
+                                              ladder=(32, 64, 128),
+                                              deadline=1e-3), OpCounter())
+        ex.warmup()
+        rate = 1.5 * ex.sustainable_qps() / 32
+        trace = poisson_trace(5, rate=rate, horizon=300 / rate, rows=32,
+                              deadline=1e-3, pf_every=9, pf_rows=32,
+                              bursts=((90 / rate, 180 / rate, 3.0),))
+        reqs = requests_from_trace(trace, allx[2048:], default_deadline=1e-3)
+        with FaultInjector(seed=7, poison_queries={3: 4},
+                           slow_consumer={5: 0.004},
+                           fail_calls={"serve_predict": (2,)}):
+            out[str(dev)] = (ex.run_trace(reqs), ex)
+    (rc, exc), (rg, exg) = out["cpu"], out[str(cuda)]
+    assert exg.ladder.transcript == exc.ladder.transcript
+    for a, b in zip(rc, rg):
+        assert (a.rid, a.status, a.rung, a.t_done) == (b.rid, b.status,
+                                                       b.rung, b.t_done)
+        assert (a.result is None) == (b.result is None)
+        if a.result is not None:
+            assert np.array_equal(a.result, b.result)
+    assert exg.counter.profile() | {"wall_s": 0} == \
+        exc.counter.profile() | {"wall_s": 0}

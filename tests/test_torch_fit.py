@@ -223,8 +223,7 @@ def test_fit_max_iters_zero_evaluates_init():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"backend": "xla"}, "item 11"), ({"precision": "int8"}, "item 7"),
-    ({"guards": True}, "item 9"), ({"mesh": object()}, "item 12"),
+    ({"backend": "xla"}, "item 11"), ({"mesh": object()}, "item 12"),
     ({"method": "minibatch"}, "item 11"),
     ({"init": "gdi_parallel"}, "item 11"),
 ])

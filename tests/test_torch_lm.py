@@ -328,12 +328,13 @@ def test_family_without_qk_norm_matches_reference(arch):
 
 def test_serve_main_smoke_on_cpu(capsys):
     """``launch.serve.main``'s smoke run on the CPU: 48-token prompts, 16 decode
-    steps, a fold every 8; the reference's printed lines."""
+    steps, a fold every 8; the reference's printed lines, the serving
+    executor's queue and fault counters among them."""
     serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                 "--prompt-len", str(PROMPT), "--decode", str(DECODE),
                 "--fold-every", "8"])
     out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 3, out
+    assert len(out) == 5, out
     assert re.fullmatch(r"decoded 16 tokens: full=\d+\.\d\ds "
                         r"clustered=\d+\.\d\ds  token agreement=\d\.\d\d",
                         out[0]), out[0]
@@ -345,6 +346,13 @@ def test_serve_main_smoke_on_cpu(capsys):
     assert int(m.group(1)) == int(m.group(2)) - 384 <= 32 * B * 2
     assert out[2] == ("attention reads/token: full=65 clustered=40 "
                       "(1.6x fewer)")
+    # the executor envelope's lines: 16 decode steps and 2 + 1 folds went
+    # through the queue, nothing retried, healed or shed
+    assert out[3] == "serve queue: admitted=19 rejected=0 max_depth=1/8"
+    assert out[4] == (
+        "ft counters: retries=0 (budget 3/call) repairs={'bound_reset': 0, "
+        "'regroup': 0, 'split': 0, 'restore': 0} degraded_folds=0 "
+        "evicted_rows=0 sanitized_rows=0 sheds=0")
 
 
 def test_serve_run_reports_the_clustered_decode():
@@ -365,6 +373,39 @@ def test_serve_run_reports_the_clustered_decode():
         * cfg.n_kv_heads
     assert r["launches"]["cluster_attend"] == 0          # CPU tensors
     assert int(r["cache"]["stack"]["ring_fill"].sum()) == 0
+
+
+def test_decode_through_the_executor_equals_direct_calls():
+    """The clustered decode and its folds through the serving executor
+    (``ex.call``) give the direct calls' tokens and tables, and a
+    scheduled transient failure of a decode step is retried and counted,
+    not surfaced."""
+    from repro_torch.ft import FaultInjector
+    cfg = get_smoke_config(ARCH)
+    gen = torch.Generator().manual_seed(4)
+    params = init_params(cfg, gen, device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen,
+                           dtype=torch.int32)
+    out = []
+    for via in (False, True):
+        cache = init_cache(cfg, B, S_TOTAL, clustered=False, device="cpu")
+        _, cache = serve.prefill_into_cache(cfg, params, cache, prompt)
+        cache = serve.attach_clusters(cfg, cache, length=PROMPT)
+        counts = cache["stack"]["sizes"].float()
+        ex = serve.serve_executor(cfg, params) if via else None
+        with FaultInjector(seed=0, fail_calls={"decode_step": (3,)}):
+            toks, logits, cache, counts, folded = serve.decode(
+                cfg, params, cache, prompt[:, -1:], PROMPT, 10,
+                fold_every=4, counts=counts, executor=ex)
+        out.append((toks, logits, cache, folded, ex))
+    (t0, l0, c0, f0, _), (t1, l1, c1, f1, ex) = out
+    assert all((a == b).all() for a, b in zip(t0, t1)) and f0 == f1 == 2 * \
+        cfg.n_layers * 4
+    assert torch.equal(l0, l1)
+    for name in ("kt", "vt", "cent", "sizes", "ring_fill"):
+        assert torch.equal(c0["stack"][name], c1["stack"][name]), name
+    assert ex.counter.retries == 1
+    assert ex.stats()["admitted"] == 10 + 2 and ex.queue.max_depth == 1
 
 
 def test_serve_entry_points_do_not_fall_back_to_cpu(port_params):

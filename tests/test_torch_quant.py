@@ -301,3 +301,148 @@ def test_bounded_predict_assign_int8_matches_reference(near_ties):
     np.testing.assert_array_equal(N(got[0]), np.asarray(a_o))
     if near_ties:
         assert N(got[3]).any(), "near-ties never overflowed the width"
+
+
+# -- the int8 resident fit arena (ROADMAP §1 item 7b) -------------------
+
+_FIT_N, _FIT_D, _FIT_K, _FIT_KN = 2048, 16, 32, 8
+COUNTED = ("distances", "inner_products", "additions", "sort_equivalents",
+           "int8_ops", "bytes_gathered", "bytes_scattered", "bytes_sorted",
+           "bytes_scanned", "rows_moved", "resorts")
+
+
+def _fit_blobs(seed=0):
+    """test_quant.py's fitted_pair shape (n=2048, d=16, k=32 blobs), drawn
+    with numpy, and one init: k rows and their nearest-center assignment
+    (the reference's)."""
+    from repro.core import assign_nearest as jax_assign_nearest
+    rng = np.random.RandomState(seed)
+    mus = rng.randn(_FIT_K, _FIT_D) * 4.0
+    comp = rng.choice(_FIT_K, _FIT_N)
+    x = (mus[comp] + rng.randn(_FIT_N, _FIT_D)).astype(np.float32)
+    init = x[rng.choice(_FIT_N, _FIT_K, replace=False)]
+    a0 = np.asarray(jax_assign_nearest(jnp.asarray(x), jnp.asarray(init)))
+    return x, init, a0.astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def int8_fits():
+    """The reference's int8 fit (``backend="xla"``, as test_quant.py's
+    fitted_pair runs it) and the port's int8 and f32 fits from one init,
+    12 iterations."""
+    from repro.core import OpCounter as JaxCounter
+    from repro.core import fit_k2means as jax_fit_k2means
+    from repro_torch.core import OpCounter, fit_k2means
+    x, init, a0 = _fit_blobs()
+    kw = dict(kn=_FIT_KN, max_iters=12)
+    cj = JaxCounter()
+    rj = jax_fit_k2means(jnp.asarray(x), jnp.asarray(init), jnp.asarray(a0),
+                         backend="xla", precision="int8", counter=cj, **kw)
+    ci, cf = OpCounter(), OpCounter()
+    ri = fit_k2means(T(x), T(init), T(a0), precision="int8", counter=ci,
+                     device="cpu", **kw)
+    rf = fit_k2means(T(x), T(init), T(a0), counter=cf, device="cpu", **kw)
+    return dict(x=x, init=init, a0=a0, rj=rj, cj=cj, ri=ri, ci=ci, rf=rf,
+                cf=cf)
+
+
+def test_int8_fit_matches_reference(int8_fits):
+    """The port's int8 fit against the reference's: assignments, centers
+    and iterations bit-identical, every counted lane equal (the re-ranked
+    survivors' f32 distances, the int8 ops, the int8 scan and moved-row
+    bytes), and the energies, which the two packages sum over the rows in
+    other orders, within rel 1e-6 at every iteration."""
+    f = int8_fits
+    rj, ri = f["rj"], f["ri"]
+    np.testing.assert_array_equal(N(ri.assignment), np.asarray(rj.assignment))
+    np.testing.assert_array_equal(N(ri.centers), np.asarray(rj.centers))
+    assert ri.iterations == rj.iterations
+    assert ri.energy == pytest.approx(rj.energy, rel=1e-6)
+    assert len(ri.history) == len(rj.history)
+    for (oi, ei), (oj, ej) in zip(ri.history, rj.history):
+        assert oi == oj
+        assert ei == pytest.approx(ej, rel=1e-6)
+    pj, pi = f["cj"].profile(), f["ci"].profile()
+    for key in COUNTED:
+        assert pi[key] == pj[key], key
+    assert f["ci"].total == f["cj"].total
+
+
+def test_int8_fit_equals_the_f32_fit(int8_fits):
+    """The quantized arena never changes the trajectory: the port's int8
+    fit equals its f32 fit bit for bit, charges int8 ops and fewer f32
+    distances, and a moved row costs d + 16 bytes against 4 (d + 3)."""
+    f = int8_fits
+    ri, rf, ci, cf = f["ri"], f["rf"], f["ci"], f["cf"]
+    assert torch.equal(ri.assignment, rf.assignment)
+    assert torch.equal(ri.centers, rf.centers)
+    assert ri.energy == rf.energy and ri.iterations == rf.iterations
+    assert ci.int8_ops > 0 and cf.int8_ops == 0
+    assert ci.distances < cf.distances
+    assert ci.bytes_scanned < cf.bytes_scanned
+    d = _FIT_D
+    assert ci.bytes_gathered * 4 * (d + 3) == cf.bytes_gathered * (d + 16)
+    assert ci.bytes_scattered * 4 * (d + 3) == cf.bytes_scattered * (d + 16)
+    assert ci.rows_moved == cf.rows_moved and ci.resorts == cf.resorts
+
+
+def test_int8_resident_step_matches_reference_per_iteration():
+    """The int8 arena step by step against the reference's (``backend=
+    "xla"``, re-sort every 5, move buffer 128): after every iteration the
+    int8 rows, the slot arrays and the centers are bit-equal, the scales
+    within one f32 ulp (the reference's jitted ``max|row| / 127`` rounds
+    apart from an IEEE division in about 2% of rows, as a fused
+    reciprocal would; the codes are equal), and the statistics (the
+    re-ranked count among them) agree."""
+    from repro.core.engine import K2Step as JaxK2Step
+    from repro_torch.core import K2Step
+    x, init, a0 = _fit_blobs(1)
+    kw = dict(k=_FIT_K, kn=_FIT_KN, residency="resident", regroup_every=5,
+              move_cap=128, precision="int8")
+    sj, st = JaxK2Step(backend="xla", **kw), K2Step(**kw)
+    step_j, step_t = sj.build(_FIT_N, _FIT_D), st.build(_FIT_N, _FIT_D)
+    xj, wj = jnp.asarray(x), jnp.ones((_FIT_N,), jnp.float32)
+    xt, wt = T(x), torch.ones(_FIT_N)
+    state_j = sj.init_resident(xj, wj, jnp.asarray(init), jnp.asarray(a0))
+    state_t = st.init_resident(xt, wt, T(init), T(a0))
+    assert state_t.xg.dtype == torch.int8
+    resorts = 0
+    for it in range(10):
+        state_j, stats_j = step_j(xj, wj, state_j)
+        state_t, stats_t = step_t(xt, wt, state_t)
+        for name in ("xg", "pid", "b2c", "fill", "openb", "c"):
+            np.testing.assert_array_equal(
+                N(getattr(state_t, name)), np.asarray(getattr(state_j, name)),
+                err_msg=f"iteration {it}: {name}")
+        np.testing.assert_array_max_ulp(N(state_t.xsc),
+                                        np.asarray(state_j.xsc), maxulp=1)
+        for i in (0, 1, 3, 4, 5):     # n_need, changed, moved, resorted,
+            assert int(stats_t[i]) == int(stats_j[i]), (it, i)  # reranked
+        resorts += int(stats_t[4])
+    assert resorts >= 2
+
+
+def test_int8_fit_validation_matches_reference(int8_fits):
+    """The reference's refusals: an unknown precision, int8 with guards
+    or fault injection, int8 on the rebuild residency."""
+    from repro.core import fit_k2means as jax_fit_k2means
+    from repro.ft import FaultInjector as JaxInjector
+    from repro_torch.core import fit_k2means
+    from repro_torch.ft import FaultInjector
+    f = int8_fits
+    xj, cj, aj = (jnp.asarray(f[k]) for k in ("x", "init", "a0"))
+    xt, ct, at = (T(f[k]) for k in ("x", "init", "a0"))
+    kw = dict(kn=_FIT_KN, max_iters=2)
+    cases = [(dict(precision="int4"), "precision"),
+             (dict(precision="int8", guards=True), "guards"),
+             (dict(precision="int8", residency="rebuild"), "resident")]
+    for over, match in cases:
+        with pytest.raises(ValueError, match=match) as ej:
+            jax_fit_k2means(xj, cj, aj, backend="xla", **kw, **over)
+        with pytest.raises(ValueError, match=match) as et:
+            fit_k2means(xt, ct, at, device="cpu", **kw, **over)
+        assert str(et.value) == str(ej.value)
+    with JaxInjector(seed=0), pytest.raises(ValueError, match="guards"):
+        jax_fit_k2means(xj, cj, aj, backend="xla", precision="int8", **kw)
+    with FaultInjector(seed=0), pytest.raises(ValueError, match="guards"):
+        fit_k2means(xt, ct, at, precision="int8", device="cpu", **kw)

@@ -72,7 +72,7 @@ from repro.ft.invariants import streaming_violations as jax_stream_vio
 from repro.kernels.ops import bounded_predict_assign_top2 as jax_top2
 from repro_torch.convert import model_from_reference
 from repro_torch.core import OpCounter, Router, gdi
-from repro_torch.core.engine import decay_pow, f32
+from repro_torch.core.engine import decay_pow, decay_pow_f32, f32
 from repro_torch.ft.invariants import (repair_dying_centers,
                                        resident_violations,
                                        streaming_violations)
@@ -496,6 +496,26 @@ def test_decay_pow_fixed_form():
         assert (got[~normal] <= np.finfo(np.float32).tiny).all()
         differ += int((got != want)[normal].sum())
     assert differ < 100          # a few last-bit differences (entry 11)
+
+
+def test_decay_pow_f32_flushes_subnormals_as_the_reference():
+    """ROADMAP §3 entry 11's 1,400 pairs (half-lives {2, 3, 4, 8, 0.7, 16,
+    5.5}, ages 0-199) against the reference's f32 ``jnp.power``: with the
+    subnormal results flushed to zero, one pair is left apart, the
+    last-bit case at half-life 16, age 172."""
+    age = torch.arange(200)
+    differ = []
+    for hl in (2.0, 3.0, 4.0, 8.0, 0.7, 16.0, 5.5):
+        dec = f32(2.0 ** (-1.0 / hl))
+        got = decay_pow_f32(dec, age, 199).numpy()
+        want = np.asarray(jnp.power(jnp.float32(dec),
+                                    jnp.arange(200, dtype=jnp.float32)))
+        assert got.dtype == np.float32
+        assert not (got[got != 0] < np.finfo(np.float32).tiny).any()
+        differ += [(hl, int(a)) for a in np.flatnonzero(got != want)]
+    assert differ == [(16.0, 172)]
+    got = float(decay_pow_f32(f32(2.0 ** (-1.0 / 16.0)), age, 199)[172])
+    assert got == pytest.approx(0.000580667, rel=1e-6)
 
 
 def _draw_recorder(monkeypatch):
