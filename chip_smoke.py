@@ -78,6 +78,22 @@ Phases (any failure exits non-zero, without the final result line):
    FULL, retries and quarantined rows counted, FULL and INT8_SCAN answers
    equal to ``model.predict``'s, K1 and K4 launched; print the wall time
    per batch beside the virtual clock's;
+2j. (after 2i) the rest of the single-device fit API at the mnist
+   shape, counts set to 0 before each run: (a) ``fit(..., backend="xla",
+   init="gdi")``, the host GDI loop then the ungrouped xla k²-means
+   (rebuild): check that K3 and K2 launched and K1 never, the history
+   finite and non-increasing (rel 1e-6), and a second run bit-identical;
+   (b) from phase 2's GDI init, the xla resident fit against phase 2's
+   fit and the xla rebuild fit against a kernels rebuild fit: identical
+   assignments, centers and iterations, energies within rel 1e-6; (c)
+   ``gdi_parallel_init`` at k = 1000 (K3 twice a round, K5 for the
+   dropped leaves) and MiniBatch at its default passes from it (K5 every
+   batch and evaluation); (d) AKM at m = 30 from phase 2's GDI init,
+   capped at 20 iterations (K5 for the grouping and the routing), its
+   history non-increasing; (e) each of (c) and (d) at n = 3000, d = 16,
+   k = 48 on the card and on the CPU from one generator seed, bit for
+   bit; print seconds, ms per iteration beside phase 2's, energies,
+   counted ops and K5/K3 launches;
 2c. the paper's baselines on the same rows: ``kmeanspp_init`` at k=1000,
    then ``fit(method="lloyd", init="kmeanspp")`` (every assignment step
    through K5) and ``fit(method="elkan", init="kmeanspp")`` for a few
@@ -436,6 +452,11 @@ def main() -> int:
     t0 = time.perf_counter()
     served_exec = _serve_phase(torch, dev, res, queries, check)
     print(f"  phase 2i wall {time.perf_counter() - t0:.1f} s")
+
+    # --- 2j. the rest of the fit API: xla, host GDI, MiniBatch, AKM -----
+    t0 = time.perf_counter()
+    _methods_phase(torch, dev, x, res, check)
+    print(f"  phase 2j wall {time.perf_counter() - t0:.1f} s")
 
     # --- 2c. the paper's baselines: k-means++, Lloyd++ and Elkan --------
     def pp_gen():
@@ -1864,6 +1885,183 @@ def _small_gdi_fit_agrees(torch, dev, fit_k2means, check) -> None:
           f"plain CPU path: GDI assignments {same_init}, k2-means "
           f"assignments {same}, iterations {r_gpu.iterations} vs "
           f"{r_cpu.iterations}, energy rel diff {rel:.2g}")
+
+
+def _methods_phase(torch, dev, x, res, check) -> None:
+    """Phase 2j: the ungrouped xla backend from host GDI, then from phase
+    2's GDI init against the kernels path; gdi_parallel_init, MiniBatch
+    and AKM at the mnist shape; and the host-drawn methods card = CPU at
+    a small shape (module docstring)."""
+    from repro_torch.core import (OpCounter, fit, fit_akm, fit_k2means,
+                                  fit_minibatch, gdi_parallel_init,
+                                  initialize)
+    from repro_torch.kernels import _build
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 1)
+    ms2 = res.profile["iterate_s"] / max(res.iterations, 1) * 1e3
+    # (a) host GDI then xla rebuild k²-means, twice
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        r = fit(x, K, backend="xla", init="gdi", kn=KN, max_iters=MAX_ITERS,
+                device=dev, profile=True, generator=gen())
+        torch.cuda.synchronize()
+        runs.append((r, _build.launches()))
+    (rx, lx), (rx2, _) = runs
+    hist = [e for _, e in rx.history]
+    print(f"phase 2j: (a) fit(backend='xla', init='gdi'): host GDI "
+          f"{rx.profile['init_s']:.3f} s, {rx.iterations} iterations, "
+          f"{rx.profile['iterate_s'] / max(rx.iterations, 1) * 1e3:.2f} "
+          f"ms/iteration (phase 2's kernels fit {ms2:.2f}), energy "
+          f"{rx.energy:.6g} (phase 2 {res.energy:.6g}), counted ops "
+          f"{rx.ops:.6g}, launches {lx}")
+    check(lx["segmented_scan"] > 0 and lx["center_sqdist"] == rx.iterations
+          and lx["candidate_assign_tiled"] == 0,
+          f"the xla fit from host GDI launched K3 ({lx['segmented_scan']}) "
+          f"and K2 once per iteration ({lx['center_sqdist']} for "
+          f"{rx.iterations}), K1 never ({lx['candidate_assign_tiled']})")
+    check(len(hist) == rx.iterations and all(map(_finite, hist))
+          and all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
+          "the xla fit's energy history finite and non-increasing "
+          "(rel 1e-6)")
+    same = (bool(torch.equal(rx.assignment, rx2.assignment))
+            and bool(torch.equal(rx.centers, rx2.centers))
+            and rx.energy == rx2.energy and rx.iterations == rx2.iterations)
+    check(same, f"the xla fit from host GDI again is bit-identical: "
+                f"{int((rx.assignment != rx2.assignment).sum())} "
+                f"assignments differ, iterations {rx.iterations} vs "
+                f"{rx2.iterations}")
+    del rx2, runs
+    # (b) from phase 2's GDI init: xla against kernels in each residency
+    c0, a0 = initialize(x, K, "gdi", gen(), OpCounter())
+    pairs = {}
+    for residency in ("resident", "rebuild"):
+        out = []
+        for backend in ("xla", "kernels"):
+            if backend == "kernels" and residency == "resident":
+                out.append((res, None, ms2))   # phase 2's fit
+                continue
+            ctr = OpCounter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fit_k2means(x, c0, a0, kn=KN, max_iters=MAX_ITERS,
+                            backend=backend, residency=residency,
+                            counter=ctr, device=dev)
+            torch.cuda.synchronize()
+            out.append((r, ctr, (time.perf_counter() - t0)
+                        / max(r.iterations, 1) * 1e3))
+        pairs[residency] = out
+        (r1, c1, ms_x), (r2, _, ms_k) = out
+        rel = abs(r1.energy - r2.energy) / abs(r2.energy)
+        print(f"  (b) {residency}: xla {r1.iterations} iterations at "
+              f"{ms_x:.2f} ms/iteration, energy {r1.energy:.9g}, counted "
+              f"distances {c1.distances:.6g}; kernels {r2.iterations} at "
+              f"{ms_k:.2f} ms/iteration, energy {r2.energy:.9g}")
+        check(bool(torch.equal(r1.assignment, r2.assignment))
+              and bool(torch.equal(r1.centers, r2.centers))
+              and r1.iterations == r2.iterations and rel <= 1e-6,
+              f"xla {residency} equals kernels {residency} from phase 2's "
+              f"init: {int((r1.assignment != r2.assignment).sum())} "
+              f"assignments differ, centers equal "
+              f"{bool(torch.equal(r1.centers, r2.centers))}, iterations "
+              f"{r1.iterations} vs {r2.iterations}, energy rel diff "
+              f"{rel:.2g}")
+    del pairs
+    # (c) gdi_parallel_init at k = 1000, then MiniBatch at its default
+    ctr = OpCounter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cp, ap = gdi_parallel_init(x, K, generator=torch.Generator().manual_seed(
+        SEED + 3), counter=ctr, device=dev)
+    torch.cuda.synchronize()
+    t_par = time.perf_counter() - t0
+    lp = _build.launches()
+    e_par = float(torch.sum((x - cp[ap.long()]) ** 2))
+    print(f"  (c) gdi_parallel_init k={K}: {t_par:.3f} s, energy "
+          f"{e_par:.6g}, counted ops {ctr.total:.6g}, K3 "
+          f"{lp['segmented_scan']}, K5 {lp['distance_argmin']}")
+    rounds = (K - 1).bit_length()           # ceil(log2 K)
+    check(lp["segmented_scan"] == 2 * rounds and lp["distance_argmin"] == 1
+          and cp.shape == (K, D) and 0 <= int(ap.min())
+          and int(ap.max()) < K and _finite(e_par),
+          f"gdi_parallel_init: K3 twice in each of {rounds} rounds "
+          f"({lp['segmented_scan']}), K5 once for the dropped leaves "
+          f"({lp['distance_argmin']}), a finite k-way init")
+    ctr = OpCounter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rm = fit_minibatch(x, cp, generator=torch.Generator().manual_seed(
+        SEED + 4), counter=ctr, device=dev)
+    torch.cuda.synchronize()
+    t_mb = time.perf_counter() - t0
+    lm = _build.launches()
+    evals = len(rm.history)
+    print(f"  (c) MiniBatch: {rm.iterations} batches of 100 in {t_mb:.3f} s "
+          f"({t_mb / rm.iterations * 1e3:.3f} ms/batch), energy "
+          f"{rm.energy:.6g} (from {e_par:.6g}), counted ops {rm.ops:.6g}, "
+          f"K5 {lm['distance_argmin']} ({evals} evaluations)")
+    check(lm["distance_argmin"] == rm.iterations + evals
+          and rm.iterations == 2 * N // 100
+          and all(_finite(e) for _, e in rm.history),
+          f"MiniBatch: K5 once a batch and once an evaluation "
+          f"({lm['distance_argmin']} for {rm.iterations} + {evals}), a "
+          f"finite history")
+    # (d) AKM at m = 30 from phase 2's GDI init, capped at 20 iterations
+    ctr = OpCounter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ra = fit_akm(x, c0, generator=torch.Generator().manual_seed(SEED + 5),
+                 m=30, max_iters=20, counter=ctr, device=dev)
+    torch.cuda.synchronize()
+    t_akm = time.perf_counter() - t0
+    la = _build.launches()
+    ha = [e for _, e in ra.history]
+    print(f"  (d) AKM m=30: {ra.iterations} iterations in {t_akm:.3f} s "
+          f"({t_akm / ra.iterations * 1e3:.2f} ms/iteration), energy "
+          f"{ra.energy:.6g}, counted ops {ra.ops:.6g}, K5 "
+          f"{la['distance_argmin']}, exact_rowdot {la['exact_rowdot']}")
+    check(la["distance_argmin"] == 5 * ra.iterations
+          and all(map(_finite, ha))
+          and all(b <= a * (1 + 1e-6) for a, b in zip(ha, ha[1:])),
+          f"AKM: K5 five times an iteration ({la['distance_argmin']} for "
+          f"{ra.iterations}: 4 grouping steps and the routing), history "
+          f"finite and non-increasing (rel 1e-6)")
+    _small_methods_agree(torch, dev, check)
+
+
+def _small_methods_agree(torch, dev, check) -> None:
+    """Phase 2j (e): gdi_parallel_init then MiniBatch, and AKM, at n =
+    3000, d = 16, k = 48 on the card and on the CPU from one generator
+    seed: identical assignments and centers."""
+    from repro_torch.core import fit_akm, fit_minibatch, gdi_parallel_init
+    g = torch.Generator().manual_seed(11)
+    mus = torch.randn(16, 16, generator=g) * 8
+    x = mus[torch.randint(0, 16, (3000,), generator=g)] \
+        + torch.randn(3000, 16, generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        cp, ap = gdi_parallel_init(x, 48, generator=torch.Generator()
+                                   .manual_seed(1), device=where)
+        rm = fit_minibatch(x, cp, generator=torch.Generator().manual_seed(2),
+                           device=where)
+        ra = fit_akm(x, cp, generator=torch.Generator().manual_seed(3),
+                     m=30, max_iters=20, device=where)
+        out[str(where)] = [v.cpu() for v in (cp, ap, rm.centers,
+                                             rm.assignment, ra.centers,
+                                             ra.assignment)]
+    diff = [name for name, a, b in zip(
+        ("gdi_parallel centers", "gdi_parallel assignment",
+         "MiniBatch centers", "MiniBatch assignment", "AKM centers",
+         "AKM assignment"), out["cpu"], out[str(dev)])
+        if not torch.equal(a, b)]
+    check(not diff, f"gdi_parallel_init, MiniBatch and AKM (n=3000, d=16, "
+                    f"k=48) on the card equal the CPU's bit for bit "
+                    f"(differing: {diff or 'none'})")
 
 
 def _stream_phase(torch, dev, res, x, queries, check) -> dict:

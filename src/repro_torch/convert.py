@@ -48,7 +48,9 @@ def model_from_reference(model, *, device):
     return KMeansModel(
         state=state, router=router, nb_dist=t(model.nb_dist),
         x_pts=t(model.x_pts), a_pts=t(model.a_pts, i32), w_pts=t(model.w_pts),
-        kn=model.kn, bn=model.bn, bkn=model.bkn,
+        kn=model.kn, bn=model.bn,
+        backend="kernels" if model.backend == "pallas" else model.backend,
+        bkn=model.bkn,
         route_probes=model.route_probes, router_iters=model.router_iters,
         refresh_every=model.refresh_every, decay=model.decay,
         precision=model.precision, n_rows=model.n_rows,

@@ -1,6 +1,7 @@
 """Single entry point: ``fit(x, k, method=..., init=...)`` (port of
-``repro.core.api`` for the single-device f32 fit: k²-means and the
-paper's Lloyd and Elkan baselines, with the served model of
+``repro.core.api`` for the single-device fit: k²-means on either
+backend and the baselines Lloyd, Elkan, MiniBatch and AKM, from random,
+k-means++ or one of the three GDI inits, with the served model of
 ``return_model=True``)."""
 from __future__ import annotations
 
@@ -10,45 +11,68 @@ from typing import Any
 import torch
 
 from ..device import as_tensor, resolve
+from .akm import fit_akm
 from .elkan import fit_elkan
-from .gdi import gdi_device_init
+from .gdi import gdi_device_init, gdi_init, gdi_parallel_init
 from .k2means import fit_k2means
 from .kmeanspp import assign_nearest, kmeanspp_init, random_init
 from .lloyd import fit_lloyd
+from .minibatch import fit_minibatch
 from .model import KMeansModel
 from .opcount import OpCounter
 
-METHODS = ("lloyd", "elkan", "k2means")
-INITS = ("random", "kmeanspp", "gdi", "gdi_device")
-# reference inits and methods the port does not have yet, by ROADMAP item
-_LATER = {"gdi_host": 11, "gdi_parallel": 11, "gdi_replicated": 12,
-          "minibatch": 11, "akm": 11}
+METHODS = ("lloyd", "elkan", "k2means", "minibatch", "akm")
+INITS = ("random", "kmeanspp", "gdi", "gdi_host", "gdi_device",
+         "gdi_parallel")
+# reference inits the port does not have yet, by ROADMAP item
+_LATER = {"gdi_replicated": 12}
 
 
-def _not_ported(what: str, name: str):
-    return NotImplementedError(f"{what} {name!r} is not ported yet "
-                               f"(ROADMAP §1 item {_LATER[name]})")
+def host_generator(generator: torch.Generator) -> torch.Generator:
+    """The CPU generator of the host-drawn inits and methods (gdi_host,
+    gdi_parallel, MiniBatch, AKM): ``generator`` itself on the CPU, else
+    a CPU generator with its seed, so the card draws what the CPU draws
+    from one seed."""
+    if generator.device.type == "cpu":
+        return generator
+    return torch.Generator().manual_seed(generator.initial_seed())
 
 
 def initialize(x: torch.Tensor, k: int, init: str,
-               generator: torch.Generator, counter: OpCounter):
+               generator: torch.Generator, counter: OpCounter, *,
+               device_gdi: bool = True,
+               host_gen: torch.Generator | None = None):
     """Returns (centers, assignment_or_None). ``"gdi"`` is the
-    frontier-batched device GDI, as on the reference's Pallas path."""
+    frontier-batched device GDI when ``device_gdi`` (a k²-means fit on
+    the kernels backend, the reference's Pallas path) and the host loop
+    ``gdi_init`` otherwise, as the reference resolves it; ``"gdi_host"``
+    and ``"gdi_device"`` pin one of the two. The host-drawn inits draw
+    from ``host_gen`` (default: ``host_generator(generator)``)."""
+    if host_gen is None:
+        host_gen = host_generator(generator)
     if init == "random":
         return random_init(x, k, generator), None
     if init == "kmeanspp":
         return kmeanspp_init(x, k, generator, counter), None
-    if init in ("gdi", "gdi_device"):
+    if init == "gdi_device" or (init == "gdi" and device_gdi):
         return gdi_device_init(x, k, generator=generator, counter=counter,
                                device=x.device)
+    if init in ("gdi", "gdi_host"):
+        return gdi_init(x, k, generator=host_gen, counter=counter,
+                        device=x.device)
+    if init == "gdi_parallel":
+        return gdi_parallel_init(x, k, generator=host_gen, counter=counter,
+                                 device=x.device)
     if init in _LATER:
-        raise _not_ported("init", init)
+        raise NotImplementedError(f"init {init!r} is not ported yet "
+                                  f"(ROADMAP §1 item {_LATER[init]})")
     raise ValueError(f"unknown init {init!r}; expected one of {INITS}")
 
 
 def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
         generator: torch.Generator | None = None, seed: int = 0,
-        max_iters: int = 100, kn: int = 30,
+        max_iters: int = 100, kn: int = 30, m: int = 30, batch: int = 100,
+        minibatch_iters: int | None = None,
         counter: OpCounter | None = None, mesh: Any = None,
         profile: bool = False, validate: str = "raise",
         return_model: bool = False, model_capacity: int | None = None,
@@ -60,12 +84,20 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     ``model_capacity`` rows (default 2n).
 
     ``generator`` (default: a new one on the device seeded with ``seed``)
-    drives the init's draws. Extra keywords flow to the method's fit
-    function: :func:`core.k2means.fit_k2means` (``residency``,
+    drives the init's draws; the host-drawn inits and methods take theirs
+    from the CPU generator :func:`host_generator` gives for it (init
+    first, then the method's). ``m`` is AKM's distance evaluations per
+    point, ``batch`` and ``minibatch_iters`` MiniBatch's batch size and
+    batch count. Extra keywords flow to the method's fit function:
+    :func:`core.k2means.fit_k2means` (``backend``, ``residency``,
     ``monitor_every``, ``regroup_every``, ``bn``, ``precision``,
     ``guards``, ``ckpt_dir``, ``ckpt_every``, ``resume``, ``key``, ...),
-    :func:`core.lloyd.fit_lloyd` (``callback``) or
-    :func:`core.elkan.fit_elkan`. ``profile=True`` attaches the
+    :func:`core.lloyd.fit_lloyd` (``callback``),
+    :func:`core.elkan.fit_elkan`, :func:`core.minibatch.fit_minibatch`
+    (``eval_every``) or :func:`core.akm.fit_akm` (``chunk``).
+    ``init="gdi"`` is the device GDI for a k²-means fit on the kernels
+    backend (the default) and the host loop otherwise, as the reference
+    resolves it. ``profile=True`` attaches the
     counter's op and memory-traffic breakdown plus the host-clock seconds
     of the init and of the iterations (each ended by a device
     synchronize) to ``result.profile``. ``validate``: "raise" rejects
@@ -75,8 +107,6 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
         raise NotImplementedError(
             "mesh placement is not ported yet (ROADMAP §1 item 12)")
     if method not in METHODS:
-        if method in _LATER:
-            raise _not_ported("method", method)
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{METHODS}")
     if validate not in ("raise", "sanitize", "none"):
@@ -106,8 +136,13 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    backend = kw.get("backend", "kernels")
+    host_gen = host_generator(generator)
     t0 = sync_clock()
-    centers, assignment = initialize(x, k, init, generator, counter)
+    centers, assignment = initialize(
+        x, k, init, generator, counter,
+        device_gdi=method == "k2means" and backend == "kernels",
+        host_gen=host_gen)
     if method == "k2means" and assignment is None:
         assignment = assign_nearest(x, centers, counter)
     t1 = sync_clock()
@@ -117,6 +152,14 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     elif method == "elkan":
         result = fit_elkan(x, centers, max_iters=max_iters, counter=counter,
                            device=dev, **kw)
+    elif method == "minibatch":
+        result = fit_minibatch(x, centers, generator=host_gen, batch=batch,
+                               iters=minibatch_iters, counter=counter,
+                               device=dev, **kw)
+    elif method == "akm":
+        result = fit_akm(x, centers, generator=host_gen, m=m,
+                         max_iters=max_iters, counter=counter, device=dev,
+                         **kw)
     else:
         result = fit_k2means(x, centers, assignment, kn=kn,
                              max_iters=max_iters, counter=counter,
@@ -127,5 +170,6 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
                                               "iterate_s": t2 - t1}
     if return_model:
         return result, KMeansModel.from_result(
-            result, x, kn=min(kn, k), capacity=model_capacity, device=dev)
+            result, x, kn=min(kn, k), capacity=model_capacity,
+            backend=backend, device=dev)
     return result

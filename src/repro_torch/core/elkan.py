@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..device import as_tensor, resolve
-from ..kernels.exact_round import exact_sqdist, exact_sqnorm
+from ..kernels.exact_round import exact_sqdist, exact_sqnorm, sqrt_rn
 from .distance import clustering_energy
 from .lloyd import KMeansResult, update_centers
 from .opcount import OpCounter
@@ -22,7 +22,7 @@ from .opcount import OpCounter
 
 def _moved(c_next: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Distance each center moved, (k,)."""
-    return torch.sqrt(torch.clamp(exact_sqnorm(c_next - c), min=0.0))
+    return sqrt_rn(torch.clamp(exact_sqnorm(c_next - c), min=0.0))
 
 
 def elkan_step(x, c, a, u, lb, stale):
@@ -40,7 +40,7 @@ def elkan_step(x, c, a, u, lb, stale):
     k = c.shape[0]
     rows = torch.arange(n, device=x.device)
     al = a.long()
-    dist_cc = torch.sqrt(exact_sqdist(c, c))
+    dist_cc = sqrt_rn(exact_sqdist(c, c))
     eye = torch.eye(k, dtype=torch.bool, device=x.device)
     s = 0.5 * torch.amin(torch.where(eye, float("inf"), dist_cc), dim=1)
 
@@ -49,7 +49,7 @@ def elkan_step(x, c, a, u, lb, stale):
 
     # Dense distance evaluation; only the entries Elkan computes are
     # charged (the tightening below and ``cond``).
-    dist = torch.sqrt(exact_sqdist(x, c))
+    dist = sqrt_rn(exact_sqdist(x, c))
     d_xa = dist[rows, al]
     compute_u = active & stale
     u_t = torch.where(compute_u, d_xa, u)
@@ -93,7 +93,7 @@ def fit_elkan(x, centers, *, max_iters: int = 100,
     n = x.shape[0]
     k = c.shape[0]
     # Initial exact assignment (one full Lloyd-style pass, as Elkan requires).
-    dist = torch.sqrt(exact_sqdist(x, c))
+    dist = sqrt_rn(exact_sqdist(x, c))
     a = torch.argmin(dist, dim=1).to(torch.int32)
     u = torch.amin(dist, dim=1)
     lb = dist

@@ -2,9 +2,22 @@
 
 The paper's bounded iteration (center k_n-NN graph -> k_n-restricted
 assignment with Hamerly bounds -> mean update -> bound adjustment),
-single-device, on the cluster-grouped layout through the port's kernels.
-``K2Step(...).build(n, d)`` returns ``step(x, w, state) -> (state',
-stats)`` for one of two residencies:
+single-device. ``K2Step(...).build(n, d)`` returns ``step(x, w, state)
+-> (state', stats)`` on one of two backends:
+
+``"kernels"`` (the default, the reference's ``"pallas"``) — the
+bound-gated assignment runs K1 over the cluster-grouped layout, whole
+point blocks recomputed where any row needs it;
+
+``"xla"`` — the ungrouped path: every row's candidate list is scored
+through ``distance.chunked_candidate_top2`` (one exactly rounded
+product per (row, candidate) pair, chunked) and the rows meeting the
+exact recompute condition take the result. It recomputes every row, so
+residency buys it layout traffic only. Both rank the same correctly
+rounded distances, so they assign alike; the center graph is K2 on both
+(``center_knn_graph``).
+
+and one of two residencies:
 
 ``"rebuild"`` — :func:`k2_iteration`: the grouped layout is rebuilt from
 scratch every iteration.
@@ -33,6 +46,9 @@ Differences from the reference, none of which changes what is computed:
   lanes, in place into the arena (the step consumes its input state);
 - the k_n-NN graph takes the first kn columns of a stable ascending
   sort, which breaks ties toward the lower index like ``lax.top_k``;
+- the bounds' square roots are correctly rounded
+  (``exact_round.sqrt_rn``), as XLA's and the card's roots are and
+  torch's f32 root on the CPU is not;
 - the center sums add each cluster's rows in a fixed order on every
   device, so the card's fit is the same in every run: the full sums walk
   each cluster's arena blocks in slot order (``segment_sum_blocks``, the
@@ -51,13 +67,14 @@ from ..kernels import quant
 from ..kernels.candidate_assign import (candidate_assign_tiled,
                                         candidate_tables, pad_candidates)
 from ..kernels.center_knn import center_sqdist
+from ..kernels.exact_round import sqrt_rn
 from ..kernels.ops import (choose_group_bn, compact, k2_bounded_assign,
                            plan_layout_evict, plan_layout_repair,
                            quantized_scan_rerank, resident_capacity,
                            resident_regroup, scatter_from_grouped,
                            segment_sum_ordered)
 from ..kernels.segment_sum import segment_sum_blocks
-from .distance import bottom_k, sqnorm
+from .distance import bottom_k, chunked_candidate_top2, sqnorm
 
 
 class K2State(typing.NamedTuple):
@@ -126,24 +143,33 @@ def center_knn_graph(c: torch.Tensor, kn: int) -> torch.Tensor:
 
 
 def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
-                 kn: int, bn: int, bkn: int = 8
-                 ) -> tuple[K2State, StepStats]:
-    """The rebuild-residency iteration: the grouped layout is rebuilt
-    from the current assignment every call."""
+                 kn: int, bn: int, bkn: int = 8, backend: str = "kernels",
+                 chunk: int = 2048) -> tuple[K2State, StepStats]:
+    """The rebuild-residency iteration: on ``backend="kernels"`` the
+    grouped layout is rebuilt from the current assignment every call; on
+    ``"xla"`` the candidates are scored ungrouped, ``chunk`` rows at a
+    time, and no layout is built (``moved`` and ``resorted`` are 0)."""
     c, a, u, lo, prev_nb, first = state
     k = c.shape[0]
     wpos = w > 0
     neighbors = center_knn_graph(c, kn)
     list_changed = torch.any(neighbors != prev_nb, dim=1)
     need = ((u >= lo) | list_changed[a.long()] | first) & wpos
-    a_new, u_new, lo_new = k2_bounded_assign(x, c, neighbors, a, u, lo,
-                                             need, bn=bn, bkn=bkn)
+    if backend == "xla":
+        a_cmp, d1, d2 = chunked_candidate_top2(x, c, neighbors[a.long()],
+                                               chunk=chunk)
+        a_new = torch.where(need, a_cmp, a)
+        u_new = torch.where(need, d1, u)
+        lo_new = torch.where(need, d2, lo)
+    else:
+        a_new, u_new, lo_new = k2_bounded_assign(x, c, neighbors, a, u, lo,
+                                                 need, bn=bn, bkn=bkn)
     al = a_new.long()
     sums = segment_sum_ordered(x * w[:, None], al, k)
     counts = segment_sum_ordered(w, al, k)
     c_next = torch.where(counts[:, None] > 0,
                          sums / torch.clamp(counts, min=1.0)[:, None], c)
-    delta = torch.sqrt(torch.clamp(sqnorm(c_next - c), min=0.0))
+    delta = sqrt_rn(torch.clamp(sqnorm(c_next - c), min=0.0))
     delta_nb = torch.max(delta[neighbors.long()], dim=1).values
     u_adj = u_new + delta[al]
     lo_adj = lo_new - delta_nb[al]
@@ -151,9 +177,10 @@ def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
     changed = torch.sum((a_new != a) & wpos)
     energy = torch.sum(w * sqnorm(x - c_next[al]))
     dev = x.device
+    grouped = backend == "kernels"      # the layout is rebuilt in full
     stats = StepStats(n_need, changed, energy,
-                      torch.tensor(x.shape[0], device=dev),
-                      torch.tensor(1, device=dev))
+                      torch.tensor(x.shape[0] if grouped else 0, device=dev),
+                      torch.tensor(int(grouped), device=dev))
     return K2State(c_next, a_new, u_adj, lo_adj, neighbors, False), stats
 
 
@@ -303,7 +330,8 @@ def resident_evict(state: ResidentState, eg: torch.Tensor, cutoff: int,
 def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
                           state: ResidentState, *, kn: int, bkn: int = 8,
                           regroup_every: int = 16, move_cap: int = 1024,
-                          precision: str = "f32", rerank_r: int = 8
+                          precision: str = "f32", rerank_r: int = 8,
+                          backend: str = "kernels", chunk: int = 2048
                           ) -> tuple[ResidentState, StepStats]:
     """One iteration over the resident grouped layout.
 
@@ -325,6 +353,12 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     and a re-sort re-quantizes from them, so the assignments and centers
     are the f32 engine's. ``d2`` is floored by the non-survivors' margin
     bound, a valid (possibly looser) Hamerly bound.
+
+    ``backend="xla"`` scores every arena slot (free slots and holes
+    included, about n + k*bn rows) through
+    ``distance.chunked_candidate_top2``, ``chunk`` rows at a time, with no
+    block skip; under int8 it passes the backend to the quantized scan
+    (``quant.approx_scan`` in place of K4).
     """
     k = state.c.shape[0]
     n = x.shape[0]
@@ -344,31 +378,39 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     a_slot = torch.repeat_interleave(torch.clamp(state.b2c, min=0), bn)
     need = ((state.ug >= state.lo_g) | list_changed[a_slot.long()]
             | state.first) & wpos
-    skip = (~torch.any(need.reshape(nbt, bn), dim=1)).to(torch.int32)
-    cidx = pad_candidates(neighbors, bkn).contiguous()
-    rowsel = torch.clamp(state.b2c, min=0).to(torch.int32).contiguous()
     reranked = torch.zeros((), dtype=torch.int64, device=dev)
-    if int8:
-        xf = _masters(x, state.pid)
-        a_g, d1_sq, d2_sq, nsv, fb = quantized_scan_rerank(
-            xf, state.xg, state.xsc, c, quant.center_quant(c), cidx, rowsel,
-            skip, a_slot.to(torch.int32), state.ug * state.ug,
-            state.lo_g * state.lo_g, bn=bn, bkn=bkn, r=rerank_r)
-        # f32 distances of the exact stage: min(n_surv, r) a re-ranked
-        # row, the whole candidate list on a fallback row
-        reranked = torch.sum(torch.where(fb, cidx.shape[1],
-                                         torch.clamp(nsv, max=rerank_r)))
+    if backend == "xla" and not int8:
+        a_cmp, d1, d2 = chunked_candidate_top2(
+            state.xg, c, neighbors[a_slot.long()], chunk=chunk)
+        a_new = torch.where(need, a_cmp.long(), a_slot)
+        u_new = torch.where(need, d1, state.ug)
+        lo_new = torch.where(need, d2, state.lo_g)
     else:
-        ctab, csqtab = candidate_tables(c, cidx)
-        a_g, d1_sq, d2_sq = candidate_assign_tiled(
-            state.xg, ctab, csqtab, cidx, rowsel, skip,
-            a_slot.to(torch.int32), state.ug * state.ug,
-            state.lo_g * state.lo_g, bn=bn, bkn=bkn)
-    fresh = torch.repeat_interleave(skip == 0, bn)
-    u_new = torch.where(fresh, torch.sqrt(d1_sq), state.ug)
-    lo_new = torch.where(fresh, torch.sqrt(d2_sq), state.lo_g)
-    # free slots are frozen: they must never enter the move buffer
-    a_new = torch.where(wpos, a_g.long(), a_slot)
+        skip = (~torch.any(need.reshape(nbt, bn), dim=1)).to(torch.int32)
+        cidx = pad_candidates(neighbors, bkn).contiguous()
+        rowsel = torch.clamp(state.b2c, min=0).to(torch.int32).contiguous()
+        if int8:
+            xf = _masters(x, state.pid)
+            a_g, d1_sq, d2_sq, nsv, fb = quantized_scan_rerank(
+                xf, state.xg, state.xsc, c, quant.center_quant(c), cidx,
+                rowsel, skip, a_slot.to(torch.int32), state.ug * state.ug,
+                state.lo_g * state.lo_g, bn=bn, bkn=bkn, r=rerank_r,
+                backend=backend)
+            # f32 distances of the exact stage: min(n_surv, r) a re-ranked
+            # row, the whole candidate list on a fallback row
+            reranked = torch.sum(torch.where(fb, cidx.shape[1],
+                                             torch.clamp(nsv, max=rerank_r)))
+        else:
+            ctab, csqtab = candidate_tables(c, cidx)
+            a_g, d1_sq, d2_sq = candidate_assign_tiled(
+                state.xg, ctab, csqtab, cidx, rowsel, skip,
+                a_slot.to(torch.int32), state.ug * state.ug,
+                state.lo_g * state.lo_g, bn=bn, bkn=bkn)
+        fresh = torch.repeat_interleave(skip == 0, bn)
+        u_new = torch.where(fresh, sqrt_rn(d1_sq), state.ug)
+        lo_new = torch.where(fresh, sqrt_rn(d2_sq), state.lo_g)
+        # free slots are frozen: they must never enter the move buffer
+        a_new = torch.where(wpos, a_g.long(), a_slot)
 
     # --- 3. compact the changed rows into the move buffer ----------------
     mask_mv = wpos & (a_new != a_slot)
@@ -457,7 +499,7 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
                          sums2 / torch.clamp(counts2, min=1.0)[:, None], c)
 
     # --- 8. Hamerly bound adjustment (slot space) ------------------------
-    delta = torch.sqrt(torch.clamp(sqnorm(c_next - c), min=0.0))
+    delta = sqrt_rn(torch.clamp(sqnorm(c_next - c), min=0.0))
     delta_nb = torch.max(delta[neighbors.long()], dim=1).values
     u_adj = ug2 + delta[a_slot2]
     lo_adj = lo2 - delta_nb[a_slot2]
@@ -484,6 +526,8 @@ class K2Step:
     """
     k: int
     kn: int
+    backend: str = "kernels"      # "kernels" | "xla" (ungrouped)
+    chunk: int = 2048             # xla backend: assignment chunk rows
     bn: int | None = None         # point-block size (None: choose_group_bn)
     bkn: int = 8                  # candidate-tile width (kn padding)
     residency: str = "resident"   # "rebuild" | "resident"
@@ -492,6 +536,9 @@ class K2Step:
     precision: str = "f32"        # "f32" | "int8" quantized arena (§13)
 
     def _validate(self):
+        if self.backend not in ("kernels", "xla"):
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             "expected 'kernels' or 'xla'")
         if self.residency not in ("rebuild", "resident"):
             raise ValueError(f"unknown residency {self.residency!r}; "
                              "expected 'rebuild' or 'resident'")
@@ -523,12 +570,14 @@ class K2Step:
                 return k2_resident_iteration(
                     x, w, state, kn=kn, bkn=self.bkn,
                     regroup_every=regroup_every, move_cap=move_cap,
-                    precision=self.precision)
+                    precision=self.precision, backend=self.backend,
+                    chunk=self.chunk)
             return step
         bn = self._bn(n, d)
 
         def step(x, w, state):
-            return k2_iteration(x, w, state, kn=kn, bn=bn, bkn=self.bkn)
+            return k2_iteration(x, w, state, kn=kn, bn=bn, bkn=self.bkn,
+                                backend=self.backend, chunk=self.chunk)
         return step
 
     def init_resident(self, x: torch.Tensor, w: torch.Tensor,

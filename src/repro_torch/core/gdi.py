@@ -1,5 +1,6 @@
-"""Greedy Divisive Initialization, frontier-batched and device-resident
-(port of ``repro.core.gdi``: ``gdi_round_step`` / ``gdi_device_init``).
+"""Greedy Divisive Initialization (port of ``repro.core.gdi``): the
+frontier-batched device init (``gdi_round_step`` / ``gdi_device_init``),
+the host loop ``gdi_init`` and the round-parallel ``gdi_parallel_init``.
 
 One round splits the top-energy frontier leaves all at once over the
 cluster-grouped layout: per-leaf seed pairs from uniform draws, the
@@ -19,8 +20,19 @@ the reference's ``projective_split``), the Lemma-1 split that the
 streaming model's drift repair re-seats a center with. Its two member
 draws go through :func:`_split_draws`, which tests replace with the
 reference's draws.
+
+:func:`gdi_init` is Algorithm 2 as the reference's host loop runs it:
+one :func:`projective_split` of the highest-energy leaf at a time, each
+split's side sizes and energies read to the host (one read per split),
+k - 1 splits in all. :func:`gdi_parallel_init` is the round-parallel
+variant (paper footnote 2): :func:`gdi_round_step` at ``frontier=1.0``
+over a power-of-two slot count, every leaf split each round. Both draw
+from a CPU ``torch.Generator`` (the round draws made on the CPU and
+moved), so the card draws what the CPU draws.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,6 +41,7 @@ from ..kernels.exact_round import exact_rowdot, exact_split_sqnorms
 from ..kernels.ops import (choose_group_bn, group_by_cluster_device,
                            grouped_capacity, scatter_drop)
 from ..kernels.segmented_scan import segmented_scan
+from .distance import bottom_k, chunked_argmin_sqdist
 from .opcount import OpCounter
 
 _INF = float("inf")
@@ -300,6 +313,18 @@ def _charge_round(counter: OpCounter, r: int, n: int, d: int,
         counter.add_sort(r, d)
 
 
+def _check_k(k: int, n: int) -> None:
+    if not 1 <= k <= n:
+        raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
+
+
+def _pad_leaves(centers: torch.Tensor, nleaf: int, k: int) -> torch.Tensor:
+    """The tiny-n fallback: slots past the ``nleaf`` live leaves copy the
+    last live center."""
+    keep = (torch.arange(k, device=centers.device) < nleaf)[:, None]
+    return torch.where(keep, centers, centers[max(nleaf - 1, 0)])
+
+
 def gdi_device_init(x, k: int, *, generator: torch.Generator | None = None,
                     split_iters: int = 2, counter: OpCounter | None = None,
                     bn: int | None = None, frontier: float = 0.125,
@@ -315,8 +340,7 @@ def gdi_device_init(x, k: int, *, generator: torch.Generator | None = None,
     x = as_tensor(x, dev)
     counter = counter or OpCounter()
     n, d = x.shape
-    if not 1 <= k <= n:
-        raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
+    _check_k(k, n)
     if generator is None and draws is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     bn = bn or choose_group_bn(n, k, d)
@@ -338,6 +362,114 @@ def gdi_device_init(x, k: int, *, generator: torch.Generator | None = None,
         nleaf = new_nleaf
     a, centers = state[0], state[1]
     if nleaf < k:   # pathological tiny-n fallback: pad with copies
-        keep = (torch.arange(k, device=dev) < nleaf)[:, None]
-        centers = torch.where(keep, centers, centers[max(nleaf - 1, 0)])
+        centers = _pad_leaves(centers, nleaf, k)
     return centers, a
+
+
+def gdi_init(x, k: int, *, generator: torch.Generator | None = None,
+             split_iters: int = 2, counter: OpCounter | None = None,
+             device=None):
+    """Algorithm 2, the greedy divisive host loop, on ``device`` (default
+    ``cuda``): split the highest-energy leaf (the largest one when that
+    is a singleton) with :func:`projective_split` until there are k
+    leaves. A leaf of m >= 2 rows always splits into two non-empty
+    sides, and k <= n, so a splittable leaf is always left. Each split
+    charges, per sweep over its leaf, m inner products, m additions and
+    the sort's m log2 m / d, and reads one side's size and the two
+    energies to the host in one read. ``generator``: the CPU generator of
+    the splits' member draws (seed 0 when None). Returns (centers (k,
+    d), assignment (n,) int32)."""
+    dev = resolve(device)
+    x = as_tensor(x, dev)
+    counter = counter or OpCounter()
+    n, d = x.shape
+    _check_k(k, n)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    mu = torch.mean(x, dim=0)
+    centers = [mu]
+    energies = [float(torch.sum(torch.square(x - mu)))]
+    sizes = [n]
+    a = torch.zeros((n,), dtype=torch.int32, device=dev)
+    counter.add_additions(n)                    # initial mean
+    while len(centers) < k:
+        j = max(range(len(energies)), key=energies.__getitem__)
+        if sizes[j] < 2:    # a singleton cannot split: take the largest
+            j = max(range(len(sizes)), key=sizes.__getitem__)
+        _, mask_b, c_a, c_b, phi_a, phi_b = projective_split(
+            x, a == j, generator, iters=split_iters)
+        m = sizes[j]
+        counter.add_inner(split_iters * m)
+        counter.add_additions(split_iters * m)
+        for _ in range(split_iters):
+            counter.add_sort(m, d)
+        a = torch.where(mask_b, len(centers), a).to(torch.int32)
+        sb, e_a, e_b = torch.stack([torch.sum(mask_b).double(),
+                                    phi_a.double(), phi_b.double()]
+                                   ).tolist()   # the split's one host read
+        centers[j] = c_a
+        energies[j] = e_a
+        sizes[j] = m - int(sb)
+        centers.append(c_b)
+        energies.append(e_b)
+        sizes.append(int(sb))
+    return torch.stack(centers), a
+
+
+def gdi_parallel_init(x, k: int, *, generator: torch.Generator | None = None,
+                      split_iters: int = 2, counter: OpCounter | None = None,
+                      bn: int | None = None, draws=None, device=None):
+    """Round-parallel divisive init on ``device`` (default ``cuda``):
+    every round splits all current leaves at once
+    (:func:`gdi_round_step` at ``frontier=1.0``), ceil(log2 k) rounds
+    over k2 = 2^ceil(log2 k) slots, one host read of the leaf count a
+    round. When k is not a power of two the k highest-energy leaves are
+    kept (ties to the lower slot, as ``lax.top_k``) and the dropped
+    leaves' rows go to their nearest kept center through K5, charging
+    n*k distances. ``bn`` defaults as :func:`gdi_device_init` takes it.
+    ``generator``: the CPU generator of the rounds' uniform draws (seed
+    0 when None); ``draws``: optional per-round (g1, g2) draws instead
+    (tests feed the reference's). Returns (centers (k, d), assignment
+    (n,) int32)."""
+    dev = resolve(device)
+    x = as_tensor(x, dev)
+    counter = counter or OpCounter()
+    n, d = x.shape
+    _check_k(k, n)
+    if generator is None and draws is None:
+        generator = torch.Generator().manual_seed(0)
+    rounds = math.ceil(math.log2(k)) if k > 1 else 0
+    k2 = 1 << rounds
+    bn = bn or choose_group_bn(n, k2, d)
+    r = grouped_capacity(n, k2, bn) * bn
+    draws = iter(draws) if draws is not None else None
+
+    state = _device_state(x, k2)
+    counter.add_additions(n)                    # initial mean
+    nleaf = 1
+    for _ in range(rounds):
+        g = next(draws) if draws is not None else tuple(
+            torch.rand((n,), generator=generator).to(dev) for _ in range(2))
+        state = gdi_round_step(x, *state, k=k2, bn=bn,
+                               split_iters=split_iters, frontier=1.0,
+                               draws=g)
+        _charge_round(counter, r, n, d, split_iters)
+        new_nleaf = int(state[4])               # the round's one host read
+        if new_nleaf == nleaf:
+            break
+        nleaf = new_nleaf
+    a, centers, energies = state[0], state[1], state[2]
+    if k2 == k:
+        return _pad_leaves(centers, nleaf, k) if nleaf < k else centers, a
+    # keep the k highest-energy leaves; the dropped leaves' rows go to the
+    # nearest kept center
+    exists = torch.arange(k2, device=dev) < nleaf
+    keep = bottom_k(torch.where(exists, -energies, _INF)[None], k)[0].long()
+    kept = centers[keep]
+    kept = torch.where(exists[keep][:, None], kept, kept[0])
+    remap = torch.full((k2,), -1, dtype=torch.int64, device=dev)
+    remap[keep] = torch.arange(k, device=dev)
+    near, _ = chunked_argmin_sqdist(x, kept)
+    counter.add_distances(n * k)
+    ra = remap[a.long()]
+    return kept, torch.where(ra >= 0, ra, near.long()).to(torch.int32)

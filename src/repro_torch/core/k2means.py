@@ -71,7 +71,8 @@ def _heal_generator(key) -> torch.Generator:
 
 def fit_k2means(x, centers, assignment, *, kn: int = 30,
                 max_iters: int = 100, counter: OpCounter | None = None,
-                backend: str = "kernels", monitor_every: int = 1,
+                backend: str = "kernels", chunk: int = 2048,
+                monitor_every: int = 1,
                 bn: int | None = None, bkn: int = 8,
                 residency: str | None = None, regroup_every: int = 16,
                 move_cap: int | None = None, precision: str = "f32",
@@ -83,8 +84,12 @@ def fit_k2means(x, centers, assignment, *, kn: int = 30,
     ``device`` (default ``cuda``).
 
     ``backend``: ``"kernels"``, the cluster-grouped kernel path (the
-    reference's ``"pallas"``).
-    ``residency``: ``"resident"`` (default) or ``"rebuild"``.
+    reference's ``"pallas"``), or ``"xla"``, the ungrouped path that
+    scores every row's candidate list, ``chunk`` rows at a time
+    (``core.engine``). Both give the same assignments.
+    ``residency``: ``"resident"`` or ``"rebuild"``; None resolves to
+    ``"resident"`` on kernels or under int8 and to ``"rebuild"`` on xla,
+    as the reference resolves it.
     ``monitor_every`` defers the stats' host reads (and the convergence
     check) to every that-many iterations; ``bn``/``bkn`` pick the
     point-block size and the candidate padding width.
@@ -107,18 +112,17 @@ def fit_k2means(x, centers, assignment, *, kn: int = 30,
     ``torch.Generator`` or a seed; default seed 0) draws the split
     rung's members, where the reference takes a ``jax.random`` key.
     """
-    if backend == "xla":
-        raise NotImplementedError(
-            "the ungrouped 'xla' backend is not ported yet (ROADMAP §1 "
-            "item 11); the grouped kernel path is backend='kernels'")
-    if backend != "kernels":
-        raise ValueError(f"unknown backend {backend!r}; expected 'kernels'")
+    if backend not in ("kernels", "xla"):
+        raise ValueError(f"unknown backend {backend!r}; "
+                         "expected 'kernels' or 'xla'")
     if precision not in ("f32", "int8"):
         raise ValueError(f"unknown precision {precision!r}; "
                          "expected 'f32' or 'int8'")
     if monitor_every < 1:
         raise ValueError(f"monitor_every must be >= 1, got {monitor_every}")
-    residency = residency or "resident"
+    if residency is None:
+        residency = "resident" if (backend == "kernels"
+                                   or precision == "int8") else "rebuild"
     if residency not in ("rebuild", "resident"):
         raise ValueError(f"unknown residency {residency!r}; "
                          "expected 'rebuild' or 'resident'")
@@ -134,9 +138,9 @@ def fit_k2means(x, centers, assignment, *, kn: int = 30,
     k = centers.shape[0]
     kn = min(kn, k)
     resident = residency == "resident"
-    sb = K2Step(k=k, kn=kn, bn=bn, bkn=bkn, residency=residency,
-                regroup_every=regroup_every, move_cap=move_cap,
-                precision=precision)
+    sb = K2Step(k=k, kn=kn, backend=backend, chunk=chunk, bn=bn, bkn=bkn,
+                residency=residency, regroup_every=regroup_every,
+                move_cap=move_cap, precision=precision)
     step = sb.build(n, d)
     w = torch.ones((n,), dtype=x.dtype, device=dev)
     inj = chaos_mod.active()

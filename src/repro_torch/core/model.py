@@ -14,10 +14,13 @@ over the centers: a tiny k-means groups the k centers into
 ``route_cap`` with the nearest outside ones, and a query scans its
 ``route_probes`` nearest groups' lists. *Resolution* takes the routed
 center's k_n-neighborhood from the graph through K1
-(``kernels.ops.bounded_predict_assign``), or, at ``precision="int8"``,
-through the int8 scan K4 and an exact f32 re-rank of its survivors
-(``kernels.ops.bounded_predict_assign_int8``), which returns the same
-assignments. Triangle-inequality bounds make the *counted* distance
+(``kernels.ops.bounded_predict_assign``) on ``backend="kernels"``, or
+ungrouped through ``distance.chunked_candidate_argmin`` on ``"xla"``;
+at ``precision="int8"`` through the int8 scan (K4, or
+``quant.approx_scan`` on xla) and an exact f32 re-rank of its survivors
+(``kernels.ops.bounded_predict_assign_int8``). Every path gives a
+(query, center) pair one correctly rounded distance, so all four return
+the same assignments. Triangle-inequality bounds make the *counted* distance
 charge smaller than the dense scan; they change the charge, never the
 assignment.
 
@@ -47,7 +50,9 @@ Idioms that differ from the reference:
   (``quant.rerank_exact``), never an (m, P, d) gather. The norms that
   feed the stream bounds (the query motion ``dq`` and the center motion
   ``c_motion``) are the square roots of correctly rounded squared norms
-  (``exact_sqnorm``);
+  (``exact_sqnorm``); every square root is correctly rounded
+  (``exact_round.sqrt_rn``), as XLA's and the card's are and torch's f32
+  root on the CPU is not;
 - the Sculley sums of a fold, the drift guard's per-center energy and
   the eviction's delta add each cluster's rows in row (slot) order on
   every device (``segment_sum_ordered``, ``segment_sum_blocks``), the
@@ -70,9 +75,8 @@ Idioms that differ from the reference:
   refresh for the drift guard's flags, and once for the charge;
 - the sparse-repair append writes the arena in place once the free pool
   is known to suffice;
-- there is one resolution path (the kernels), so the checkpoint's
-  ``backend`` reads "pallas", the reference's name for it, and restore
-  takes "pallas" or "xla";
+- the checkpoint's ``backend`` is the reference's name for the model's
+  backend ("pallas" for kernels, "xla"), and restore maps it back;
 - an installed ``ft.chaos.FaultInjector``'s ``exhaust_arena`` fault is
   applied after the batch's free-pool read, and the append plan is then
   made again (one more host read, only under that fault).
@@ -88,21 +92,24 @@ import torch
 from ..device import as_tensor, resolve
 from ..kernels import quant
 from ..kernels.center_knn import center_sqdist
-from ..kernels.exact_round import exact_sqnorm
+from ..kernels.exact_round import exact_sqnorm, sqrt_rn
 from ..kernels.ops import (bincount, bounded_predict_assign,
                            bounded_predict_assign_int8,
                            bounded_predict_assign_top2, choose_group_bn,
                            plan_layout_repair, resident_capacity,
                            resident_regroup, scatter_drop, segment_sum,
                            segment_sum_f64, segment_sum_ordered)
-from .distance import bottom_k
+from .distance import (bottom_k, chunked_candidate_argmin,
+                       chunked_candidate_top2)
 from .engine import ResidentState, f32, resident_evict
 from .lloyd import KMeansResult
 from .opcount import LAYOUT_STATE_LANES, OpCounter
 
 _VALIDATE_MODES = ("raise", "sanitize", "none")
 _PRECISIONS = ("f32", "int8")
-_BACKENDS = ("pallas", "xla")      # a checkpoint's backend (module doc)
+_BACKENDS = ("kernels", "xla")
+# the reference's names of the backends, as a checkpoint records them
+_CKPT_BACKEND = {"kernels": "pallas", "xla": "xla"}
 _INT32_MAX = torch.iinfo(torch.int32).max
 # static f32 re-rank width of the quantized resolution scan (DESIGN.md
 # §13): survivor sets beyond it fall back to a full-kn exact re-rank
@@ -126,6 +133,13 @@ def _validate_rows(x: torch.Tensor, mode: str, *, what: str) -> torch.Tensor:
         raise ValueError(f"{what}: {n_bad} non-finite rows (first at "
                          f"{idx}); pass validate='sanitize' to zero them")
     return torch.where(bad[:, None], 0.0, x)
+
+
+def _check_backend(backend: str) -> str:
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"expected one of {_BACKENDS}")
+    return backend
 
 
 def _check_precision(precision: str) -> str:
@@ -190,7 +204,7 @@ def _build_router(c: torch.Tensor, g: int, cap: int, iters: int) -> Router:
     assigned = ga[None, :] == torch.arange(g, device=c.device)[:, None]
     members = bottom_k(torch.where(assigned, norm, 1.0 + norm), cap)
     ml = members.long()
-    dgc_true = torch.sqrt(dgc)
+    dgc_true = sqrt_rn(dgc)
     mowner = ga[ml]
     return Router(gc, members, torch.gather(dgc_true, 1, ml),
                   mowner.to(torch.int32), dgc_true[mowner, ml])
@@ -205,7 +219,7 @@ def _route(q: torch.Tensor, c: torch.Tensor, router: Router, probes: int):
     n_scanned (m,) the stage's distance charge)."""
     m = q.shape[0]
     cap = router.members.shape[1]
-    dg = torch.sqrt(quant.sqdist_exact(q, router.gc))     # (m, g)
+    dg = sqrt_rn(quant.sqdist_exact(q, router.gc))     # (m, g)
     gi = bottom_k(dg, probes).long()
     cand = router.members[gi].reshape(m, -1)              # (m, probes*cap)
     lb1 = torch.abs(torch.gather(dg, 1, gi)[:, :, None]
@@ -215,13 +229,13 @@ def _route(q: torch.Tensor, c: torch.Tensor, router: Router, probes: int):
     lb = torch.maximum(lb1, lb2)
     sq = quant.rerank_exact(q, c, cand)
     anchor_cols = torch.arange(probes, device=q.device) * cap
-    u_anchor = torch.sqrt(torch.amin(sq[:, anchor_cols], dim=1))
+    u_anchor = sqrt_rn(torch.amin(sq[:, anchor_cols], dim=1))
     passing = lb < u_anchor[:, None]
     passing[:, anchor_cols] = True
     sq_m = torch.where(passing, sq, torch.inf)
     j = torch.argmin(sq_m, dim=1, keepdim=True)
     routed = torch.gather(cand, 1, j)[:, 0]
-    u_routed = torch.sqrt(torch.gather(sq_m, 1, j)[:, 0])
+    u_routed = sqrt_rn(torch.gather(sq_m, 1, j)[:, 0])
     return routed, u_routed, router.gc.shape[0] + torch.sum(passing, dim=1)
 
 
@@ -241,7 +255,7 @@ def _route_groups_int8(q, xq, xsc, xerr, gc, gq: quant.CenterQuant,
     band = (shat - rad) <= ub_sel[:, None]                # contains sel
     nband = torch.sum(band, dim=1)
     ambiguous = nband > probes
-    dg = torch.sqrt(quant.sqdist_exact(q, gc))
+    dg = sqrt_rn(quant.sqdist_exact(q, gc))
     gi_exact = bottom_k(torch.where(band, dg, torch.inf), probes).long()
     gi = torch.where(ambiguous[:, None], gi_exact, gi)
     return gi.to(torch.int32), torch.where(ambiguous, nband, 0)
@@ -264,7 +278,7 @@ def _route_members_int8(qb, xq, xsc, xerr, c, cq: quant.CenterQuant, cand):
     uniq = torch.cat([srt[:, :1] != big,
                       (srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] != big)],
                      dim=1)
-    return routed, torch.sqrt(d1), ~tie_other, torch.sum(uniq, dim=1)
+    return routed, sqrt_rn(d1), ~tie_other, torch.sum(uniq, dim=1)
 
 
 def _graph_with_dists(c: torch.Tensor, kn: int):
@@ -273,7 +287,7 @@ def _graph_with_dists(c: torch.Tensor, kn: int):
     fit and query route through identical neighborhoods."""
     cc = center_sqdist(c)
     neighbors = bottom_k(cc, kn)
-    return neighbors, torch.sqrt(torch.gather(cc, 1, neighbors.long()))
+    return neighbors, sqrt_rn(torch.gather(cc, 1, neighbors.long()))
 
 
 def _arena_resort(x_pts, a_pts, w_pts, *, k: int, bn: int, nbt: int):
@@ -291,7 +305,7 @@ def _arena_resort(x_pts, a_pts, w_pts, *, k: int, bn: int, nbt: int):
 def _norm(v: torch.Tensor) -> torch.Tensor:
     """Row norms of ``v`` (m, d): the square root of the correctly rounded
     squared norm, the same bits on every device."""
-    return torch.sqrt(exact_sqnorm(v))
+    return sqrt_rn(exact_sqnorm(v))
 
 
 def _delta_update(c, sums, counts, xb, wb, ab, decay: float, floor: float):
@@ -424,6 +438,7 @@ class KMeansModel:
     w_pts: torch.Tensor         # (cap,) weight mirror (0 = not streamed)
     kn: int
     bn: int
+    backend: str = "kernels"    # "kernels" | "xla" (predict resolution)
     bkn: int = 8
     route_probes: int = 2       # groups scanned per query
     router_iters: int = 8       # tiny-k-means iterations per router build
@@ -469,7 +484,8 @@ class KMeansModel:
 
     @classmethod
     def from_result(cls, result: KMeansResult, x=None, *, kn: int = 30,
-                    capacity: int | None = None, bkn: int = 8,
+                    capacity: int | None = None, backend: str = "kernels",
+                    bkn: int = 8,
                     route_groups: int | None = None,
                     route_cap: int | None = None, route_probes: int = 2,
                     router_iters: int = 8, refresh_every: int = 8,
@@ -483,8 +499,10 @@ class KMeansModel:
         stats-only ``partial_fit`` (counts from the fit assignment, sums
         ``centers * counts``); with ``x`` the resident arena is built over
         the training rows with room for ``capacity`` rows in all (default
-        2n), the training rows at stream epoch 0."""
+        2n), the training rows at stream epoch 0. ``backend``: the
+        resolution's, ``"kernels"`` or ``"xla"``."""
         _check_precision(precision)
+        _check_backend(backend)
         if window < 0 or half_life < 0 or count_floor < 0:
             raise ValueError("window, half_life and count_floor must be "
                              ">= 0")
@@ -498,7 +516,8 @@ class KMeansModel:
         rcap = route_cap or _default_cap(k, g, kn)
         router = _build_router(c, g, rcap, router_iters)
         counts = bincount(a0.long(), k).to(torch.float32)
-        common = dict(router=router, nb_dist=nb_dist, kn=kn, bkn=bkn,
+        common = dict(router=router, nb_dist=nb_dist, kn=kn, backend=backend,
+                      bkn=bkn,
                       route_probes=route_probes, router_iters=router_iters,
                       refresh_every=refresh_every, decay=decay,
                       precision=precision, window=window,
@@ -656,14 +675,22 @@ class KMeansModel:
         return _route(qb, self.state.c, self.router, p)
 
     def _resolve(self, qb: torch.Tensor, routed: torch.Tensor):
+        if self.backend == "xla":
+            return chunked_candidate_argmin(
+                qb, self.state.c, self.state.prev_nb[routed.long()])
         bn = choose_group_bn(qb.shape[0], self.k, self.d, bkn=self.bkn)
         return bounded_predict_assign(qb, self.state.c, self.state.prev_nb,
                                       routed, bn=bn, bkn=self.bkn)
 
     def _resolve_top2(self, qb: torch.Tensor, routed: torch.Tensor):
         """Resolution with the two best squared distances over the routed
-        center's k_n-neighborhood (K1's second output, the Hamerly bound
-        pair): ``(a, d1_sq, d2_sq)``."""
+        center's k_n-neighborhood (the Hamerly bound pair): ``(a, d1_sq,
+        d2_sq)``. K1 gives them squared; the xla path gives true
+        distances, squared here as the reference squares them."""
+        if self.backend == "xla":
+            a, d1, d2 = chunked_candidate_top2(
+                qb, self.state.c, self.state.prev_nb[routed.long()])
+            return a, d1 * d1, d2 * d2
         bn = choose_group_bn(qb.shape[0], self.k, self.d, bkn=self.bkn)
         return bounded_predict_assign_top2(qb, self.state.c,
                                            self.state.prev_nb, routed,
@@ -683,8 +710,8 @@ class KMeansModel:
         routed, u_routed, n_scan = _route(qb, self.state.c, self.router,
                                           self.route_probes)
         a, d1_sq, d2_sq = self._resolve_top2(qb, routed)
-        u_new = torch.sqrt(d1_sq)
-        lo_new = torch.sqrt(d2_sq)
+        u_new = sqrt_rn(d1_sq)
+        lo_new = sqrt_rn(d2_sq)
         n_nb = torch.clamp(torch.sum(self.nb_dist[routed.long()]
                                      < 2.0 * u_routed[:, None], dim=1) - 1,
                            min=0)
@@ -727,7 +754,7 @@ class KMeansModel:
                                  itemsize=1)
             a_b, d_b, nsv, fb = bounded_predict_assign_int8(
                 qb, self.state.c, cq, self.state.prev_nb, routed, bn=bn,
-                bkn=self.bkn, r=_RESOLVE_RERANK)
+                bkn=self.bkn, r=_RESOLVE_RERANK, backend=self.backend)
             n_res = torch.where(fb, self.kn,
                                 torch.clamp(nsv, max=_RESOLVE_RERANK))
             return a_b, d_b, routed, n_route + n_res
@@ -1049,10 +1076,12 @@ class KMeansModel:
 
     def _config(self) -> dict:
         """The static config and clocks a restore needs, as the
-        reference's ``_config`` writes them (``backend`` "pallas")."""
+        reference's ``_config`` writes them (``backend`` under the
+        reference's name)."""
         return {"k": self.k, "d": self.d, "kn": self.kn, "bn": self.bn,
                 "nbt": int(self.state.b2c.shape[0]),
-                "capacity": self.capacity, "backend": "pallas",
+                "capacity": self.capacity,
+                "backend": _CKPT_BACKEND[self.backend],
                 "bkn": self.bkn, "route_groups": self.route_groups,
                 "route_cap": self.route_cap,
                 "route_probes": self.route_probes,
@@ -1143,10 +1172,12 @@ class KMeansModel:
             if step is None:
                 raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
         cfg = load_meta(ckpt_dir, step)["extra"]["kmeans_model"]
-        if cfg.get("backend", "pallas") not in _BACKENDS:
+        backend = {v: b for b, v in _CKPT_BACKEND.items()}.get(
+            cfg.get("backend", "pallas"))
+        if backend is None:
             raise ValueError(f"checkpoint step {step}: unknown backend "
                              f"{cfg['backend']!r}; expected one of "
-                             f"{_BACKENDS}")
+                             f"{tuple(_CKPT_BACKEND.values())}")
         tree = restore_checkpoint(ckpt_dir, step, cls._like_tree(cfg),
                                   device=dev)
         st = tree["state"]
@@ -1155,7 +1186,8 @@ class KMeansModel:
         model = cls(state=st, router=tree["router"],
                     nb_dist=tree["nb_dist"], x_pts=tree["x_pts"],
                     a_pts=tree["a_pts"], w_pts=tree["w_pts"],
-                    kn=cfg["kn"], bn=cfg["bn"], bkn=cfg["bkn"],
+                    kn=cfg["kn"], bn=cfg["bn"], backend=backend,
+                    bkn=cfg["bkn"],
                     route_probes=cfg["route_probes"],
                     router_iters=cfg["router_iters"],
                     refresh_every=cfg["refresh_every"], decay=cfg["decay"],

@@ -18,6 +18,7 @@ from . import _build
 from . import ref
 from .ref import exact_cross as exact_cross_ref
 from .ref import exact_sqnorm as exact_sqnorm_ref
+from .ref import sqrt_rn  # noqa: F401  (correctly rounded roots)
 
 _ARGS_SQ = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_void_p]
@@ -131,6 +132,29 @@ def exact_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``ref.exact_sqdist`` with this module's rounding: (n, k) squared
     distances, on the device for CUDA tensors."""
     return ref.exact_sqdist(x, c, sqnorm=exact_sqnorm, cross=exact_cross)
+
+
+def candidate_sqdist(x: torch.Tensor, c: torch.Tensor, cand: torch.Tensor,
+                     *, chunk: int = 2048, xsq=None, csq=None) -> torch.Tensor:
+    """Squared distances of each row of ``x`` (m, d) to its own candidate
+    centers ``cand`` (m, P) int (-1 = padding) among ``c`` (k, d) -> (m,
+    P): the columns of :func:`exact_sqdist` (the value every kernel gives
+    a pair), PAD_SQDIST at padding. One :func:`exact_rowdot` over the
+    flattened pairs of each ``chunk`` rows, each row repeated once per
+    candidate: neither the dense (m, k) product nor a gather of c's rows
+    is formed. ``xsq``/``csq``: the rows' and centers' ``exact_sqnorm``
+    when the caller has them."""
+    m, p = cand.shape
+    xsq = exact_sqnorm(x) if xsq is None else xsq
+    csq = exact_sqnorm(c) if csq is None else csq
+    c = c.contiguous()
+    safe = torch.clamp(cand, min=0).long()
+    cross = torch.cat([
+        exact_rowdot(x[lo:lo + chunk].repeat_interleave(p, dim=0), c,
+                     safe[lo:lo + chunk].reshape(-1))
+        for lo in range(0, max(m, 1), chunk)]).reshape(m, p)
+    sq = torch.clamp(xsq[:, None] - 2.0 * cross + csq[safe], min=0.0)
+    return torch.where(cand >= 0, sq, ref.PAD_SQDIST)
 
 
 def slab_sqdist(x, ctab, csqtab, rowsel, bn: int):

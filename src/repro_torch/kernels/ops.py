@@ -1,10 +1,10 @@
-"""Operations around the kernels (port of ``repro.kernels.ops`` without
-its ungrouped paths): the fused nearest-center assignment (K5),
+"""Operations around the kernels (port of ``repro.kernels.ops``): the
+fused nearest-center assignment (K5),
 block-size selection, the cluster-grouped layout, the resident arena's
 re-sort, sparse repair and sliding-window eviction plans, the rebuild
 iteration's bound-gated assignment, and the query-time resolution in
-f32 (K1, also with the second-best distance) and int8 (K4 + exact f32
-re-rank).
+f32 (K1, also with the second-best distance) and int8 (K4, or on the
+ungrouped ``xla`` backend ``quant.approx_scan``, + exact f32 re-rank).
 
 Idioms that differ from the reference, kept exact:
 - sorts are stable everywhere the reference's are (``jnp.argsort`` is
@@ -31,7 +31,7 @@ from .candidate_assign import (candidate_assign_int8_tiled,
                                candidate_assign_tiled, candidate_tables,
                                pad_candidates)
 from .distance_argmin import distance_argmin
-from .exact_round import slab_sqdist
+from .exact_round import candidate_sqdist, slab_sqdist, sqrt_rn
 from .ref import PAD_SQDIST
 from .segment_sum import (segment_sum, segment_sum_f64,  # noqa: F401
                           segment_sum_ordered)
@@ -289,8 +289,8 @@ def k2_bounded_assign(x, c, neighbors, a, u, lo, need, *, bn: int,
     fresh = scatter_from_grouped(perm, torch.repeat_interleave(skip == 0, bn),
                                  torch.zeros((n,), dtype=torch.bool,
                                              device=x.device))
-    return (a_new, torch.where(fresh, torch.sqrt(d1_sq), u),
-            torch.where(fresh, torch.sqrt(d2_sq), lo))
+    return (a_new, torch.where(fresh, sqrt_rn(d1_sq), u),
+            torch.where(fresh, sqrt_rn(d2_sq), lo))
 
 
 def _route_grouping(routed: torch.Tensor, k: int, bn: int):
@@ -335,28 +335,36 @@ def bounded_predict_assign_top2(q, c, neighbors, routed, *, bn: int = 128,
 
 def quantized_scan_rerank(xf, xq, xsc, c, cq, cidx, rowsel, skip, prev_a,
                           prev_d1, prev_d2, *, bn: int = 128, bkn: int = 8,
-                          r: int = 8):
-    """Int8 scan (K4) + exact f32 re-rank, the quantized replacement for
+                          r: int = 8, backend: str = "kernels"):
+    """Int8 scan + exact f32 re-rank, the quantized replacement for
     :func:`candidate_assign_tiled` over a grouped layout.
 
     xf: (n, d) f32 grouped rows, xq/xsc their int8 quantization; c (k, d)
     centers and cq their ``quant.CenterQuant``; cidx (T, kn_pad);
-    rowsel/skip/prev_* as in the f32 kernel. Survivors are re-ranked with
-    the oracle's formula against their block's own f32 slab
-    (``exact_round.slab_sqdist``: kn_pad columns per row, not k); rows whose
-    survivor count exceeds ``r`` take the exact top-2 over the whole slab
-    row instead, selected on the device (no host read). Returns (a,
-    d1_sq, d2_sq, n_surv, fallback): d2_sq is the exact second-best among
+    rowsel/skip/prev_* as in the f32 kernel. The int8 stage is K4 on
+    ``backend="kernels"`` and ``quant.approx_scan`` over each row's list
+    on ``"xla"``. Survivors are re-ranked with the oracle's formula over
+    each row's kn_pad candidates, not k (``exact_round.slab_sqdist``
+    against the block's slab on kernels, ``exact_round.candidate_sqdist``
+    per pair on xla: one value a pair either way); rows whose survivor
+    count exceeds ``r`` take the exact top-2 over the whole list row
+    instead, selected on the device (no host read). Returns (a, d1_sq,
+    d2_sq, n_surv, fallback): d2_sq is the exact second-best among
     survivors, floored by the non-survivor margin bound."""
     xerr = quant.residual_norm(xf, xq, xsc)
-    qtab, qsc, qerrtab, csqtab = quant.quantized_candidate_slabs(cq, cidx)
-    surv, nsv, lbm = candidate_assign_int8_tiled(
-        xq, xsc, xerr, qtab, qsc, qerrtab, csqtab, rowsel, skip, bn=bn,
-        bkn=bkn, r=r)
+    cand_all = cidx[torch.repeat_interleave(rowsel.long(), bn)]
+    if backend == "xla":
+        surv, nsv, lbm = quant.approx_scan(xq, xsc, xerr, cq, cand_all, r=r)
+        sq_all = candidate_sqdist(xf, c, cand_all)
+    else:
+        qtab, qsc, qerrtab, csqtab = quant.quantized_candidate_slabs(cq,
+                                                                     cidx)
+        surv, nsv, lbm = candidate_assign_int8_tiled(
+            xq, xsc, xerr, qtab, qsc, qerrtab, csqtab, rowsel, skip, bn=bn,
+            bkn=bkn, r=r)
+        sq_all = slab_sqdist(xf, *candidate_tables(c, cidx), rowsel, bn)
     fresh = torch.repeat_interleave(skip == 0, bn)
     nsv = torch.where(fresh, nsv, 0)
-    cand_all = cidx[torch.repeat_interleave(rowsel.long(), bn)]
-    sq_all = slab_sqdist(xf, *candidate_tables(c, cidx), rowsel, bn)
     cols = torch.clamp(surv, min=0).long()
     ids = torch.where(surv >= 0, torch.gather(cand_all, 1, cols), -1)
     sq = torch.where(surv >= 0, torch.gather(sq_all, 1, cols), PAD_SQDIST)
@@ -374,11 +382,13 @@ def quantized_scan_rerank(xf, xq, xsc, c, cq, cidx, rowsel, skip, prev_a,
 
 
 def bounded_predict_assign_int8(q, c, cq, neighbors, routed, *,
-                                bn: int = 128, bkn: int = 8, r: int = 8):
+                                bn: int = 128, bkn: int = 8, r: int = 8,
+                                backend: str = "kernels"):
     """Quantized analogue of :func:`bounded_predict_assign`: routed
-    queries resolve through the int8 scan (K4) + exact f32 re-rank. cq:
-    the ``quant.CenterQuant`` of ``c``. Returns (assignment (m,), best
-    sqdist (m,), n_surv (m,), fallback (m,) bool) in query order."""
+    queries resolve through the int8 scan (K4 on ``backend="kernels"``,
+    ``quant.approx_scan`` on ``"xla"``) + exact f32 re-rank. cq: the
+    ``quant.CenterQuant`` of ``c``. Returns (assignment (m,), best sqdist
+    (m,), n_surv (m,), fallback (m,) bool) in query order."""
     m = q.shape[0]
     cidx = pad_candidates(neighbors.to(torch.int32), bkn).contiguous()
     perm, b2c, skip = _route_grouping(routed, c.shape[0], bn)
@@ -390,7 +400,7 @@ def bounded_predict_assign_int8(q, c, cq, neighbors, routed, *,
                           device=q.device)
     a_g, d1_g, _, nsv_g, fb_g = quantized_scan_rerank(
         qg, qq, qs, c, cq, cidx, b2c, skip, routed32[sp], zeros_g, zeros_g,
-        bn=bn, bkn=bkn, r=r)
+        bn=bn, bkn=bkn, r=r, backend=backend)
     zeros = zeros_g[:m]
     return (scatter_from_grouped(perm, a_g, routed32),
             scatter_from_grouped(perm, d1_g, zeros),

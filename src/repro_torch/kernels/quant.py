@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .exact_round import exact_cross, exact_sqnorm
+from .exact_round import exact_cross, exact_sqnorm, sqrt_rn
 from .ref import PAD_SQDIST, int8_approx_sqdist, survivor_columns
 
 QMAX = 127.0
@@ -79,7 +79,7 @@ def residual_norm(x: torch.Tensor, q: torch.Tensor,
                   scale: torch.Tensor) -> torch.Tensor:
     """Exact residual norms ``||x - dequant(q)||`` per row (the margins'
     radii), the sum of squares rounded once from f64."""
-    return torch.sqrt(exact_sqnorm(x - dequantize_rows(q, scale)))
+    return sqrt_rn(exact_sqnorm(x - dequantize_rows(q, scale)))
 
 
 def center_quant(c: torch.Tensor) -> CenterQuant:
@@ -112,12 +112,12 @@ def int8_shat(xq: torch.Tensor, xsc: torch.Tensor, cq: CenterQuant,
     cross = exact_cross(xq, cq.q.T)
     xhsq = (xsc * xsc * exact_sqnorm(xq))[:, None]
     if cand is None:
-        return torch.sqrt(int8_approx_sqdist(
+        return sqrt_rn(int8_approx_sqdist(
             xhsq, xsc[:, None], cq.scale[None, :], cross, cq.sq[None, :]))
     valid = cand >= 0
     safe = torch.clamp(cand, min=0).long()
     cross = torch.gather(cross, 1, safe)
-    return torch.sqrt(int8_approx_sqdist(
+    return sqrt_rn(int8_approx_sqdist(
         xhsq, xsc[:, None], torch.where(valid, cq.scale[safe], 0.0), cross,
         torch.where(valid, cq.sq[safe], PAD_SQDIST)))
 

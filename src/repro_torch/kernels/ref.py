@@ -15,6 +15,16 @@ from .segment_sum import segment_sum_ordered
 PAD_SQDIST = 1e30
 
 
+def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
+    """Square roots of f32 values correctly rounded to f32, the same bits
+    on every device: the f64 root rounded once. torch's f32 ``sqrt`` on
+    the CPU is not correctly rounded (one value in about 170 differs from
+    the card's, which is). The exact root of an f32 value lies at least 4
+    f64 ulps from every f32 rounding midpoint, so an f64 root within a few
+    f64 ulps, the CPU's too, rounds to the correctly rounded f32 one."""
+    return torch.sqrt(v.to(torch.float64)).to(torch.float32)
+
+
 def center_sqdist_ref(c: torch.Tensor) -> torch.Tensor:
     """(k, d) -> (k, k) squared center distances ``max((|c_i|^2 - 2 c_i.c_j)
     + |c_j|^2, 0)`` in f32 from the correctly rounded norms and products
@@ -407,7 +417,7 @@ def candidate_assign_int8_tiled_ref(xq, xsc, xerr, qtab, qsc, qerrtab,
         cross = exact_cross(xb, qtab[ts].transpose(1, 2))
         s = xsc[rows].reshape(m, bn, 1)
         xhsq = s * s * exact_sqnorm(xb)[..., None]
-        shat = torch.sqrt(int8_approx_sqdist(
+        shat = sqrt_rn(int8_approx_sqdist(
             xhsq, s, qsc[ts][:, None, :], cross, csqtab[ts][:, None, :]))
         rc = qerrtab[ts][:, None, :]
         lb = shat - rc

@@ -1208,3 +1208,153 @@ def test_cuda_executor_matches_cpu(cuda):
             assert np.array_equal(a.result, b.result)
     assert exg.counter.profile() | {"wall_s": 0} == \
         exc.counter.profile() | {"wall_s": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_candidate_helpers_match_plain(cuda):
+    """The xla backend's candidate helpers through ``exact_rowdot`` on
+    the card, on rows built to sit at f32 rounding midpoints: bit-equal
+    to the CPU's values, assignments and top-2."""
+    from repro_torch.core import (chunked_candidate_argmin,
+                                  chunked_candidate_top2,
+                                  gather_candidate_sqdist)
+    x, c, _ = rounding_fixture(3000, 64, 784, seed=5, device="cpu")
+    cand = torch.tensor(np.random.RandomState(6).randint(-1, 64, (3000, 30)),
+                        dtype=torch.int32)
+    live = torch.clamp(cand, min=0)
+    for fn, args in ((gather_candidate_sqdist, (cand,)),
+                     (chunked_candidate_argmin, (live,)),
+                     (chunked_candidate_top2, (live,))):
+        want = fn(x, c, *args, chunk=512)
+        got = fn(x.to(cuda), c.to(cuda), *(a.to(cuda) for a in args),
+                 chunk=512)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.cpu(), w), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"residency": "rebuild"},
+                                {"residency": "resident"},
+                                {"residency": "resident",
+                                 "precision": "int8"}],
+                         ids=["rebuild", "resident", "int8"])
+def test_cuda_xla_fit_matches_cpu_and_kernels(cuda, kw):
+    """The xla fit on the card equals the CPU's bit for bit (assignments,
+    centers, iterations, counted lanes; energies, sums over the rows in
+    each device's order, within rel 1e-5) and the card's kernels fit from
+    the same init in assignments, centers and iterations. Off int8 it
+    launches no K1."""
+    x = _mixture(4096, 64, 40, 3)
+    init = x[np.random.RandomState(4).choice(4096, 64, replace=False)]
+    a0 = torch.cdist(torch.tensor(x), torch.tensor(init)).argmin(1).to(
+        torch.int32)
+    out = {}
+    for dev, backend in (("cpu", "xla"), (cuda, "xla"), (cuda, "kernels")):
+        ctr = OpCounter()
+        _build.reset_launches()
+        r = fit_k2means(x, init, a0, kn=10, max_iters=25, backend=backend,
+                        counter=ctr, device=dev, **kw)
+        out[(str(dev), backend)] = (r, ctr, _build.launches())
+    (rc, cc, _), (rg, cg, launched), (rk, _, _) = (
+        out[("cpu", "xla")], out[(str(cuda), "xla")],
+        out[(str(cuda), "kernels")])
+    assert launched["center_sqdist"] == rg.iterations
+    if "precision" not in kw:
+        assert launched["candidate_assign_tiled"] == 0
+        assert launched["exact_rowdot"] >= rg.iterations
+    assert rc.iterations == rg.iterations == rk.iterations
+    for r in (rg, rk):
+        assert torch.equal(r.assignment.cpu(), rc.assignment)
+        assert torch.equal(r.centers.cpu(), rc.centers)
+    assert rg.energy == pytest.approx(rc.energy, rel=1e-5)
+    assert cg.profile() | {"wall_s": 0} == cc.profile() | {"wall_s": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_host_gdi_then_xla_fit_matches_cpu(cuda):
+    """fit(backend="xla", init="gdi"): the host GDI loop (K3 in every
+    split) then the xla fit, on the card and on the CPU from one seed,
+    at the tied-blob shape of ROADMAP §3 entry 9: identical results bit
+    for bit."""
+    x = _tied_blobs(3000, 16, 12, 2)
+    out = {}
+    for dev in ("cpu", cuda):
+        _build.reset_launches()
+        out[str(dev)] = (fit(x, 48, backend="xla", init="gdi", kn=8,
+                             max_iters=30, seed=3, device=dev),
+                         _build.launches())
+    (rc, _), (rg, launched) = out["cpu"], out[str(cuda)]
+    assert launched["segmented_scan"] == 2 * 47
+    assert launched["candidate_assign_tiled"] == 0
+    assert rc.iterations == rg.iterations
+    assert torch.equal(rg.assignment.cpu(), rc.assignment)
+    assert torch.equal(rg.centers.cpu(), rc.centers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init,k", [("gdi_host", 48), ("gdi_parallel", 48),
+                                    ("gdi_parallel", 32)])
+def test_cuda_host_drawn_inits_match_cpu(cuda, init, k):
+    """gdi_init and gdi_parallel_init on the card from one CPU generator
+    seed: the CPU's leaves and centers, bit for bit."""
+    from repro_torch.core import gdi_init, gdi_parallel_init
+    fn = gdi_init if init == "gdi_host" else gdi_parallel_init
+    x = _tied_blobs(3000, 16, 12, 2)
+    out = [fn(x, k, generator=torch.Generator().manual_seed(7), device=dev)
+           for dev in ("cpu", cuda)]
+    assert torch.equal(out[1][1].cpu(), out[0][1])
+    assert torch.equal(out[1][0].cpu(), out[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["minibatch", "akm"])
+def test_cuda_minibatch_and_akm_match_cpu(cuda, method):
+    """MiniBatch and AKM on the card from one CPU generator seed: the
+    CPU's assignments, centers, iterations and counted lanes, bit for
+    bit; K5 runs every batch or iteration."""
+    from repro_torch.core import fit_akm, fit_minibatch
+    x = _mixture(3000, 16, 24, 5)
+    init = x[np.random.RandomState(6).choice(3000, 48, replace=False)]
+    out = {}
+    for dev in ("cpu", cuda):
+        ctr = OpCounter()
+        _build.reset_launches()
+        gen = torch.Generator().manual_seed(8)
+        if method == "minibatch":
+            r = fit_minibatch(x, init, generator=gen, counter=ctr,
+                              device=dev)
+        else:
+            r = fit_akm(x, init, generator=gen, m=30, max_iters=20,
+                        counter=ctr, device=dev)
+        out[str(dev)] = (r, ctr, _build.launches())
+    (rc, cc, _), (rg, cg, launched) = out["cpu"], out[str(cuda)]
+    assert launched["distance_argmin"] >= rg.iterations
+    assert rc.iterations == rg.iterations
+    assert torch.equal(rg.assignment.cpu(), rc.assignment)
+    assert torch.equal(rg.centers.cpu(), rc.centers)
+    assert [e for _, e in rg.history] == pytest.approx(
+        [e for _, e in rc.history], rel=1e-5)
+    assert cg.profile() | {"wall_s": 0} == cc.profile() | {"wall_s": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "int8"])
+def test_cuda_xla_model_predict_matches_cpu(cuda, prec):
+    """An xla model's predict on the card: the CPU's assignments and
+    distances bit for bit, and the card's kernels model's."""
+    allx = _mixture(3072, 16, 32, 8)
+    res = fit_k2means(allx[:2048], allx[:32], torch.cdist(
+        torch.tensor(allx[:2048]), torch.tensor(allx[:32])).argmin(1).to(
+        torch.int32), kn=8, max_iters=10, device="cpu")
+    q = allx[2048:]
+    got = {}
+    for dev, backend in (("cpu", "xla"), (cuda, "xla"), (cuda, "kernels")):
+        m = KMeansModel.from_result(res, allx[:2048], kn=8, backend=backend,
+                                    device=dev)
+        a, d = m.predict(q, return_sqdist=True, precision=prec)
+        got[(str(dev), backend)] = (a.cpu(), d.cpu())
+    want = got[("cpu", "xla")]
+    for key in ((str(cuda), "xla"), (str(cuda), "kernels")):
+        assert torch.equal(got[key][0], want[0]) and \
+            torch.equal(got[key][1], want[1]), key

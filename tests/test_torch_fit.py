@@ -223,9 +223,7 @@ def test_fit_max_iters_zero_evaluates_init():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"backend": "xla"}, "item 11"), ({"mesh": object()}, "item 12"),
-    ({"method": "minibatch"}, "item 11"),
-    ({"init": "gdi_parallel"}, "item 11"),
+    ({"mesh": object()}, "item 12"), ({"init": "gdi_replicated"}, "item 12"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):
     x = blobs(7, 64, 4, 3)
