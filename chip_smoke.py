@@ -94,6 +94,22 @@ Phases (any failure exits non-zero, without the final result line):
    k = 48 on the card and on the CPU from one generator seed, bit for
    bit; print seconds, ms per iteration beside phase 2's, energies,
    counted ops and K5/K3 launches;
+2k. (after 2j) the sharded fit (``launch.mesh``, ``core.distributed``):
+   (a) four gloo ranks spawned on this card (NCCL refuses two ranks on
+   one card), each drawing phase 2's rows again from the seed (15,000 a
+   shard), run ``fit(mesh=, init="gdi")`` (the shard-aware seed, then
+   the kernels backend resident) with the counts set to 0 just before:
+   check K1, K2, K3 and the ordered sums launched on every rank and the
+   history finite and non-increasing; then the sharded fit from phase
+   2's GDI init centers, against phase 2's fit (assignments that
+   differ, iterations, energy ratio) and against the single-card fit
+   from the same start (energy within rel 1e-4), and the host reads of a
+   3-iteration sharded fit (rank 0's device-to-host copies less gloo's
+   staging of the gathers) equal to one card's; (b) that fit again,
+   bit-identical; (c) a one-rank NCCL mesh equal to the single-device fit
+   bit for bit; (d) at entry 9's blobs (n = 3000, d = 16, k = 48) four
+   ranks on the card equal to four on the CPU bit for bit, with rank 1
+   lost before iteration 5 keeping the fault-free result;
 2c. the paper's baselines on the same rows: ``kmeanspp_init`` at k=1000,
    then ``fit(method="lloyd", init="kmeanspp")`` (every assignment step
    through K5) and ``fit(method="elkan", init="kmeanspp")`` for a few
@@ -160,7 +176,10 @@ Phases (any failure exits non-zero, without the final result line):
    kernel also time its launcher's host work;
 4. print the kernels' JSON line (``launches_stream``: a kernel's launches
    in phase 2f's 8 batches, K4's in its int8 leg; ``launches_exec``: in
-   phase 2i's first run), then ``{"ok": true, "device": ...}``.
+   phase 2i's first run; ``launches_per_shard``: each rank's in phase
+   2k's ``fit(mesh=)``, null on a row for one call site of a wrapper,
+   whose launches are counted with the wrapper's), then
+   ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --profile`` adds one ``partial_fit`` batch in
 phase 2f and, after phase 3, the fit, one predict in each precision, one
@@ -181,6 +200,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 N, D, K, KN, TRUE_K, MAX_ITERS, SEED = 60000, 784, 1000, 30, 128, 30, 0
 BKN = 8
+MESH_RANKS = 4                     # phase 2k: gloo ranks sharing the card
 NQ, BATCH = 65536, 8192            # held-out queries, predict batch size
 LLOYD_ITERS, ELKAN_ITERS = 300, 5   # Lloyd++ runs to convergence here
 # phase 2e: Qwen3-8B's width, depth cut to 4 of 36 layers
@@ -457,6 +477,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _methods_phase(torch, dev, x, res, check)
     print(f"  phase 2j wall {time.perf_counter() - t0:.1f} s")
+
+    # --- 2k. the mesh: the sharded fit over ranks sharing this card -----
+    t0 = time.perf_counter()
+    mesh_launches = _mesh_phase(torch, dev, x, res, check)
+    print(f"  phase 2k wall {time.perf_counter() - t0:.1f} s")
 
     # --- 2c. the paper's baselines: k-means++, Lloyd++ and Elkan --------
     def pp_gen():
@@ -892,6 +917,12 @@ def main() -> int:
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
+        # each rank's launches in phase 2k's fit(mesh=, init="gdi"); the
+        # counts are kept per wrapper, so a row for one call site of a
+        # wrapper ("[delta]", "[evict]", "[predict]", ...) has none
+        kr["launches_per_shard"] = (
+            [got[kr["name"]] for got in mesh_launches]
+            if mesh_launches and kr["name"] in mesh_launches[0] else None)
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     if FAILURES:
@@ -1697,12 +1728,7 @@ def _ft_phase(torch, dev, x, check) -> dict:
     out["chaos_launches"] = launches
     del r, c0, a0
     # (c) the schedule at a small shape, card against CPU
-    rng = torch.Generator().manual_seed(2)
-    mus = torch.round(torch.randn(12, 16, generator=rng) * 12)
-    xs = torch.round(mus[torch.randint(0, 12, (3000,), generator=rng)]
-                     + torch.randn(3000, 16, generator=rng) * 1.5)
-    xs[::5] = xs[1::5][:len(xs[::5])]
-    init = xs[torch.randperm(3000, generator=rng)[:48]]
+    xs, init = _entry9_blobs(torch)
     a_s = torch.cdist(xs, init).argmin(1).to(torch.int32)
     small = dict(nan_rows={2: 8}, poison_centers={4: 2}, poison_slots={6: 5})
     got = {}
@@ -1722,6 +1748,18 @@ def _ft_phase(torch, dev, x, check) -> dict:
           f"{ec == eg}, repairs {rc == rg}, quarantined {sg} vs {sc}, "
           f"assignments {int((ac != ag).sum())} differ")
     return out
+
+
+def _entry9_blobs(torch):
+    """ROADMAP §3 entry 9's integer blobs (n=3000, d=16, 12 components,
+    every fifth row a duplicate) and 48 of their rows as centers, on the
+    CPU: their sums are exact in any order."""
+    rng = torch.Generator().manual_seed(2)
+    mus = torch.round(torch.randn(12, 16, generator=rng) * 12)
+    xs = torch.round(mus[torch.randint(0, 12, (3000,), generator=rng)]
+                     + torch.randn(3000, 16, generator=rng) * 1.5)
+    xs[::5] = xs[1::5][:len(xs[::5])]
+    return xs, xs[torch.randperm(3000, generator=rng)[:48]]
 
 
 def _exec_run(torch, dev, res, trace, sched, pool_rows):
@@ -2354,6 +2392,254 @@ def _small_predict_agrees(torch, dev, fit_k2means, KMeansModel, OpCounter,
               f"small predict {prec} (n=1000, d=16, k=24) on the card equals "
               f"the plain CPU path: assignments and distances {same}, "
               f"charges {gpu[2:]} vs {cpu[2:]}")
+
+
+# --- phase 2k: the mesh ---------------------------------------------------
+
+
+def _mesh_x(torch, dev):
+    """Phase 2's training rows, drawn again from the seed on ``dev``."""
+    from repro_torch.data import gmm_blobs
+    allx = gmm_blobs(N + NQ, D, TRUE_K, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    return allx[:N].clone()
+
+
+def _mesh_small(torch, mesh) -> dict:
+    """Phase 2k (d) on one rank: entry 9's blobs, the sharded kernels fit
+    fault-free and with rank 1 lost before iteration 5."""
+    from repro_torch.core import OpCounter
+    from repro_torch.core.distributed import fit_distributed_k2means
+    from repro_torch.ft import FaultInjector
+    xs, init = _entry9_blobs(torch)      # on the host, as a user's rows
+    kw = dict(init_centers=init, max_iters=20, backend="kernels")
+    base = fit_distributed_k2means(xs, 48, 8, mesh, **kw)
+    cnt = OpCounter()
+    with FaultInjector(seed=0, drop_host={5: 1}):
+        drop = fit_distributed_k2means(xs, 48, 8, mesh, counter=cnt, **kw)
+    return {"a": base.assignment.cpu().numpy(),
+            "c": base.centers.cpu().numpy(), "energy": base.energy,
+            "iterations": base.iterations,
+            "drop_a": drop.assignment.cpu().numpy(),
+            "drop_c": drop.centers.cpu().numpy(),
+            "restores": cnt.repairs["restore"]}
+
+
+def _mesh_rank_card(mesh, c0) -> dict:
+    """Phase 2k on one of the gloo ranks sharing the card: (a)
+    ``fit(mesh=, init="gdi")`` with the launches counted from 0, then the
+    sharded fit from phase 2's GDI init centers ``c0``, (b) that fit
+    again, its traffic per iteration and (rank 0) the host reads of a
+    3-iteration fit; the card's memory a rank's fit takes; (d) the small
+    fits. The rows are handed to the fits on the host, as a user's data
+    larger than a card would be: each rank's card takes its shard."""
+    import torch
+    from repro_torch.core import fit
+    from repro_torch.core.distributed import fit_distributed_k2means
+    from repro_torch.kernels import _build
+    dev = mesh.device
+    x = _mesh_x(torch, dev)
+    out = {"x_sum": float(x.double().sum())}
+    x = x.cpu()
+    c0 = torch.from_numpy(c0).to(dev)
+    fit_distributed_k2means(x, K, KN, mesh, init_centers=c0, max_iters=2)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    r = fit(x, K, mesh=mesh, init="gdi", kn=KN, max_iters=MAX_ITERS,
+            profile=True, generator=torch.Generator(device=dev).manual_seed(
+                SEED + 1))
+    torch.cuda.synchronize()
+    out["launches"] = _build.launches()
+    out["gdi"] = {"init_s": r.profile["init_s"],
+                  "iterate_s": r.profile["iterate_s"],
+                  "iterations": r.iterations, "energy": r.energy,
+                  "history": [e for _, e in r.history]}
+    del r
+    # the traffic of the iterations after the first: a whole fit's gathers
+    # less a one-iteration fit's (the same set-up and final gather)
+    g0, b0 = mesh.gathers, mesh.gathered_bytes
+    fit_distributed_k2means(x, K, KN, mesh, init_centers=c0, max_iters=1)
+    g_one, b_one = mesh.gathers - g0, mesh.gathered_bytes - b0
+    runs = []
+    for _ in range(2):
+        g0, b0 = mesh.gathers, mesh.gathered_bytes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rr = fit_distributed_k2means(x, K, KN, mesh, init_centers=c0,
+                                     max_iters=MAX_ITERS, profile=True)
+        torch.cuda.synchronize()
+        runs.append({"peak_bytes": torch.cuda.max_memory_allocated(dev)
+                     - base,"a": rr.assignment.cpu().numpy(),
+                     "c": rr.centers.cpu().numpy(), "energy": rr.energy,
+                     "iterations": rr.iterations,
+                     "iterate_s": rr.profile["iterate_s"],
+                     "gathers": (mesh.gathers - g0 - g_one)
+                     / max(rr.iterations - 1, 1),
+                     "bytes": (mesh.gathered_bytes - b0 - b_one)
+                     / max(rr.iterations - 1, 1)})
+    out["runs"] = runs
+    if mesh.index == 0:
+        g0 = mesh.gathers
+        out["dtoh"] = _host_reads(torch, lambda: fit_distributed_k2means(
+            x, K, KN, mesh, init_centers=c0, max_iters=3))
+        out["staged"] = mesh.gathers - g0
+    else:
+        fit_distributed_k2means(x, K, KN, mesh, init_centers=c0, max_iters=3)
+    out["small"] = _mesh_small(torch, mesh)
+    return out
+
+
+def _mesh_rank_cpu(mesh) -> dict:
+    """Phase 2k (d) on one of four gloo ranks on the CPU."""
+    import torch
+    return _mesh_small(torch, mesh)
+
+
+def _mesh_rank_nccl(mesh, c0) -> dict:
+    """Phase 2k (c): a one-rank NCCL mesh from phase 2's GDI init centers
+    against the single-device fit from the same centers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import assign_nearest, fit_k2means
+    from repro_torch.core.distributed import fit_distributed_k2means
+    dev = mesh.device
+    x = _mesh_x(torch, dev)
+    c0 = torch.from_numpy(c0).to(dev)
+    r = fit_distributed_k2means(x, K, KN, mesh, init_centers=c0,
+                                max_iters=MAX_ITERS)
+    s = fit_k2means(x, c0, assign_nearest(x, c0), kn=KN,
+                    max_iters=MAX_ITERS, device=dev)
+    return {"backend": dist.get_backend(),
+            "differ": int((r.assignment != s.assignment).sum()),
+            "centers_equal": bool(torch.equal(r.centers, s.centers)),
+            "energy": (r.energy, s.energy),
+            "iterations": (r.iterations, s.iterations)}
+
+
+def _mesh_phase(torch, dev, x, res, check) -> list:
+    """Phase 2k: the sharded fit. (a) four gloo ranks sharing the card at
+    the mnist shape (15,000 rows a shard): ``fit(mesh=, init="gdi")``,
+    then the sharded kernels fit from phase 2's GDI init centers against
+    phase 2's single-card fit; K1, K2 and K3 launched on every rank, the
+    host read as often as one device's; (b) that fit twice, bit-identical;
+    (c) a one-rank NCCL mesh equal to the single-device fit bit for bit;
+    (d) at entry 9's small shape, four ranks on the card equal to four
+    ranks on the CPU bit for bit, with a host lost before iteration 5
+    keeping the fault-free result. Returns each rank's launches in (a)'s
+    ``fit(mesh=)``."""
+    import numpy as np
+    from repro_torch.core import (OpCounter, assign_nearest, fit_k2means,
+                                  initialize)
+    from repro_torch.launch.mesh import run_local
+    c0, _ = initialize(x, K, "gdi",
+                       torch.Generator(device=dev).manual_seed(SEED + 1),
+                       OpCounter())
+    c0_h = c0.cpu().numpy()
+    a0 = assign_nearest(x, c0)
+    one_reads = _host_reads(torch, lambda: fit_k2means(
+        x, c0, a0, kn=KN, max_iters=3, device=dev))
+    # the single-card fit from the same start as the sharded one (phase
+    # 2's starts from GDI's own assignment, not the nearest centers)
+    # its memory: the rows it was given on the card, and its own peak
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    like = fit_k2means(x, c0, a0, kn=KN, max_iters=MAX_ITERS, device=dev)
+    torch.cuda.synchronize()
+    like_bytes = x.numel() * x.element_size() \
+        + torch.cuda.max_memory_allocated(dev) - base
+    card = run_local(_mesh_rank_card, MESH_RANKS, c0_h, device="cuda",
+                     timeout=600)
+    one = run_local(_mesh_rank_nccl, 1, c0_h, backend="nccl",
+                    device="cuda", timeout=300)[0]
+    cpu = run_local(_mesh_rank_cpu, MESH_RANKS, device="cpu", timeout=300)
+    lead, g = card[0], card[0]["gdi"]
+    print(f"phase 2k: (a) fit(mesh=) over {MESH_RANKS} gloo ranks sharing "
+          f"the card ({N // MESH_RANKS} rows a shard), init='gdi' (the "
+          f"sharded seed): seed {g['init_s']:.3f} s, {g['iterations']} "
+          f"iterations, {g['iterate_s'] / max(g['iterations'], 1) * 1e3:.2f}"
+          f" ms/iteration, energy {g['energy']:.6g} (phase 2's single-card "
+          f"fit from its replicated GDI {res.energy:.6g}); launches per "
+          f"rank {[r['launches'] for r in card]}")
+    check(all(r["x_sum"] == float(x.double().sum()) for r in card),
+          "every rank drew phase 2's rows again from the seed")
+    for name in ("center_sqdist", "candidate_assign_tiled",
+                 "segmented_scan", "segment_sum_blocks"):
+        got = [r["launches"][name] for r in card]
+        check(all(v > 0 for v in got),
+              f"{name} launched on every rank by fit(mesh=) ({got})")
+    hist = g["history"]
+    check(all(map(_finite, hist)) and all(
+        b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
+        "the sharded fit's energy history finite and non-increasing")
+    r1, r2 = lead["runs"]
+    a1 = torch.from_numpy(r1["a"])
+    differ = int((a1 != res.assignment.cpu()).sum())
+    differ_like = int((a1 != like.assignment.cpu()).sum())
+    ratio, ratio_like = r1["energy"] / res.energy, r1["energy"] / like.energy
+    print(f"  from phase 2's GDI init centers: {r1['iterations']} "
+          f"iterations (phase 2 {res.iterations}), "
+          f"{r1['iterate_s'] / max(r1['iterations'], 1) * 1e3:.2f} "
+          f"ms/iteration, energy ratio to phase 2's fit {ratio:.9f}, "
+          f"{differ} of {N} assignments differ; against the single-card "
+          f"fit from the same start ({like.iterations} iterations): ratio "
+          f"{ratio_like:.9f}, {differ_like} differ; each rank sent "
+          f"{r1['bytes']:.0f} bytes an iteration in {r1['gathers']:.2f} "
+          f"gathers")
+    peaks = [r["runs"][0]["peak_bytes"] for r in card]
+    print(f"  the card's memory a fit takes (peak allocation above what was "
+          f"there before, the rows included): each rank's sharded fit "
+          f"{[round(b / 2**20, 3) for b in peaks]} MiB; the single-card "
+          f"fit {like_bytes / 2**20:.3f} MiB ({x.numel() * 4 / 2**20:.3f} "
+          f"MiB of it the rows)")
+    check(max(peaks) < like_bytes / 2,
+          f"each rank's sharded fit holds its shard, not every row: its "
+          f"peak ({max(peaks)} bytes) under half the single-card fit's "
+          f"({like_bytes} bytes)")
+    check(abs(ratio_like - 1.0) <= 1e-4,
+          f"the sharded fit's energy within rel 1e-4 of the single-card "
+          f"fit's from the same start ({ratio_like:.9f})")
+    check(all(np.array_equal(r["runs"][0]["a"], r1["a"])
+              and np.array_equal(r["runs"][0]["c"], r1["c"])
+              for r in card), "every rank returns the same result")
+    reads = lead["dtoh"] - lead["staged"]
+    print(f"  host reads of a 3-iteration sharded fit on rank 0: {reads} "
+          f"({lead['dtoh']} device-to-host copies, {lead['staged']} of "
+          f"them gloo's staging of the gathers); the single-card fit: "
+          f"{one_reads}")
+    check(reads == one_reads, f"the sharded fit reads the host as often "
+                              f"as the single-card fit ({reads} vs "
+                              f"{one_reads} for 3 iterations)")
+    same = (np.array_equal(r1["a"], r2["a"])
+            and np.array_equal(r1["c"], r2["c"])
+            and r1["energy"] == r2["energy"]
+            and r1["iterations"] == r2["iterations"])
+    check(same, "(b) the sharded fit again is bit-identical")
+    print(f"  (c) one-rank {one['backend']} mesh against the single-device "
+          f"fit: {one['differ']} assignments differ, centers equal "
+          f"{one['centers_equal']}, energy {one['energy']}, iterations "
+          f"{one['iterations']}")
+    check(one["backend"] == "nccl" and one["differ"] == 0
+          and one["centers_equal"] and one["energy"][0] == one["energy"][1]
+          and one["iterations"][0] == one["iterations"][1],
+          "(c) the one-rank NCCL mesh equals the single-device fit bit for "
+          "bit")
+    small = [r["small"] for r in card] + cpu
+    ref_small = cpu[0]
+    same_small = all(
+        np.array_equal(s["a"], ref_small["a"])
+        and np.array_equal(s["c"], ref_small["c"])
+        and np.array_equal(s["drop_a"], ref_small["a"])
+        and np.array_equal(s["drop_c"], ref_small["c"])
+        and s["restores"] == 1 for s in small)
+    print(f"  (d) entry 9's blobs (n=3000, d=16, k=48) over four ranks: "
+          f"{ref_small['iterations']} iterations, energy "
+          f"{ref_small['energy']:.6g}; rank 1 lost before iteration 5")
+    check(same_small, "(d) four ranks on the card equal four on the CPU bit"
+                      " for bit, and the host drop keeps the fault-free "
+                      "result (one restore)")
+    return [r["launches"] for r in card]
 
 
 if __name__ == "__main__":

@@ -22,8 +22,10 @@ no bf16) and restored to the like-tree's type. A restore places every
 leaf on the device the caller names, the card by default
 (``device.resolve``).
 
-Not ported: ``reshard_restore`` (the elastic restore onto a new mesh)
-waits for multi-GPU placement (ROADMAP §1 item 12) and raises.
+:func:`reshard_restore` is the elastic restore onto a mesh
+(``launch.mesh``): each leaf comes back as this rank's block of rows or
+whole, as its placement (``launch.sharding.Rows`` / ``Replicated``)
+says, in place of the reference's ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -293,10 +295,18 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree, *, device=None):
 
 
 def reshard_restore(ckpt_dir: str, step: int, like_tree, shardings):
-    """Elastic restore onto a new mesh: waits for multi-GPU placement."""
-    raise NotImplementedError(
-        "reshard_restore (elastic restore onto a new mesh) is not ported "
-        "yet (ROADMAP §1 item 12)")
+    """Elastic restore onto a mesh: ``like_tree`` holds the global shapes
+    and types (as saved, whatever mesh saved them), ``shardings`` the same
+    tree with a placement per leaf (``launch.sharding.Rows(mesh)``: this
+    rank's block of the leaf's rows; ``Replicated(mesh)``: the whole
+    leaf), each on the mesh's device."""
+    host = restore_checkpoint(ckpt_dir, step, like_tree, device="cpu")
+    leaves, treedef = _flatten(host)
+    places, _ = _flatten(shardings)
+    if len(places) != len(leaves):
+        raise ValueError(f"{len(places)} placements for {len(leaves)} "
+                         "leaves")
+    return _unflatten(treedef, [p.place(t) for t, p in zip(leaves, places)])
 
 
 class AsyncCheckpointer:

@@ -1,8 +1,8 @@
 """Single entry point: ``fit(x, k, method=..., init=...)`` (port of
-``repro.core.api`` for the single-device fit: k²-means on either
-backend and the baselines Lloyd, Elkan, MiniBatch and AKM, from random,
-k-means++ or one of the three GDI inits, with the served model of
-``return_model=True``)."""
+``repro.core.api``: k²-means on either backend and the baselines Lloyd,
+Elkan, MiniBatch and AKM, from random, k-means++ or one of the three GDI
+inits, with the served model of ``return_model=True``; k²-means also
+row-sharded over a ``launch.mesh.Mesh`` through ``mesh=``)."""
 from __future__ import annotations
 
 import time
@@ -24,8 +24,6 @@ from .opcount import OpCounter
 METHODS = ("lloyd", "elkan", "k2means", "minibatch", "akm")
 INITS = ("random", "kmeanspp", "gdi", "gdi_host", "gdi_device",
          "gdi_parallel")
-# reference inits the port does not have yet, by ROADMAP item
-_LATER = {"gdi_replicated": 12}
 
 
 def host_generator(generator: torch.Generator) -> torch.Generator:
@@ -63,9 +61,6 @@ def initialize(x: torch.Tensor, k: int, init: str,
     if init == "gdi_parallel":
         return gdi_parallel_init(x, k, generator=host_gen, counter=counter,
                                  device=x.device)
-    if init in _LATER:
-        raise NotImplementedError(f"init {init!r} is not ported yet "
-                                  f"(ROADMAP §1 item {_LATER[init]})")
     raise ValueError(f"unknown init {init!r}; expected one of {INITS}")
 
 
@@ -102,10 +97,24 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
     of the init and of the iterations (each ended by a device
     synchronize) to ``result.profile``. ``validate``: "raise" rejects
     non-finite rows, "sanitize" zeroes them, "none" skips the check.
+
+    ``mesh=<launch.mesh.Mesh>`` runs the same k²-means iteration
+    row-sharded (``core.distributed.fit_distributed_k2means``; every rank
+    of the mesh calls ``fit`` with the same ``x`` and gets the same
+    result): ``method="k2means"`` only, ``init`` one of ``("random",
+    "kmeanspp", "gdi", "gdi_replicated")`` ("gdi" seeds per shard), on
+    each rank's device (``mesh.device``, where ``device`` must agree when
+    given), which holds this rank's rows only. The same extra keywords
+    apply.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh placement is not ported yet (ROADMAP §1 item 12)")
+        if method != "k2means":
+            raise ValueError(f"mesh placement supports method='k2means' "
+                             f"only, got {method!r}")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{METHODS}")
@@ -114,7 +123,8 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
                          f"'none', got {validate!r}")
     dev = resolve(device)
     counter = counter or OpCounter()
-    x = as_tensor(x, dev)
+    # on a mesh the rows stay on the host: each rank's card takes its shard
+    x = as_tensor(x, dev if mesh is None else torch.device("cpu"))
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (n, d), got shape {tuple(x.shape)}")
     if validate != "none":
@@ -137,6 +147,16 @@ def fit(x, k: int, *, method: str = "k2means", init: str = "gdi",
         return time.perf_counter()
 
     backend = kw.get("backend", "kernels")
+    if mesh is not None:
+        from .distributed import fit_distributed_k2means
+        result = fit_distributed_k2means(
+            x, k, kn, mesh, generator, max_iters=max_iters, init=init,
+            counter=counter, profile=profile, **kw)
+        if return_model:
+            return result, KMeansModel.from_result(
+                result, x, kn=min(kn, k), capacity=model_capacity,
+                backend=backend, device=dev)
+        return result
     host_gen = host_generator(generator)
     t0 = sync_clock()
     centers, assignment = initialize(

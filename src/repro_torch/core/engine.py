@@ -1,8 +1,8 @@
 """Engine layer: ONE k²-means iteration (port of ``repro.core.engine``).
 
 The paper's bounded iteration (center k_n-NN graph -> k_n-restricted
-assignment with Hamerly bounds -> mean update -> bound adjustment),
-single-device. ``K2Step(...).build(n, d)`` returns ``step(x, w, state)
+assignment with Hamerly bounds -> mean update -> bound adjustment).
+``K2Step(...).build(n, d)`` returns ``step(x, w, state)
 -> (state', stats)`` on one of two backends:
 
 ``"kernels"`` (the default, the reference's ``"pallas"``) — the
@@ -35,6 +35,16 @@ engine's bit for bit.
 :func:`resident_evict` is the streaming model's sliding-window eviction
 on the same arena (``core.model.KMeansModel.partial_fit``).
 
+Placement: one device (``mesh=None``) or a :class:`launch.mesh.Mesh`,
+one process per shard. On a mesh each rank runs the same iteration on its
+own rows (its arena built over them, its ``pid`` local row ids; repairs
+and re-sorts never move rows between shards), centers and the k_n-NN
+graph are replicated, and the center sums, the resident deltas, the
+overflow flag and the step statistics are summed across the shards in
+shard order (``psum``, :meth:`launch.mesh.Mesh.sum`), so every rank
+holds the same centers. With one shard the sum is the partial itself and
+the iteration is the single-device one bit for bit.
+
 Differences from the reference, none of which changes what is computed:
 - the reference's two ``lax.cond``s become one host read per resident
   iteration of ``(overflow, pool exhausted, rows changed)``; the time
@@ -59,6 +69,7 @@ Differences from the reference, none of which changes what is computed:
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing
 
 import torch
@@ -74,6 +85,7 @@ from ..kernels.ops import (choose_group_bn, compact, k2_bounded_assign,
                            resident_regroup, scatter_from_grouped,
                            segment_sum_ordered)
 from ..kernels.segment_sum import segment_sum_blocks
+from ..launch.mesh import dp_axes
 from .distance import bottom_k, chunked_candidate_top2, sqnorm
 
 
@@ -144,11 +156,13 @@ def center_knn_graph(c: torch.Tensor, kn: int) -> torch.Tensor:
 
 def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
                  kn: int, bn: int, bkn: int = 8, backend: str = "kernels",
-                 chunk: int = 2048) -> tuple[K2State, StepStats]:
+                 chunk: int = 2048, psum=None) -> tuple[K2State, StepStats]:
     """The rebuild-residency iteration: on ``backend="kernels"`` the
     grouped layout is rebuilt from the current assignment every call; on
     ``"xla"`` the candidates are scored ungrouped, ``chunk`` rows at a
-    time, and no layout is built (``moved`` and ``resorted`` are 0)."""
+    time, and no layout is built (``moved`` and ``resorted`` are 0).
+    ``psum``: the cross-shard sum of a mesh placement (None: one
+    device); ``x``, ``w`` and the state's rows are then this shard's."""
     c, a, u, lo, prev_nb, first = state
     k = c.shape[0]
     wpos = w > 0
@@ -167,6 +181,8 @@ def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
     al = a_new.long()
     sums = segment_sum_ordered(x * w[:, None], al, k)
     counts = segment_sum_ordered(w, al, k)
+    if psum is not None:
+        sums, counts = psum(sums, counts)
     c_next = torch.where(counts[:, None] > 0,
                          sums / torch.clamp(counts, min=1.0)[:, None], c)
     delta = sqrt_rn(torch.clamp(sqnorm(c_next - c), min=0.0))
@@ -181,18 +197,22 @@ def k2_iteration(x: torch.Tensor, w: torch.Tensor, state: K2State, *,
     stats = StepStats(n_need, changed, energy,
                       torch.tensor(x.shape[0] if grouped else 0, device=dev),
                       torch.tensor(int(grouped), device=dev))
+    if psum is not None:
+        stats = StepStats(*psum(*stats[:5]))
     return K2State(c_next, a_new, u_adj, lo_adj, neighbors, False), stats
 
 
 def init_resident_state(x: torch.Tensor, w: torch.Tensor,
                         centers: torch.Tensor, assignment: torch.Tensor, *,
                         kn: int, bn: int, nb_total: int,
-                        precision: str = "f32") -> ResidentState:
+                        precision: str = "f32", psum=None) -> ResidentState:
     """Build the resident layout once from an initial assignment (one
     grouping pass + one full segment-sum); stale-zero bounds with
     ``first`` forcing a full recompute on iteration 1. Under
     ``precision="int8"`` the arena rows are quantized per row and carry
-    their scales in ``xsc``; ``x`` stays the f32 master copy."""
+    their scales in ``xsc``; ``x`` stays the f32 master copy. ``psum``:
+    the cross-shard sum of a mesh placement (the arena is this shard's,
+    the sums global)."""
     k = centers.shape[0]
     a = assignment.to(torch.int32)
     perm, b2c, fill, openb = resident_regroup(a, k, bn, nb_total)
@@ -204,6 +224,8 @@ def init_resident_state(x: torch.Tensor, w: torch.Tensor,
                         device=centers.device)
     # each cluster's rows in row order: the arena lists them so
     sums, counts = segment_sum_blocks(xg, b2c, k, bn, w=wg)
+    if psum is not None:
+        sums, counts = psum(sums, counts)
     xsc = None
     if precision == "int8":
         xg, xsc = quant.quantize_rows(xg)
@@ -331,8 +353,8 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
                           state: ResidentState, *, kn: int, bkn: int = 8,
                           regroup_every: int = 16, move_cap: int = 1024,
                           precision: str = "f32", rerank_r: int = 8,
-                          backend: str = "kernels", chunk: int = 2048
-                          ) -> tuple[ResidentState, StepStats]:
+                          backend: str = "kernels", chunk: int = 2048,
+                          psum=None) -> tuple[ResidentState, StepStats]:
     """One iteration over the resident grouped layout.
 
     The bounded assignment reads the arena ``xg`` directly, the bound
@@ -359,6 +381,13 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     ``distance.chunked_candidate_top2``, ``chunk`` rows at a time, with no
     block skip; under int8 it passes the backend to the quantized scan
     (``quant.approx_scan`` in place of K4).
+
+    ``psum``: the cross-shard sum of a mesh placement (None: one
+    device). The arena, ``x`` and ``w`` are then this shard's; the
+    overflow flag is summed before the host read, so the full center
+    recompute happens on every shard at once, while each shard re-sorts
+    its own arena on its own triggers (time, its overflow, its free
+    pool), as the reference's mesh iteration does.
     """
     k = state.c.shape[0]
     n = x.shape[0]
@@ -443,12 +472,14 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     dst_slot, b2c_rep, fill_rep, openb_rep, total_new, n_free = \
         plan_layout_repair(state.b2c, state.fill, state.openb, active,
                            dst_c, bn=bn)
-    overflow, exhausted, n_mv = torch.stack(
-        [n_changed > move_cap, total_new > n_free, n_changed]
+    overflow = (n_changed > move_cap).to(torch.int64)
+    any_overflow = psum(overflow) if psum is not None else overflow
+    overflow, any_overflow, exhausted, n_mv = torch.stack(
+        [overflow, any_overflow, total_new > n_free, n_changed]
     ).to(torch.int64).tolist()
     time_trigger = (state.it + 1) % regroup_every == 0
     resort = bool(time_trigger or overflow or exhausted)
-    full_update = bool(time_trigger or overflow or state.first)
+    full_update = bool(time_trigger or any_overflow or state.first)
 
     # --- 6. layout repair (sparse, in place) or full re-sort -------------
     if resort:
@@ -493,8 +524,12 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
         # row-order scatter-add, bit for bit, on the card
         sums2, counts2 = segment_sum_blocks(xf2, b2c2, k, bn, w=wg2)
     else:
-        sums2 = state.sums + delta_sums
-        counts2 = state.counts + delta_counts
+        sums2, counts2 = delta_sums, delta_counts
+    if psum is not None:
+        sums2, counts2 = psum(sums2, counts2)
+    if not full_update:
+        sums2 = state.sums + sums2
+        counts2 = state.counts + counts2
     c_next = torch.where(counts2[:, None] > 0,
                          sums2 / torch.clamp(counts2, min=1.0)[:, None], c)
 
@@ -509,6 +544,8 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
     moved = torch.sum(state.pid >= 0) if resort else n_changed
     stats = StepStats(torch.sum(need), n_changed, energy, moved,
                       torch.tensor(int(resort), device=dev), reranked)
+    if psum is not None:
+        stats = StepStats(*psum(*stats))
     return ResidentState(c_next, neighbors, sums2, counts2, state.it + 1,
                          False, xg2, pid2, u_adj, lo_adj, wg2, b2c2, fill2,
                          openb2, xsc2), stats
@@ -516,13 +553,21 @@ def k2_resident_iteration(x: torch.Tensor, w: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class K2Step:
-    """Constructs the single-device k²-means step.
+    """Constructs the k²-means step.
 
     ``K2Step(k=.., kn=..).build(n, d)`` returns ``step(x, w, state) ->
     (state', stats)`` over :class:`K2State` (``residency="rebuild"``) or
     :class:`ResidentState` (``"resident"``, the default);
     :meth:`init_resident` builds the initial resident state and
     :meth:`final_assignment` scatters it back to point order.
+
+    ``mesh``: a :class:`launch.mesh.Mesh` (None: one device), whose
+    ``data_axes`` (default: all of its data axes) carry the row shards.
+    ``n`` is then the padded global row count, divisible by the shard
+    count, and the step takes this rank's rows; the point-block size and
+    the move cap follow the local row count, as the reference's mesh
+    step takes them, and :meth:`final_assignment` gathers every shard's
+    rows.
     """
     k: int
     kn: int
@@ -534,6 +579,8 @@ class K2Step:
     regroup_every: int = 16       # resident: full re-sort period
     move_cap: int | None = None   # resident: move-buffer rows (None: auto)
     precision: str = "f32"        # "f32" | "int8" quantized arena (§13)
+    mesh: typing.Any = None       # launch.mesh.Mesh | None (one device)
+    data_axes: tuple | None = None
 
     def _validate(self):
         if self.backend not in ("kernels", "xla"):
@@ -554,15 +601,41 @@ class K2Step:
                              "engines would re-quantize the whole layout "
                              "every iteration")
 
+    def axes(self) -> tuple:
+        if self.mesh is None:
+            return ()
+        return tuple(self.data_axes) if self.data_axes \
+            else dp_axes(self.mesh)
+
+    def shards(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.axes()) \
+            if self.mesh is not None else 1
+
+    def psum(self):
+        """The cross-shard sum over the step's axes (None: one device)."""
+        if self.mesh is None:
+            return None
+        mesh, axes = self.mesh, self.axes()
+        return lambda *ts: mesh.sum(*ts, axes=axes)
+
+    def _n_local(self, n: int) -> int:
+        nsh = self.shards()
+        if n % nsh:
+            raise ValueError(f"n={n} must divide over {nsh} shards; pad "
+                             "rows (w=0) before building the step")
+        return n // nsh
+
     def _bn(self, n: int, d: int | None = None) -> int:
-        return self.bn or choose_group_bn(n, self.k, d, bkn=self.bkn)
+        return self.bn or choose_group_bn(self._n_local(n), self.k, d,
+                                          bkn=self.bkn)
 
     def _move_cap(self, n: int) -> int:
-        return self.move_cap or max(64, n // 32)
+        return self.move_cap or max(64, self._n_local(n) // 32)
 
     def build(self, n: int, d: int | None = None):
         self._validate()
         kn = min(self.kn, self.k)
+        psum = self.psum()
         if self.residency == "resident":
             move_cap, regroup_every = self._move_cap(n), self.regroup_every
 
@@ -571,27 +644,33 @@ class K2Step:
                     x, w, state, kn=kn, bkn=self.bkn,
                     regroup_every=regroup_every, move_cap=move_cap,
                     precision=self.precision, backend=self.backend,
-                    chunk=self.chunk)
+                    chunk=self.chunk, psum=psum)
             return step
         bn = self._bn(n, d)
 
         def step(x, w, state):
             return k2_iteration(x, w, state, kn=kn, bn=bn, bkn=self.bkn,
-                                backend=self.backend, chunk=self.chunk)
+                                backend=self.backend, chunk=self.chunk,
+                                psum=psum)
         return step
 
     def init_resident(self, x: torch.Tensor, w: torch.Tensor,
                       centers: torch.Tensor,
                       assignment: torch.Tensor) -> ResidentState:
-        """One-time resident-layout build from an initial assignment."""
+        """One-time resident-layout build from an initial assignment
+        (this shard's rows on a mesh)."""
         self._validate()
-        n, d = x.shape
+        n_loc, d = x.shape
+        n = n_loc * self.shards()
         bn = self._bn(n, d)
         return init_resident_state(
             x, w, centers, assignment, kn=min(self.kn, self.k), bn=bn,
-            nb_total=resident_capacity(n, self.k, bn),
-            precision=self.precision)
+            nb_total=resident_capacity(n_loc, self.k, bn),
+            precision=self.precision, psum=self.psum())
 
     def final_assignment(self, state: ResidentState, n: int) -> torch.Tensor:
-        """Point-order assignment of a resident state, (n,) int32."""
-        return resident_assignment(state, n)
+        """Point-order assignment of a resident state, (n,) int32 (on a
+        mesh: every shard's rows, gathered in shard order, on every
+        rank)."""
+        a = resident_assignment(state, self._n_local(n))
+        return a if self.mesh is None else self.mesh.gather_rows(a)

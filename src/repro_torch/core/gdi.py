@@ -1,6 +1,7 @@
 """Greedy Divisive Initialization (port of ``repro.core.gdi``): the
 frontier-batched device init (``gdi_round_step`` / ``gdi_device_init``),
-the host loop ``gdi_init`` and the round-parallel ``gdi_parallel_init``.
+the host loop ``gdi_init``, the round-parallel ``gdi_parallel_init`` and
+the fixed-round ``gdi_fixed_rounds`` of the sharded seed.
 
 One round splits the top-energy frontier leaves all at once over the
 cluster-grouped layout: per-leaf seed pairs from uniform draws, the
@@ -364,6 +365,50 @@ def gdi_device_init(x, k: int, *, generator: torch.Generator | None = None,
     if nleaf < k:   # pathological tiny-n fallback: pad with copies
         centers = _pad_leaves(centers, nleaf, k)
     return centers, a
+
+
+def frontier_round_bound(k: int, frontier: float) -> int:
+    """Rounds the frontier schedule needs to reach ``k`` leaves when every
+    flagged leaf splits (the optimistic trip count of
+    :func:`gdi_round_step`'s t formula with every leaf eligible).
+    Fixed-trip-count callers add slack rounds for failed splits; surplus
+    rounds change nothing once there are k leaves."""
+    leaves, rounds = 1, 0
+    while leaves < k:
+        t = min(leaves, k - leaves)
+        if frontier < 1.0:
+            t = min(t, max(1, int(frontier * min(leaves, k - leaves))))
+        leaves += t
+        rounds += 1
+    return rounds
+
+
+def gdi_fixed_rounds(x, kcap: int, *, rounds: int | None = None,
+                     split_iters: int = 2, bn: int = 8,
+                     frontier: float = 1.0,
+                     generator: torch.Generator | None = None, draws=None):
+    """A fixed number of frontier rounds of :func:`gdi_round_step` toward
+    ``kcap`` leaves with no host read (the per-shard seed of
+    ``core.distributed``). ``rounds`` defaults to
+    :func:`frontier_round_bound`. ``draws``: optional per-round (g1, g2)
+    uniform draws (tests feed the reference's); else each round's two
+    (n,) uniforms come from ``generator``, a CPU ``torch.Generator``
+    (seed 0 when None), so the card draws what the CPU draws. Returns the
+    round-step state ``(a, centers, energies, sizes, nleaf)``."""
+    if rounds is None:
+        rounds = frontier_round_bound(kcap, frontier)
+    n, dev = x.shape[0], x.device
+    if generator is None and draws is None:
+        generator = torch.Generator().manual_seed(0)
+    draws = iter(draws) if draws is not None else None
+    state = _device_state(x, kcap)
+    for _ in range(rounds):
+        g = next(draws) if draws is not None else tuple(
+            torch.rand((n,), generator=generator).to(dev) for _ in range(2))
+        state = gdi_round_step(x, *state, k=kcap, bn=bn,
+                               split_iters=split_iters, frontier=frontier,
+                               draws=g)
+    return state
 
 
 def gdi_init(x, k: int, *, generator: torch.Generator | None = None,

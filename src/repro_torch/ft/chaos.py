@@ -43,8 +43,8 @@ Fault taxonomy (one knob per failure mode the guards must survive):
 ``drop_host``
     {iteration: device_index} — simulate losing one device of the debug
     mesh: the driver checkpoints, replans the mesh over the survivors
-    (``ft.plan_remesh``) and resumes (the mesh driver waits for ROADMAP §1
-    item 12; the single-device fit never polls it).
+    (``ft.plan_remesh``) and resumes (``core.distributed``; the
+    single-device fit never polls it).
 ``preempt_at``
     iteration — raise :class:`Preemption` *before* that iteration runs
     (SIGTERM with no grace); a later ``resume=True`` fit picks the run
@@ -263,7 +263,8 @@ class FaultInjector:
             self.events.append((it, kind, count))
         return x, w
 
-    def mirror_into_arena(self, state, x, nsh: int = 1):
+    def mirror_into_arena(self, state, x, nsh: int = 1,
+                          shard: int | None = None):
         """Propagate the rows just corrupted by :meth:`corrupt_inputs`
         into the resident arena's grouped copy ``xg``.
 
@@ -273,26 +274,32 @@ class FaultInjector:
         iterations. Physically the poisoned ingest lands in both copies
         at once; the mirror models that. ``pid`` entries are *local*
         shard indices, so under a mesh the global row ids are mapped
-        through the (shard, local) layout (``nsh`` shards)."""
+        through the (shard, local) layout (``nsh`` shards). ``state`` is
+        the concatenation of every shard's arena, or with ``shard`` given
+        that one shard's arena alone (one rank of ``core.distributed``);
+        ``x`` is the global rows either way, on the host or the card."""
         rows = getattr(self, "_last_rows", [])
         if not rows or not hasattr(state, "xg"):
             return state
         pid = state.pid.cpu().numpy()
         n = x.shape[0]
-        s_loc, n_loc = pid.shape[0] // nsh, n // nsh
+        s_loc = pid.shape[0] if shard is not None else pid.shape[0] // nsh
+        n_loc = n // nsh
         slots, gids = [], []
-        for s in range(nsh):
-            pidl = pid[s * s_loc:(s + 1) * s_loc]
+        for s in (range(nsh) if shard is None else (shard,)):
+            at = 0 if shard is not None else s * s_loc
+            pidl = pid[at:at + s_loc]
             local = np.asarray([r - s * n_loc for r in rows
                                 if s * n_loc <= r < (s + 1) * n_loc])
             if local.size == 0:
                 continue
             sl = np.flatnonzero(np.isin(pidl, local))
-            slots.extend((sl + s * s_loc).tolist())
+            slots.extend((sl + at).tolist())
             gids.extend((pidl[sl] + s * n_loc).tolist())
         if not slots:
             return state
-        xg = _set_rows(state.xg, slots, x[_ids(gids, x)])
+        rows_x = x[_ids(gids, x)].to(state.xg.device)
+        xg = _set_rows(state.xg, slots, rows_x)
         return state._replace(xg=xg)
 
     def corrupt_batch(self, xb):
@@ -381,9 +388,22 @@ class FaultInjector:
 
     # -- state corruption --------------------------------------------------
 
-    def corrupt_state(self, it: int, state, resident: bool):
+    def corrupt_state(self, it: int, state, resident: bool, mesh=None):
         """Apply this iteration's state faults to a K2State /
-        ResidentState (returns the possibly-modified state)."""
+        ResidentState (returns the possibly-modified state). With
+        ``mesh``, ``state`` is this rank's shard (``core.distributed``):
+        a per-row leaf a fault touches is gathered to the concatenation
+        of every shard's, corrupted as on one device (every rank draws
+        alike), and this shard's rows of it kept."""
+        def whole(t):
+            return t if mesh is None else mesh.gather_rows(t)
+
+        def mine(t):
+            if mesh is None:
+                return t
+            from ..launch.sharding import shard_rows
+            return shard_rows(t, mesh).contiguous()
+
         k = state.c.shape[0]
         if it in self.poison_centers:
             rng = self._rng("centers", it)
@@ -393,31 +413,27 @@ class FaultInjector:
             self.events.append((it, "poison_centers", cnt))
         if it in self.poison_bounds:
             rng = self._rng("bounds", it)
-            u = state.ug if resident else state.u
+            u = whole(state.ug if resident else state.u)
             cnt = min(self.poison_bounds[it], u.shape[0])
             ids = rng.choice(u.shape[0], size=cnt, replace=False)
-            if resident:
-                state = state._replace(ug=_set_rows(state.ug, ids,
-                                                    float("nan")))
-            else:
-                state = state._replace(u=_set_rows(state.u, ids,
-                                                   float("nan")))
+            u = mine(_set_rows(u, ids, float("nan")))
+            state = state._replace(**{"ug" if resident else "u": u})
             self.events.append((it, "poison_bounds", cnt))
         if resident and it in self.poison_slots:
             rng = self._rng("slots", it)
-            pid = state.pid.cpu().numpy().copy()
+            pid = whole(state.pid).cpu().numpy().copy()
             owned = np.flatnonzero(pid >= 0)
             cnt = min(self.poison_slots[it], owned.size // 2)
             if cnt:
                 victims = rng.choice(owned, size=2 * cnt, replace=False)
                 # duplicate ownership: slot i claims slot j's point
                 pid[victims[:cnt]] = pid[victims[cnt:2 * cnt]]
-                state = state._replace(pid=torch.from_numpy(pid).to(
-                    state.pid.device))
+                state = state._replace(pid=mine(torch.from_numpy(pid).to(
+                    state.pid.device)))
                 self.events.append((it, "poison_slots", cnt))
         if resident and it in self.exhaust_pool:
             b2c = state.b2c
-            n_free = int(torch.sum(b2c < 0))
+            n_free = int(torch.sum(whole(b2c) < 0))
             state = state._replace(b2c=torch.clamp(b2c, min=0))
             self.events.append((it, "exhaust_pool", n_free))
         return state

@@ -37,9 +37,13 @@ f64 in row order, the untrusted rows are re-assigned through K5 (the
 correctly rounded argmin), and the split runs
 :func:`core.gdi.projective_split` (K3), its two member draws from a CPU
 ``torch.Generator`` (``gdi._split_draws``) where the reference folds the
-split's index into a ``jax.random`` key. The mesh branches of
-``make_guard`` and ``heal_fit`` wait for multi-GPU placement (ROADMAP §1
-item 12).
+split's index into a ``jax.random`` key.
+
+On a mesh (``K2Step(mesh=...)``, ``core.distributed``) each rank counts
+its own shard's violations and :func:`make_guard` sums the lanes across
+the shards, so every rank takes the same rung; :func:`heal_fit` then
+gathers the assignment every shard recovers, heals the global arrays the
+same way on every rank, and places the healed rows on the mesh again.
 """
 from __future__ import annotations
 
@@ -141,12 +145,16 @@ def k2_violations(state: K2State, *, n: int) -> torch.Tensor:
 
 def make_guard(sb, n: int):
     """``guard(state) -> (4,)`` violation counters for a
-    :class:`core.engine.K2Step` (single device)."""
+    :class:`core.engine.K2Step`; ``n`` is the (padded, global) row count.
+    On a mesh each shard counts over its own rows and the lanes are
+    summed across the shards."""
     fn = resident_violations if sb.residency == "resident" \
         else k2_violations
+    n_loc, psum = n // sb.shards(), sb.psum()
 
     def guard(state):
-        return fn(state, n=n)
+        v = fn(state, n=n_loc)
+        return v if psum is None else psum(v)
     return guard
 
 
@@ -219,10 +227,19 @@ def heal_fit(x, w, state, sb, n: int, counter, generator, vio):
     rung of the repair lattice (module docstring) and returns the healed
     (x, w, state), which always carries ``first=True``, so the next
     iteration recomputes every live row exactly.
+
+    On a mesh, ``x``/``w`` are the global (padded, ``n``-row) arrays every
+    rank holds on the host and ``state`` this rank's shard on its card:
+    the assignment is gathered, every rank heals the same global arrays
+    alike (the split's draws from the same generator; its scan brings
+    every row to the card for the repair only), and the state is rebuilt
+    over this rank's rows of the healed arrays. The healed (x, w) come
+    back where ``x`` and ``w`` were.
     """
     resident = sb.residency == "resident"
+    mesh = sb.mesh
     vio = np.asarray(vio)
-    dev = x.device
+    dev = state.c.device
     only_bounds = bool(vio[2]) and not (vio[0] or vio[1] or vio[3])
     if only_bounds:
         # cheapest rung: the stale-zero safe loose state
@@ -249,12 +266,15 @@ def heal_fit(x, w, state, sb, n: int, counter, generator, vio):
         counter.count_sanitized_rows(n_sanitized)
 
     # 2. best-effort assignment recovery from the surviving state
+    n_loc = n // sb.shards()
     if resident:
         pid_h, b2c_h = state.pid.cpu().numpy(), state.b2c.cpu().numpy()
-        a_h = recover_assignment_np(pid_h, b2c_h,
-                                    pid_h.shape[0] // b2c_h.shape[0], n)
+        a_loc = torch.from_numpy(recover_assignment_np(
+            pid_h, b2c_h, pid_h.shape[0] // b2c_h.shape[0], n_loc)).to(dev)
     else:
-        a_h = state.a.cpu().numpy().astype(np.int64)
+        a_loc = state.a.to(torch.int64)
+    a_h = (a_loc if mesh is None else mesh.gather_rows(a_loc)) \
+        .cpu().numpy().astype(np.int64)
     a_h[(a_h < 0) | (a_h >= k)] = -1
     untrusted = a_h < 0
     a_h[untrusted] = 0                    # placeholder until re-assigned
@@ -263,8 +283,9 @@ def heal_fit(x, w, state, sb, n: int, counter, generator, vio):
     c_h = state.c.cpu().numpy().astype(np.float32)
     bad_centers = np.flatnonzero(~np.isfinite(c_h).all(axis=1))
     c_dev = torch.from_numpy(np.where(np.isfinite(c_h), c_h, 0.0)).to(dev)
-    x_dev = torch.from_numpy(x_h).to(dev)
+    x_out = torch.from_numpy(x_h).to(x.device)
     if bad_centers.size:
+        x_dev = x_out.to(dev)
         # untrusted rows must not anchor a split: weight them out of the
         # donor-energy scan (they are re-assigned exactly right after)
         w_trust = torch.from_numpy(np.where(untrusted, 0.0, w_h).astype(
@@ -277,21 +298,27 @@ def heal_fit(x, w, state, sb, n: int, counter, generator, vio):
     # 4. exact re-assignment of the untrusted live rows
     unc = np.flatnonzero(untrusted & (w_h > 0))
     if unc.size:
-        au, _ = assign_nearest_kernel(x_dev[torch.from_numpy(unc).to(dev)],
+        au, _ = assign_nearest_kernel(torch.from_numpy(x_h[unc]).to(dev),
                                       c_dev)
         counter.add_distances(int(unc.size) * k)
         a_h[unc] = au.cpu().numpy()
-    a_dev = torch.from_numpy(a_h.astype(np.int32)).to(dev)
+    a_all = torch.from_numpy(a_h.astype(np.int32)).to(x.device)
 
-    # 5. rebuild the loop state from the healed primals
-    w_dev = torch.from_numpy(w_h).to(dev)
+    # 5. rebuild the loop state from the healed primals (this rank's rows
+    # of them on a mesh)
+    w_out = torch.from_numpy(w_h).to(w.device)
+    x_s, w_s, a_s = x_out, w_out, a_all
+    if mesh is not None:
+        from ..launch.sharding import shard_rows
+        x_s, w_s, a_s = (shard_rows(t, mesh) for t in (x_s, w_s, a_s))
+    x_s, w_s, a_s = (t.to(dev) for t in (x_s, w_s, a_s))
     if resident:
-        state = sb.init_resident(x_dev, w_dev, c_dev, a_dev)
+        state = sb.init_resident(x_s, w_s, c_dev, a_s)
         counter.count_repair("regroup")
     else:
-        state = init_state(c_dev, a_dev, min(sb.kn, k))
+        state = init_state(c_dev, a_s, min(sb.kn, k))
         counter.count_repair("bound_reset")
-    return x_dev, w_dev, state
+    return x_out, w_out, state
 
 
 class DriftGuard(typing.NamedTuple):

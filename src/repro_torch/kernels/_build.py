@@ -4,7 +4,8 @@ Each source in ``csrc/`` is compiled by its own ``nvcc`` process, all
 started together, into a shared library with a plain C interface for
 ``sm_90a`` and loaded with ctypes: no PyTorch headers, so a build takes
 seconds. Libraries are cached in ``build/kernels/`` at the root of the
-checkout under a hash of their source and flags, and built at first use.
+checkout under a hash of their source and flags, and built at first use,
+under a file lock, so processes that start together build once.
 
 Every kernel's C entry point returns ``cudaGetLastError()`` after its
 launches; :func:`check` raises on a non-zero code. :data:`LAUNCHES`
@@ -13,7 +14,9 @@ time it launches the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -74,12 +77,21 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+@contextlib.contextmanager
+def _file_lock():
+    """One build at a time across processes (the ranks of a mesh reach
+    their first launch together); the lock goes with its process."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build_all() -> dict:
     """Compile every kernel library that is not built yet, one ``nvcc``
     per source in parallel. Returns {name: seconds} for the sources it
     compiled (empty when all were cached)."""
-    with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, _file_lock():
         todo = [n for n in SOURCES if not _target(n).exists()]
         t0 = time.perf_counter()
         procs = {}

@@ -16,9 +16,9 @@ the lower cluster id, as ``lax.top_k``), then K6
 blocks, where the reference computes the same state in jnp
 (``_cm_partial``); the recent-token ring and the token being decoded are
 merged into it in plain torch, exactly as the reference merges them.
-The reference's ``shard_map`` branch (cluster shards over a mesh) waits
-for ROADMAP §1 item 12; MLA and the flat-cache clustered variant
-(``clustered_decode_attention``) wait for item 13.
+The reference's ``shard_map`` branch (cluster shards over a mesh), MLA
+and the flat-cache clustered variant (``clustered_decode_attention``)
+wait for ROADMAP §1 item 13.
 
 Decode writes the caches in place (the flat cache's slot ``cur_pos``;
 the ring's next slot and its fill count), where the reference returns

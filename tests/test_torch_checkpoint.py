@@ -34,8 +34,8 @@ from repro.core.model import KMeansModel as JaxModel
 from repro.data import gmm_blobs
 from repro_torch.checkpoint import (AsyncCheckpointer, CheckpointCorruptError,
                                     all_steps, latest_step, load_meta,
-                                    reshard_restore, restore_checkpoint,
-                                    save_checkpoint, verify_checkpoint)
+                                    restore_checkpoint, save_checkpoint,
+                                    verify_checkpoint)
 from repro_torch.checkpoint.checkpoint import _flatten
 from repro_torch.convert import model_from_reference
 from repro_torch.core import KMeansModel
@@ -138,11 +138,6 @@ def test_bf16_leaf_and_shape_mismatch(tmp_path):
     assert got["x"].dtype == torch.bfloat16 and torch.equal(got["x"], t["x"])
     with pytest.raises(CheckpointCorruptError, match="shape"):
         restore_checkpoint(d, 1, {"x": torch.zeros(3)}, device="cpu")
-
-
-def test_reshard_restore_waits_for_item_12(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        reshard_restore(str(tmp_path), 0, _state(), None)
 
 
 def test_restore_defaults_to_the_card(tmp_path):

@@ -1358,3 +1358,43 @@ def test_cuda_xla_model_predict_matches_cpu(cuda, prec):
     for key in ((str(cuda), "xla"), (str(cuda), "kernels")):
         assert torch.equal(got[key][0], want[0]) and \
             torch.equal(got[key][1], want[1]), key
+
+
+@pytest.mark.cuda
+def test_cuda_cross_shard_sum_equals_cpu(cuda):
+    """The mesh's ordered sum over four gloo ranks on the card (its
+    payload staged through the host, its additions on the card) gives the
+    CPU's bits, a -0.0 partial included."""
+    import torch_mesh_cases as cases
+    from repro_torch.launch.mesh import run_local
+    rng = np.random.default_rng(0)
+    vals = (rng.standard_normal((4, 4096)) * 10.0 ** rng.integers(
+        -6, 8, (4, 4096))).astype(np.float32)
+    vals[:, :2] = -0.0
+    cpu = run_local(cases.sum_world, 4, vals, device="cpu", timeout=300)
+    card = run_local(cases.sum_world, 4, vals, device="cuda", timeout=300)
+    for got in cpu + card:
+        np.testing.assert_array_equal(got, cpu[0])
+    assert (cpu[0][:2] == np.float32(-0.0).view(np.uint32)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_on_one_card_equal_two_on_cpu(cuda):
+    """The sharded kernels fit on two gloo ranks sharing the card equals
+    the same fit on two CPU ranks bit for bit (ROADMAP §3 entry 9's
+    integer blobs, n=3000, d=16, k=48)."""
+    import torch_mesh_cases as cases
+    from repro_torch.launch.mesh import run_local
+    rng = np.random.default_rng(2)
+    mus = np.round(rng.standard_normal((12, 16)) * 12)
+    x = np.round(mus[rng.integers(0, 12, 3000)]
+                 + rng.standard_normal((3000, 16)) * 1.5).astype(np.float32)
+    data = {"x": x, "init": x[rng.permutation(3000)[:48]].copy()}
+    cpu = run_local(cases.small_fit_world, 2, data, device="cpu",
+                    timeout=300)
+    card = run_local(cases.small_fit_world, 2, data, device="cuda",
+                     timeout=300)
+    for got in cpu[1:] + card:
+        np.testing.assert_array_equal(got["a"], cpu[0]["a"])
+        np.testing.assert_array_equal(got["c"], cpu[0]["c"])
+        assert got["iterations"] == cpu[0]["iterations"]

@@ -220,12 +220,3 @@ def test_fit_max_iters_zero_evaluates_init():
                      device="cpu")
     assert rt.iterations == rj.iterations == 0
     assert rt.energy == pytest.approx(rj.energy, rel=1e-5)
-
-
-@pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 12"), ({"init": "gdi_replicated"}, "item 12"),
-])
-def test_unported_options_name_their_roadmap_item(kw, item):
-    x = blobs(7, 64, 4, 3)
-    with pytest.raises(NotImplementedError, match=item):
-        fit(x, 4, kn=2, max_iters=2, device="cpu", **kw)
