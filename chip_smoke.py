@@ -146,6 +146,30 @@ Phases (any failure exits non-zero, without the final result line):
    agrees with the plain CPU path, and that a short decode through the
    envelope equals the direct calls; print ms per token through the
    envelope beside direct calls on the same cache;
+2l. (after phase 3 and the profile, with phase 2e's model released) the
+   MoE family at Arctic's full width (d_model 7168, 56 q-heads over 8
+   kv-heads, d_head 128, 128 experts top-2, moe_d_ff 4864, a dense
+   residual of d_ff 4864, vocab 32,000), depth cut to 2 of its 35 layers,
+   random weights from the seed: as phase 2e, with 2 requests of a
+   32,768-token prompt; print the allocated memory at the start, init,
+   prefill and attach seconds, tokens dropped by full clusters, ms per
+   token full and clustered, token agreement, peak device memory, host
+   reads per decode step and the bytes bound of a decode step's expert
+   products; check K6 once per layer per clustered token and nothing
+   else, finite logits, 1 host read a step, every step and fold through
+   the executor; then seed a GDI router (``moe.gdi_router_init``) over
+   request 0's embedded prompt (32,768 x 7168 f32, 128 experts): check
+   its shape, unit columns (rtol 1e-6), K3 launched twice a round and K5
+   never, the card's router equal to the plain CPU path's from the same
+   generator bit for bit, and the first and the last round's K3 launches
+   (7 column slices of 1024) held against K3's plain version as phase 3
+   holds K3; print its seconds and layer 0's aux and pairs dropped by
+   the chunked forward's capacity on the normed embeddings under the
+   random router and under GDI's (the serve prefill routes each
+   position's tokens as a decode step does and drops none); check a
+   small GDI router and Arctic's smoke config in f32 on
+   the card against the plain CPU path (the router bit for bit, the
+   logits within 1e-4 of their largest magnitude);
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -155,8 +179,9 @@ Phases (any failure exits non-zero, without the final result line):
    batch and over the int8 fit arena (bn = 32, every block; with the
    re-rank's ``slab_sqdist`` timed beside it), K5 on x and the Lloyd++
    centers, K7 over the arena, K6 on
-   layer 0's cluster-major tables at a decode step, launched twice and
-   held bit-identical to itself; K1, K5 and K7 also on
+   layer 0's cluster-major tables at a decode step of phase 2e and, after
+   phase 2l, of phase 2l (a GQA group of 7 where phase 2e's is 4),
+   launched twice and held bit-identical to itself; K1, K5 and K7 also on
    ``data.rounding_fixture`` rows, whose own-center products sit at f32
    rounding midpoints, and K2 on those rows and centers as one center
    set; the rounding kernels on the final centers, GDI's split norms on
@@ -184,7 +209,8 @@ Phases (any failure exits non-zero, without the final result line):
 ``python3 chip_smoke.py --profile`` adds one ``partial_fit`` batch in
 phase 2f and, after phase 3, the fit, one predict in each precision, one
 Lloyd++ fit, and phase 2e's full and k²-attention decode (8 steps each)
-and a ring fold under ``torch.profiler``:
+and a ring fold, and in phase 2l its full and k²-attention decode (4
+steps each), under ``torch.profiler``:
 device time by kernel, the device's busy share of the host clock, and
 the host synchronisations.
 """
@@ -206,6 +232,10 @@ LLOYD_ITERS, ELKAN_ITERS = 300, 5   # Lloyd++ runs to convergence here
 # phase 2e: Qwen3-8B's width, depth cut to 4 of 36 layers
 LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_DECODE, LM_FOLD = (
     "qwen3-8b", 4, 2, 65536, 64, 32)
+# phase 2l: Arctic's width (128 experts, top-2, a dense residual), depth cut
+# to 2 of 35 layers; 32,768-token prompts keep the prefill's MoE buffers
+# (C = 1,280 slots an expert) and the cluster tables within the card
+MOE_ARCH, MOE_LAYERS, MOE_PROMPT = "arctic-480b", 2, 32768
 # phase 2f: the streaming model (window in epochs = partial_fit batches)
 STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -914,6 +944,15 @@ def main() -> int:
             device=dev, generator=pp_gen()))
         _profile_serve(torch, serve, lm)
 
+    # --- 2l. the MoE family at Arctic's width (after phase 3, which holds
+    # K6 on phase 2e's tables, and the profile of phase 2e's decode) ------
+    del lm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(_moe_phase(torch, dev, serve, check,
+                              cluster_attend_partial, ref))
+    print(f"  phase 2l wall {time.perf_counter() - t0:.1f} s")
+
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
@@ -1320,6 +1359,189 @@ def _lm_serve(torch, dev, serve, check) -> dict:
     return dict(r, cfg=cfg, launches_all=launches)
 
 
+def _moe_phase(torch, dev, serve, check, cluster_attend_partial,
+               ref) -> dict:
+    """Phase 2l: ``serve.run`` at Arctic's width, depth cut to MOE_LAYERS,
+    counts set to 0 just before; its checks, the GDI router at full width
+    and the card against the CPU at small shapes. Returns K6's kernels
+    entry on its layer-0 tables (a GQA group of 7)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.moe import capacity, gdi_router_init, route
+    from repro_torch.models.transformer import layer_params
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    print(f"phase 2l: {cfg.name} cut to {MOE_LAYERS} of {full.n_layers} "
+          f"layers (d_model {d}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"d_head {cfg.d_head}, {E} experts top-{cfg.top_k}, moe_d_ff {f}, "
+          f"dense residual d_ff {cfg.d_ff}, vocab {cfg.vocab}), {LM_BATCH} "
+          f"requests x {MOE_PROMPT} prompt tokens, {LM_DECODE} decode "
+          f"tokens, kc {cfg.kv_clusters}, cap {cfg.cluster_cap}, top-p "
+          f"{cfg.cluster_top_p}, ring {cfg.cluster_ring}, fold every "
+          f"{LM_FOLD}; allocated at the start {base / 2 ** 30:.2f} GiB")
+    _build.reset_launches()
+    r = serve.run(cfg, batch=LM_BATCH, prompt_len=MOE_PROMPT,
+                  decode_len=LM_DECODE, fold_every=LM_FOLD, device=dev,
+                  seed=SEED, echo=lambda line: print(f"  serve: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    st = r["cache"]["stack"]
+    fill_after = int(st["ring_fill"].sum())
+    tok = r["prompt"][:, -1:]
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, r["params"], r["cache"], tok, MOE_PROMPT + LM_DECODE, 2))
+    if "--profile" in sys.argv[1:]:
+        pos = MOE_PROMPT + LM_DECODE + 2
+        _profile(torch, "2l full decode x4", lambda: serve.decode(
+            cfg, r["params"], r["flat_cache"], tok, MOE_PROMPT, 4))
+        _profile(torch, "2l clustered decode x4", lambda: serve.decode(
+            cfg, r["params"], r["cache"], tok, pos, 4))
+    slots = MOE_PROMPT * LM_BATCH * cfg.n_kv_heads * MOE_LAYERS
+    n_params = sum(v.numel() for v in _leaves(r["params"]["stack"]))
+    print(f"  init {r['t_init']:.3f} s ({n_params / 1e9:.3f} B layer params);"
+          f" prefill {r['t_prefill']:.3f} s; attach (k2-means + repack of "
+          f"{MOE_LAYERS} layers) {r['t_attach']:.3f} s, tokens dropped by "
+          f"full clusters {r['dropped']} of {slots} "
+          f"({100.0 * r['dropped'] / slots:.3f}%)")
+    print(f"  decode: full {r['t_full'] / LM_DECODE * 1e3:.3f} ms/token, "
+          f"clustered {r['t_clus'] / LM_DECODE * 1e3:.3f} ms/token with "
+          f"folds ({r['t_clus_loop'] / LM_DECODE * 1e3:.3f} in the loop "
+          f"before the tail fold); token agreement {r['agreement']:.4f}")
+    expert_bytes = 3.0 * E * d * f * 2          # wi, wg, wo in bf16
+    print(f"  peak device memory {peak / 2 ** 30:.2f} GiB (+"
+          f"{(peak - base) / 2 ** 30:.2f} over the start); host reads "
+          f"{reads} for 2 decode steps; launches {launches}")
+    print(f"  a decode step's expert products read all {E} experts: "
+          f"{expert_bytes / 1e9:.2f} GB a layer, bound "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a layer at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the {cfg.top_k} chosen "
+          f"experts' {expert_bytes * cfg.top_k / E / 1e9:.3f} GB would take "
+          f"{expert_bytes * cfg.top_k / E / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    want = MOE_LAYERS * LM_DECODE
+    check(launches["cluster_attend"] == want
+          and r["launches"]["cluster_attend"] == want
+          and sum(launches.values()) == want,
+          f"2l: cluster_attend (K6) launched once per layer per clustered "
+          f"token and nothing else launched ({launches['cluster_attend']} "
+          f"for {want})")
+    for name in ("prefill_logits", "full_logits", "clus_logits"):
+        check(tuple(r[name].shape) == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(r[name]).all()),
+              f"2l: {name} finite, shape ({LM_BATCH}, {cfg.vocab})")
+    check(r["folded"] == LM_DECODE * MOE_LAYERS and 0 <= r["sizes1"]
+          - r["sizes0"] <= r["folded"] * LM_BATCH * cfg.n_kv_heads
+          and r["dropped"] >= 0 and fill_after == 0,
+          f"2l: the folds took {r['folded']} ring slots, one per layer per "
+          f"decoded token, and left the ring empty")
+    check(reads == 2, f"2l: host reads: 1 per decode step ({reads} for 2)")
+    st_ex = r["executor"].stats()
+    check(st_ex["admitted"] == LM_DECODE + LM_DECODE // LM_FOLD + 1
+          and st_ex["rejected"] == 0,
+          f"2l: every decode step and fold went through ex.call "
+          f"({st_ex['admitted']} admitted)")
+    entry = _k6_entry(torch, check, dict(r, cfg=cfg, launches_all=launches),
+                      cluster_attend_partial, ref,
+                      name="cluster_attend[arctic]")
+    params, prompt = r["params"], r["prompt"]
+    del r, st
+    torch.cuda.empty_cache()
+
+    # the GDI router at full width, on request 0's embedded prompt (d =
+    # 7168: K3 takes its multi-slice branch, 7 slices of 1024 columns);
+    # the first and the last round's K3 launches are kept for the checks
+    # below. Then aux and the pairs capacity drops for layer 0 on the
+    # normed embeddings
+    import repro_torch.core.gdi as gdi_mod
+    x0 = params["embed"][prompt[0].long()].float()
+    kernel, scans = gdi_mod.segmented_scan, []
+
+    def kept_scan(xg, w, b2s, *, bn):
+        scans[1:] = [(xg, w, b2s, bn)]
+        return kernel(xg, w, b2s, bn=bn)
+    gdi_mod.segmented_scan = kept_scan
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        w_gdi = gdi_router_init(x0, E, device=dev,
+                                generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+    finally:
+        gdi_mod.segmented_scan = kernel
+    t_gdi = time.perf_counter() - t0
+    gl = _build.launches()
+    t0 = time.perf_counter()
+    w_cpu = gdi_router_init(x0.cpu(), E, device="cpu",
+                            generator=torch.Generator().manual_seed(SEED))
+    t_cpu = time.perf_counter() - t0
+    check(bool(torch.equal(w_gdi.cpu(), w_cpu)),
+          f"2l: GDI router at full width ({MOE_PROMPT} x {d}, E = {E}) from "
+          f"one generator: the card's equals the plain CPU path's bit for "
+          f"bit (CPU {t_cpu:.1f} s)")
+    rounds = (E - 1).bit_length()
+    for (xg, w, b2s, bn), at in zip(scans, (1, rounds)):
+        _k3_agrees(torch, check, kernel, ref, xg, w, b2s, bn,
+                   f"d = {d} ({-(-d // 1024)} column slices), GDI round "
+                   f"{at} of {rounds} ({1 << (at - 1)} leaves)")
+    del scans, w_cpu
+    norms = torch.linalg.norm(w_gdi.double(), dim=0)
+    check(tuple(w_gdi.shape) == (d, E)
+          and bool(torch.allclose(norms, torch.ones_like(norms), rtol=1e-6,
+                                  atol=0.0)),
+          f"2l: GDI router {tuple(w_gdi.shape)}, unit columns (largest "
+          f"|norm - 1| {float((norms - 1).abs().max()):.3g})")
+    check(gl["segmented_scan"] == 2 * rounds and gl["distance_argmin"] == 0,
+          f"2l: GDI router: K3 launched {gl['segmented_scan']} times (2 a "
+          f"round, {rounds} rounds), K5 {gl['distance_argmin']}")
+    p0 = layer_params(params["stack"], 0)
+    xn = rmsnorm(p0["ln2"], params["embed"][prompt[0].long()])
+    stats = {}
+    for label, w in (("random", p0["mlp"]["router"]["w"]), ("GDI", w_gdi)):
+        rt = route(w, xn, top_k=cfg.top_k)
+        stats[label] = (float(rt["aux"]), int((~rt["kept"]).sum()),
+                        rt["C"])
+    print(f"  GDI router on request 0's prompt ({MOE_PROMPT} x {d} f32, "
+          f"E = {E}): {t_gdi:.3f} s, launches {gl}; layer 0 on the normed "
+          f"embeddings as one chunked call (forward_prefill's routing, "
+          f"capacity C = {stats['GDI'][2]}): "
+          + "; ".join(f"{k} router aux {a:.4f}, {n} of "
+                      f"{MOE_PROMPT * cfg.top_k} pairs dropped"
+                      for k, (a, n, _) in stats.items())
+          + f"; the serve prefill routes each position's {LM_BATCH} tokens "
+          f"as one call (C = {capacity(LM_BATCH, E, cfg.top_k)}) and "
+          f"drops none under either router")
+    check(capacity(LM_BATCH, E, cfg.top_k) >= LM_BATCH,
+          "2l: the serve prefill's per-position capacity holds every pair")
+    del params, prompt, x0, xn, w_gdi, p0
+    torch.cuda.empty_cache()
+
+    # the card against the plain CPU path at small shapes
+    xs = torch.randn((3000, 64), generator=torch.Generator().manual_seed(2))
+    got = [gdi_router_init(xs.to(where), 16, device=where,
+                           generator=torch.Generator().manual_seed(3)).cpu()
+           for where in ("cpu", dev)]
+    check(bool(torch.equal(got[0], got[1])),
+          "2l: GDI router at n=3000, d=64, E=16 from one generator: the "
+          "card's equals the CPU's bit for bit")
+    _small_serve_agrees(torch, dev, serve, check, arch=MOE_ARCH)
+    return entry
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _envelope_agrees(torch, dev, serve, check) -> None:
     """A short run (the smoke config, 12 clustered steps, a fold every 4)
     on the card through the executor envelope and through direct calls,
@@ -1354,14 +1576,15 @@ def _envelope_agrees(torch, dev, serve, check) -> None:
                 "calls: tokens, logits and tables")
 
 
-def _small_serve_agrees(torch, dev, serve, check) -> None:
-    """The smoke config's serve path in f32 on the card (K6) against the
-    plain CPU path on the same params and prompt: prefill, clustering
-    and 4 teacher-forced k²-attention decode steps; logits within 1e-4
-    of their largest magnitude (f32, sums in other orders)."""
+def _small_serve_agrees(torch, dev, serve, check, arch: str = LM_ARCH
+                        ) -> None:
+    """``arch``'s smoke config's serve path in f32 on the card (K6)
+    against the plain CPU path on the same params and prompt: prefill,
+    clustering and 4 teacher-forced k²-attention decode steps; logits
+    within 1e-4 of their largest magnitude (f32, sums in other orders)."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.model import init_cache, init_params, serve_step
-    cfg = get_smoke_config(LM_ARCH)
+    cfg = get_smoke_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
 
     def f32(t, where):
@@ -1388,14 +1611,14 @@ def _small_serve_agrees(torch, dev, serve, check) -> None:
         out[str(where)] = [s.cpu() for s in steps]
     err = max(float((a - b).abs().max() / b.abs().max())
               for a, b in zip(out[str(dev)], out["cpu"]))
-    check(err <= 1e-4, f"small serve (smoke config in f32, 2 layers) on the "
+    check(err <= 1e-4, f"small serve ({cfg.name} in f32, 2 layers) on the "
                        f"card agrees with the plain CPU path: logits max "
                        f"rel err {err:.3g} (<= 1e-4)")
 
 
 def k6_inputs(torch, lm):
     """K6's arguments on layer 0's cluster-major tables at a decode step
-    of phase 2e (``lm``: ``serve.run``'s result with its ``cfg``): the
+    of phase 2e or 2l (``lm``: ``serve.run``'s result with its ``cfg``): the
     layer's query for the last decoded token, f32 (B*H, dh), the tables
     (B*Hkv*kc, cap, dh), its top-p selection (B*H, p) and the sizes."""
     from repro_torch.kernels.cluster_attend import select_clusters
@@ -1407,7 +1630,8 @@ def k6_inputs(torch, lm):
     H, p = cfg.n_heads, cfg.cluster_top_p
     p0 = layer_params(params["stack"], 0)
     h = params["embed"][lm["prompt"][:, -1:].long()]
-    pos = torch.full((B, 1), LM_PROMPT + LM_DECODE, device=h.device)
+    pos = torch.full((B, 1), lm["prompt"].shape[1] + LM_DECODE,
+                     device=h.device)
     q, _, _ = attn.gqa_project(p0["attn"], rmsnorm(p0["ln1"], h), H, Hkv, dh,
                                pos, cfg.rope_theta, cfg.qk_norm)
     sel = select_clusters(q[:, 0], st["cent"][0], p)  # the decode path's
@@ -1418,7 +1642,8 @@ def k6_inputs(torch, lm):
     return qf, kt, vt, sel, sizes
 
 
-def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
+def _k6_entry(torch, check, lm, cluster_attend_partial, ref,
+              name: str = "cluster_attend") -> dict:
     """K6 on layer 0's cluster-major tables at a decode step (the layer's
     query for the last decoded token, its top-p selection) against its
     plain version, launched twice and held bit-identical to itself; its
@@ -1447,15 +1672,15 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
     out_k = acc / torch.clamp(l, min=1e-30)[:, None]
     out_p = acc_p / torch.clamp(l_p, min=1e-30)[:, None]
     err = float((out_k - out_p).abs().max())
-    check(ok, f"K6 on layer 0's tables ({tuple(kt.shape)} bf16, {B * H} "
-              f"rows, p={p}) vs plain: m, l within rtol 1e-5 (rescaled to "
+    check(ok, f"{name}: K6 on layer 0's tables ({tuple(kt.shape)} bf16, "
+              f"{B * H} rows, p={p}) vs plain: m, l within rtol 1e-5 (rescaled to "
               f"the plain max), acc within atol 1e-5 of the row's sum of "
               f"w|v|, empty rows exact; "
               f"attention output max abs err {err:.3g}")
     again = kern()
     same = all(bool(torch.equal(a, b)) for a, b in zip((m, l, acc), again))
-    check(same, f"K6 launched twice on layer 0's tables: bit-identical "
-                f"({same})")
+    check(same, f"{name}: K6 launched twice on layer 0's tables: "
+                f"bit-identical ({same})")
     # bound: the distinct selected blocks' live rows of K and V (bf16),
     # q, sel and the sizes read, the outputs written; 4 dh FLOPs per
     # (query row, live row) pair
@@ -1477,7 +1702,7 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref) -> dict:
           f"{ids.numel()} selected blocks, {pair_rows} (row, block) reads, "
           f"mean block size {float(sizes.float().mean()):.2f} of {cap}")
     return dict(
-        name="cluster_attend", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/cluster_attend.cu",
         replaces="src/repro/kernels/cluster_attend.py:67",
         launches=lm["launches_all"]["cluster_attend"], max_abs_err=err,

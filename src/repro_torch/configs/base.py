@@ -2,8 +2,8 @@
 ``repro.configs.base``): the port's own copy of ``ArchConfig``, with its
 fields and defaults as the reference has them, and the registry of the
 ported architectures, one module each. The reference's other
-architectures (MoE, MLA, SSM, hybrid, VLM, audio) wait for their
-families (ROADMAP §1 item 13)."""
+architectures (MLA, SSM, hybrid, VLM, audio) wait for their families
+(ROADMAP §1 item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,15 +55,17 @@ class ArchConfig:
     long_context_threshold: int = 65536   # S >= this -> clustered decode
 
 
-# the ported architectures: dense GQA, with and without qk-norm
-ARCH_IDS = ["granite-8b", "qwen3-8b", "minitron-4b"]
+# the ported architectures: dense GQA, with and without qk-norm, and the
+# MoE family with its dense residual (Arctic)
+ARCH_IDS = ["arctic-480b", "granite-8b", "qwen3-8b", "qwen3-14b",
+            "minitron-4b"]
 
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
-            f"{arch_id}: only the dense GQA architectures {ARCH_IDS} are "
-            f"ported (the other families wait for ROADMAP §1 item 13)")
+            f"{arch_id}: only the architectures {ARCH_IDS} are ported (the "
+            f"other families wait for ROADMAP §1 item 13)")
     return importlib.import_module(
         f"{__package__}.{arch_id.replace('-', '_')}")
 

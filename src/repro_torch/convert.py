@@ -79,16 +79,28 @@ def _tree(v, device):
     return _tensor_from_numpy(v, device)
 
 
+_LAYER_KEYS = {"ln1", "attn", "ln2", "mlp", "dense_mlp"}
+_MOE_KEYS = {"router", "wi", "wg", "wo", "shared"}
+
+
 def params_from_reference(params_np, cfg, *, device):
     """The reference's LM params (a nested dict of arrays, layers stacked
     on a leading axis) -> the port's, same paths and types, on
     ``device``, with the f32 copy of the embedding that ``unembed``
-    reads. Dense GQA family only."""
+    reads. Dense GQA and MoE families: an MoE layer's router (f32), its
+    stacked experts ``wi``/``wg``/``wo`` (L, E, d, f), its shared experts
+    and Arctic's ``dense_mlp`` come across as they are; any other key
+    raises."""
     from .models.model import with_unembed_table
-    if cfg.family != "dense" or set(params_np) - {"embed", "out_norm",
-                                                  "stack"}:
-        raise NotImplementedError(f"{cfg.name}: only the dense GQA family "
-                                  f"is ported (ROADMAP §1 item 13)")
+    stack = params_np.get("stack", {})
+    unknown = (set(params_np) - {"embed", "out_norm", "stack"}) | (
+        set(stack) - _LAYER_KEYS)
+    if cfg.moe:
+        unknown |= set(stack.get("mlp", {})) - _MOE_KEYS
+    if cfg.family not in ("dense", "moe") or cfg.mla or unknown:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA and MoE families are ported "
+            f"(ROADMAP §1 item 13); unknown keys {sorted(unknown)}")
     return with_unembed_table(_tree(params_np, device))
 
 

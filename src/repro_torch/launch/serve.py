@@ -6,7 +6,8 @@ CPU-scale demo:
         --smoke --device cpu
 On a card (the default device), ``run`` takes any config, for example
 Qwen3-8B's cut in depth with ``dataclasses.replace(cfg, n_layers=4)``
-(as ``chip_smoke.py`` does).
+(as ``chip_smoke.py`` does). The MoE family (``--arch arctic-480b``)
+runs through the same code: only the layers' MLP differs.
 
 Compares full-attention decode with k²-attention (cluster-major KV)
 decode and reports token agreement and the attention reads saved. The
@@ -49,7 +50,11 @@ def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
     """Fill the flat KV cache's first S slots from the prompt (B, S) and
     return (logits after the prompt (B, vocab), cache): the contract of
     the reference's stepped prefill, from one chunked forward whose
-    layers hand their keys and values to the cache."""
+    layers hand their keys and values to the cache. In the MoE family
+    each position's B tokens are routed as the reference's decode step
+    routes them (``moe.moe_apply_stepped``: with B <= 8 no pair is
+    dropped), not as one call over the B·S tokens of the chunked forward,
+    whose capacity would drop pairs the stepped prefill keeps."""
     S = tokens.shape[1]
     st = cache["stack"]
 
@@ -58,7 +63,7 @@ def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
         st["v"][i, :, :, :S] = v.transpose(1, 2)
 
     logits = forward_prefill(cfg, params, tokens, q_chunk=q_chunk,
-                             kv_sink=sink)
+                             kv_sink=sink, moe_stepped=True)
     return logits, cache
 
 
@@ -172,7 +177,10 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     the measurements, the params, both caches and the executor."""
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
     params = init_params(cfg, gen, device=dev)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
     S_total = prompt_len + decode_len + 1
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=dev, dtype=torch.int32)
@@ -245,7 +253,7 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
         prompt=prompt,
         prefill_logits=prefill_logits, full_logits=full_logits,
         clus_logits=clus_logits, full_toks=full_toks, clus_toks=clus_toks,
-        t_prefill=t_prefill, t_attach=t_attach, t_full=t_full,
+        t_init=t_init, t_prefill=t_prefill, t_attach=t_attach, t_full=t_full,
         t_clus=t_clus, t_clus_loop=t_loop, agreement=agree, folded=folded,
         sizes0=sizes0, sizes1=sizes1,
         dropped=prompt_len * batch * cfg.n_kv_heads * n_layers - sizes0,

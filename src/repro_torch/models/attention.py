@@ -70,6 +70,7 @@ def causal_attention(q, k, v, *, q_chunk: int = 512) -> torch.Tensor:
         w = _softmax(logits).to(v.dtype)
         o = torch.matmul(w, vr[:, :, :ke])                 # (B,Hkv,g*n,dh)
         out[:, lo:ke] = o.reshape(B, Hkv, g, n, -1).permute(0, 3, 1, 2, 4)
+        del logits, w, o           # before the next chunk's are allocated
     return out.reshape(B, S, H, v.shape[-1])
 
 
@@ -146,14 +147,15 @@ def cluster_major_decode_attention(q, kt, vt, centroids, sizes, top_p: int,
 # --------------------------------------------------------------------------
 
 def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
-             d_head: int, qk_norm: bool, dtype=torch.bfloat16) -> dict:
-    p = {"wq": dense_init(gen, d, n_heads * d_head, dtype),
-         "wk": dense_init(gen, d, n_kv * d_head, dtype),
-         "wv": dense_init(gen, d, n_kv * d_head, dtype),
-         "wo": dense_init(gen, n_heads * d_head, d, dtype)}
+             d_head: int, qk_norm: bool, dtype=torch.bfloat16,
+             new=None) -> dict:
+    p = {"wq": dense_init(gen, d, n_heads * d_head, dtype, new),
+         "wk": dense_init(gen, d, n_kv * d_head, dtype, new),
+         "wv": dense_init(gen, d, n_kv * d_head, dtype, new),
+         "wo": dense_init(gen, n_heads * d_head, d, dtype, new)}
     if qk_norm:
-        p["qn"] = rmsnorm_init(d_head, dtype, gen.device)
-        p["kn"] = rmsnorm_init(d_head, dtype, gen.device)
+        p["qn"] = rmsnorm_init(d_head, dtype, gen.device, new)
+        p["kn"] = rmsnorm_init(d_head, dtype, gen.device, new)
     return p
 
 

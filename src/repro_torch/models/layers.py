@@ -10,7 +10,10 @@ constant to the tensor's type. The reference's sharding hints
 (``shard``, ``sanitize_spec``, ``head_spec``) do nothing on one device
 and are left out. Inits take an explicit ``torch.Generator`` and draw
 other numbers than ``jax.random``: tests carry the reference's params
-across with ``convert.params_from_reference``.
+across with ``convert.params_from_reference``. An init fills tensors it
+asks of ``new(shape, dtype)`` (default: a fresh tensor on the
+generator's device), so a layer stack can hand out slices of its
+stacked leaves (``transformer.stack_init``).
 """
 from __future__ import annotations
 
@@ -18,20 +21,33 @@ import torch
 import torch.nn.functional as F
 
 
+def allocator(device, new=None):
+    """``new``, or one that makes an empty tensor on ``device``."""
+    return new or (lambda shape, dtype: torch.empty(
+        shape, dtype=dtype, device=device))
+
+
+def normal_into(w: torch.Tensor, gen: torch.Generator, scale: float):
+    """Fill ``w`` with normal draws from ``gen``, made in f32, times
+    ``scale``, then cast to ``w``'s type. Returns ``w``."""
+    return w.copy_(torch.randn(w.shape, generator=gen, dtype=torch.float32,
+                               device=gen.device).mul_(scale))
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               dtype=torch.bfloat16) -> dict:
+               dtype=torch.bfloat16, new=None) -> dict:
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device) * scale
-    return {"w": w.to(dtype)}
+    return {"w": normal_into(allocator(gen.device, new)((d_in, d_out), dtype),
+                             gen, scale)}
 
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"]
 
 
-def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:
-    return {"g": torch.ones((d,), dtype=dtype, device=device)}
+def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None,
+                 new=None) -> dict:
+    return {"g": allocator(device, new)((d,), dtype).fill_(1)}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -41,10 +57,10 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def swiglu_init(gen: torch.Generator, d: int, f: int,
-                dtype=torch.bfloat16) -> dict:
-    return {"wi": dense_init(gen, d, f, dtype),
-            "wg": dense_init(gen, d, f, dtype),
-            "wo": dense_init(gen, f, d, dtype)}
+                dtype=torch.bfloat16, new=None) -> dict:
+    return {"wi": dense_init(gen, d, f, dtype, new),
+            "wg": dense_init(gen, d, f, dtype, new),
+            "wo": dense_init(gen, f, d, dtype, new)}
 
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Top-level model, dense GQA family (port of ``repro.models.model``):
-config -> params, prefill forward, caches and the serve step.
+"""Top-level model, dense GQA and MoE families (port of
+``repro.models.model``): config -> params, prefill forward, caches and
+the serve step.
 
 Params are nested dicts of tensors whose paths and shapes are the
 reference's (``convert.params_from_reference`` carries them across),
@@ -26,9 +27,10 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
         raise ValueError(f"init_params: generator on {gen.device}, params "
                          f"asked for on {dev}")
     d, v = cfg.d_model, cfg.vocab
-    if cfg.family != "dense" or cfg.first_dense or cfg.attn_every:
+    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.first_dense \
+            or cfg.attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported "
+            f"{cfg.name}: only the dense GQA and MoE families are ported "
             f"(ROADMAP §1 item 13)")
     emb = torch.randn((v, d), generator=gen, dtype=torch.float32,
                       device=gen.device) * d ** -0.5
@@ -55,12 +57,15 @@ def unembed(cfg, params, h):
 
 
 def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
-                    kv_sink=None):
+                    kv_sink=None, moe_stepped: bool = False):
     """Prefill forward: logits for the LAST position only, (B, vocab).
-    ``kv_sink(i, k, v)`` receives every layer's keys and values."""
+    ``kv_sink(i, k, v)`` receives every layer's keys and values.
+    ``moe_stepped``: route the MoE's tokens as a decode step over each
+    position would (``moe.moe_apply_stepped``) and not as one call over
+    all B·S tokens, whose capacity drops pairs the steps keep."""
     h = embed_tokens(cfg, params, tokens)
     h = tf.run_stack(cfg, params["stack"], h, q_chunk=q_chunk,
-                     kv_sink=kv_sink)
+                     kv_sink=kv_sink, moe_stepped=moe_stepped)
     h_last = rmsnorm(params["out_norm"], h[:, -1:])
     return unembed(cfg, params, h_last)[:, 0]
 

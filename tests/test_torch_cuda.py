@@ -1398,3 +1398,84 @@ def test_cuda_two_ranks_on_one_card_equal_two_on_cpu(cuda):
         np.testing.assert_array_equal(got["a"], cpu[0]["a"])
         np.testing.assert_array_equal(got["c"], cpu[0]["c"])
         assert got["iterations"] == cpu[0]["iterations"]
+
+
+def _moe_layer(dtype, device, top_k=2):
+    """An MoE layer (16 experts, a shared expert) and 2 x 96 tokens drawn
+    on the CPU from seeds, in ``dtype`` on ``device``."""
+    from repro_torch.models.moe import moe_init
+    p = moe_init(torch.Generator().manual_seed(0), 64, 48, 16, 1,
+                 dtype=torch.float32)
+    x = torch.randn((2, 96, 64), generator=torch.Generator().manual_seed(1))
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.to(device=device, dtype=dtype)
+    q = cast(p)
+    q["router"] = {"w": p["router"]["w"].to(device)}      # f32 always
+    return q, x.to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [2, 6])
+def test_cuda_moe_layer_matches_cpu(cuda, top_k):
+    """The MoE layer on the card: in f32 the CPU's expert ids, kept
+    tokens and gates exactly and its outputs within rtol 1e-5 (products
+    summed in other orders); in bf16 two runs bit-identical (the combine
+    adds in ascending expert id, no atomics)."""
+    from repro_torch.models.moe import moe_apply, route
+    outs = {}
+    for dev in ("cpu", cuda):
+        p, x = _moe_layer(torch.float32, dev, top_k)
+        y, aux = moe_apply(p, x, top_k=top_k, capacity_factor=1.0)
+        r = route(p["router"]["w"], x.reshape(-1, 64), top_k=top_k,
+                  capacity_factor=1.0)
+        outs[str(dev)] = (y.cpu(), float(aux),
+                          {k: r[k].cpu() for k in ("eidx", "slot_tok",
+                                                   "pair_slot", "kept")})
+    (y0, a0, r0), (y1, a1, r1) = outs["cpu"], outs[str(cuda)]
+    for k in r0:
+        assert torch.equal(r0[k], r1[k]), k
+    assert not bool(r0["kept"].all())            # capacity dropped pairs
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
+    assert abs(a1 - a0) <= 1e-6
+    p, x = _moe_layer(torch.bfloat16, cuda, top_k)
+    ya, _ = moe_apply(p, x, top_k=top_k, capacity_factor=1.0)
+    yb, _ = moe_apply(p, x, top_k=top_k, capacity_factor=1.0)
+    assert torch.equal(ya, yb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [2, 6])
+def test_cuda_moe_stepped_matches_cpu(cuda, top_k):
+    """The serve prefill's MoE pass (``moe_apply_stepped``) on the card:
+    in f32 the CPU's outputs within rtol 1e-5 and its aux within 1e-6; in
+    bf16 two runs bit-identical."""
+    from repro_torch.models.moe import moe_apply_stepped
+    outs = []
+    for dev in ("cpu", cuda):
+        p, x = _moe_layer(torch.float32, dev, top_k)
+        y, aux = moe_apply_stepped(p, x, top_k=top_k)
+        outs.append((y.cpu(), float(aux)))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-5)
+    assert abs(outs[1][1] - outs[0][1]) <= 1e-6
+    p, x = _moe_layer(torch.bfloat16, cuda, top_k)
+    ya, _ = moe_apply_stepped(p, x, top_k=top_k)
+    yb, _ = moe_apply_stepped(p, x, top_k=top_k)
+    assert torch.equal(ya, yb)
+
+
+@pytest.mark.cuda
+def test_cuda_gdi_router_matches_cpu(cuda):
+    """``gdi_router_init`` from one CPU generator: the card's router is the
+    CPU's bit for bit (K3's fixed order, correctly rounded norms)."""
+    from repro_torch.models.moe import gdi_router_init
+    x = torch.randn((3000, 32), generator=torch.Generator().manual_seed(2))
+    got = [gdi_router_init(x.to(dev), 16, device=dev,
+                           generator=torch.Generator().manual_seed(3)).cpu()
+           for dev in ("cpu", cuda)]
+    assert torch.equal(got[0], got[1])
+    torch.testing.assert_close(torch.linalg.norm(got[1].double(), dim=0),
+                               torch.ones(16, dtype=torch.float64),
+                               rtol=1e-6, atol=0.0)

@@ -59,24 +59,33 @@ def _close(got, want, rel=BF16_REL, what=""):
     assert err <= rel * np.abs(want).max(), (what, err, np.abs(want).max())
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """The reference's params, a 48-token prompt and the flat cache after
-    its stepped prefill, with the logits after the prompt."""
-    cfg = jax_smoke_config(ARCH)
+def _reference(arch):
+    """The reference's params for ``arch``'s smoke config, a 48-token
+    prompt and the flat cache after its stepped prefill, with the logits
+    after the prompt."""
+    cfg = jax_smoke_config(arch)
     params = jax_init_params(cfg, jax.random.PRNGKey(0))
     prompt = np.random.RandomState(0).randint(
         0, cfg.vocab, (B, PROMPT)).astype(np.int32)
     cache = jax_init_cache(cfg, B, S_TOTAL, clustered=False, enc_len=8)
     logits, cache = jax_prefill(cfg, params, cache, jnp.asarray(prompt))
-    return dict(cfg=cfg, params=params, prompt=prompt, cache=cache,
-                logits=np.asarray(logits))
+    return dict(arch=arch, cfg=cfg, params=params, prompt=prompt,
+                cache=cache, logits=np.asarray(logits))
+
+
+def _port_params(ref):
+    return params_from_reference(_np_tree(ref["params"]),
+                                 get_smoke_config(ref["arch"]), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return _reference(ARCH)
 
 
 @pytest.fixture(scope="module")
 def port_params(ref):
-    return params_from_reference(_np_tree(ref["params"]),
-                                 get_smoke_config(ARCH), device="cpu")
+    return _port_params(ref)
 
 
 def _jax_step(ref):
@@ -92,10 +101,31 @@ def test_config_matches_reference():
                       "n_kv_heads", "d_ff", "vocab", "d_head", "qk_norm",
                       "rope_theta", "kv_clusters", "cluster_cap",
                       "cluster_top_p", "cluster_ring",
-                      "long_context_threshold"):
+                      "long_context_threshold", "moe", "n_experts",
+                      "top_k", "n_shared_experts", "moe_d_ff",
+                      "dense_residual", "first_dense", "mla"):
                 assert getattr(port, f) == getattr(jx, f), (arch, f)
     with pytest.raises(NotImplementedError, match="item 13"):
         get_config("deepseek-v2-lite-16b")
+
+
+def test_unported_families_raise_naming_item_13():
+    """DeepSeek's MLA and dense prefix, the SSM families and unknown param
+    keys raise NotImplementedError naming ROADMAP §1 item 13, from the
+    model, the layer init and the converter."""
+    import dataclasses
+    from repro_torch.models.transformer import layer_init
+    arctic = get_smoke_config("arctic-480b")
+    gen = torch.Generator().manual_seed(0)
+    for cfg in (dataclasses.replace(arctic, mla=True, first_dense=1),
+                dataclasses.replace(arctic, family="ssm", ssm="rwkv6")):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            init_params(cfg, gen, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 13"):
+            layer_init(cfg, gen)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        params_from_reference({"embed": np.zeros((4, 2), np.float32),
+                               "stack": {"mix": {}}}, arctic, device="cpu")
 
 
 def test_params_and_cache_shapes_match_reference(ref, port_params):
@@ -193,7 +223,40 @@ def test_attention_matches_reference(S, q_chunk):
 def test_prefill_into_cache_matches_stepped_reference(ref, port_params):
     """The port's chunked prefill against the reference's stepped
     one: logits after the prompt and the cached keys and values."""
-    cfg = get_smoke_config(ARCH)
+    _prefill_agrees(ref, port_params)
+
+
+def _chunked_reference(ref):
+    """The reference's chunked forward over the prompt (its
+    ``forward_prefill``): the logits after the prompt and every layer's
+    keys and values in the cache's layout (L, B, Hkv, S, dh)."""
+    from repro.models import attention as jattn
+    from repro.models import transformer as jtf
+    from repro.models.layers import rmsnorm as jrmsnorm
+    from repro.models.model import embed_tokens, forward_prefill
+    cfg, params = ref["cfg"], ref["params"]
+    tokens = jnp.asarray(ref["prompt"])
+    h = embed_tokens(cfg, params, tokens)
+    kv = {"k": [], "v": []}
+    for i in range(cfg.n_layers):
+        p = jax.tree.map(lambda a: a[i], params["stack"])
+        _, k, v = jattn.gqa_project(
+            p["attn"], jrmsnorm(p["ln1"], h), cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, jnp.arange(PROMPT)[None, :], cfg.rope_theta,
+            cfg.qk_norm)
+        kv["k"].append(np.asarray(k.transpose(0, 2, 1, 3), np.float32))
+        kv["v"].append(np.asarray(v.transpose(0, 2, 1, 3), np.float32))
+        h, _ = jtf.decoder_layer_fwd(cfg, p, h)
+    logits = forward_prefill(cfg, params, {"tokens": tokens})
+    return np.asarray(logits), {f: np.stack(a) for f, a in kv.items()}
+
+
+def _prefill_agrees(ref, port_params):
+    """The port's chunked prefill against the reference's stepped one. In
+    the MoE family each position's tokens are routed as the reference's
+    decode step routes them, so no pair is dropped where the steps keep
+    it."""
+    cfg = get_smoke_config(ref["arch"])
     cache = init_cache(cfg, B, S_TOTAL, clustered=False, device="cpu")
     logits, cache = serve.prefill_into_cache(cfg, port_params, cache,
                                              torch.tensor(ref["prompt"]))
@@ -208,7 +271,11 @@ def test_prefill_into_cache_matches_stepped_reference(ref, port_params):
 def test_serve_step_flat_matches_reference(ref, port_params):
     """Full-attention decode steps from the same prefilled cache,
     teacher-forced with the reference's greedy tokens."""
-    cfg = get_smoke_config(ARCH)
+    _flat_steps_agree(ref, port_params)
+
+
+def _flat_steps_agree(ref, port_params):
+    cfg = get_smoke_config(ref["arch"])
     cache = cache_from_reference(_np_tree(ref["cache"]), device="cpu")
     jcache, step = ref["cache"], _jax_step(ref)
     tok = ref["prompt"][:, -1:]
@@ -224,13 +291,21 @@ def test_serve_step_flat_matches_reference(ref, port_params):
         _close(cache["stack"][f], want_c[f].astype(np.float32), what=f)
 
 
-@pytest.fixture(scope="module")
-def clustered(ref):
+def _clustered(ref):
     return jax_attach_clusters(ref["cfg"], dict(ref["cache"]), length=PROMPT)
 
 
+@pytest.fixture(scope="module")
+def clustered(ref):
+    return _clustered(ref)
+
+
 def test_attach_clusters_matches_reference(ref, clustered):
-    cfg = get_smoke_config(ARCH)
+    _attach_agrees(ref, clustered)
+
+
+def _attach_agrees(ref, clustered):
+    cfg = get_smoke_config(ref["arch"])
     flat = cache_from_reference(_np_tree(ref["cache"]), device="cpu")
     got = serve.attach_clusters(cfg, flat, length=PROMPT)["stack"]
     want = _np_tree(clustered)["stack"]
@@ -250,17 +325,97 @@ def test_serve_step_cluster_major_matches_reference(ref, port_params,
     """k²-attention decode steps from the same cluster-major cache,
     teacher-forced with the reference's greedy tokens; then one fold of
     the ring, and a step after it."""
-    cfg = get_smoke_config(ARCH)
+    _cluster_major_steps_agree(ref, port_params, clustered)
+
+
+class _Selections:
+    """Both packages' top-p cluster selections, layer by layer, of the
+    step being run: the reference's through ``jax.debug.callback`` in its
+    jitted step, the port's around ``select_clusters``."""
+
+    def __init__(self, monkeypatch):
+        import repro.models.attention as jattn
+        from repro_torch.models import attention as tattn
+        self.ref, self.port = [], []
+        j_sel, t_sel = jattn._select_top_clusters, tattn.select_clusters
+
+        def j_spy(qr, cent, p):
+            sel = j_sel(qr, cent, p)
+            jax.debug.callback(lambda v: self.ref.append(np.asarray(v)),
+                               sel)
+            return sel
+
+        def t_spy(q, cent, p):
+            sel = t_sel(q, cent, p)
+            qf, cf = q.float(), cent.float()
+            self.port.append((sel.numpy() % cent.shape[2], qf, cf))
+            return sel
+        monkeypatch.setattr(jattn, "_select_top_clusters", j_spy)
+        monkeypatch.setattr(tattn, "select_clusters", t_spy)
+
+    def clear(self):
+        self.ref.clear()
+        self.port.clear()
+
+    def parted_at_near_ties(self) -> set:
+        """The batch rows where some query row selected other clusters
+        than the reference's; every such query row must be a near tie:
+        the two selections' worst f32 distances within 2^-6 of the row's
+        magnitudes (bf16 keeps 8 bits, and both packages compute the
+        distances in bf16 at other rounding places)."""
+        jax.effects_barrier()
+        assert len(self.ref) == len(self.port)
+        parted = set()
+        for want, (got, q, cent) in zip(self.ref, self.port):
+            B, Hkv, g, p = want.shape
+            got = got.reshape(B, Hkv, g, p)
+            qr = q.reshape(B, Hkv, g, -1)
+            d2 = ((qr * qr).sum(-1)[..., None]
+                  - 2.0 * torch.einsum("bhgd,bhkd->bhgk", qr, cent)
+                  + (cent * cent).sum(-1)[:, :, None, :]).numpy()
+            mag = ((qr * qr).sum(-1)[..., None]
+                   + (cent * cent).sum(-1)[:, :, None, :]).numpy()
+            for idx in zip(*np.nonzero((np.sort(want, -1)
+                                        != np.sort(got, -1)).any(-1))):
+                parted.add(int(idx[0]))
+                worst = [d2[idx][s].max() for s in (want[idx], got[idx])]
+                assert abs(worst[0] - worst[1]) <= 2 ** -6 * \
+                    mag[idx].max(), (idx, worst)
+        return parted
+
+
+def _agreeing_rows_close(got, want, sel, what):
+    """The logits of the batch rows whose cluster selections all agreed
+    with the reference's (every row without ``sel``). Returns the rows
+    that parted."""
+    rows = sel.parted_at_near_ties() if sel is not None else set()
+    keep = [b for b in range(want.shape[0]) if b not in rows]
+    if keep:
+        _close(got[keep], np.asarray(want)[keep], what=what)
+    return rows
+
+
+def _cluster_major_steps_agree(ref, port_params, clustered, sel=None):
+    """Teacher-forced k²-attention steps, a fold and a step after it.
+    With ``sel`` (:class:`_Selections`), a batch row whose query rows
+    picked other clusters at a bf16 near tie is not held to the logits'
+    tolerance at that step (ROADMAP §3 entry 20), the other rows are;
+    at most one of the six steps may part."""
+    cfg = get_smoke_config(ref["arch"])
     cache = cache_from_reference(_np_tree(clustered), device="cpu")
     jcache, step = clustered, _jax_step(ref)
     tok = ref["prompt"][:, -1:]
     _build.reset_launches()
+    parted = []
     for i in range(5):
+        if sel is not None:
+            sel.clear()
         want, jcache = step(ref["params"], jcache, jnp.asarray(tok),
                             jnp.int32(PROMPT + i))
         got, cache = serve_step(cfg, port_params, cache, torch.tensor(tok),
                                 PROMPT + i)
-        _close(got, np.asarray(want), what=f"logits step {i}")
+        if _agreeing_rows_close(got, want, sel, f"logits step {i}"):
+            parted.append(i)
         tok = np.asarray(jnp.argmax(want, -1))[:, None].astype(np.int32)
     assert _build.launches()["cluster_attend"] == 0   # CPU: plain version
     want_c = _np_tree(jcache)["stack"]
@@ -285,35 +440,131 @@ def test_serve_step_cluster_major_matches_reference(ref, port_params,
     np.testing.assert_allclose(cache["stack"]["cent"].float().numpy(),
                                want_f["cent"].astype(np.float32),
                                rtol=2 ** -7, atol=1e-6)
+    if sel is not None:
+        sel.clear()
     want, _ = step(ref["params"], jcache, jnp.asarray(tok),
                    jnp.int32(PROMPT + 5))
     got, _ = serve_step(cfg, port_params, cache, torch.tensor(tok),
                         PROMPT + 5)
-    _close(got, np.asarray(want), what="logits after the fold")
+    if _agreeing_rows_close(got, want, sel, "logits after the fold"):
+        parted.append(5)
+    assert len(parted) <= 1, parted
+    return parted
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "minitron-4b"])
-def test_family_without_qk_norm_matches_reference(arch):
-    """The dense family without qk-norm: the port's prefill logits
-    against the reference's chunked ``forward_prefill``, then two decode
+@pytest.fixture(scope="module", params=["qwen3-14b", "arctic-480b"])
+def other(request):
+    """The module's chain for the other ported configs: qwen3-14b (dense
+    GQA with qk-norm at other widths) and Arctic (the MoE family: 8
+    experts, top-2, a dense residual)."""
+    r = _reference(request.param)
+    return dict(r, port=_port_params(r), clustered=_clustered(r))
+
+
+def test_other_configs_params_match_reference(other):
+    """The reference's params cross with their paths and types (an MoE
+    layer's f32 router, its bf16 experts (L, E, d, f) and Arctic's dense
+    residual among them), and the port's own init lays out the same tree
+    from its stacked leaves."""
+    cfg = get_smoke_config(other["arch"])
+    own = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            other["params"])[0]:
+        for tree in (other["port"], own):
+            node = tree
+            for key in path:
+                node = node[key.key]
+            assert tuple(node.shape) == leaf.shape, path
+            assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+    if cfg.moe:
+        assert own["stack"]["mlp"]["router"]["w"].dtype == torch.float32
+        assert own["stack"]["mlp"]["wi"].shape == (
+            cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+        assert set(own["stack"]) == {"ln1", "attn", "ln2", "mlp",
+                                     "dense_mlp"}
+        # every layer and expert drew its own numbers
+        wi = own["stack"]["mlp"]["wi"]
+        assert not torch.equal(wi[0, 0], wi[0, 1])
+        assert not torch.equal(wi[0], wi[1])
+
+
+def test_other_configs_prefill_matches_reference(other):
+    _prefill_agrees(other, other["port"])
+
+
+def test_other_configs_forward_prefill_matches_reference(other):
+    """The port's chunked ``forward_prefill`` (one router call over the
+    B·S tokens, at its capacity) against the reference's: the logits
+    after the prompt and every layer's keys and values. In Arctic that
+    capacity drops pairs the stepped prefill keeps, and the two
+    reference prefills part by more than the tolerance."""
+    from repro_torch.models.model import forward_prefill
+    cfg = get_smoke_config(other["arch"])
+    kv = {"k": [], "v": []}
+
+    def sink(i, k, v):
+        kv["k"].append(k.transpose(1, 2))
+        kv["v"].append(v.transpose(1, 2))
+    logits = forward_prefill(cfg, other["port"],
+                             torch.tensor(other["prompt"]), kv_sink=sink)
+    want_logits, want = _chunked_reference(other)
+    _close(logits, want_logits, what="logits")
+    for f in ("k", "v"):
+        _close(torch.stack(kv[f]), want[f], what=f)
+    parted = np.abs(want_logits - other["logits"]).max() > \
+        BF16_REL * np.abs(want_logits).max()
+    assert parted == cfg.moe
+
+
+def test_other_configs_flat_steps_match_reference(other):
+    _flat_steps_agree(other, other["port"])
+
+
+def test_other_configs_attach_clusters_matches_reference(other):
+    _attach_agrees(other, other["clustered"])
+
+
+def test_other_configs_cluster_major_steps_match_reference(other,
+                                                           monkeypatch):
+    """As the module's chain; at a step whose selection parted at a bf16
+    near tie, the batch rows that parted are counted, not compared."""
+    _cluster_major_steps_agree(other, other["port"], other["clustered"],
+                               sel=_Selections(monkeypatch))
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "minitron-4b",
+                                  "arctic-480b"])
+def test_family_without_qk_norm_matches_reference(arch, monkeypatch):
+    """The families without qk-norm (dense, and Arctic's MoE): the
+    port's prefill logits against the reference's chunked
+    ``forward_prefill`` (Arctic's against its stepped serve prefill,
+    whose router keeps every pair the chunked one may drop), then two decode
     steps (flat, then cluster-major after ``attach_clusters``) from the
     port's cache carried back to the reference (copied: the port's
     step then writes its cache in place while the reference may still
-    be reading); bf16 tolerance."""
+    be reading); bf16 tolerance. At Arctic's cluster-major step a batch
+    row whose selection parted at a bf16 near tie is not compared
+    (ROADMAP §3 entry 20), and one row at least is."""
     from repro.models.model import forward_prefill as jax_forward_prefill
     jcfg = jax_smoke_config(arch)
     cfg = get_smoke_config(arch)
     params = jax_init_params(jcfg, jax.random.PRNGKey(1))
     pp = params_from_reference(_np_tree(params), cfg, device="cpu")
     prompt = np.random.RandomState(2).randint(0, cfg.vocab, (B, PROMPT))
-    want = jax_forward_prefill(jcfg, params,
-                               {"tokens": jnp.asarray(prompt, jnp.int32)})
+    if cfg.moe:     # the reference's serve prefill: steps of its decode
+        want, _ = jax_prefill(jcfg, params, jax_init_cache(
+            jcfg, B, S_TOTAL, clustered=False, enc_len=8),
+            jnp.asarray(prompt, jnp.int32))
+    else:
+        want = jax_forward_prefill(
+            jcfg, params, {"tokens": jnp.asarray(prompt, jnp.int32)})
     cache = init_cache(cfg, B, S_TOTAL, clustered=False, device="cpu")
     got, cache = serve.prefill_into_cache(cfg, pp, cache,
                                           torch.tensor(prompt))
     _close(got, np.asarray(want), what="prefill logits")
     step = jax.jit(lambda p, c, t, i: jax_serve_step(jcfg, p, c, t, i))
     tok = prompt[:, -1:].astype(np.int32)
+    sel = _Selections(monkeypatch) if cfg.moe else None
     for clustered in (False, True):
         if clustered:
             cache = serve.attach_clusters(cfg, cache, length=PROMPT)
@@ -321,9 +572,12 @@ def test_family_without_qk_norm_matches_reference(arch):
             lambda t: jnp.asarray(np.array(t.float().numpy())).astype(
                 jnp.bfloat16) if t.dtype == torch.bfloat16
             else jnp.asarray(np.array(t.numpy())), cache)
+        if sel is not None:
+            sel.clear()
         want, _ = step(params, jcache, jnp.asarray(tok), jnp.int32(PROMPT))
         got, _ = serve_step(cfg, pp, cache, torch.tensor(tok), PROMPT)
-        _close(got, np.asarray(want), what=f"clustered={clustered}")
+        assert len(_agreeing_rows_close(got, want, sel,
+                                        f"clustered={clustered}")) < B
 
 
 def test_serve_main_smoke_on_cpu(capsys):
@@ -353,6 +607,22 @@ def test_serve_main_smoke_on_cpu(capsys):
         "ft counters: retries=0 (budget 3/call) repairs={'bound_reset': 0, "
         "'regroup': 0, 'split': 0, 'restore': 0} degraded_folds=0 "
         "evicted_rows=0 sanitized_rows=0 sheds=0")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "arctic-480b"])
+def test_serve_main_runs_the_other_configs_on_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch <arch> --smoke --device
+    cpu`` runs to its end for qwen3-14b and Arctic: the same five lines,
+    16 decode steps and their folds through the executor."""
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                "--prompt-len", str(PROMPT), "--decode", str(DECODE),
+                "--fold-every", "8"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 5, out
+    assert out[0].startswith("decoded 16 tokens: full=")
+    assert out[1].startswith("partial_fit folds: 32 ring slots (16 tokens "
+                             "x 2 layers)")
+    assert out[3] == "serve queue: admitted=19 rejected=0 max_depth=1/8"
 
 
 def test_serve_run_reports_the_clustered_decode():

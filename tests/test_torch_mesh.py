@@ -490,3 +490,85 @@ def test_mesh_placement_checks_its_arguments():
         fit(x, 2, method="lloyd", mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown init"):
         fit(x, 2, init="gdi_replicated", device="cpu")
+
+
+_ENTRY19_SCRIPT = _SHIM + r"""
+import json, sys
+import jax, jax.numpy as jnp
+import numpy as np
+from repro.core import assign_nearest, fit_k2means
+from repro.core.distributed import fit_distributed_k2means
+from repro.launch.mesh import make_debug_cluster_mesh
+d = np.load(sys.argv[1])
+x, init, kn = jnp.asarray(d["x"]), jnp.asarray(d["init"]), int(d["kn"])
+a0 = assign_nearest(x, init).astype(jnp.int32)
+one = fit_k2means(x, init, a0, kn=kn, max_iters=200, backend="xla")
+four = fit_distributed_k2means(x, init.shape[0], kn,
+                               make_debug_cluster_mesh(),
+                               jax.random.PRNGKey(0), max_iters=200,
+                               init_centers=init, backend="xla")
+print("RESULT " + json.dumps({
+    name: {"a": np.asarray(r.assignment).tolist(),
+           "iterations": r.iterations,
+           "history": [float(e) for _, e in r.history]}
+    for name, r in (("one", one), ("four", four))}))
+"""
+
+
+def test_sharded_fits_part_from_one_device_in_both_packages(tmp_path):
+    """ROADMAP §3 entry 19: from one random start (n=12000, d=64, k=256,
+    k_n=12, 128 blobs) the sharded xla fit parts from the single-device
+    fit in the reference as in the port. Each package's two energy
+    histories agree through iteration 1 and part from iteration 2 on
+    (the shard-order f32 sums move the centers by ulps, and 25 or more
+    iterations from a random start let that change assignments); the
+    port's single-device fit is the reference's (assignments, iterations
+    and history), and its four-rank fit parts from it as the
+    reference's four-device fit parts from the reference's. A property
+    of sharding, not a fault of the port."""
+    key = jax.random.PRNGKey(0)
+    x = np.array(gmm_blobs(key, 12000, 64, true_k=128))
+    init = x[np.random.RandomState(1).choice(12000, 256, replace=False)]
+    kn = 12
+    np.savez(tmp_path / "in.npz", x=x, init=init, kn=kn)
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _ENTRY19_SCRIPT, str(tmp_path / "in.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        four = run_local(cases.random_start_world, 4,
+                         {"x": x, "init": init, "kn": kn}, device="cpu",
+                         timeout=400)[0]
+        a0 = torch.from_numpy(np.asarray(jax_assign_nearest(
+            jnp.asarray(x), jnp.asarray(init)), np.int32))
+        one = fit_k2means(torch.from_numpy(x), torch.from_numpy(init), a0,
+                          kn=kn, max_iters=200, backend="xla",
+                          device="cpu")
+        out, err = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    ref = json.loads([ln for ln in out.splitlines()
+                      if ln.startswith("RESULT ")][0][len("RESULT "):])
+    port = {"one": {"a": one.assignment.numpy(),
+                    "iterations": one.iterations,
+                    "history": [e for _, e in one.history]},
+            "four": {"a": four["a"], "iterations": four["iterations"],
+                     "history": [e for _, e in four["history"]]}}
+    np.testing.assert_array_equal(port["one"]["a"], ref["one"]["a"])
+    assert port["one"]["iterations"] == ref["one"]["iterations"]
+    np.testing.assert_allclose(port["one"]["history"],
+                               ref["one"]["history"], rtol=1e-6)
+    for name, fits in (("reference", ref), ("port", port)):
+        h1, h4 = fits["one"]["history"], fits["four"]["history"]
+        first = next(i for i, (e1, e4) in enumerate(zip(h1, h4))
+                     if e1 != e4)
+        differ = int((np.asarray(fits["one"]["a"])
+                      != np.asarray(fits["four"]["a"])).sum())
+        print(f"{name}: one device {fits['one']['iterations']} iterations, "
+              f"four {fits['four']['iterations']}; histories part at "
+              f"iteration {first}; {differ} of 12000 assignments differ")
+        assert first >= 2 and differ > 0, (name, first, differ)

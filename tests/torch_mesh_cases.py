@@ -259,3 +259,10 @@ def sum_world(mesh, vals):
 def small_fit_world(mesh, d):
     return dist_fit(mesh, d["x"], 48, 8, max_iters=20,
                     init_centers=d["init"], backend="kernels")
+
+
+def random_start_world(mesh, d):
+    """ROADMAP §3 entry 19's case: the sharded xla fit from random rows,
+    long enough for the shard-order sums to move the trajectory."""
+    return dist_fit(mesh, d["x"], d["init"].shape[0], d["kn"],
+                    max_iters=200, init_centers=d["init"], backend="xla")
