@@ -145,7 +145,17 @@ Phases (any failure exits non-zero, without the final result line):
    executor, that a small serve (the smoke config in f32) on the card
    agrees with the plain CPU path, and that a short decode through the
    envelope equals the direct calls; print ms per token through the
-   envelope beside direct calls on the same cache;
+   envelope beside direct calls on the same cache; then the flat-cache
+   k²-attention variant: k²-means (kc 2048, cap 512) over every layer's
+   prompt keys kept as member lists beside the flat cache
+   (``serve.attach_member_lists``) and 8 greedy tokens through
+   ``serve_step`` (the top-p clusters' rows gathered from the flat cache,
+   each token filed by ``cluster_append``), counts set to 0 just before:
+   check finite logits, 1 host read a step, no kernel launched (K6
+   neither), and that the smoke config's flat variant in f32 (8 steps) on
+   the card agrees with the plain CPU path; print the member lists'
+   seconds, ms per token and the token agreement with the cluster-major
+   decode's first 8 tokens;
 2l. (after phase 3 and the profile, with phase 2e's model released) the
    MoE family at Arctic's full width (d_model 7168, 56 q-heads over 8
    kv-heads, d_head 128, 128 experts top-2, moe_d_ff 4864, a dense
@@ -170,6 +180,24 @@ Phases (any failure exits non-zero, without the final result line):
    small GDI router and Arctic's smoke config in f32 on
    the card against the plain CPU path (the router bit for bit, the
    logits within 1e-4 of their largest magnitude);
+2m. (after phase 2l, with its model released) MLA: DeepSeek-V2-Lite at
+   the reference config's full width and depth, no cut (27 layers: a
+   dense GQA first layer of 16 kv-heads and d_ff 1408, then 26 MLA + MoE
+   layers, d_model 2048, 16 heads, kv_lora 512, nope 128, rope 64, v 128,
+   64 experts top-6, 2 shared, moe_d_ff 1408, vocab 102,400), random
+   weights from the seed, through ``serve.run``: 2 requests of a
+   32,768-token prompt prefilled by the chunked forward, 64 greedy tokens
+   with full attention over the latent cache (k²-attention does not
+   apply to it), counts set to 0 just before; print the allocated memory
+   at the start, init and prefill seconds, ms per decode token, peak
+   device memory, the latent cache's bytes beside a same-head GQA
+   cache's, host reads per decode step and the bytes bound of a step's
+   expert products (all 64 experts of 26 layers); check finite logits, 1
+   host read a step, no kernel launched, the parameter count against
+   ``params_estimate`` (with the dense first layer counted as such, the
+   routers and norms), and DeepSeek's smoke config in f32 on the card
+   against the plain CPU path (prefill and 8 decode steps, logits within
+   1e-4 of their largest magnitude);
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -209,8 +237,9 @@ Phases (any failure exits non-zero, without the final result line):
 ``python3 chip_smoke.py --profile`` adds one ``partial_fit`` batch in
 phase 2f and, after phase 3, the fit, one predict in each precision, one
 Lloyd++ fit, and phase 2e's full and k²-attention decode (8 steps each)
-and a ring fold, and in phase 2l its full and k²-attention decode (4
-steps each), under ``torch.profiler``:
+and a ring fold, in phase 2l its full and k²-attention decode (4
+steps each), and in phase 2m 4 full-attention decode steps, under
+``torch.profiler``:
 device time by kernel, the device's busy share of the host clock, and
 the host synchronisations.
 """
@@ -236,6 +265,11 @@ LM_ARCH, LM_LAYERS, LM_BATCH, LM_PROMPT, LM_DECODE, LM_FOLD = (
 # to 2 of 35 layers; 32,768-token prompts keep the prefill's MoE buffers
 # (C = 1,280 slots an expert) and the cluster tables within the card
 MOE_ARCH, MOE_LAYERS, MOE_PROMPT = "arctic-480b", 2, 32768
+# phase 2m: DeepSeek-V2-Lite whole (27 layers at full width), 32,768-token
+# prompts (V2-Lite's published context)
+MLA_ARCH, MLA_PROMPT = "deepseek-v2-lite-16b", 32768
+# phase 2e's flat-cache k²-attention variant: decode steps
+FLAT_DECODE = 8
 # phase 2f: the streaming model (window in epochs = partial_fit batches)
 STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -953,6 +987,12 @@ def main() -> int:
                               cluster_attend_partial, ref))
     print(f"  phase 2l wall {time.perf_counter() - t0:.1f} s")
 
+    # --- 2m. MLA: DeepSeek-V2-Lite whole, with phase 2l's model released -
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _mla_phase(torch, dev, serve, check)
+    print(f"  phase 2m wall {time.perf_counter() - t0:.1f} s")
+
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
@@ -1354,9 +1394,61 @@ def _lm_serve(torch, dev, serve, check) -> dict:
           f"every decode step and fold went through ex.call "
           f"({st_ex['admitted']} admitted), 1 host read per step "
           f"({reads_ex} for 2)")
+    _flat_clustered_decode(torch, serve, check, cfg, r)
     _small_serve_agrees(torch, dev, serve, check)
+    _small_serve_agrees(torch, dev, serve, check, kind="flat")
     _envelope_agrees(torch, dev, serve, check)
     return dict(r, cfg=cfg, launches_all=launches)
+
+
+def _flat_clustered_decode(torch, serve, check, cfg, r) -> None:
+    """Phase 2e's flat-cache k²-attention variant: k²-means (kc, cap of
+    the config) over every layer's prompt keys kept as member lists
+    beside the flat cache (``serve.attach_member_lists``), then
+    FLAT_DECODE greedy tokens through ``serve_step`` (the top-p clusters'
+    rows gathered from the flat cache, each token filed by
+    ``cluster_append``), counts set to 0 just before."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = serve.attach_member_lists(cfg, r["flat_cache"], length=LM_PROMPT)
+    torch.cuda.synchronize()
+    t_lists = time.perf_counter() - t0
+    sizes0 = int(flat["stack"]["sizes"].sum())
+    tok = r["prompt"][:, -1:]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits, flat, _, _ = serve.decode(cfg, r["params"], flat, tok,
+                                            LM_PROMPT, FLAT_DECODE)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = _build.launches()
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, r["params"], flat, tok, LM_PROMPT + FLAT_DECODE, 2))
+    sizes1 = int(flat["stack"]["sizes"].sum())
+    agree = float(sum((a == b).mean() for a, b in zip(
+        toks, r["clus_toks"][:FLAT_DECODE])) / FLAT_DECODE)
+    print(f"  flat-cache k2-attention: member lists of {LM_LAYERS} layers "
+          f"{t_lists:.3f} s; {FLAT_DECODE} decode tokens "
+          f"{t_dec / FLAT_DECODE * 1e3:.3f} ms/token, token agreement with "
+          f"the cluster-major decode's first {FLAT_DECODE} "
+          f"{agree:.4f}; member rows {sizes0} -> {sizes1} after "
+          f"{FLAT_DECODE + 2} appends; host reads {reads} for 2 steps; "
+          f"launches {launches}")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"flat-cache k2-attention logits finite, shape ({LM_BATCH}, "
+          f"{cfg.vocab})")
+    check(sum(launches.values()) == 0,
+          f"flat-cache k2-attention gathers rows: no kernel launched "
+          f"(K6 {launches['cluster_attend']})")
+    check(reads == 2, f"flat-cache k2-attention: 1 host read per decode "
+                      f"step ({reads} for 2)")
+    check(sizes0 <= sizes1 <= sizes0 + (FLAT_DECODE + 2) * LM_BATCH
+          * cfg.n_kv_heads * LM_LAYERS,
+          f"cluster_append filed at most one row a token, layer and kv "
+          f"head ({sizes1 - sizes0})")
 
 
 def _moe_phase(torch, dev, serve, check, cluster_attend_partial,
@@ -1534,6 +1626,110 @@ def _moe_phase(torch, dev, serve, check, cluster_attend_partial,
     return entry
 
 
+def _mla_phase(torch, dev, serve, check) -> None:
+    """Phase 2m: ``serve.run`` at DeepSeek-V2-Lite's reference config,
+    full width and all 27 layers (no cut), counts set to 0 just before:
+    the chunked prefill of 2 x MLA_PROMPT tokens (the dense GQA prefix,
+    26 MLA + MoE layers), 64 greedy tokens with full attention over the
+    latent cache, and the line that k²-attention does not apply. Checks
+    finite logits, 1 host read a step, no kernel launched, the parameter
+    count against ``params_estimate`` and the smoke config card = CPU."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    cfg = get_config(MLA_ARCH)
+    n_main = cfg.n_layers - cfg.first_dense
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    print(f"phase 2m: {cfg.name}, all {cfg.n_layers} layers ({cfg.first_dense}"
+          f" dense GQA prefix, {n_main} MLA + MoE; d_model {d}, "
+          f"{cfg.n_heads} heads, kv_lora {cfg.kv_lora}, nope "
+          f"{cfg.qk_nope_dim}, rope {cfg.qk_rope_dim}, v {cfg.v_head_dim}, "
+          f"{E} experts top-{cfg.top_k}, {cfg.n_shared_experts} shared, "
+          f"moe_d_ff {f}, vocab {cfg.vocab}), {LM_BATCH} requests x "
+          f"{MLA_PROMPT} prompt tokens, {LM_DECODE} decode tokens; allocated "
+          f"at the start {base / 2 ** 30:.2f} GiB")
+    _build.reset_launches()
+    r = serve.run(cfg, batch=LM_BATCH, prompt_len=MLA_PROMPT,
+                  decode_len=LM_DECODE, device=dev, seed=SEED,
+                  echo=lambda line: print(f"  serve: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    params, cache = r["params"], r["flat_cache"]
+    tok = r["prompt"][:, -1:]
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, params, cache, tok, MLA_PROMPT, 2))
+    if "--profile" in sys.argv[1:]:
+        _profile(torch, "2m full decode x4", lambda: serve.decode(
+            cfg, params, cache, tok, MLA_PROMPT, 4))
+    leaves = {k: sum(t.numel() for t in _leaves(v))
+              for k, v in params.items() if k != "embed_f32"}
+    n_params = sum(leaves.values())
+    est = cfg.params_estimate()
+    # the estimate counts the dense first layer as an MLA + MoE layer and
+    # leaves out the routers and norms
+    dense = dataclasses.replace(cfg, moe=False, mla=False)
+    per = lambda c: (c.params_estimate() - c.vocab * d) / c.n_layers  # noqa
+    norms = sum(t.numel() for t in _norm_leaves(params))
+    want = (est + cfg.first_dense * (per(dense) - per(cfg))
+            + n_main * d * E + norms)
+    lat_bytes = cache["stack"]["lat"].numel() * 2
+    S = cache["stack"]["lat"].shape[2]
+    gqa_bytes = (n_main * LM_BATCH * S * cfg.n_heads
+                 * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2)
+    prefix_bytes = sum(t.numel() * 2 for t in cache["prefix"].values())
+    print(f"  init {r['t_init']:.3f} s ({n_params / 1e9:.4f} B parameters: "
+          + ", ".join(f"{k} {v / 1e9:.4f} B" for k, v in leaves.items())
+          + f"; params_estimate {est / 1e9:.4f} B); prefill "
+          f"{r['t_prefill']:.3f} s; decode {r['t_full'] / LM_DECODE * 1e3:.3f}"
+          f" ms/token (full attention over {S} latent slots)")
+    print(f"  latent cache {lat_bytes / 2 ** 30:.3f} GiB ({n_main} layers x "
+          f"{LM_BATCH} x {S} x {cfg.kv_lora + cfg.qk_rope_dim} bf16) against "
+          f"{gqa_bytes / 2 ** 30:.3f} GiB for a GQA cache of the same heads "
+          f"(k {cfg.qk_nope_dim + cfg.qk_rope_dim}, v {cfg.v_head_dim}); the "
+          f"prefix's flat k/v {prefix_bytes / 2 ** 30:.3f} GiB")
+    expert_bytes = 3.0 * E * d * f * 2 * n_main       # wi, wg, wo in bf16
+    print(f"  peak device memory {peak / 2 ** 30:.2f} GiB (+"
+          f"{(peak - base) / 2 ** 30:.2f} over the start); host reads "
+          f"{reads} for 2 decode steps; launches {launches}")
+    print(f"  a decode step's expert products read all {E} experts of "
+          f"{n_main} layers: {expert_bytes / 1e9:.2f} GB, bound "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the {cfg.top_k} chosen "
+          f"experts' {expert_bytes * cfg.top_k / E / 1e9:.3f} GB would take "
+          f"{expert_bytes * cfg.top_k / E / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    check(n_params == want,
+          f"2m: {n_params} parameters = params_estimate {int(est)} with the "
+          f"dense first layer counted as such, the routers and norms "
+          f"({int(want)})")
+    check(sum(launches.values()) == 0,
+          f"2m: no kernel of K1-K7 launched (MLA and the MoE are plain "
+          f"torch): {launches}")
+    for name in ("prefill_logits", "full_logits"):
+        check(tuple(r[name].shape) == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(r[name]).all()),
+              f"2m: {name} finite, shape ({LM_BATCH}, {cfg.vocab})")
+    check(r["clus_logits"] is None and len(r["full_toks"]) == LM_DECODE,
+          f"2m: {LM_DECODE} full-attention tokens, no clustered decode")
+    check(reads == 2, f"2m: host reads: 1 per decode step ({reads} for 2)")
+    del r, params, cache
+    torch.cuda.empty_cache()
+    _small_serve_agrees(torch, dev, serve, check, arch=MLA_ARCH,
+                        kind="full")
+
+
+def _norm_leaves(tree):
+    """The rmsnorm scales (``g``) of a params tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _norm_leaves(v)
+        elif k == "g":
+            yield v
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1576,16 +1772,20 @@ def _envelope_agrees(torch, dev, serve, check) -> None:
                 "calls: tokens, logits and tables")
 
 
-def _small_serve_agrees(torch, dev, serve, check, arch: str = LM_ARCH
-                        ) -> None:
-    """``arch``'s smoke config's serve path in f32 on the card (K6)
-    against the plain CPU path on the same params and prompt: prefill,
-    clustering and 4 teacher-forced k²-attention decode steps; logits
-    within 1e-4 of their largest magnitude (f32, sums in other orders)."""
+def _small_serve_agrees(torch, dev, serve, check, arch: str = LM_ARCH,
+                        kind: str = "cluster_major") -> None:
+    """``arch``'s smoke config's serve path in f32 on the card against the
+    plain CPU path on the same params and prompt: the prefill, then
+    (``kind``) the cluster-major tables and 4 teacher-forced k²-attention
+    decode steps (K6), the flat cache's member lists and 8 flat
+    k²-attention steps (``"flat"``), or 8 full-attention steps
+    (``"full"``, the MLA configs); logits within 1e-4 of their largest
+    magnitude (f32, sums in other orders)."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.model import init_cache, init_params, serve_step
     cfg = get_smoke_config(arch)
     params = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    steps = 4 if kind == "cluster_major" else 8
 
     def f32(t, where):
         if isinstance(t, dict):
@@ -1593,25 +1793,29 @@ def _small_serve_agrees(torch, dev, serve, check, arch: str = LM_ARCH
         return (t.float() if t.is_floating_point() else t).to(where)
     prompt = torch.randint(0, cfg.vocab, (2, 48),
                            generator=torch.Generator().manual_seed(4))
-    toks = torch.randint(0, cfg.vocab, (4, 2, 1),
+    toks = torch.randint(0, cfg.vocab, (steps, 2, 1),
                          generator=torch.Generator().manual_seed(5))
     out = {}
     for where in ("cpu", dev):
         p = f32(params, where)
-        cache = f32(init_cache(cfg, 2, 48 + 5, clustered=False,
+        cache = f32(init_cache(cfg, 2, 48 + steps + 1, clustered=False,
                                device="cpu"), where)
         logits, cache = serve.prefill_into_cache(cfg, p, cache,
                                                  prompt.to(where))
-        cache = serve.attach_clusters(cfg, cache, length=48)
-        steps = [logits]
-        for i in range(4):
+        if kind == "cluster_major":
+            cache = serve.attach_clusters(cfg, cache, length=48)
+        elif kind == "flat":
+            cache = serve.attach_member_lists(cfg, cache, length=48)
+        logged = [logits]
+        for i in range(steps):
             logits, cache = serve_step(cfg, p, cache, toks[i].to(where),
                                        48 + i)
-            steps.append(logits)
-        out[str(where)] = [s.cpu() for s in steps]
+            logged.append(logits)
+        out[str(where)] = [s.cpu() for s in logged]
     err = max(float((a - b).abs().max() / b.abs().max())
               for a, b in zip(out[str(dev)], out["cpu"]))
-    check(err <= 1e-4, f"small serve ({cfg.name} in f32, 2 layers) on the "
+    check(err <= 1e-4, f"small serve ({cfg.name} in f32, {cfg.n_layers} "
+                       f"layers, {kind}, prefill and {steps} steps) on the "
                        f"card agrees with the plain CPU path: logits max "
                        f"rel err {err:.3g} (<= 1e-4)")
 

@@ -2,7 +2,7 @@
 ``repro.configs.base``): the port's own copy of ``ArchConfig``, with its
 fields and defaults as the reference has them, and the registry of the
 ported architectures, one module each. The reference's other
-architectures (MLA, SSM, hybrid, VLM, audio) wait for their families
+architectures (SSM, hybrid, VLM, audio) wait for their families
 (ROADMAP §1 item 13)."""
 from __future__ import annotations
 
@@ -54,11 +54,40 @@ class ArchConfig:
     cluster_ring: int = 256      # exact recent-token buffer (read-write)
     long_context_threshold: int = 65536   # S >= this -> clustered decode
 
+    @property
+    def d_q(self) -> int:
+        return self.n_heads * self.d_head
+
+    def params_estimate(self) -> float:
+        """The reference's rough total param count, for the families the
+        port runs: the embedding and ``n_layers`` layers of attention (GQA
+        or MLA) and MLP (SwiGLU, or the MoE's routed and shared experts
+        and dense residual). As the reference, it leaves out the routers
+        and norms and counts a ``first_dense`` layer as the stack's."""
+        d, L = self.d_model, self.n_layers
+        attn = d * self.d_q + 2 * d * self.n_kv_heads * self.d_head \
+            + self.d_q * d
+        if self.mla:
+            r = self.kv_lora
+            attn = (d * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                    + d * r + d * self.qk_rope_dim
+                    + r * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
+                    + self.n_heads * self.v_head_dim * d)
+        if self.moe:
+            ffn = 3 * d * self.moe_d_ff * (self.n_experts
+                                           + self.n_shared_experts)
+            if self.dense_residual:
+                ffn += 3 * d * self.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        return self.vocab * d + L * (attn + ffn)
+
 
 # the ported architectures: dense GQA, with and without qk-norm, and the
-# MoE family with its dense residual (Arctic)
-ARCH_IDS = ["arctic-480b", "granite-8b", "qwen3-8b", "qwen3-14b",
-            "minitron-4b"]
+# MoE family with its dense residual (Arctic) or with MLA, shared experts
+# and a dense first layer (DeepSeek)
+ARCH_IDS = ["arctic-480b", "deepseek-v2-lite-16b", "granite-8b", "qwen3-8b",
+            "qwen3-14b", "minitron-4b"]
 
 
 def _module(arch_id: str):

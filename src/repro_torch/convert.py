@@ -80,6 +80,8 @@ def _tree(v, device):
 
 
 _LAYER_KEYS = {"ln1", "attn", "ln2", "mlp", "dense_mlp"}
+_GQA_KEYS = {"wq", "wk", "wv", "wo", "qn", "kn"}
+_MLA_KEYS = {"wq", "wdkv", "wkpe", "wuk", "wuv", "wo", "kvn"}
 _MOE_KEYS = {"router", "wi", "wg", "wo", "shared"}
 
 
@@ -89,15 +91,20 @@ def params_from_reference(params_np, cfg, *, device):
     ``device``, with the f32 copy of the embedding that ``unembed``
     reads. Dense GQA and MoE families: an MoE layer's router (f32), its
     stacked experts ``wi``/``wg``/``wo`` (L, E, d, f), its shared experts
-    and Arctic's ``dense_mlp`` come across as they are; any other key
+    and Arctic's ``dense_mlp`` come across as they are, and so do MLA's
+    attention keys and DeepSeek's dense ``prefix`` stack; any other key
     raises."""
     from .models.model import with_unembed_table
     stack = params_np.get("stack", {})
-    unknown = (set(params_np) - {"embed", "out_norm", "stack"}) | (
-        set(stack) - _LAYER_KEYS)
+    prefix = params_np.get("prefix", {})
+    unknown = (set(params_np) - {"embed", "out_norm", "stack", "prefix"}) \
+        | (set(stack) - _LAYER_KEYS) | (set(prefix) - _LAYER_KEYS) \
+        | (set(stack.get("attn", {})) - (_MLA_KEYS if cfg.mla
+                                         else _GQA_KEYS)) \
+        | (set(prefix.get("attn", {})) - _GQA_KEYS)
     if cfg.moe:
         unknown |= set(stack.get("mlp", {})) - _MOE_KEYS
-    if cfg.family not in ("dense", "moe") or cfg.mla or unknown:
+    if cfg.family not in ("dense", "moe") or unknown:
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA and MoE families are ported "
             f"(ROADMAP §1 item 13); unknown keys {sorted(unknown)}")
@@ -105,7 +112,9 @@ def params_from_reference(params_np, cfg, *, device):
 
 
 def cache_from_reference(cache_np, *, device):
-    """The reference's decode cache, flat (``k``, ``v``) or cluster-major
-    (``kt``, ``vt``, ``cent``, ``sizes``, ring), as nested dicts of
-    arrays -> the port's tensors on ``device``, same fields and types."""
+    """The reference's decode cache, flat (``k``, ``v``, with member
+    lists ``cent``, ``mem``, ``mmask``, ``sizes`` or without), MLA's
+    latent ``lat``, the dense ``prefix``'s, or cluster-major (``kt``,
+    ``vt``, ``cent``, ``sizes``, ring), as nested dicts of arrays -> the
+    port's tensors on ``device``, same fields and types."""
     return _tree(cache_np, device)

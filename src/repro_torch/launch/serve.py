@@ -7,7 +7,11 @@ CPU-scale demo:
 On a card (the default device), ``run`` takes any config, for example
 Qwen3-8B's cut in depth with ``dataclasses.replace(cfg, n_layers=4)``
 (as ``chip_smoke.py`` does). The MoE family (``--arch arctic-480b``)
-runs through the same code: only the layers' MLP differs.
+runs through the same code: only the layers' MLP differs. An MLA config
+(``--arch deepseek-v2-lite-16b``) caches the latent, which k²-attention
+does not cluster: ``run`` prefills, decodes with full attention, says
+so and stops, as the reference stops for attention-free SSMs (the
+reference's own serve raises ``KeyError: 'k'`` in ``attach_clusters``).
 
 Compares full-attention decode with k²-attention (cluster-major KV)
 decode and reports token agreement and the attention reads saved. The
@@ -40,30 +44,43 @@ import torch
 from ..configs.base import get_config, get_smoke_config
 from ..device import resolve
 from ..kernels import _build
-from ..models.kv_cluster import build_cluster_major, kv_partial_fit
+from ..models.kv_cluster import (build_cluster_major, build_kv_clusters,
+                                 kv_partial_fit)
 from ..models.model import (forward_prefill, init_cache, init_params,
                             serve_step)
 from ..serve import ServeConfig, ServeExecutor
 
 
+def _cache_sink(part: dict, S: int):
+    """A prefill sink that writes a layer's keys and values (B, S, Hkv,
+    dh) into the flat cache ``part`` (B, Hkv, S, dh) or, with MLA, its
+    latent (B, S, r + rope) into ``part["lat"]``, at slots < S."""
+    def sink(i, *kv):
+        if len(kv) == 1:
+            part["lat"][i, :, :S] = kv[0]
+        else:
+            part["k"][i, :, :, :S] = kv[0].transpose(1, 2)
+            part["v"][i, :, :, :S] = kv[1].transpose(1, 2)
+    return sink
+
+
 def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
-    """Fill the flat KV cache's first S slots from the prompt (B, S) and
-    return (logits after the prompt (B, vocab), cache): the contract of
-    the reference's stepped prefill, from one chunked forward whose
-    layers hand their keys and values to the cache. In the MoE family
-    each position's B tokens are routed as the reference's decode step
-    routes them (``moe.moe_apply_stepped``: with B <= 8 no pair is
-    dropped), not as one call over the B·S tokens of the chunked forward,
-    whose capacity would drop pairs the stepped prefill keeps."""
+    """Fill the cache's first S slots from the prompt (B, S) and return
+    (logits after the prompt (B, vocab), cache): the contract of the
+    reference's stepped prefill, from one chunked forward whose layers
+    hand their keys and values (or MLA latents, and the dense prefix's
+    keys and values) to the cache. In the MoE family each position's B
+    tokens are routed as the reference's decode step routes them
+    (``moe.moe_apply_stepped``: with B <= 8 no pair is dropped), not as
+    one call over the B·S tokens of the chunked forward, whose capacity
+    would drop pairs the stepped prefill keeps."""
     S = tokens.shape[1]
-    st = cache["stack"]
-
-    def sink(i, k, v):                     # (B, S, Hkv, dh) -> (B, Hkv, S, dh)
-        st["k"][i, :, :, :S] = k.transpose(1, 2)
-        st["v"][i, :, :, :S] = v.transpose(1, 2)
-
-    logits = forward_prefill(cfg, params, tokens, q_chunk=q_chunk,
-                             kv_sink=sink, moe_stepped=True)
+    prefix = cache.get("prefix")
+    logits = forward_prefill(
+        cfg, params, tokens, q_chunk=q_chunk,
+        kv_sink=_cache_sink(cache["stack"], S),
+        prefix_sink=_cache_sink(prefix, S) if prefix is not None else None,
+        moe_stepped=True)
     return logits, cache
 
 
@@ -94,6 +111,25 @@ def attach_clusters(cfg, cache, length: int | None = None):
         ring_k=torch.zeros((L, B, Hkv, R, dh), dtype=keys.dtype, device=dev),
         ring_v=torch.zeros((L, B, Hkv, R, dh), dtype=keys.dtype, device=dev),
         ring_fill=torch.zeros((L,), dtype=torch.int32, device=dev))
+    return new
+
+
+def attach_member_lists(cfg, cache, length: int | None = None):
+    """Run k²-means over the cached keys of every layer (one layer at a
+    time) and keep the clustering beside the flat cache as member lists,
+    the structure of the flat-cache k²-attention variant: returns a new
+    cache whose stack adds ``cent``, ``mem``, ``mmask`` and ``sizes`` and
+    shares the flat ``k``/``v`` with ``cache``. ``length``: number of
+    filled slots. Decode then attends to the top-p clusters' members and
+    files each new token with ``kv_cluster.cluster_append``."""
+    st = cache["stack"]
+    keys = st["k"] if length is None else st["k"][:, :, :, :length]
+    parts = [build_kv_clusters(keys[i], cfg.kv_clusters, cfg.cluster_cap)
+             for i in range(keys.shape[0])]
+    new = dict(cache)
+    new["stack"] = dict(st, **{f: torch.stack([p[j] for p in parts])
+                               for j, f in enumerate(("cent", "mem", "mmask",
+                                                      "sizes"))})
     return new
 
 
@@ -174,7 +210,9 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     cache, decode again with k²-attention through the serving executor
     (folding the ring every ``fold_every`` steps, default the ring size;
     ``retries`` transient failures absorbed a call) and report. Returns
-    the measurements, the params, both caches and the executor."""
+    the measurements, the params, both caches and the executor. An MLA
+    config stops after the full decode (two lines): its latent cache is
+    not clustered, and the clustered fields are ``None``."""
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
@@ -196,6 +234,19 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     full_toks, full_logits, cache, _, _ = decode(
         cfg, params, cache, prompt[:, -1:], prompt_len, decode_len)
     t_full = time.perf_counter() - t0
+    if cfg.mla:
+        echo(f"decoded {decode_len} tokens: full={t_full:.2f}s")
+        echo(f"{cfg.name}: k²-attention does not apply to the MLA latent "
+             f"cache; decoded with full attention only")
+        return dict(
+            params=params, cache=None, flat_cache=cache, counts=None,
+            prompt=prompt, prefill_logits=prefill_logits,
+            full_logits=full_logits, clus_logits=None, full_toks=full_toks,
+            clus_toks=None, t_init=t_init, t_prefill=t_prefill,
+            t_attach=None, t_full=t_full, t_clus=None, t_clus_loop=None,
+            agreement=None, folded=None, sizes0=None, sizes1=None,
+            dropped=None, reads_full=S_total, reads_clus=None,
+            launches=None, fold_every=None, executor=None)
 
     # k²-attention path: cluster the prefilled keys (the full decode wrote
     # only slots past the prompt), then decode against the clusters

@@ -3,9 +3,10 @@ paper's technique as a serving feature.
 
 ``build_kv_clusters`` runs at the prefill -> decode transition with a
 fixed iteration budget: strided-sample init, two Lloyd sweeps, then
-k_n-restricted k²-means sweeps (the paper's Algorithm 1). The
-cluster-major functions keep the cache sorted by cluster and fold the
-recent-token ring into it as tokens decode.
+k_n-restricted k²-means sweeps (the paper's Algorithm 1).
+``cluster_append`` keeps its member lists over the flat cache as tokens
+decode. The cluster-major functions keep the cache sorted by cluster and
+fold the recent-token ring into it as tokens decode.
 
 Where the port differs from the reference, and why:
 - the segment means are a segment sum in f64 that adds each segment's
@@ -23,7 +24,8 @@ Where the port differs from the reference, and why:
   (empty clusters all sit at centroid 0, so exact ties happen);
 - the strided init truncates ``jnp.linspace`` as XLA folds it
   (:func:`strided_ids`);
-- the ring folds update the tables, centroids, sizes and counts in place
+- ``cluster_append`` and the ring folds update the tables, member
+  lists, centroids, sizes and counts in place
   and stop after the ring's live rows (the reference scans all R slots
   and masks the rest): the caller names how many are live, or one host
   read finds out.
@@ -270,3 +272,27 @@ def cluster_major_append(kt, vt, centroids, sizes, k_new, v_new,
     old = centroids[bi, hi, c]
     centroids[bi, hi, c] = old + scale(k_new.to(centroids.dtype) - old, ema)
     return kt, vt, centroids, sizes
+
+
+def cluster_append(centroids, members, member_mask, sizes, k_new, pos: int,
+                   ema: float = 0.05):
+    """Online insert of one decoded token's key into the cluster structure
+    over the flat cache: slot ``pos`` joins its nearest cluster's member
+    list (a full cluster drops the insert; the token stays in the flat
+    cache) and the winning centroid moves toward the key by ``ema``.
+    centroids (B, H, kc, d); members/member_mask (B, H, kc, cap); sizes
+    (B, H, kc); k_new (B, H, d); pos a host int. In place, with no host
+    read; returns (centroids, members, member_mask, sizes)."""
+    B, H, kc, cap = members.shape
+    c = torch.argmin(_sqdist(k_new[:, :, None], centroids)[:, :, 0], -1)
+    bi = torch.arange(B, device=members.device)[:, None]
+    hi = torch.arange(H, device=members.device)[None, :]
+    sz = sizes[bi, hi, c]
+    slot = torch.clamp(sz, max=cap - 1)
+    ok = sz < cap
+    members[bi, hi, c, slot] = members[bi, hi, c, slot].masked_fill(ok, pos)
+    member_mask[bi, hi, c, slot] = member_mask[bi, hi, c, slot] | ok
+    sizes[bi, hi, c] = sz + ok.to(sizes.dtype)
+    old = centroids[bi, hi, c]
+    centroids[bi, hi, c] = old + scale(k_new.to(centroids.dtype) - old, ema)
+    return centroids, members, member_mask, sizes

@@ -1,15 +1,19 @@
-"""Top-level model, dense GQA and MoE families (port of
-``repro.models.model``): config -> params, prefill forward, caches and
-the serve step.
+"""Top-level model, dense GQA and MoE families, with GQA or MLA
+attention and DeepSeek's dense prefix (port of ``repro.models.model``):
+config -> params, prefill forward, caches and the serve step.
 
 Params are nested dicts of tensors whose paths and shapes are the
 reference's (``convert.params_from_reference`` carries them across),
 plus ``"embed_f32"``: one f32 copy of the tied embedding, which
 ``unembed`` multiplies in f32 as the reference does (it converts the
-whole table on every call). The caches are updated in place by
-``serve_step``.
+whole table on every call). A config with ``first_dense`` layers has a
+``"prefix"`` stack of dense GQA layers run before the ``"stack"`` (under
+:func:`prefix_config`, as the reference), with a flat k/v cache of its
+own. The caches are updated in place by ``serve_step``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -27,8 +31,7 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
         raise ValueError(f"init_params: generator on {gen.device}, params "
                          f"asked for on {dev}")
     d, v = cfg.d_model, cfg.vocab
-    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.first_dense \
-            or cfg.attn_every:
+    if cfg.family not in ("dense", "moe") or cfg.attn_every:
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA and MoE families are ported "
             f"(ROADMAP §1 item 13)")
@@ -36,8 +39,17 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
                       device=gen.device) * d ** -0.5
     params = {"embed": emb.to(torch.bfloat16),
               "out_norm": rmsnorm_init(d, device=gen.device)}
-    params["stack"] = tf.stack_init(cfg, gen, tf.layer_init, cfg.n_layers)
+    if cfg.first_dense:
+        params["prefix"] = tf.stack_init(cfg, gen, tf.dense_layer_init,
+                                         cfg.first_dense)
+    params["stack"] = tf.stack_init(cfg, gen, tf.layer_init,
+                                    cfg.n_layers - cfg.first_dense)
     return with_unembed_table(params)
+
+
+def prefix_config(cfg):
+    """The config the ``first_dense`` prefix runs under: no MoE, no MLA."""
+    return dataclasses.replace(cfg, moe=False, mla=False)
 
 
 def with_unembed_table(params: dict) -> dict:
@@ -57,13 +69,19 @@ def unembed(cfg, params, h):
 
 
 def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
-                    kv_sink=None, moe_stepped: bool = False):
+                    kv_sink=None, prefix_sink=None,
+                    moe_stepped: bool = False):
     """Prefill forward: logits for the LAST position only, (B, vocab).
-    ``kv_sink(i, k, v)`` receives every layer's keys and values.
-    ``moe_stepped``: route the MoE's tokens as a decode step over each
-    position would (``moe.moe_apply_stepped``) and not as one call over
-    all B·S tokens, whose capacity drops pairs the steps keep."""
+    ``kv_sink(i, k, v)`` receives every stack layer's keys and values
+    (``kv_sink(i, latent)`` with MLA), ``prefix_sink(i, k, v)`` every
+    prefix layer's. ``moe_stepped``: route the MoE's tokens as a decode
+    step over each position would (``moe.moe_apply_stepped``) and not as
+    one call over all B·S tokens, whose capacity drops pairs the steps
+    keep."""
     h = embed_tokens(cfg, params, tokens)
+    if cfg.first_dense:
+        h = tf.run_stack(prefix_config(cfg), params["prefix"], h,
+                         q_chunk=q_chunk, kv_sink=prefix_sink)
     h = tf.run_stack(cfg, params["stack"], h, q_chunk=q_chunk,
                      kv_sink=kv_sink, moe_stepped=moe_stepped)
     h_last = rmsnorm(params["out_norm"], h[:, -1:])
@@ -72,6 +90,9 @@ def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
 
 def _layer_cache_shape(cfg, B: int, S: int, clustered: bool) -> dict:
     dh, hkv = cfg.d_head, cfg.n_kv_heads
+    if cfg.mla:             # the latent, whatever ``clustered`` says
+        return {"lat": ((B, S, cfg.kv_lora + cfg.qk_rope_dim),
+                        torch.bfloat16)}
     if clustered:
         kc, cap, R = cfg.kv_clusters, cfg.cluster_cap, cfg.cluster_ring
         return {"kt": ((B, hkv, kc, cap, dh), torch.bfloat16),
@@ -87,12 +108,18 @@ def _layer_cache_shape(cfg, B: int, S: int, clustered: bool) -> dict:
 
 
 def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
-    """{"stack": {field: (shape, dtype)}} of the stacked decode cache."""
+    """{"stack": {field: (shape, dtype)}} of the stacked decode cache,
+    and {"prefix": ...} (a flat k/v cache) with ``first_dense`` layers."""
     if clustered is None:
         clustered = S >= cfg.long_context_threshold and not cfg.ssm
-    one = _layer_cache_shape(cfg, B, S, clustered)
-    return {"stack": {f: ((cfg.n_layers,) + shape, dt)
-                      for f, (shape, dt) in one.items()}}
+
+    def stacked(c, n, clus):
+        return {f: ((n,) + shape, dt) for f, (shape, dt) in
+                _layer_cache_shape(c, B, S, clus).items()}
+    out = {"stack": stacked(cfg, cfg.n_layers - cfg.first_dense, clustered)}
+    if cfg.first_dense:
+        out["prefix"] = stacked(prefix_config(cfg), cfg.first_dense, False)
+    return out
 
 
 def init_cache(cfg, B: int, S: int, *, clustered: bool | None = None,
@@ -100,16 +127,18 @@ def init_cache(cfg, B: int, S: int, *, clustered: bool | None = None,
     """Zero-initialised decode cache, stacked over layers, on ``device``
     (the card by default)."""
     dev = resolve(device)
-    return {"stack": {f: torch.zeros(shape, dtype=dt, device=dev)
-                      for f, (shape, dt) in cache_shapes(
-                          cfg, B, S, clustered=clustered)["stack"].items()}}
+    return {part: {f: torch.zeros(shape, dtype=dt, device=dev)
+                   for f, (shape, dt) in fields.items()}
+            for part, fields in cache_shapes(cfg, B, S,
+                                             clustered=clustered).items()}
 
 
 def serve_step(cfg, params, cache, tokens, pos: int, *, device=None):
     """Decode one token. tokens: (B, 1) int; pos: the slot (host int).
     Returns (logits (B, vocab) f32, cache), the cache updated in place.
     Whether attention is full or clustered is decided by the cache's
-    contents: a cluster-major cache carries ``kt``. The step runs where
+    contents: a cluster-major cache carries ``kt``, a flat cache with
+    member lists ``mem``. The step runs where
     params and cache lie; host-array tokens go to ``device`` (the card
     by default), which must be theirs."""
     tokens = host_input(tokens, device)
@@ -117,6 +146,9 @@ def serve_step(cfg, params, cache, tokens, pos: int, *, device=None):
         raise ValueError(f"serve_step: tokens on {tokens.device}, params "
                          f"on {params['embed'].device}")
     h = embed_tokens(cfg, params, tokens)
+    if cfg.first_dense:
+        h = tf.run_stack_decode(prefix_config(cfg), params["prefix"],
+                                cache["prefix"], h, pos)
     h = tf.run_stack_decode(cfg, params["stack"], cache["stack"], h, pos)
     h = rmsnorm(params["out_norm"], h)
     return unembed(cfg, params, h)[:, 0], cache

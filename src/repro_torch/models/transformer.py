@@ -1,16 +1,20 @@
-"""Layer-stack assembly for the dense GQA and MoE families (port of those
-parts of ``repro.models.transformer``).
+"""Layer-stack assembly for the dense GQA and MoE families, with GQA or
+MLA attention (port of those parts of ``repro.models.transformer``).
 
 Layer params are stacked on a leading axis, as in the reference; the
 stack runs as a Python loop over layers (the reference's ``lax.scan``),
-forward only (no remat). The prefill keeps each layer's (k, v), which
-the reference's ``_attn_apply`` drops, so the flat cache is filled from
-one chunked forward. Decode takes the ``"kt"`` branch (cluster-major
-k²-attention) or the flat-cache branch; the cluster tables are read-only
-in decode, which writes only the ring (in place). The MLP is a SwiGLU
-or, in the MoE family, ``moe.moe_apply`` with Arctic's parallel dense
-residual. MLA, SSM, the audio and VLM branches, Zamba's shared block and
-the flat-cache clustered variant wait for ROADMAP §1 item 13.
+forward only (no remat). The prefill keeps each layer's (k, v), or its
+MLA latent, which the reference's ``_attn_apply`` drops, so the cache is
+filled from one chunked forward. Decode takes the MLA branch (the latent
+cache), the ``"kt"`` branch (cluster-major k²-attention) or the
+flat-cache branch, which is k²-attention over member lists when the
+cache holds ``"mem"`` (``kv_cluster.cluster_append`` then files the
+token); the cluster-major tables are read-only in decode, which writes
+only the ring (in place). The MLP is a SwiGLU or, in the MoE family,
+``moe.moe_apply`` with shared experts or Arctic's parallel dense
+residual. DeepSeek's dense first layers are :func:`dense_layer_init`
+layers. SSM, the audio and VLM branches and Zamba's shared block wait
+for ROADMAP §1 item 13.
 """
 from __future__ import annotations
 
@@ -20,20 +24,24 @@ import torch
 
 from . import attention as attn
 from . import moe as moe_mod
+from .kv_cluster import cluster_append
 from .layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
 
 def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
     """One decoder layer's params (dense GQA, or MoE with its optional
     dense residual), each tensor asked of ``new`` (layers.allocator)."""
-    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.ssm:
+    if cfg.family not in ("dense", "moe") or cfg.ssm:
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA and MoE families are ported "
             f"(ROADMAP §1 item 13)")
     d = cfg.d_model
-    p = {"ln1": rmsnorm_init(d, device=gen.device, new=new),
-         "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.d_head, cfg.qk_norm, new=new),
+    if cfg.mla:
+        a = attn.mla_init(gen, d, cfg.n_heads, mla_dims(cfg), new=new)
+    else:
+        a = attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                          cfg.qk_norm, new=new)
+    p = {"ln1": rmsnorm_init(d, device=gen.device, new=new), "attn": a,
          "ln2": rmsnorm_init(d, device=gen.device, new=new)}
     if cfg.moe:
         p["mlp"] = moe_mod.moe_init(gen, d, cfg.moe_d_ff, cfg.n_experts,
@@ -43,6 +51,23 @@ def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
     else:
         p["mlp"] = swiglu_init(gen, d, cfg.d_ff, new=new)
     return p
+
+
+def dense_layer_init(cfg, gen: torch.Generator, new=None) -> dict:
+    """A plain dense layer (DeepSeek's ``first_dense`` prefix): GQA
+    attention and a SwiGLU of ``d_ff``, whatever the config's MoE and MLA
+    say."""
+    d = cfg.d_model
+    return {"ln1": rmsnorm_init(d, device=gen.device, new=new),
+            "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.d_head, cfg.qk_norm, new=new),
+            "ln2": rmsnorm_init(d, device=gen.device, new=new),
+            "mlp": swiglu_init(gen, d, cfg.d_ff, new=new)}
+
+
+def mla_dims(cfg) -> attn.MLADims:
+    return attn.MLADims(cfg.kv_lora, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                        cfg.v_head_dim)
 
 
 def stack_init(cfg, gen: torch.Generator, init_fn, n_layers: int) -> dict:
@@ -112,13 +137,22 @@ def _mlp_apply(cfg, p, h, moe_stepped: bool = False):
 
 def decoder_layer_fwd(cfg, p, h, q_chunk: int = 512,
                       moe_stepped: bool = False):
-    """One decoder layer, prefill path. Returns (h, aux, (k, v)): the
-    reference's (h, aux), and k and v (B, S, Hkv, dh) for the cache.
-    ``moe_stepped``: as :func:`_mlp_apply`."""
-    o, kv = attn.gqa_apply(p["attn"], rmsnorm(p["ln1"], h),
-                           n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                           d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-                           qk_norm=cfg.qk_norm, q_chunk=q_chunk)
+    """One decoder layer, prefill path. Returns (h, aux, kv): the
+    reference's (h, aux), and for the cache kv = (k, v), each (B, S, Hkv,
+    dh), or with MLA (latent,), (B, S, r + rope). ``moe_stepped``: as
+    :func:`_mlp_apply`."""
+    x = rmsnorm(p["ln1"], h)
+    if cfg.mla:
+        o, lat = attn.mla_apply(p["attn"], x, n_heads=cfg.n_heads,
+                                dims=mla_dims(cfg),
+                                rope_theta=cfg.rope_theta, q_chunk=q_chunk)
+        kv = (lat,)
+    else:
+        o, kv = attn.gqa_apply(p["attn"], x, n_heads=cfg.n_heads,
+                               n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
+                               rope_theta=cfg.rope_theta,
+                               qk_norm=cfg.qk_norm, q_chunk=q_chunk)
+    del x
     h = h + o
     y, aux = _mlp_apply(cfg, p, rmsnorm(p["ln2"], h), moe_stepped)
     return h + y, aux, kv
@@ -128,31 +162,46 @@ def run_stack(cfg, stacked, h, q_chunk: int = 512, kv_sink=None,
               moe_stepped: bool = False):
     """Run the stacked decoder layers over h. Returns h. ``kv_sink(i, k,
     v)``, when given, receives layer i's keys and values before the next
-    layer runs. ``moe_stepped``: as :func:`_mlp_apply`."""
+    layer runs (``kv_sink(i, latent)`` with MLA). ``moe_stepped``: as
+    :func:`_mlp_apply`."""
     for i in range(n_layers_of(stacked)):
-        h, _, (k, v) = decoder_layer_fwd(cfg, layer_params(stacked, i), h,
-                                         q_chunk=q_chunk,
-                                         moe_stepped=moe_stepped)
+        h, _, kv = decoder_layer_fwd(cfg, layer_params(stacked, i), h,
+                                     q_chunk=q_chunk,
+                                     moe_stepped=moe_stepped)
         if kv_sink is not None:
-            kv_sink(i, k, v)
-        del k, v
+            kv_sink(i, *kv)
+        del kv
     return h
+
+
+def _clusters_of(cache_l):
+    if "mem" in cache_l:
+        return (cache_l["cent"], cache_l["mem"], cache_l["mmask"])
+    return None
 
 
 def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
     """One-token decode through one layer. cache_l holds this layer's
     state (views of the stacked cache, updated in place). Returns h."""
-    if "kt" in cache_l:
+    if cfg.mla:
+        o, _ = attn.mla_decode(p["attn"], rmsnorm(p["ln1"], h),
+                               cache_l["lat"], pos, n_heads=cfg.n_heads,
+                               dims=mla_dims(cfg), rope_theta=cfg.rope_theta)
+    elif "kt" in cache_l:
         o, _ = attn.gqa_decode_cluster_major(
             p["attn"], rmsnorm(p["ln1"], h), cache_l, pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
             rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
             top_p=cfg.cluster_top_p)
     else:
-        o, _, _, _ = attn.gqa_decode(
+        o, _, _, k_new = attn.gqa_decode(
             p["attn"], rmsnorm(p["ln1"], h), cache_l["k"], cache_l["v"],
             pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
-            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+            clusters=_clusters_of(cache_l), top_p=cfg.cluster_top_p)
+        if "mem" in cache_l:
+            cluster_append(cache_l["cent"], cache_l["mem"], cache_l["mmask"],
+                           cache_l["sizes"], k_new, pos)
     h = h + o
     return h + _mlp_apply(cfg, p, rmsnorm(p["ln2"], h))[0]
 

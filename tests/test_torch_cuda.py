@@ -1479,3 +1479,101 @@ def test_cuda_gdi_router_matches_cpu(cuda):
     torch.testing.assert_close(torch.linalg.norm(got[1].double(), dim=0),
                                torch.ones(16, dtype=torch.float64),
                                rtol=1e-6, atol=0.0)
+
+
+def _f32(tree, device):
+    """A params or cache tree with its floating tensors in f32 on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: _f32(v, device) for k, v in tree.items()}
+    return (tree.float() if tree.is_floating_point() else tree).to(device)
+
+
+def _smoke_serve(arch, device, steps, member_lists=False):
+    """``arch``'s smoke config in f32 on ``device`` from params drawn on
+    the CPU: the serve prefill of a 2 x 48-token prompt, optionally the
+    member lists of the flat-cache k²-attention variant over the prompt's
+    keys, then ``steps`` decode steps teacher-forced with tokens drawn on
+    the CPU. Returns (the logits after the prompt and after each step,
+    the cache), on the CPU."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_cache, init_params, serve_step
+    cfg = get_smoke_config(arch)
+    params = _f32(init_params(cfg, torch.Generator().manual_seed(3),
+                              device="cpu"), device)
+    prompt = torch.randint(0, cfg.vocab, (2, 48),
+                           generator=torch.Generator().manual_seed(4))
+    toks = torch.randint(0, cfg.vocab, (steps, 2, 1),
+                         generator=torch.Generator().manual_seed(5))
+    cache = _f32(init_cache(cfg, 2, 48 + steps + 1, clustered=False,
+                            device="cpu"), device)
+    logits, cache = serve.prefill_into_cache(cfg, params, cache,
+                                             prompt.to(device))
+    if member_lists:
+        cache = serve.attach_member_lists(cfg, cache, length=48)
+    out = [logits.cpu()]
+    _build.reset_launches()
+    for i in range(steps):
+        logits, cache = serve_step(cfg, params, cache, toks[i].to(device),
+                                   48 + i)
+        out.append(logits.cpu())
+    assert not any(_build.launches().values())
+    return out, _f32(cache, "cpu")
+
+
+def _logits_close(got, want):
+    """Logits within 1e-4 of their largest magnitude (f32, sums in other
+    orders)."""
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_smoke_serve_matches_cpu(cuda):
+    """DeepSeek's smoke config (the GQA prefix, MLA over the latent cache,
+    the MoE with a shared expert) in f32 on the card against the CPU: the
+    serve prefill and 8 decode steps, logits within 1e-4 of their largest
+    magnitude, the latent cache within 1e-4 of its; no kernel launched."""
+    got, cache = _smoke_serve("deepseek-v2-lite-16b", cuda, 8)
+    want, want_c = _smoke_serve("deepseek-v2-lite-16b", "cpu", 8)
+    _logits_close(got, want)
+    lat, want_lat = cache["stack"]["lat"], want_c["stack"]["lat"]
+    assert float((lat - want_lat).abs().max()) <= \
+        1e-4 * float(want_lat.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flat_clustered_serve_step_matches_cpu(cuda):
+    """The flat-cache k²-attention variant (qwen3-8b's smoke config in f32:
+    member lists from k²-means over the prompt's keys, 8 decode steps
+    that gather the top-p clusters' rows and file each token with
+    ``cluster_append``) on the card against the CPU: logits within 1e-4
+    of their largest magnitude, member lists and sizes equal."""
+    got, cache = _smoke_serve("qwen3-8b", cuda, 8, member_lists=True)
+    want, want_c = _smoke_serve("qwen3-8b", "cpu", 8, member_lists=True)
+    _logits_close(got, want)
+    for f in ("mem", "mmask", "sizes"):
+        assert torch.equal(cache["stack"][f], want_c["stack"][f]), f
+
+
+@pytest.mark.cuda
+def test_cuda_mla_decode_is_bit_identical_run_to_run(cuda):
+    """``mla_decode`` at DeepSeek-V2-Lite's widths (d 2048, 16 heads,
+    kv_lora 512, nope 128, rope 64, v 128) in bf16 over a 4,096-slot
+    latent cache, twice from the same cache: bit-identical outputs and
+    caches."""
+    from repro_torch.models.attention import MLADims, mla_decode, mla_init
+    dims = MLADims(512, 128, 64, 128)
+    p = mla_init(torch.Generator(device=cuda).manual_seed(0), 2048, 16, dims)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 1, 2048), generator=gen, device=cuda).bfloat16()
+    lat = torch.randn((2, 4096, 576), generator=gen, device=cuda).bfloat16()
+    runs = []
+    for _ in range(2):
+        cache = lat.clone()
+        out, _ = mla_decode(p, x, cache, 4000, n_heads=16, dims=dims)
+        runs.append((out, cache))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert bool(torch.isfinite(runs[0][0].float()).all())

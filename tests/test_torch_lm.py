@@ -103,21 +103,24 @@ def test_config_matches_reference():
                       "cluster_top_p", "cluster_ring",
                       "long_context_threshold", "moe", "n_experts",
                       "top_k", "n_shared_experts", "moe_d_ff",
-                      "dense_residual", "first_dense", "mla"):
+                      "dense_residual", "first_dense", "mla", "kv_lora",
+                      "qk_nope_dim", "qk_rope_dim", "v_head_dim"):
                 assert getattr(port, f) == getattr(jx, f), (arch, f)
     with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("deepseek-v2-lite-16b")
+        get_config("rwkv6-3b")
 
 
 def test_unported_families_raise_naming_item_13():
-    """DeepSeek's MLA and dense prefix, the SSM families and unknown param
-    keys raise NotImplementedError naming ROADMAP §1 item 13, from the
-    model, the layer init and the converter."""
+    """The SSM families (a Zamba-style hybrid and RWKV6 in place of
+    Arctic's config) and unknown param keys raise NotImplementedError
+    naming ROADMAP §1 item 13, from the model, the layer init and the
+    converter."""
     import dataclasses
     from repro_torch.models.transformer import layer_init
     arctic = get_smoke_config("arctic-480b")
     gen = torch.Generator().manual_seed(0)
-    for cfg in (dataclasses.replace(arctic, mla=True, first_dense=1),
+    for cfg in (dataclasses.replace(arctic, family="hybrid", ssm="mamba2",
+                                    attn_every=2),
                 dataclasses.replace(arctic, family="ssm", ssm="rwkv6")):
         with pytest.raises(NotImplementedError, match="item 13"):
             init_params(cfg, gen, device="cpu")
