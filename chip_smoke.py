@@ -9,8 +9,8 @@ Phases (any failure exits non-zero, without the final result line):
 1. print the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and build the CUDA kernels from ``src/`` (the seven
    ports of the TPU kernels, the correct-rounding kernels of the torch
-   paths and the ordered segment sums; one ``nvcc`` per source, in
-   parallel);
+   paths, the ordered segment sums and the SSM scans; one ``nvcc`` per
+   source, in parallel);
 2. run the port's main path, ``repro_torch.core.fit(x, 1000,
    method="k2means", init="gdi", kn=30, max_iters=30)``, at the paper's
    mnist shape (n=60000, d=784) on GMM data made on the card from a
@@ -198,6 +198,35 @@ Phases (any failure exits non-zero, without the final result line):
    routers and norms), and DeepSeek's smoke config in f32 on the card
    against the plain CPU path (prefill and 8 decode steps, logits within
    1e-4 of their largest magnitude);
+2n. (after phase 2m, with its model released) RWKV6: RWKV6-3B at the
+   reference config's full width and depth, no cut (32 layers, d_model
+   2560, 40 heads of 64, d_ff 8960, vocab 65,536), random weights from
+   the seed, through ``serve.run``: 2 requests of a 32,768-token prompt
+   prefilled by the chunked forward (each layer's time loop one
+   ``wkv6_scan`` launch), 32 greedy tokens over the recurrent state (one
+   launch a layer a step), counts set to 0 just before; print the
+   allocated memory at the start, init and prefill seconds, ms per decode
+   token, peak device memory, the state's bytes, host reads per decode
+   step, and ``wkv6_scan``'s time a layer at the prefill's shape (CUDA
+   events) beside its bound; check the launches, finite logits, 1 host
+   read a step, the parameter count against ``params_estimate`` (made up
+   for the terms it leaves out), the serve prefill of the first 64 tokens
+   against ``serve_step`` stepped over them (every cache field within rel
+   1e-3), and the smoke config in f32 on the card against the plain CPU
+   path;
+2o. (after 2n) the hybrid: Zamba2-7B at the reference config's full
+   width and depth (81 Mamba2 layers, d_model 3584, 32 heads, P 224, N
+   64; the shared attention + MLP block every 6 layers, 14 applications,
+   32 kv-heads of 112, d_ff 14,336; vocab 32,000), as 2n with 2 x 16,384
+   prompt tokens (one ``ssd_scan`` launch a layer), then the shared
+   block's cache clustered (``serve.attach_clusters``: kc 256, cap 256,
+   top-p 16 -- serving knobs: the config's 2048 x 512 would take 421 GB
+   for 14 applications) and the same 32 tokens decoded with k²-attention
+   without folds (K6 once an application a step, through the executor);
+   print also the attach seconds, tokens dropped by full clusters, full
+   and clustered ms per token and the token agreement; check also K6's
+   launches and the rings; the smoke config's clustered decode in f32 on
+   the card against the plain CPU path;
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -217,7 +246,12 @@ Phases (any failure exits non-zero, without the final result line):
    the router's centroids; the ordered segment sums over the final arena,
    at the second fit's delta call over the most moved rows and at phase
    2f's first eviction delta) and
-   time both with CUDA events, beside one library call where one
+   time both with CUDA events (and, after phases 2n and 2o, each scan
+   kernel on 256 steps of layer 0's prefill inputs and at S = 1 from the
+   state after them, its final state bit-equal to its plain version's and
+   its outputs within 1e-5 of their sum of absolute terms, and K6 on its
+   arguments at a clustered decode step of phase 2o, dh = 112), beside one
+   library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
    sheet's peak for their type: 67 TFLOP/s FP32 and FP64 tensor, 1979
@@ -238,7 +272,8 @@ Phases (any failure exits non-zero, without the final result line):
 phase 2f and, after phase 3, the fit, one predict in each precision, one
 Lloyd++ fit, and phase 2e's full and k²-attention decode (8 steps each)
 and a ring fold, in phase 2l its full and k²-attention decode (4
-steps each), and in phase 2m 4 full-attention decode steps, under
+steps each), in phase 2m 4 full-attention decode steps, and in phases
+2n and 2o one decode step, under
 ``torch.profiler``:
 device time by kernel, the device's busy share of the host clock, and
 the host synchronisations.
@@ -270,6 +305,15 @@ MOE_ARCH, MOE_LAYERS, MOE_PROMPT = "arctic-480b", 2, 32768
 MLA_ARCH, MLA_PROMPT = "deepseek-v2-lite-16b", 32768
 # phase 2e's flat-cache k²-attention variant: decode steps
 FLAT_DECODE = 8
+# phases 2n and 2o: RWKV6-3B and Zamba2-7B whole (every layer at full
+# width), 32 decode tokens; Zamba2's shared block's cluster tables at kc
+# 256 x cap 256 (65,536 slots a head, 4x the prompt: the config's 2048 x
+# 512 would take 421 GB for its 14 applications); phase 3's scan checks
+# over 256 steps of layer 0's prefill inputs, and the stepped prefill
+# check over the first 64 tokens
+SSM_PROMPT = {"rwkv6-3b": 32768, "zamba2-7b": 16384}
+SSM_DECODE, SSM_KC, SSM_CAP, SSM_TOP_P = 32, 256, 256, 16
+SSM_SCAN_STEPS, SSM_STEPPED = 256, 64
 # phase 2f: the streaming model (window in epochs = partial_fit batches)
 STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -992,6 +1036,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _mla_phase(torch, dev, serve, check)
     print(f"  phase 2m wall {time.perf_counter() - t0:.1f} s")
+
+    # --- 2n, 2o. the SSM families whole: RWKV6-3B, then Zamba2-7B -------
+    for arch, tag in (("rwkv6-3b", "2n"), ("zamba2-7b", "2o")):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kernels.extend(_ssm_phase(torch, dev, serve, check, ref, smi_line,
+                                  arch))
+        print(f"  phase {tag} wall {time.perf_counter() - t0:.1f} s")
 
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
@@ -1721,6 +1773,368 @@ def _mla_phase(torch, dev, serve, check) -> None:
                         kind="full")
 
 
+def _ssm_phase(torch, dev, serve, check, ref, smi_line: str,
+               arch: str) -> list:
+    """Phases 2n (``rwkv6-3b``) and 2o (``zamba2-7b``): ``serve.run`` at
+    the reference config's full width and depth, counts set to 0 just
+    before: the chunked prefill (the recurrence one scan launch a layer),
+    SSM_DECODE greedy tokens over the recurrent state, and for Zamba2 the
+    shared block's cache clustered (kc SSM_KC, cap SSM_CAP) and the same
+    tokens decoded with k²-attention (K6 once an application a step).
+    Checks the launches, finite logits, 1 host read a step, the parameter
+    count against ``params_estimate`` made up, and the prefill's cache
+    against a stepped prefill of the first SSM_STEPPED tokens through
+    ``serve_step`` (rel 1e-3). Returns the kernels entries: the scan at a
+    full-width shape over SSM_SCAN_STEPS steps and at S = 1 (phase 3's
+    checks), and for Zamba2 K6 at dh = 112."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build, ssm_scan
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import n_shared_apps
+    from repro_torch.models.transformer import layer_params
+    cfg = get_config(arch)
+    hybrid = bool(cfg.attn_every)
+    tag = "2o" if hybrid else "2n"
+    prompt_len = SSM_PROMPT[arch]
+    if hybrid:
+        cfg = dataclasses.replace(cfg, kv_clusters=SSM_KC, cluster_cap=SSM_CAP,
+                                  cluster_top_p=SSM_TOP_P)
+    scan = "ssd_scan" if hybrid else "wkv6_scan"
+    napps = n_shared_apps(cfg) if hybrid else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    print(f"phase {tag}: {cfg.name}, all {cfg.n_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, "
+          + (f"Mamba2 d_in {cfg.ssm_expand * cfg.d_model}, N "
+             f"{cfg.ssm_state}, the shared attention block every "
+             f"{cfg.attn_every} layers ({napps} applications, "
+             f"{cfg.n_kv_heads} kv-heads of {cfg.d_head}), d_ff {cfg.d_ff}"
+             if hybrid else f"RWKV6 heads of {cfg.d_model // cfg.n_heads}, "
+             f"d_ff {cfg.d_ff}")
+          + f", vocab {cfg.vocab}), {LM_BATCH} requests x {prompt_len} "
+          f"prompt tokens, {SSM_DECODE} decode tokens"
+          + (f", kc {cfg.kv_clusters}, cap {cfg.cluster_cap}, top-p "
+             f"{cfg.cluster_top_p}, ring {cfg.cluster_ring}, no folds"
+             if hybrid else "")
+          + f"; allocated at the start {base / 2 ** 30:.2f} GiB")
+    if hybrid:
+        R = cfg.cluster_ring
+        tables = (2 * napps * LM_BATCH * cfg.n_kv_heads * cfg.kv_clusters
+                  * cfg.cluster_cap * cfg.d_head * 2)
+        print(f"  the k²-attention tables: {napps} applications x "
+              f"{LM_BATCH} x {cfg.n_kv_heads} kv-heads x {cfg.kv_clusters} "
+              f"clusters x {cfg.cluster_cap} slots x {cfg.d_head} x 2 (k, v) "
+              f"bf16 = {tables / 1e9:.1f} GB ({cfg.kv_clusters * cfg.cluster_cap}"
+              f" slots a head for a {prompt_len}-token prompt; the config's "
+              f"kc 2048 x cap 512 would take "
+              f"{tables * 2048 * 512 / (SSM_KC * SSM_CAP) / 1e9:.0f} GB); "
+              f"ring {R}")
+    _build.reset_launches()
+    r = serve.run(cfg, batch=LM_BATCH, prompt_len=prompt_len,
+                  decode_len=SSM_DECODE, device=dev, seed=SEED,
+                  echo=lambda line: print(f"  serve: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    params, flat = r["params"], r["flat_cache"]
+    prompt = r["prompt"]
+    tok = prompt[:, -1:]
+    pos = prompt_len + SSM_DECODE + 1
+    # the decode's host reads, on the flat cache (the last slot left)
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, params, flat, tok, pos - 1, 1))
+    if "--profile" in sys.argv[1:]:
+        _profile(torch, f"{tag} full decode x1", lambda: serve.decode(
+            cfg, params, flat, tok, pos - 1, 1))
+    leaves = {k: sum(t.numel() for t in _leaves(v))
+              for k, v in params.items() if k != "embed_f32"}
+    n_params = sum(leaves.values())
+    est = cfg.params_estimate()
+    d, L = cfg.d_model, cfg.n_layers
+    norms = sum(t.numel() for t in _norm_leaves(params))
+    # the estimate leaves out the norms and, per layer, Mamba2's A_log, D
+    # and dt_bias, or RWKV6's decay LoRA, token-shift mixes, decay bias
+    # and bonus, and counts six d x d matrices where RWKV6 has five
+    extra = L * (3 * cfg.n_heads if hybrid
+                 else 2 * 64 * d + 5 * d + 2 * d - d * d)
+    want_params = est + extra + norms
+    per_step = cfg.n_layers
+    want = {scan: per_step * (1 + SSM_DECODE * (2 if hybrid else 1))}
+    if hybrid:
+        want["cluster_attend"] = napps * SSM_DECODE
+    print(f"  init {r['t_init']:.3f} s ({n_params / 1e9:.4f} B parameters: "
+          + ", ".join(f"{k} {v / 1e9:.4f} B" for k, v in leaves.items())
+          + f"; params_estimate {est / 1e9:.4f} B); prefill "
+          f"{r['t_prefill']:.3f} s; decode full "
+          f"{r['t_full'] / SSM_DECODE * 1e3:.3f} ms/token"
+          + (f", clustered {r['t_clus'] / SSM_DECODE * 1e3:.3f} ms/token; "
+             f"attach {r['t_attach']:.3f} s, tokens dropped by full "
+             f"clusters {r['dropped']} of "
+             f"{prompt_len * LM_BATCH * cfg.n_kv_heads * napps}; token "
+             f"agreement {r['agreement']:.4f}" if hybrid else "")
+          + f" [{smi_line}]")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in flat["stack"].values())
+    print(f"  peak device memory {peak / 2 ** 30:.2f} GiB (+"
+          f"{(peak - base) / 2 ** 30:.2f} over the start); the recurrent "
+          f"state {state_bytes / 2 ** 20:.1f} MiB for {LM_BATCH} requests"
+          + (f"; the shared block's flat cache "
+             f"{sum(t.numel() * 2 for t in flat['shared'].values()) / 1e9:.2f}"
+             f" GB" if hybrid else "")
+          + f"; host reads {reads} for 1 decode step; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(n_params == want_params,
+          f"{tag}: {n_params} parameters = params_estimate {int(est)} with "
+          f"the per-layer terms it leaves out and the norms "
+          f"({int(want_params)})")
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want,
+          f"{tag}: launches {got}: {scan} once a layer in the prefill and "
+          f"once a layer a decode step"
+          + (", K6 once a shared-block application a clustered step"
+             if hybrid else "") + f" ({want})")
+    for name in ("prefill_logits", "full_logits") + (
+            ("clus_logits",) if hybrid else ()):
+        check(tuple(r[name].shape) == (LM_BATCH, cfg.vocab)
+              and bool(torch.isfinite(r[name]).all()),
+              f"{tag}: {name} finite, shape ({LM_BATCH}, {cfg.vocab})")
+    check(reads == 1, f"{tag}: host reads: 1 per decode step ({reads})")
+    if hybrid:
+        ex_st = r["executor"].stats()
+        check(r["folded"] == 0 and ex_st["admitted"] == SSM_DECODE
+              and bool((r["cache"]["shared"]["ring_fill"]
+                        == SSM_DECODE).all()),
+              f"{tag}: every clustered step through ex.call "
+              f"({ex_st['admitted']}), no fold, each application's ring "
+              f"holds the {SSM_DECODE} decoded tokens")
+
+    entries = []
+    if hybrid:
+        # K6 at dh = 112: its arguments at one more clustered decode step
+        # (after the measurements), recorded from the decode path's call
+        rec = []
+        real = attention.cluster_attend_partial
+
+        def record(q, kt, vt, sel, **kw):
+            if not rec:
+                rec.append((q.clone(), kt, vt, sel.clone(), kw["sizes"]))
+            return real(q, kt, vt, sel, **kw)
+        attention.cluster_attend_partial = record
+        try:
+            serve.decode(cfg, params, r["cache"], tok, pos, 1)
+        finally:
+            attention.cluster_attend_partial = real
+        torch.cuda.synchronize()
+        q, kt, vt, sel, sizes = rec[0]
+        entries.append(_k6_entry(
+            torch, check, dict(r, cfg=cfg, launches_all=launches), real, ref,
+            name="cluster_attend[zamba]",
+            inputs=(q.float().contiguous(), kt, vt, sel, sizes)))
+        del rec, q, kt, vt, sel, sizes
+    del r, flat
+    torch.cuda.empty_cache()
+
+    # layer 0's scan inputs over the prompt, recomputed as the prefill
+    # made them: the time a layer at the prefill's shape, beside its bound
+    p0 = layer_params(params["stack"], 0)
+    x = rmsnorm(p0["ln1"], params["embed"][prompt.long()])
+    H = cfg.n_heads
+    if hybrid:
+        z, xin, Bm, Cm, dt = ssm._mamba2_inputs(p0["mix"], x, H)
+        P = xin.shape[-1] // H
+        args = (xin.reshape(LM_BATCH, prompt_len, H, P).float().contiguous(),
+                Bm.contiguous(), Cm.contiguous(),
+                torch.exp(-torch.exp(p0["mix"]["A_log"]) * dt), dt,
+                p0["mix"]["D"])
+        N = Bm.shape[-1]
+        state0 = torch.zeros((LM_BATCH, H, P, N), device=dev)
+        kern_fn, plain_fn = ssm_scan.ssd_scan, ref.ssd_scan_ref
+        del z, xin
+    else:
+        x_prev = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+        r_, k_, v_, w_, _ = ssm._rwkv6_inputs(p0["mix"], x, x_prev, H)
+        args = tuple(t.float().contiguous() for t in (r_, k_, v_, w_)) \
+            + (p0["mix"]["u"],)
+        dh = d // H
+        state0 = torch.zeros((LM_BATCH, H, dh, dh), device=dev)
+        kern_fn, plain_fn = ssm_scan.wkv6_scan, ref.wkv6_scan_ref
+        del r_, k_, v_, w_, x_prev
+    del x
+
+    def scan_bound(a, S):
+        """Bytes: the f32 inputs of S steps and the output once, the
+        state read and written; operations: 5 FLOPs a state element a
+        step (the update's product, decay and sum, the output's multiply
+        and add), plus 3 a state row (ssd: dt x and the D skip) or 5 an
+        element of a head's row (wkv6: the rank-1 bonus term, v_j times
+        sum_i r_i u_i k_i, added to out_j)."""
+        if hybrid:
+            B_, _, H_, P_ = a[0].shape
+            N_ = a[1].shape[-1]
+            io = B_ * S * (2 * H_ * P_ + 2 * N_ + 2 * H_) + H_
+            st = B_ * H_ * P_ * N_
+            ops = B_ * S * H_ * P_ * (5 * N_ + 3)
+        else:
+            B_, _, H_, dh_ = a[0].shape
+            io = B_ * S * H_ * dh_ * 5 + H_ * dh_
+            st = B_ * H_ * dh_ * dh_
+            ops = B_ * S * H_ * dh_ * (5.0 * dh_ + 5)
+        return bound(4.0 * (io + 2 * st), ops)
+    st = state0.clone()
+    layer_ms = time_ms(lambda: kern_fn(*args, st), torch, reps=3, warmup=1)
+    b_ms, b_by = scan_bound(args, prompt_len)
+    print(f"  {scan} a layer at the prefill's shape ({tuple(args[0].shape)}"
+          f"): {layer_ms:.4f} ms (CUDA events), bound {b_ms:.4f} ms "
+          f"({b_by}), {prompt_len} dependent steps: "
+          f"{layer_ms / prompt_len * 1e3:.3f} us a step; launches {want[scan]}"
+          f" [{smi_line}]")
+
+    # phase 3's checks of the scan, at the full width: SSM_SCAN_STEPS steps
+    # of layer 0's inputs from a zero state, then one step from that state
+    S = SSM_SCAN_STEPS
+    head = tuple(a[:, :S].contiguous() if a.dim() >= 3 else a for a in args)
+    one = tuple(a[:, S:S + 1].contiguous() if a.dim() >= 3 else a
+                for a in args)
+    del args
+    after = state0.clone()
+    plain_fn(*head, after)
+    for label, a, s0 in (("", head, state0), ("[S=1]", one, after)):
+        entries.insert(len(entries) - hybrid, _scan_entry(
+            torch, check, f"{scan}{label}", kern_fn, plain_fn, a, s0,
+            launches[scan], scan_bound(a, a[0].shape[1]),
+            keep={3, 4} if hybrid else {3}))
+    del head, one, p0
+    for kr in entries:
+        dev_t = (f" (profiler's device time {kr['device_ms']:.4f} ms)"
+                 if "device_ms" in kr else "")
+        print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms{dev_t}, plain "
+              f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']}, bound "
+              f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}), launches "
+              f"{kr['launches']} [{smi_line}]")
+
+    # the prefill's cache against a stepped prefill of the first tokens,
+    # in bf16 (measured) and with the params in f32 (checked)
+    torch.cuda.empty_cache()
+    _stepped_agrees(torch, dev, serve, check, cfg, params, prompt, tag)
+    del params
+    torch.cuda.empty_cache()
+    _small_serve_agrees(torch, dev, serve, check, arch=arch,
+                        kind="cluster_major" if hybrid else "full")
+    return entries
+
+
+def _scan_entry(torch, check, name, kern_fn, plain_fn, args, state0,
+                launches, bound_ms_by, keep) -> dict:
+    """A scan kernel against its plain version on the same inputs from
+    the same state: the final state bit-equal (the same products and
+    sums, each rounded), the outputs within 1e-5 of their sum of absolute
+    terms plus 1e-6 (the plain version on |args|, the arguments at
+    indices ``keep``, positive decays, as they are; the kernel sums in
+    another order), a second launch bit-identical; both timed with CUDA
+    events."""
+    s_k, s_p = state0.clone(), state0.clone()
+    got = kern_fn(*args, s_k)
+    want = plain_fn(*args, s_p)
+    absargs = tuple(a if i in keep else a.abs() for i, a in enumerate(args))
+    scale = plain_fn(*absargs, state0.abs())
+    err = (got - want).abs()
+    ok = bool((err <= 1e-5 * scale + 1e-6).all())
+    s_again = state0.clone()
+    again = kern_fn(*args, s_again)
+    check(ok and bool(torch.equal(s_k, s_p)),
+          f"{name} {tuple(args[0].shape)} vs plain: final state bit-equal "
+          f"({bool(torch.equal(s_k, s_p))}), outputs within 1e-5 of their "
+          f"sum of |terms| ({ok}), max abs err {float(err.max()):.3g}")
+    check(bool(torch.equal(got, again)) and bool(torch.equal(s_k, s_again)),
+          f"{name}: launched twice, bit-identical")
+    st = state0.clone()
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces=("src/repro/models/ssm.py:165" if name.startswith("ssd")
+                  else "src/repro/models/ssm.py:83"),
+        launches=launches, max_abs_err=float(err.max()),
+        ms=time_ms(lambda: kern_fn(*args, st), torch),
+        plain_ms=time_ms(lambda: plain_fn(*args, st), torch, reps=3,
+                         warmup=1),
+        bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=None)
+
+
+def _stepped_agrees(torch, dev, serve, check, cfg, params, prompt, tag,
+                    n: int = 0) -> None:
+    """The serve prefill (one chunked forward) of the first ``n``
+    (SSM_STEPPED) prompt tokens against ``serve_step`` stepped over them
+    from an empty cache, every cache field (each layer's state, RWKV6's
+    ``xprev``, the shared block's keys and values at those slots). In the
+    model's types (bf16): layer 0's fields and the shared block's first
+    application's within 2e-2 (the tests' ``BF16_REL``) of their largest
+    magnitude, the deeper ones measured (the chunked and stepped products
+    round bf16 at other places, and the gap grows from layer to layer);
+    with the params and caches in f32, every field within 1e-3 of its
+    largest magnitude."""
+    from repro_torch.models.model import init_cache, serve_step
+    n = n or SSM_STEPPED
+    toks = prompt[:, :n].contiguous()
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else
+                (v.float() if v.is_floating_point() else v)
+                for k, v in tree.items()}
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+    worst = None
+    for label, p, cast in (("bf16", params, lambda c: c),
+                           ("f32", None, f32)):
+        if p is None:
+            p = f32(params)
+        caches = []
+        for _ in range(2):
+            caches.append(cast(init_cache(cfg, LM_BATCH, n + 1,
+                                          clustered=False, device=dev)))
+        chunked, stepped = caches
+        serve.prefill_into_cache(cfg, p, chunked, toks)
+        for i in range(n):
+            serve_step(cfg, p, stepped, toks[:, i:i + 1], i)
+        del p
+        errs, first = {}, {}
+        for part, fields in stepped.items():
+            for f, want in fields.items():
+                errs[f"{part}.{f}"] = rel(chunked[part][f], want)
+                first[f"{part}.{f}[0]"] = rel(chunked[part][f][0], want[0])
+        st_c, st_s = chunked["stack"]["state"], stepped["stack"]["state"]
+        by_layer = [rel(st_c[i], st_s[i]) for i in range(cfg.n_layers)]
+        print(f"  {tag}: the serve prefill of the first {n} tokens against "
+              f"serve_step stepped over them, {label}: max rel err by field "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + "; layer 0 and the first application: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in first.items())
+              + "; the state by layer: "
+              + " ".join(f"{v:.2g}" for v in by_layer))
+        if "shared" in stepped:
+            sh_c, sh_s = chunked["shared"], stepped["shared"]
+            print(f"  {tag}: {label}: the shared block's keys, values by "
+                  f"application: " + " ".join(
+                      f"{rel(sh_c['k'][a], sh_s['k'][a]):.2g},"
+                      f"{rel(sh_c['v'][a], sh_s['v'][a]):.2g}"
+                      for a in range(sh_s["k"].shape[0])))
+        if label == "bf16":
+            check(max(first.values()) <= 2e-2,
+                  f"{tag}: the prefill's layer 0 and first shared "
+                  f"application equal a stepped prefill of {n} tokens in "
+                  f"bf16 within rel 2e-2 ({max(first.values()):.3g})")
+        worst = max(errs.values())
+        del chunked, stepped, caches
+        torch.cuda.empty_cache()
+    check(worst <= 1e-3,
+          f"{tag}: the prefill's cache equals a stepped prefill of {n} "
+          f"tokens in f32 within rel 1e-3 ({worst:.3g})")
+
+
 def _norm_leaves(tree):
     """The rmsnorm scales (``g``) of a params tree."""
     for k, v in tree.items():
@@ -1847,13 +2261,15 @@ def k6_inputs(torch, lm):
 
 
 def _k6_entry(torch, check, lm, cluster_attend_partial, ref,
-              name: str = "cluster_attend") -> dict:
+              name: str = "cluster_attend", inputs=None) -> dict:
     """K6 on layer 0's cluster-major tables at a decode step (the layer's
-    query for the last decoded token, its top-p selection) against its
-    plain version, launched twice and held bit-identical to itself; its
-    bound and SDPA over the pre-gathered blocks."""
+    query for the last decoded token, its top-p selection; or ``inputs``,
+    K6's arguments (q, k_table, v_table, sel, sizes) recorded at a decode
+    step) against its plain version, launched twice and held
+    bit-identical to itself; its bound and SDPA over the pre-gathered
+    blocks."""
     import torch.nn.functional as F
-    qf, kt, vt, sel, sizes = k6_inputs(torch, lm)
+    qf, kt, vt, sel, sizes = inputs or k6_inputs(torch, lm)
     B, H, p = lm["prompt"].shape[0], lm["cfg"].n_heads, sel.shape[1]
     cap, dh = kt.shape[1:]
 
@@ -1877,7 +2293,7 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref,
     out_p = acc_p / torch.clamp(l_p, min=1e-30)[:, None]
     err = float((out_k - out_p).abs().max())
     check(ok, f"{name}: K6 on layer 0's tables ({tuple(kt.shape)} bf16, "
-              f"{B * H} rows, p={p}) vs plain: m, l within rtol 1e-5 (rescaled to "
+              f"dh={dh}, {B * H} rows, p={p}) vs plain: m, l within rtol 1e-5 (rescaled to "
               f"the plain max), acc within atol 1e-5 of the row's sum of "
               f"w|v|, empty rows exact; "
               f"attention output max abs err {err:.3g}")
@@ -1905,16 +2321,25 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref,
     print(f"  K6 at the decode step: {live_rows} distinct live rows in "
           f"{ids.numel()} selected blocks, {pair_rows} (row, block) reads, "
           f"mean block size {float(sizes.float().mean()):.2f} of {cap}")
-    return dict(
+    entry = dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/cluster_attend.cu",
         replaces="src/repro/kernels/cluster_attend.py:67",
         launches=lm["launches_all"]["cluster_attend"], max_abs_err=err,
         ms=time_ms_cold(kern, torch),
-        device_ms=device_ms(kern, torch, flush=True),
         plain_ms=time_ms_cold(plain, torch), bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms_cold(lambda: F.scaled_dot_product_attention(
             qb, kk, vv, attn_mask=mask), torch))
+    # the profiler's time is kept only where it is not below the bytes
+    # bound: below it the tables were read from L2 in spite of the flush
+    dev_ms = device_ms(kern, torch, flush=True)
+    if dev_ms >= b_ms:
+        entry["device_ms"] = dev_ms
+    else:
+        print(f"  {name}: the profiler's device time {dev_ms:.4f} ms is "
+              f"below the bytes bound {b_ms:.4f} ms, which a read from HBM "
+              f"cannot be: not kept")
+    return entry
 
 
 def _fixture_agrees(torch, dev, check, rounding_fixture, K2Step,

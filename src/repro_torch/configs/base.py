@@ -1,9 +1,8 @@
 """Architecture config schema and registry (port of
 ``repro.configs.base``): the port's own copy of ``ArchConfig``, with its
 fields and defaults as the reference has them, and the registry of the
-ported architectures, one module each. The reference's other
-architectures (SSM, hybrid, VLM, audio) wait for their families
-(ROADMAP §1 item 13)."""
+ported architectures, one module each. The reference's VLM and audio
+architectures wait for their families (ROADMAP §1 item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -62,9 +61,20 @@ class ArchConfig:
         """The reference's rough total param count, for the families the
         port runs: the embedding and ``n_layers`` layers of attention (GQA
         or MLA) and MLP (SwiGLU, or the MoE's routed and shared experts
-        and dense residual). As the reference, it leaves out the routers
-        and norms and counts a ``first_dense`` layer as the stack's."""
+        and dense residual); a pure SSM's mixers (RWKV6's six d x d
+        matrices and its SwiGLU, or Mamba2's projections); a hybrid's
+        Mamba2 mixers and one shared attention + MLP block. As the
+        reference, it leaves out the routers, norms and RWKV6's decay
+        LoRA, and counts a ``first_dense`` layer as the stack's."""
         d, L = self.d_model, self.n_layers
+        emb = self.vocab * d
+        if self.ssm and self.attn_every == 0:        # pure SSM
+            if self.ssm == "rwkv6":
+                mix = L * (6 * d * d)
+            else:
+                mix = L * self._mamba2_params()
+            ffn = L * 3 * d * self.d_ff if self.ssm == "rwkv6" else 0
+            return emb + mix + ffn
         attn = d * self.d_q + 2 * d * self.n_kv_heads * self.d_head \
             + self.d_q * d
         if self.mla:
@@ -73,6 +83,8 @@ class ArchConfig:
                     + d * r + d * self.qk_rope_dim
                     + r * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
                     + self.n_heads * self.v_head_dim * d)
+        if self.ssm and self.attn_every:         # hybrid: one shared block
+            return emb + L * self._mamba2_params() + attn + 3 * d * self.d_ff
         if self.moe:
             ffn = 3 * d * self.moe_d_ff * (self.n_experts
                                            + self.n_shared_experts)
@@ -80,14 +92,22 @@ class ArchConfig:
                 ffn += 3 * d * self.d_ff
         else:
             ffn = 3 * d * self.d_ff
-        return self.vocab * d + L * (attn + ffn)
+        return emb + L * (attn + ffn)
+
+    def _mamba2_params(self) -> int:
+        """A Mamba2 mixer's in and out projections, as the reference
+        counts them."""
+        d = self.d_model
+        d_in = self.ssm_expand * d
+        return d * (2 * d_in + 2 * self.ssm_state + self.n_heads) + d_in * d
 
 
-# the ported architectures: dense GQA, with and without qk-norm, and the
-# MoE family with its dense residual (Arctic) or with MLA, shared experts
-# and a dense first layer (DeepSeek)
+# the ported architectures: dense GQA, with and without qk-norm; the MoE
+# family with its dense residual (Arctic) or with MLA, shared experts and
+# a dense first layer (DeepSeek); RWKV6; the Mamba2 hybrid with a shared
+# attention block (Zamba2)
 ARCH_IDS = ["arctic-480b", "deepseek-v2-lite-16b", "granite-8b", "qwen3-8b",
-            "qwen3-14b", "minitron-4b"]
+            "qwen3-14b", "minitron-4b", "rwkv6-3b", "zamba2-7b"]
 
 
 def _module(arch_id: str):

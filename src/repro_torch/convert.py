@@ -79,42 +79,55 @@ def _tree(v, device):
     return _tensor_from_numpy(v, device)
 
 
-_LAYER_KEYS = {"ln1", "attn", "ln2", "mlp", "dense_mlp"}
+_LAYER_KEYS = {"ln1", "attn", "ln2", "mlp", "dense_mlp", "mix"}
 _GQA_KEYS = {"wq", "wk", "wv", "wo", "qn", "kn"}
 _MLA_KEYS = {"wq", "wdkv", "wkpe", "wuk", "wuv", "wo", "kvn"}
 _MOE_KEYS = {"router", "wi", "wg", "wo", "shared"}
+_MIX_KEYS = {"rwkv6": {"mu", "wr", "wk", "wv", "wg", "wo", "w0", "w1", "w2",
+                       "u", "ln"},
+             "mamba2": {"in_proj", "out_proj", "A_log", "D", "dt_bias", "ln"}}
 
 
 def params_from_reference(params_np, cfg, *, device):
     """The reference's LM params (a nested dict of arrays, layers stacked
     on a leading axis) -> the port's, same paths and types, on
     ``device``, with the f32 copy of the embedding that ``unembed``
-    reads. Dense GQA and MoE families: an MoE layer's router (f32), its
-    stacked experts ``wi``/``wg``/``wo`` (L, E, d, f), its shared experts
-    and Arctic's ``dense_mlp`` come across as they are, and so do MLA's
-    attention keys and DeepSeek's dense ``prefix`` stack; any other key
-    raises."""
+    reads. Dense GQA, MoE, SSM and hybrid families: an MoE layer's router
+    (f32), its stacked experts ``wi``/``wg``/``wo`` (L, E, d, f), its
+    shared experts and Arctic's ``dense_mlp`` come across as they are,
+    and so do MLA's attention keys, DeepSeek's dense ``prefix`` stack,
+    an SSM layer's ``mix`` (RWKV6's or Mamba2's keys, with their f32
+    ``w0``, ``u``, ``A_log``, ``D`` and ``dt_bias``) and Zamba2's top-level
+    ``shared`` block; any other key raises."""
     from .models.model import with_unembed_table
     stack = params_np.get("stack", {})
     prefix = params_np.get("prefix", {})
-    unknown = (set(params_np) - {"embed", "out_norm", "stack", "prefix"}) \
+    shared = params_np.get("shared", {})
+    unknown = (set(params_np) - {"embed", "out_norm", "stack", "prefix",
+                                 "shared"}) \
         | (set(stack) - _LAYER_KEYS) | (set(prefix) - _LAYER_KEYS) \
+        | (set(shared) - _LAYER_KEYS) \
         | (set(stack.get("attn", {})) - (_MLA_KEYS if cfg.mla
                                          else _GQA_KEYS)) \
-        | (set(prefix.get("attn", {})) - _GQA_KEYS)
+        | (set(prefix.get("attn", {})) - _GQA_KEYS) \
+        | (set(shared.get("attn", {})) - _GQA_KEYS) \
+        | (set(stack.get("mix", {})) - _MIX_KEYS.get(cfg.ssm, set()))
     if cfg.moe:
         unknown |= set(stack.get("mlp", {})) - _MOE_KEYS
-    if cfg.family not in ("dense", "moe") or unknown:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or unknown:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and MoE families are ported "
-            f"(ROADMAP §1 item 13); unknown keys {sorted(unknown)}")
+            f"{cfg.name}: only the dense GQA, MoE, SSM and hybrid families "
+            f"are ported (ROADMAP §1 item 13); unknown keys "
+            f"{sorted(unknown)}")
     return with_unembed_table(_tree(params_np, device))
 
 
 def cache_from_reference(cache_np, *, device):
     """The reference's decode cache, flat (``k``, ``v``, with member
     lists ``cent``, ``mem``, ``mmask``, ``sizes`` or without), MLA's
-    latent ``lat``, the dense ``prefix``'s, or cluster-major (``kt``,
-    ``vt``, ``cent``, ``sizes``, ring), as nested dicts of arrays -> the
-    port's tensors on ``device``, same fields and types."""
+    latent ``lat``, an SSM layer's ``state`` and ``xprev``, the dense
+    ``prefix``'s, Zamba2's ``shared`` block's (flat or cluster-major,
+    over its applications), or cluster-major (``kt``, ``vt``, ``cent``,
+    ``sizes``, ring), as nested dicts of arrays -> the port's tensors on
+    ``device``, same fields and types."""
     return _tree(cache_np, device)

@@ -507,3 +507,33 @@ def segment_sum_blocks_ref(x, b2s, k: int, bn: int, *, w=None, perm=None):
     vals = x[rs] * wt[:, None] if w is not None else x[rs]
     return (segment_sum_ordered(vals, seg, k + 1)[:k],
             segment_sum_ordered(wt, seg, k + 1)[:k])
+
+
+def wkv6_scan_ref(r, k, v, w, u, state):
+    """``ssm_scan.wkv6_scan``'s contract step by step, as the reference's
+    ``ssm.rwkv6_apply`` scan body: kv = k_t v_tᵀ, out_t = r_t · (S + u ⊙
+    kv), S <- w_t ⊙ S + kv. r, k, v, w: (B, S, H, dh) f32; u: (H, dh);
+    state (B, H, dh, dh) f32, updated in place. Returns out (B, S, H,
+    dh)."""
+    out = torch.empty_like(v)
+    uu = u[None, :, :, None]
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], state + uu * kv)
+        state.mul_(w[:, t, :, :, None]).add_(kv)
+    return out
+
+
+def ssd_scan_ref(x, Bm, Cm, decay, dt, D, state):
+    """``ssm_scan.ssd_scan``'s contract step by step, as the reference's
+    ``ssm.mamba2_apply`` scan body and its D skip: upd = (dt_t x_t) B_tᵀ,
+    S <- decay_t S + upd, y_t = S C_t, then y + D x. x: (B, S, H, P);
+    Bm, Cm: (B, S, N); decay, dt: (B, S, H); D: (H,); state (B, H, P, N),
+    updated in place; all f32. Returns y (B, S, H, P)."""
+    y = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        upd = (dt[:, t, :, None, None] * x[:, t, :, :, None]
+               * Bm[:, t, None, None, :])
+        state.mul_(decay[:, t, :, None, None]).add_(upd)
+        y[:, t] = torch.einsum("bhpn,bn->bhp", state, Cm[:, t])
+    return y.add_(D[None, None, :, None] * x)

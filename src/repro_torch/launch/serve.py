@@ -12,6 +12,13 @@ runs through the same code: only the layers' MLP differs. An MLA config
 does not cluster: ``run`` prefills, decodes with full attention, says
 so and stops, as the reference stops for attention-free SSMs (the
 reference's own serve raises ``KeyError: 'k'`` in ``attach_clusters``).
+An attention-free SSM config (``--arch rwkv6-3b``) decodes its recurrent
+state and prints the reference's two lines. A hybrid (``--arch
+zamba2-7b``) clusters its shared attention block's cache, one
+cluster-major table set for each application of the block, and decodes
+with k²-attention without folds (the reference's ``fold_ring`` reads
+only the stack), so its decode may not outrun the ring; the reference's
+own serve raises ``KeyError: 'k'`` there (ROADMAP §3 entry 25).
 
 Compares full-attention decode with k²-attention (cluster-major KV)
 decode and reports token agreement and the attention reads saved. The
@@ -30,9 +37,10 @@ shares the bounded admission queue, the transient-retry envelope
 accounting of the predict/partial_fit traffic; the end-of-run lines
 print the queue and the fault counters.
 
-Difference from the reference: the prompt fills the flat cache from one
+Difference from the reference: the prompt fills the cache from one
 chunked prefill forward (the reference steps ``serve_step`` over the
-prompt, which 65,536 tokens make too slow).
+prompt, which 65,536 tokens make too slow); an SSM layer's recurrence
+runs there as one kernel launch (``kernels.ssm_scan``).
 """
 from __future__ import annotations
 
@@ -52,15 +60,28 @@ from ..serve import ServeConfig, ServeExecutor
 
 
 def _cache_sink(part: dict, S: int):
-    """A prefill sink that writes a layer's keys and values (B, S, Hkv,
-    dh) into the flat cache ``part`` (B, Hkv, S, dh) or, with MLA, its
-    latent (B, S, r + rope) into ``part["lat"]``, at slots < S."""
-    def sink(i, *kv):
-        if len(kv) == 1:
-            part["lat"][i, :, :S] = kv[0]
-        else:
-            part["k"][i, :, :, :S] = kv[0].transpose(1, 2)
-            part["v"][i, :, :, :S] = kv[1].transpose(1, 2)
+    """A prefill sink that writes a layer's cache fields into the stacked
+    cache ``part`` at layer i: keys and values (B, S, Hkv, dh) into the
+    flat cache (B, Hkv, S, dh) and MLA's latent (B, S, r + rope) at slots
+    < S, an SSM layer's ``state`` and ``xprev`` whole."""
+    def sink(i, fields):
+        for f, t in fields.items():
+            if f in ("k", "v"):
+                part[f][i, :, :, :S] = t.transpose(1, 2)
+            elif f == "lat":
+                part[f][i, :, :S] = t
+            else:
+                part[f][i] = t
+    return sink
+
+
+def _shared_sink(part: dict, S: int):
+    """A prefill sink that writes the shared block's keys and values
+    (B, S, Hkv, dh) at application ``app`` into its flat cache ``part``
+    (napps, B, Hkv, S, dh), at slots < S."""
+    def sink(app, k, v):
+        part["k"][app, :, :, :S] = k.transpose(1, 2)
+        part["v"][app, :, :, :S] = v.transpose(1, 2)
     return sink
 
 
@@ -68,30 +89,29 @@ def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
     """Fill the cache's first S slots from the prompt (B, S) and return
     (logits after the prompt (B, vocab), cache): the contract of the
     reference's stepped prefill, from one chunked forward whose layers
-    hand their keys and values (or MLA latents, and the dense prefix's
-    keys and values) to the cache. In the MoE family each position's B
+    hand their cache fields to the cache (keys and values, MLA latents,
+    an SSM layer's state and last input, the dense prefix's and the
+    shared block's keys and values). In the MoE family each position's B
     tokens are routed as the reference's decode step routes them
     (``moe.moe_apply_stepped``: with B <= 8 no pair is dropped), not as
     one call over the B·S tokens of the chunked forward, whose capacity
     would drop pairs the stepped prefill keeps."""
     S = tokens.shape[1]
-    prefix = cache.get("prefix")
+    prefix, shared = cache.get("prefix"), cache.get("shared")
     logits = forward_prefill(
         cfg, params, tokens, q_chunk=q_chunk,
         kv_sink=_cache_sink(cache["stack"], S),
         prefix_sink=_cache_sink(prefix, S) if prefix is not None else None,
+        shared_sink=_shared_sink(shared, S) if shared is not None else None,
         moe_stepped=True)
     return logits, cache
 
 
-def attach_clusters(cfg, cache, length: int | None = None):
-    """Run k²-means over the cached keys of every layer (one layer at a
-    time) and repack the cache cluster-major: the flat K/V is replaced by
-    the member tables, and an empty ring in the cache's type (bf16 in the
-    model) is added. ``length``: number of filled slots (unfilled zero
-    rows must not be clustered)."""
-    st = cache["stack"]
-    keys, vals = st["k"], st["v"]                       # (L, B, Hkv, S, dh)
+def _cluster_part(cfg, part: dict, length: int | None) -> dict:
+    """``part``'s flat k/v (L, B, Hkv, S, dh) repacked cluster-major, one
+    slice of the leading axis at a time: a new dict without ``k``/``v``,
+    with the member tables and an empty ring in the cache's type."""
+    keys, vals = part["k"], part["v"]
     if length is not None:
         keys, vals = keys[:, :, :, :length], vals[:, :, :, :length]
     L, B, Hkv, _, dh = keys.shape
@@ -104,13 +124,31 @@ def attach_clusters(cfg, cache, length: int | None = None):
     for i in range(L):
         _, _, cent[i], sizes[i] = build_cluster_major(
             keys[i], vals[i], kc, cap, out=(kt[i], vt[i]))
-    new = dict(cache)
-    new["stack"] = {f: v for f, v in st.items() if f not in ("k", "v")}
-    new["stack"].update(
+    new = {f: v for f, v in part.items() if f not in ("k", "v")}
+    new.update(
         kt=kt, vt=vt, cent=cent, sizes=sizes,
         ring_k=torch.zeros((L, B, Hkv, R, dh), dtype=keys.dtype, device=dev),
         ring_v=torch.zeros((L, B, Hkv, R, dh), dtype=keys.dtype, device=dev),
         ring_fill=torch.zeros((L,), dtype=torch.int32, device=dev))
+    return new
+
+
+def attach_clusters(cfg, cache, length: int | None = None):
+    """Run k²-means over the cached keys of every layer (one layer at a
+    time) and repack the cache cluster-major: the flat K/V is replaced by
+    the member tables, and an empty ring in the cache's type (bf16 in the
+    model) is added. A hybrid's stack holds no keys: its shared block's
+    cache is repacked instead, one application at a time, into the
+    reference's clustered layout (a leading applications axis, a ring
+    fill per application). ``length``: number of filled slots (unfilled
+    zero rows must not be clustered)."""
+    parts = [p for p in ("stack", "shared") if "k" in cache.get(p, {})]
+    if not parts:
+        raise ValueError(f"{cfg.name}: the cache holds no flat keys to "
+                         f"cluster (fields {sorted(cache['stack'])})")
+    new = dict(cache)
+    for part in parts:
+        new[part] = _cluster_part(cfg, cache[part], length)
     return new
 
 
@@ -212,7 +250,17 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     ``retries`` transient failures absorbed a call) and report. Returns
     the measurements, the params, both caches and the executor. An MLA
     config stops after the full decode (two lines): its latent cache is
-    not clustered, and the clustered fields are ``None``."""
+    not clustered, and the clustered fields are ``None``; so does an
+    attention-free SSM config, with the reference's two lines. A hybrid
+    clusters its shared block's cache and decodes without folds, so it
+    raises when ``decode_len`` exceeds ``cluster_ring`` or ``fold_every``
+    is set."""
+    if cfg.attn_every and (decode_len > cfg.cluster_ring or fold_every):
+        raise ValueError(
+            f"{cfg.name}: decode_len {decode_len} (cluster_ring "
+            f"{cfg.cluster_ring}), fold_every {fold_every}: the shared "
+            f"block's ring is not folded (the reference's fold_ring reads "
+            f"only the stack), so a decode may not outrun it")
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
@@ -234,10 +282,16 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     full_toks, full_logits, cache, _, _ = decode(
         cfg, params, cache, prompt[:, -1:], prompt_len, decode_len)
     t_full = time.perf_counter() - t0
-    if cfg.mla:
-        echo(f"decoded {decode_len} tokens: full={t_full:.2f}s")
-        echo(f"{cfg.name}: k²-attention does not apply to the MLA latent "
-             f"cache; decoded with full attention only")
+    recurrent = bool(cfg.ssm) and not cfg.attn_every
+    if cfg.mla or recurrent:
+        if recurrent:
+            echo(f"{cfg.name}: attention-free — k²-attention inapplicable "
+                 f"(native O(1) state); running plain decode")
+            echo(f"decoded {decode_len} tokens in {t_full:.2f}s (recurrent)")
+        else:
+            echo(f"decoded {decode_len} tokens: full={t_full:.2f}s")
+            echo(f"{cfg.name}: k²-attention does not apply to the MLA "
+                 f"latent cache; decoded with full attention only")
         return dict(
             params=params, cache=None, flat_cache=cache, counts=None,
             prompt=prompt, prefill_logits=prefill_logits,
@@ -249,14 +303,17 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
             launches=None, fold_every=None, executor=None)
 
     # k²-attention path: cluster the prefilled keys (the full decode wrote
-    # only slots past the prompt), then decode against the clusters
+    # only slots past the prompt), then decode against the clusters; a
+    # hybrid's keys are its shared block's, and its ring is not folded
+    part = "shared" if cfg.attn_every else "stack"
     t0 = time.perf_counter()
     cache2 = attach_clusters(cfg, cache, length=prompt_len)
     _sync(dev)
     t_attach = time.perf_counter() - t0
-    counts = cache2["stack"]["sizes"].float()
-    fold_every = fold_every or cfg.cluster_ring
-    sizes0 = int(torch.sum(cache2["stack"]["sizes"]))
+    counts = cache2[part]["sizes"].float()
+    if not cfg.attn_every:
+        fold_every = fold_every or cfg.cluster_ring
+    sizes0 = int(torch.sum(cache2[part]["sizes"]))
     ex = serve_executor(cfg, params, retries)
     before = _build.launches()
     t0 = time.perf_counter()
@@ -264,26 +321,32 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
         cfg, params, cache2, prompt[:, -1:], prompt_len, decode_len,
         fold_every=fold_every, counts=counts, executor=ex)
     t_loop = time.perf_counter() - t0
-    cache2, counts, tail = _guarded(                       # drain the tail
-        ex, "fold_ring", {"cache": cache2, "counts": counts})
+    if fold_every:
+        cache2, counts, tail = _guarded(                   # drain the tail
+            ex, "fold_ring", {"cache": cache2, "counts": counts})
+        folded += tail
     _sync(dev)
     t_clus = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in _build.launches().items()}
-    folded += tail
-    sizes1 = int(torch.sum(cache2["stack"]["sizes"]))
+    sizes1 = int(torch.sum(cache2[part]["sizes"]))
 
     agree = float(sum((a == b).mean() for a, b in zip(full_toks, clus_toks))
                   / max(len(full_toks), 1))
     reads_full = S_total
     reads_clus = cfg.kv_clusters + cfg.cluster_top_p * cfg.cluster_cap
-    n_layers = cache2["stack"]["ring_fill"].shape[0]
+    n_layers = cache2[part]["ring_fill"].shape[0]
     echo(f"decoded {decode_len} tokens: full={t_full:.2f}s "
          f"clustered={t_clus:.2f}s  token agreement={agree:.2f}")
-    echo(f"partial_fit folds: {folded} ring slots "
-         f"({folded // max(n_layers, 1)} tokens x {n_layers} "
-         f"layers) absorbed into the cluster tables "
-         f"({sizes1 - sizes0} member rows, {sizes0} -> {sizes1}), "
-         f"fold every {fold_every} steps")
+    if fold_every:
+        echo(f"partial_fit folds: {folded} ring slots "
+             f"({folded // max(n_layers, 1)} tokens x {n_layers} "
+             f"layers) absorbed into the cluster tables "
+             f"({sizes1 - sizes0} member rows, {sizes0} -> {sizes1}), "
+             f"fold every {fold_every} steps")
+    else:
+        echo(f"no folds: the {decode_len} decoded tokens stay in the ring "
+             f"of each of the {n_layers} shared-block applications "
+             f"({sizes0} member rows)")
     echo(f"attention reads/token: full={reads_full} "
          f"clustered={reads_clus} ({reads_full / reads_clus:.1f}x fewer)")
     # the queue and the healing counters: nothing the execution layer

@@ -1,6 +1,8 @@
-"""Top-level model, dense GQA and MoE families, with GQA or MLA
-attention and DeepSeek's dense prefix (port of ``repro.models.model``):
-config -> params, prefill forward, caches and the serve step.
+"""Top-level model: the dense GQA and MoE families, with GQA or MLA
+attention and DeepSeek's dense prefix, and the SSM (RWKV6) and hybrid
+(Zamba2: Mamba2 layers and a shared attention block) families (port of
+``repro.models.model``): config -> params, prefill forward, caches and
+the serve step.
 
 Params are nested dicts of tensors whose paths and shapes are the
 reference's (``convert.params_from_reference`` carries them across),
@@ -9,7 +11,11 @@ plus ``"embed_f32"``: one f32 copy of the tied embedding, which
 whole table on every call). A config with ``first_dense`` layers has a
 ``"prefix"`` stack of dense GQA layers run before the ``"stack"`` (under
 :func:`prefix_config`, as the reference), with a flat k/v cache of its
-own. The caches are updated in place by ``serve_step``.
+own. A config with ``attn_every`` has ``"shared"`` params, one
+attention + MLP block, and a ``"shared"`` cache with one slot for each of
+its ⌈n_layers / attn_every⌉ applications. An SSM layer's cache is its
+recurrent state (f32) and, for RWKV6, the previous token's normed input
+``xprev``. The caches are updated in place by ``serve_step``.
 """
 from __future__ import annotations
 
@@ -31,10 +37,7 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
         raise ValueError(f"init_params: generator on {gen.device}, params "
                          f"asked for on {dev}")
     d, v = cfg.d_model, cfg.vocab
-    if cfg.family not in ("dense", "moe") or cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and MoE families are ported "
-            f"(ROADMAP §1 item 13)")
+    tf.check_family(cfg)
     emb = torch.randn((v, d), generator=gen, dtype=torch.float32,
                       device=gen.device) * d ** -0.5
     params = {"embed": emb.to(torch.bfloat16),
@@ -44,6 +47,8 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
                                          cfg.first_dense)
     params["stack"] = tf.stack_init(cfg, gen, tf.layer_init,
                                     cfg.n_layers - cfg.first_dense)
+    if cfg.attn_every:
+        params["shared"] = tf.shared_attn_init(cfg, gen)
     return with_unembed_table(params)
 
 
@@ -69,27 +74,38 @@ def unembed(cfg, params, h):
 
 
 def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
-                    kv_sink=None, prefix_sink=None,
+                    kv_sink=None, prefix_sink=None, shared_sink=None,
                     moe_stepped: bool = False):
     """Prefill forward: logits for the LAST position only, (B, vocab).
-    ``kv_sink(i, k, v)`` receives every stack layer's keys and values
-    (``kv_sink(i, latent)`` with MLA), ``prefix_sink(i, k, v)`` every
-    prefix layer's. ``moe_stepped``: route the MoE's tokens as a decode
-    step over each position would (``moe.moe_apply_stepped``) and not as
-    one call over all B·S tokens, whose capacity drops pairs the steps
-    keep."""
+    ``kv_sink(i, fields)`` receives every stack layer's cache fields, a
+    dict keyed by the cache's field names (``transformer.
+    decoder_layer_fwd``), ``prefix_sink(i, fields)`` every prefix layer's
+    and ``shared_sink(app, k, v)`` the shared block's keys and values at
+    each application. ``moe_stepped``: route the MoE's tokens as a
+    decode step over each position would (``moe.moe_apply_stepped``) and
+    not as one call over all B·S tokens, whose capacity drops pairs the
+    steps keep."""
     h = embed_tokens(cfg, params, tokens)
     if cfg.first_dense:
         h = tf.run_stack(prefix_config(cfg), params["prefix"], h,
                          q_chunk=q_chunk, kv_sink=prefix_sink)
-    h = tf.run_stack(cfg, params["stack"], h, q_chunk=q_chunk,
-                     kv_sink=kv_sink, moe_stepped=moe_stepped)
+    h = tf.run_stack(cfg, params["stack"], h, shared_p=params.get("shared"),
+                     q_chunk=q_chunk, kv_sink=kv_sink,
+                     shared_sink=shared_sink, moe_stepped=moe_stepped)
     h_last = rmsnorm(params["out_norm"], h[:, -1:])
     return unembed(cfg, params, h_last)[:, 0]
 
 
 def _layer_cache_shape(cfg, B: int, S: int, clustered: bool) -> dict:
     dh, hkv = cfg.d_head, cfg.n_kv_heads
+    if cfg.ssm == "rwkv6":     # the state, whatever ``clustered`` says
+        dhead = cfg.d_model // cfg.n_heads
+        return {"state": ((B, cfg.n_heads, dhead, dhead), torch.float32),
+                "xprev": ((B, 1, cfg.d_model), torch.bfloat16)}
+    if cfg.ssm == "mamba2":
+        d_in = cfg.ssm_expand * cfg.d_model
+        return {"state": ((B, cfg.n_heads, d_in // cfg.n_heads,
+                           cfg.ssm_state), torch.float32)}
     if cfg.mla:             # the latent, whatever ``clustered`` says
         return {"lat": ((B, S, cfg.kv_lora + cfg.qk_rope_dim),
                         torch.bfloat16)}
@@ -107,9 +123,18 @@ def _layer_cache_shape(cfg, B: int, S: int, clustered: bool) -> dict:
             "v": ((B, hkv, S, dh), torch.bfloat16)}
 
 
+def n_shared_apps(cfg) -> int:
+    """The applications of the shared block: ⌈n_layers / attn_every⌉."""
+    return -(-cfg.n_layers // cfg.attn_every)
+
+
 def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
     """{"stack": {field: (shape, dtype)}} of the stacked decode cache,
-    and {"prefix": ...} (a flat k/v cache) with ``first_dense`` layers."""
+    {"prefix": ...} (a flat k/v cache) with ``first_dense`` layers, and
+    {"shared": ...} with ``attn_every``: the shared block's cache (flat or
+    cluster-major as ``clustered`` says) stacked over its applications,
+    the ring's fill one per application. ``clustered=None``: clustered
+    from ``long_context_threshold`` on, never for an SSM config."""
     if clustered is None:
         clustered = S >= cfg.long_context_threshold and not cfg.ssm
 
@@ -119,6 +144,9 @@ def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
     out = {"stack": stacked(cfg, cfg.n_layers - cfg.first_dense, clustered)}
     if cfg.first_dense:
         out["prefix"] = stacked(prefix_config(cfg), cfg.first_dense, False)
+    if cfg.attn_every:
+        attn_cfg = dataclasses.replace(cfg, ssm="")
+        out["shared"] = stacked(attn_cfg, n_shared_apps(cfg), clustered)
     return out
 
 
@@ -138,7 +166,8 @@ def serve_step(cfg, params, cache, tokens, pos: int, *, device=None):
     Returns (logits (B, vocab) f32, cache), the cache updated in place.
     Whether attention is full or clustered is decided by the cache's
     contents: a cluster-major cache carries ``kt``, a flat cache with
-    member lists ``mem``. The step runs where
+    member lists ``mem`` (Zamba2's shared block: its ``"shared"``
+    cache). The step runs where
     params and cache lie; host-array tokens go to ``device`` (the card
     by default), which must be theirs."""
     tokens = host_input(tokens, device)
@@ -149,6 +178,8 @@ def serve_step(cfg, params, cache, tokens, pos: int, *, device=None):
     if cfg.first_dense:
         h = tf.run_stack_decode(prefix_config(cfg), params["prefix"],
                                 cache["prefix"], h, pos)
-    h = tf.run_stack_decode(cfg, params["stack"], cache["stack"], h, pos)
+    h = tf.run_stack_decode(cfg, params["stack"], cache["stack"], h, pos,
+                            shared_p=params.get("shared"),
+                            shared_cache=cache.get("shared"))
     h = rmsnorm(params["out_norm"], h)
     return unembed(cfg, params, h)[:, 0], cache

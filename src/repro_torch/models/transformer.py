@@ -1,20 +1,27 @@
-"""Layer-stack assembly for the dense GQA and MoE families, with GQA or
-MLA attention (port of those parts of ``repro.models.transformer``).
+"""Layer-stack assembly for the dense GQA, MoE, SSM and hybrid families,
+with GQA or MLA attention (port of those parts of
+``repro.models.transformer``).
 
 Layer params are stacked on a leading axis, as in the reference; the
 stack runs as a Python loop over layers (the reference's ``lax.scan``),
-forward only (no remat). The prefill keeps each layer's (k, v), or its
-MLA latent, which the reference's ``_attn_apply`` drops, so the cache is
-filled from one chunked forward. Decode takes the MLA branch (the latent
-cache), the ``"kt"`` branch (cluster-major k²-attention) or the
-flat-cache branch, which is k²-attention over member lists when the
-cache holds ``"mem"`` (``kv_cluster.cluster_append`` then files the
-token); the cluster-major tables are read-only in decode, which writes
-only the ring (in place). The MLP is a SwiGLU or, in the MoE family,
-``moe.moe_apply`` with shared experts or Arctic's parallel dense
-residual. DeepSeek's dense first layers are :func:`dense_layer_init`
-layers. SSM, the audio and VLM branches and Zamba's shared block wait
-for ROADMAP §1 item 13.
+forward only (no remat). The prefill keeps what each layer's decode
+cache holds, which the reference's forward drops, so the cache is filled
+from one chunked forward: a dict keyed by the cache's own field names,
+(``k``, ``v``) of GQA, MLA's ``lat``, an SSM mixer's ``state`` (and
+RWKV6's ``xprev``), and Zamba's shared block's (``k``, ``v``) for its
+application. Decode takes the SSM branches (the recurrent state, in
+place), the MLA branch (the latent cache), the ``"kt"`` branch
+(cluster-major k²-attention) or the flat-cache branch, which is
+k²-attention over member lists when the cache holds ``"mem"``
+(``kv_cluster.cluster_append`` then files the token); the cluster-major
+tables are read-only in decode, which writes only the ring (in place).
+The MLP is a SwiGLU or, in the MoE family, ``moe.moe_apply`` with shared
+experts or Arctic's parallel dense residual; a Mamba2 layer has none.
+DeepSeek's dense first layers are :func:`dense_layer_init` layers.
+Zamba2's shared attention + MLP block (one set of weights) runs after
+the mixer of every layer i with i % ``attn_every`` == 0, application
+i // ``attn_every``, with a cache slot of its own. The audio and VLM
+branches wait for ROADMAP §1 item 13.
 """
 from __future__ import annotations
 
@@ -24,25 +31,39 @@ import torch
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .kv_cluster import cluster_append
 from .layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
 
-def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
-    """One decoder layer's params (dense GQA, or MoE with its optional
-    dense residual), each tensor asked of ``new`` (layers.allocator)."""
-    if cfg.family not in ("dense", "moe") or cfg.ssm:
+def check_family(cfg) -> None:
+    """Raise for the families the port does not run yet (audio, VLM)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and MoE families are ported "
-            f"(ROADMAP §1 item 13)")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP "
+            f"§1 item 13)")
+
+
+def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
+    """One decoder layer's params (dense GQA, MoE with its optional dense
+    residual, an RWKV6 layer, or a Mamba2 layer, which has no MLP), each
+    tensor asked of ``new`` (layers.allocator)."""
+    check_family(cfg)
     d = cfg.d_model
+    ln = lambda: rmsnorm_init(d, device=gen.device, new=new)  # noqa: E731
+    if cfg.ssm == "rwkv6":
+        return {"ln1": ln(), "mix": ssm_mod.rwkv6_init(gen, d, cfg.n_heads,
+                                                       new=new),
+                "ln2": ln(), "mlp": swiglu_init(gen, d, cfg.d_ff, new=new)}
+    if cfg.ssm == "mamba2":
+        return {"ln1": ln(), "mix": ssm_mod.mamba2_init(
+            gen, d, cfg.n_heads, cfg.ssm_state, cfg.ssm_expand, new=new)}
     if cfg.mla:
         a = attn.mla_init(gen, d, cfg.n_heads, mla_dims(cfg), new=new)
     else:
         a = attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                           cfg.qk_norm, new=new)
-    p = {"ln1": rmsnorm_init(d, device=gen.device, new=new), "attn": a,
-         "ln2": rmsnorm_init(d, device=gen.device, new=new)}
+    p = {"ln1": ln(), "attn": a, "ln2": ln()}
     if cfg.moe:
         p["mlp"] = moe_mod.moe_init(gen, d, cfg.moe_d_ff, cfg.n_experts,
                                     cfg.n_shared_experts, new=new)
@@ -61,6 +82,17 @@ def dense_layer_init(cfg, gen: torch.Generator, new=None) -> dict:
     return {"ln1": rmsnorm_init(d, device=gen.device, new=new),
             "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.d_head, cfg.qk_norm, new=new),
+            "ln2": rmsnorm_init(d, device=gen.device, new=new),
+            "mlp": swiglu_init(gen, d, cfg.d_ff, new=new)}
+
+
+def shared_attn_init(cfg, gen: torch.Generator, new=None) -> dict:
+    """Zamba2's shared attention + MLP block (one set of weights): GQA
+    without qk-norm and a SwiGLU of ``d_ff``."""
+    d = cfg.d_model
+    return {"ln1": rmsnorm_init(d, device=gen.device, new=new),
+            "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.d_head, False, new=new),
             "ln2": rmsnorm_init(d, device=gen.device, new=new),
             "mlp": swiglu_init(gen, d, cfg.d_ff, new=new)}
 
@@ -135,42 +167,74 @@ def _mlp_apply(cfg, p, h, moe_stepped: bool = False):
     return swiglu(p["mlp"], h), 0.0
 
 
+def shared_block_fwd(cfg, sp, h, q_chunk: int = 512):
+    """Zamba2's shared block, prefill path: (h, (k, v)), the keys and
+    values (B, S, Hkv, dh) for the application's cache."""
+    o, kv = attn.gqa_apply(sp["attn"], rmsnorm(sp["ln1"], h),
+                           n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                           d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+                           q_chunk=q_chunk)
+    h = h + o
+    return h + swiglu(sp["mlp"], rmsnorm(sp["ln2"], h)), kv
+
+
 def decoder_layer_fwd(cfg, p, h, q_chunk: int = 512,
                       moe_stepped: bool = False):
-    """One decoder layer, prefill path. Returns (h, aux, kv): the
-    reference's (h, aux), and for the cache kv = (k, v), each (B, S, Hkv,
-    dh), or with MLA (latent,), (B, S, r + rope). ``moe_stepped``: as
-    :func:`_mlp_apply`."""
+    """One decoder layer, prefill path. Returns (h, aux, fields): the
+    reference's (h, aux), and what the layer's decode cache keeps, keyed
+    by the cache's field names: ``k``, ``v`` (B, S, Hkv, dh); with MLA
+    ``lat`` (B, S, r + rope); an RWKV6 layer's ``state`` (B, H, dh, dh)
+    and ``xprev`` (B, 1, d); a Mamba2 layer's ``state`` (B, H, P, N).
+    ``moe_stepped``: as :func:`_mlp_apply`."""
     x = rmsnorm(p["ln1"], h)
+    if cfg.ssm == "rwkv6":
+        o, state, xprev = ssm_mod.rwkv6_apply(p["mix"], x,
+                                              n_heads=cfg.n_heads)
+        h = h + o
+        return (h + swiglu(p["mlp"], rmsnorm(p["ln2"], h)), 0.0,
+                {"state": state, "xprev": xprev})
+    if cfg.ssm == "mamba2":
+        o, state = ssm_mod.mamba2_apply(p["mix"], x, n_heads=cfg.n_heads)
+        return h + o, 0.0, {"state": state}
     if cfg.mla:
         o, lat = attn.mla_apply(p["attn"], x, n_heads=cfg.n_heads,
                                 dims=mla_dims(cfg),
                                 rope_theta=cfg.rope_theta, q_chunk=q_chunk)
-        kv = (lat,)
+        fields = {"lat": lat}
     else:
-        o, kv = attn.gqa_apply(p["attn"], x, n_heads=cfg.n_heads,
-                               n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
-                               rope_theta=cfg.rope_theta,
-                               qk_norm=cfg.qk_norm, q_chunk=q_chunk)
+        o, (k, v) = attn.gqa_apply(p["attn"], x, n_heads=cfg.n_heads,
+                                   n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
+                                   rope_theta=cfg.rope_theta,
+                                   qk_norm=cfg.qk_norm, q_chunk=q_chunk)
+        fields = {"k": k, "v": v}
     del x
     h = h + o
     y, aux = _mlp_apply(cfg, p, rmsnorm(p["ln2"], h), moe_stepped)
-    return h + y, aux, kv
+    return h + y, aux, fields
 
 
-def run_stack(cfg, stacked, h, q_chunk: int = 512, kv_sink=None,
-              moe_stepped: bool = False):
-    """Run the stacked decoder layers over h. Returns h. ``kv_sink(i, k,
-    v)``, when given, receives layer i's keys and values before the next
-    layer runs (``kv_sink(i, latent)`` with MLA). ``moe_stepped``: as
+def run_stack(cfg, stacked, h, shared_p=None, q_chunk: int = 512,
+              kv_sink=None, shared_sink=None, moe_stepped: bool = False):
+    """Run the stacked decoder layers over h. Returns h. ``kv_sink(i,
+    fields)``, when given, receives layer i's cache fields
+    (:func:`decoder_layer_fwd`) before the next layer runs. With
+    ``shared_p`` (Zamba2), layer i with i % attn_every == 0 is followed
+    by the shared block, and ``shared_sink(app, k, v)`` receives its keys
+    and values at application i // attn_every. ``moe_stepped``: as
     :func:`_mlp_apply`."""
     for i in range(n_layers_of(stacked)):
-        h, _, kv = decoder_layer_fwd(cfg, layer_params(stacked, i), h,
-                                     q_chunk=q_chunk,
-                                     moe_stepped=moe_stepped)
+        h, _, fields = decoder_layer_fwd(cfg, layer_params(stacked, i), h,
+                                         q_chunk=q_chunk,
+                                         moe_stepped=moe_stepped)
         if kv_sink is not None:
-            kv_sink(i, *kv)
-        del kv
+            kv_sink(i, fields)
+        del fields
+        if cfg.attn_every and shared_p is not None \
+                and i % cfg.attn_every == 0:
+            h, (k, v) = shared_block_fwd(cfg, shared_p, h, q_chunk)
+            if shared_sink is not None:
+                shared_sink(i // cfg.attn_every, k, v)
+            del k, v
     return h
 
 
@@ -183,6 +247,17 @@ def _clusters_of(cache_l):
 def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
     """One-token decode through one layer. cache_l holds this layer's
     state (views of the stacked cache, updated in place). Returns h."""
+    if cfg.ssm == "rwkv6":
+        xt = rmsnorm(p["ln1"], h)
+        o, _, _ = ssm_mod.rwkv6_decode(p["mix"], xt, cache_l["xprev"],
+                                       cache_l["state"], n_heads=cfg.n_heads)
+        cache_l["xprev"].copy_(xt)
+        h = h + o
+        return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h))
+    if cfg.ssm == "mamba2":
+        o, _ = ssm_mod.mamba2_decode(p["mix"], rmsnorm(p["ln1"], h),
+                                     cache_l["state"], n_heads=cfg.n_heads)
+        return h + o
     if cfg.mla:
         o, _ = attn.mla_decode(p["attn"], rmsnorm(p["ln1"], h),
                                cache_l["lat"], pos, n_heads=cfg.n_heads,
@@ -206,11 +281,40 @@ def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
     return h + _mlp_apply(cfg, p, rmsnorm(p["ln2"], h))[0]
 
 
-def run_stack_decode(cfg, stacked, cache, h, pos: int):
+def shared_block_decode(cfg, sp, sc_app, h, pos: int):
+    """Zamba2's shared block, one-token decode, over its application's
+    cache ``sc_app`` (views, updated in place): the flat ``k``/``v``
+    (B, Hkv, S, dh), or the cluster-major tables (read-only) and ring.
+    Returns h."""
+    x = rmsnorm(sp["ln1"], h)
+    if "kt" in sc_app:
+        o, _ = attn.gqa_decode_cluster_major(
+            sp["attn"], x, sc_app, pos, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+            top_p=cfg.cluster_top_p)
+    else:
+        o, _, _, _ = attn.gqa_decode(
+            sp["attn"], x, sc_app["k"], sc_app["v"], pos, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta)
+    h = h + o
+    return h + swiglu(sp["mlp"], rmsnorm(sp["ln2"], h))
+
+
+def run_stack_decode(cfg, stacked, cache, h, pos: int, shared_p=None,
+                     shared_cache=None):
     """Decode one token through the layer stack with per-layer caches
-    (``cache``: the stacked cache dict, updated in place). Returns h."""
+    (``cache``: the stacked cache dict, updated in place). With
+    ``shared_p`` (Zamba2), layer i with i % attn_every == 0 then runs
+    the shared block over application i // attn_every of
+    ``shared_cache`` (leading axis the applications). Returns h."""
     for i in range(n_layers_of(stacked)):
         cache_l = {f: v[i] for f, v in cache.items()}
         h = decoder_layer_decode(cfg, layer_params(stacked, i), cache_l, h,
                                  pos)
+        if cfg.attn_every and shared_p is not None \
+                and i % cfg.attn_every == 0:
+            app = i // cfg.attn_every
+            h = shared_block_decode(
+                cfg, shared_p, {f: v[app] for f, v in shared_cache.items()},
+                h, pos)
     return h

@@ -48,6 +48,7 @@ from repro_torch.kernels.ops import (group_by_cluster_device,
                                      segment_sum_ordered)
 from repro_torch.kernels.segment_sum import segment_sum_blocks
 from repro_torch.kernels.segmented_scan import segmented_scan
+from repro_torch.kernels.ssm_scan import ssd_scan, wkv6_scan
 from repro_torch.models.attention import cluster_major_decode_attention
 
 
@@ -512,7 +513,7 @@ def _assert_state_close(got, want, acc_abs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [16, 20, 64, 128])
+@pytest.mark.parametrize("dh", [16, 20, 64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("form", ["sizes", "valid"])
 def test_cuda_cluster_attend(cuda, dh, dtype, form):
@@ -1489,13 +1490,16 @@ def _f32(tree, device):
     return (tree.float() if tree.is_floating_point() else tree).to(device)
 
 
-def _smoke_serve(arch, device, steps, member_lists=False):
+def _smoke_serve(arch, device, steps, member_lists=False, clustered=False,
+                 launches=None):
     """``arch``'s smoke config in f32 on ``device`` from params drawn on
     the CPU: the serve prefill of a 2 x 48-token prompt, optionally the
-    member lists of the flat-cache k²-attention variant over the prompt's
-    keys, then ``steps`` decode steps teacher-forced with tokens drawn on
-    the CPU. Returns (the logits after the prompt and after each step,
-    the cache), on the CPU."""
+    member lists of the flat-cache k²-attention variant or (``clustered``)
+    the cluster-major tables over the prompt's keys, then ``steps``
+    decode steps teacher-forced with tokens drawn on the CPU. Returns (the
+    logits after the prompt and after each step, the cache), on the CPU.
+    The decode steps launch the kernels ``launches`` counts (none by
+    default)."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models.model import init_cache, init_params, serve_step
@@ -1512,13 +1516,17 @@ def _smoke_serve(arch, device, steps, member_lists=False):
                                              prompt.to(device))
     if member_lists:
         cache = serve.attach_member_lists(cfg, cache, length=48)
+    if clustered:
+        cache = serve.attach_clusters(cfg, cache, length=48)
     out = [logits.cpu()]
     _build.reset_launches()
     for i in range(steps):
         logits, cache = serve_step(cfg, params, cache, toks[i].to(device),
                                    48 + i)
         out.append(logits.cpu())
-    assert not any(_build.launches().values())
+    got = {k: v for k, v in _build.launches().items() if v}
+    want = {} if launches is None or device == "cpu" else launches
+    assert got == want, (got, want)
     return out, _f32(cache, "cpu")
 
 
@@ -1577,3 +1585,156 @@ def test_cuda_mla_decode_is_bit_identical_run_to_run(cuda):
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     assert bool(torch.isfinite(runs[0][0].float()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_attend_zamba_shape(cuda):
+    """K6 at Zamba2's head width (dh 112: a bf16 row of 224 bytes) with
+    phase 2o's cap 256 and p 16, both validity forms giving the same
+    state, within the plain version's tolerances."""
+    q, kt, vt, sel, sizes, valid = _attend_inputs(64, 1024, 256, 112, 16,
+                                                  torch.bfloat16, 5, cuda)
+    a = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    b = cluster_attend_partial(q, kt, vt, sel, valid=valid)
+    _assert_state_close(a, ref.cluster_attend_ref(q, kt, vt, sel,
+                                                  sizes=sizes),
+                        ref.cluster_attend_ref(q, kt, vt.abs(), sel,
+                                               sizes=sizes)[2])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _scan_close(got, want, scale):
+    """A scan's outputs within 1e-5 of ``scale`` (each output's sum of
+    absolute terms) plus 1e-6: the kernel sums in another order than
+    the plain version's product."""
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * scale + 1e-6).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 16), (1, 1, 64), (2, 40, 64)],
+                         ids=["smoke", "head", "rwkv6-3b"])
+@pytest.mark.parametrize("S", [1, 300])
+def test_cuda_wkv6_scan(cuda, shape, S):
+    """``wkv6_scan`` against its plain version on the card (the smoke
+    width, one full-width head, all 40 heads of RWKV6-3B), at S = 1 (a
+    decode step) and 300, from a random state: the final state bit-equal
+    (the same products and sums, each rounded), the outputs within 1e-5
+    of their sum of absolute terms; one launch and one count a call."""
+    B, H, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + dh)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa
+    r, k, v = rnd(B, S, H, dh), rnd(B, S, H, dh), rnd(B, S, H, dh)
+    w = torch.exp(-torch.exp(rnd(B, S, H, dh) * 0.5 - 3.0))
+    u = rnd(H, dh) * 0.1
+    s0 = rnd(B, H, dh, dh)
+    st, st_p = s0.clone(), s0.clone()
+    _build.reset_launches()
+    got = wkv6_scan(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    assert _build.launches()["wkv6_scan"] == 1
+    want = ref.wkv6_scan_ref(r, k, v, w, u, st_p)
+    assert torch.equal(st, st_p)
+    st_a = s0.abs()
+    scale = ref.wkv6_scan_ref(r.abs(), k.abs(), v.abs(), w, u.abs(), st_a)
+    _scan_close(got, want, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 32, 8), (1, 1, 224, 64),
+                                   (2, 32, 224, 64)],
+                         ids=["smoke", "head", "zamba2-7b"])
+@pytest.mark.parametrize("S", [1, 300])
+def test_cuda_ssd_scan(cuda, shape, S):
+    """``ssd_scan`` against its plain version on the card (the smoke
+    width, one full-width head, all 32 heads of Zamba2-7B: P 224, N 64),
+    at S = 1 and 300, from a random state: the final state bit-equal, the
+    outputs within 1e-5 of their sum of absolute terms."""
+    B, H, P, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + P)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa
+    x, Bm, Cm = rnd(B, S, H, P), rnd(B, S, N), rnd(B, S, N)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    decay = torch.exp(-torch.exp(rnd(H) * 0.5) * dt)
+    D = rnd(H)
+    s0 = rnd(B, H, P, N)
+    st, st_p = s0.clone(), s0.clone()
+    _build.reset_launches()
+    got = ssd_scan(x, Bm, Cm, decay, dt, D, st)
+    torch.cuda.synchronize()
+    assert _build.launches()["ssd_scan"] == 1
+    want = ref.ssd_scan_ref(x, Bm, Cm, decay, dt, D, st_p)
+    assert torch.equal(st, st_p)
+    scale = ref.ssd_scan_ref(x.abs(), Bm.abs(), Cm.abs(), decay, dt, D.abs(),
+                             s0.abs())
+    _scan_close(got, want, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_scans_raise_on_what_they_do_not_take(cuda):
+    """A CUDA tensor the kernel does not take raises (no CPU fallback)."""
+    z = torch.zeros((1, 2, 1, 200), device=cuda)
+    with pytest.raises(ValueError, match="dh must be <= 64"):
+        wkv6_scan(z, z, z, z, torch.zeros((1, 200), device=cuda),
+                  torch.zeros((1, 1, 200, 200), device=cuda))
+    with pytest.raises(ValueError, match="P must be <= 256 and N <= 64"):
+        ssd_scan(torch.zeros((1, 2, 1, 8), device=cuda),
+                 torch.zeros((1, 2, 80), device=cuda),
+                 torch.zeros((1, 2, 80), device=cuda),
+                 torch.zeros((1, 2, 1), device=cuda),
+                 torch.zeros((1, 2, 1), device=cuda),
+                 torch.zeros((1,), device=cuda),
+                 torch.zeros((1, 1, 8, 80), device=cuda))
+    x = torch.zeros((1, 2, 1, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ssd_scan"):
+        ssd_scan(x, torch.zeros((1, 2, 4), device=cuda),
+                 torch.zeros((1, 2, 4), device=cuda),
+                 torch.zeros((1, 2, 1), device=cuda),
+                 torch.zeros((1, 2, 1), device=cuda),
+                 torch.zeros((1,), device=cuda),
+                 torch.zeros((1, 1, 8, 4), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_cuda_ssm_smoke_serve_matches_cpu(cuda, arch):
+    """The SSM smoke configs in f32 on the card against the CPU: the serve
+    prefill (one scan launch a layer) and 8 decode steps (one a layer a
+    step; Zamba2's shared block over its flat cache), logits within 1e-4
+    of their largest magnitude, every cache field within 1e-4 of its."""
+    from repro_torch.configs.base import get_smoke_config
+    cfg = get_smoke_config(arch)
+    name = "wkv6_scan" if cfg.ssm == "rwkv6" else "ssd_scan"
+    got, cache = _smoke_serve(arch, cuda, 8,
+                              launches={name: 8 * cfg.n_layers})
+    want, want_c = _smoke_serve(arch, "cpu", 8)
+    _logits_close(got, want)
+    for part in want_c:
+        for f, t in want_c[part].items():
+            assert float((cache[part][f] - t).abs().max()) <= \
+                1e-4 * float(t.abs().max()), (part, f)
+
+
+@pytest.mark.cuda
+def test_cuda_zamba_clustered_serve_matches_cpu(cuda):
+    """Zamba2's smoke config in f32 with its shared block's cache
+    clustered (``attach_clusters``) on the card against the CPU: 4
+    k²-attention steps (K6 once an application a step, the scan once a
+    layer a step), logits within 1e-4 of their largest magnitude, the
+    tables equal and the rings within 1e-4."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import n_shared_apps
+    cfg = get_smoke_config("zamba2-7b")
+    napps = n_shared_apps(cfg)
+    got, cache = _smoke_serve("zamba2-7b", cuda, 4, clustered=True,
+                              launches={"ssd_scan": 4 * cfg.n_layers,
+                                        "cluster_attend": 4 * napps})
+    want, want_c = _smoke_serve("zamba2-7b", "cpu", 4, clustered=True)
+    _logits_close(got, want)
+    for f in ("sizes", "ring_fill"):
+        assert torch.equal(cache["shared"][f], want_c["shared"][f]), f
+    for f in ("ring_k", "ring_v", "kt", "cent"):
+        t = want_c["shared"][f]
+        assert float((cache["shared"][f] - t).abs().max()) <= \
+            1e-4 * float(t.abs().max()), f

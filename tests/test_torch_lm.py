@@ -104,31 +104,32 @@ def test_config_matches_reference():
                       "long_context_threshold", "moe", "n_experts",
                       "top_k", "n_shared_experts", "moe_d_ff",
                       "dense_residual", "first_dense", "mla", "kv_lora",
-                      "qk_nope_dim", "qk_rope_dim", "v_head_dim"):
+                      "qk_nope_dim", "qk_rope_dim", "v_head_dim", "ssm",
+                      "ssm_state", "ssm_expand", "attn_every"):
                 assert getattr(port, f) == getattr(jx, f), (arch, f)
     with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("rwkv6-3b")
+        get_config("whisper-base")
 
 
 def test_unported_families_raise_naming_item_13():
-    """The SSM families (a Zamba-style hybrid and RWKV6 in place of
-    Arctic's config) and unknown param keys raise NotImplementedError
+    """The audio and VLM families (Whisper- and InternVL-style configs in
+    place of Arctic's) and unknown param keys raise NotImplementedError
     naming ROADMAP §1 item 13, from the model, the layer init and the
     converter."""
     import dataclasses
     from repro_torch.models.transformer import layer_init
     arctic = get_smoke_config("arctic-480b")
     gen = torch.Generator().manual_seed(0)
-    for cfg in (dataclasses.replace(arctic, family="hybrid", ssm="mamba2",
-                                    attn_every=2),
-                dataclasses.replace(arctic, family="ssm", ssm="rwkv6")):
+    for cfg in (dataclasses.replace(arctic, family="audio", encoder_layers=2,
+                                    frontend_stub=True),
+                dataclasses.replace(arctic, family="vlm", n_patches=8)):
         with pytest.raises(NotImplementedError, match="item 13"):
             init_params(cfg, gen, device="cpu")
         with pytest.raises(NotImplementedError, match="item 13"):
             layer_init(cfg, gen)
     with pytest.raises(NotImplementedError, match="item 13"):
         params_from_reference({"embed": np.zeros((4, 2), np.float32),
-                               "stack": {"mix": {}}}, arctic, device="cpu")
+                               "stack": {"xattn": {}}}, arctic, device="cpu")
 
 
 def test_params_and_cache_shapes_match_reference(ref, port_params):
@@ -505,9 +506,9 @@ def test_other_configs_forward_prefill_matches_reference(other):
     cfg = get_smoke_config(other["arch"])
     kv = {"k": [], "v": []}
 
-    def sink(i, k, v):
-        kv["k"].append(k.transpose(1, 2))
-        kv["v"].append(v.transpose(1, 2))
+    def sink(i, fields):
+        for f in ("k", "v"):
+            kv[f].append(fields[f].transpose(1, 2))
     logits = forward_prefill(cfg, other["port"],
                              torch.tensor(other["prompt"]), kv_sink=sink)
     want_logits, want = _chunked_reference(other)

@@ -229,12 +229,12 @@ def test_deepseek_forward_prefill_matches_reference(ds):
     p32 = jax.tree.map(lambda a: np.asarray(a, np.float32), ds["params"])
     got = {"lat": [], "k": [], "v": []}
 
-    def sink(i, lat):
-        got["lat"].append(lat)
+    def sink(i, fields):
+        got["lat"].append(fields["lat"])
 
-    def prefix_sink(i, k, v):
-        got["k"].append(k.transpose(1, 2))
-        got["v"].append(v.transpose(1, 2))
+    def prefix_sink(i, fields):
+        for f in ("k", "v"):
+            got[f].append(fields[f].transpose(1, 2))
     logits = forward_prefill(
         cfg, params_from_reference(p32, cfg, device="cpu"),
         torch.tensor(ds["prompt"]), kv_sink=sink, prefix_sink=prefix_sink,
