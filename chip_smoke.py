@@ -227,6 +227,35 @@ Phases (any failure exits non-zero, without the final result line):
    and clustered ms per token and the token agreement; check also K6's
    launches and the rings; the smoke config's clustered decode in f32 on
    the card against the plain CPU path;
+2p. (after 2o, with its model released) the audio family: Whisper-base
+   whole (6 encoder and 6 decoder layers, d_model 512, 8 heads of 64,
+   d_ff 2048, vocab 51,865), random weights from the seed, through
+   ``serve.run``: 64 utterances of 1500 frames (30 s) drawn from the
+   seed, encoded (the cross keys and values of every decoder layer
+   written into the cache), a 224-token prompt prefilled, 32 greedy
+   tokens with full attention, then the decoder's self-attention cache
+   clustered at kc 32, cap 32, top-p 4 (serving knobs: the config's 2048
+   x 512 would take 137 GB a layer at 64 utterances) and 32 tokens with
+   k²-attention, a fold every 16, counts set to 0 just before; print
+   init, encode, prefill and attach seconds, tokens dropped, ms per token
+   full and clustered, the parameter count against ``params_estimate``,
+   the cross K/V bytes, peak memory and host reads a step; check K6 once
+   a layer a clustered token and nothing else, finite logits, the folds,
+   1 host read a step, every step and fold through the executor, the
+   parameter count made up (the cross attention and the norms), the
+   cross cache kept through the clustering, the chunked prefill of the
+   first 32 tokens against ``serve_step`` stepped over them (f32, every
+   cache field within rel 1e-3) and the smoke config card = CPU;
+2q. (after 2p) the VLM family: InternVL2-76B's LLM at full width
+   (d_model 8192, 64 q-heads over 8 kv-heads of 128, d_ff 28,672, vocab
+   128,256), depth cut to 4 of its 80 layers, through ``serve.run``: 2 x
+   32,768 prompt positions whose first 256 are patch rows drawn from the
+   seed, then as phase 2e (64 tokens full and clustered at kc 2048, cap
+   512, top-p 16, folds every 32); print as phase 2e, the parameter
+   count, peak memory and K6's device time at a GQA group of 8 beside its
+   bound; check as phase 2e, the parameter count (with the norms), the
+   patched chunked prefill of the first 300 positions against a stepped
+   one (f32, rel 1e-3) and the smoke config card = CPU;
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -249,8 +278,10 @@ Phases (any failure exits non-zero, without the final result line):
    time both with CUDA events (and, after phases 2n and 2o, each scan
    kernel on 256 steps of layer 0's prefill inputs and at S = 1 from the
    state after them, its final state bit-equal to its plain version's and
-   its outputs within 1e-5 of their sum of absolute terms, and K6 on its
-   arguments at a clustered decode step of phase 2o, dh = 112), beside one
+   its outputs within 1e-5 of their sum of absolute terms, K6 on its
+   arguments at a clustered decode step of phase 2o, dh = 112, and, after
+   phases 2p and 2q, K6 on their layer-0 tables: dh = 64 with cap 32 and
+   a GQA group of 1, and dh = 128 at a GQA group of 8), beside one
    library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
@@ -272,8 +303,9 @@ Phases (any failure exits non-zero, without the final result line):
 phase 2f and, after phase 3, the fit, one predict in each precision, one
 Lloyd++ fit, and phase 2e's full and k²-attention decode (8 steps each)
 and a ring fold, in phase 2l its full and k²-attention decode (4
-steps each), in phase 2m 4 full-attention decode steps, and in phases
-2n and 2o one decode step, under
+steps each), in phase 2m 4 full-attention decode steps, in phases
+2n and 2o one decode step, and in phases 2p and 2q their full and
+k²-attention decode (4 steps each), under
 ``torch.profiler``:
 device time by kernel, the device's busy share of the host clock, and
 the host synchronisations.
@@ -314,6 +346,21 @@ FLAT_DECODE = 8
 SSM_PROMPT = {"rwkv6-3b": 32768, "zamba2-7b": 16384}
 SSM_DECODE, SSM_KC, SSM_CAP, SSM_TOP_P = 32, 256, 256, 16
 SSM_SCAN_STEPS, SSM_STEPPED = 256, 64
+# phase 2p: Whisper-base whole (6 encoder and 6 decoder layers at full
+# width): 64 utterances of 1500 frames (30 s), a 224-token prompt (half
+# the 448-token text context), 32 tokens full and clustered at kc 32 x cap
+# 32 x top-p 4 (serving knobs: the config's 2048 x 512 would take 137 GB a
+# layer at B = 64), a fold every 16; the stepped prefill check over the
+# first 32 prompt tokens
+AUDIO_ARCH, AUDIO_BATCH, AUDIO_FRAMES, AUDIO_PROMPT, AUDIO_DECODE = (
+    "whisper-base", 64, 1500, 224, 32)
+AUDIO_KC, AUDIO_CAP, AUDIO_TOP_P, AUDIO_FOLD, AUDIO_STEPPED = 32, 32, 4, 16, 32
+# phase 2q: InternVL2-76B's LLM at full width, cut to 4 of 80 layers (6
+# would not fit the card); 2 x 32,768 prompt positions (the repo's
+# prefill_32k), the first 256 patch rows; phase 2e's decode, folds and
+# k²-attention knobs (the config's); the stepped prefill check over the
+# first 300 positions
+VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_STEPPED = "internvl2-76b", 4, 32768, 300
 # phase 2f: the streaming model (window in epochs = partial_fit batches)
 STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -1045,6 +1092,15 @@ def main() -> int:
                                   arch))
         print(f"  phase {tag} wall {time.perf_counter() - t0:.1f} s")
 
+    # --- 2p, 2q. the audio and VLM families: Whisper-base whole, then
+    # InternVL2-76B at full width, each after the previous model's release
+    for tag, fn in (("2p", _audio_phase), ("2q", _vlm_phase)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kernels.append(fn(torch, dev, serve, check, cluster_attend_partial,
+                          ref, smi_line))
+        print(f"  phase {tag} wall {time.perf_counter() - t0:.1f} s")
+
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
@@ -1399,23 +1455,8 @@ def _lm_serve(torch, dev, serve, check) -> dict:
           f"fewer)")
     print(f"  peak device memory +{peak / 2 ** 30:.2f} GiB; host reads "
           f"{reads} for 2 decode steps; launches {launches}")
-    want = LM_LAYERS * LM_DECODE
-    check(launches["cluster_attend"] == want
-          and r["launches"]["cluster_attend"] == want
-          and sum(launches.values()) == want,
-          f"cluster_attend (K6) launched once per layer per clustered token "
-          f"and nothing else launched ({launches['cluster_attend']} for "
-          f"{want})")
-    for f in ("prefill_logits", "full_logits", "clus_logits"):
-        check(tuple(r[f].shape) == (LM_BATCH, cfg.vocab)
-              and bool(torch.isfinite(r[f]).all()),
-              f"{f} finite, shape ({LM_BATCH}, {cfg.vocab})")
-    check(r["folded"] == LM_DECODE * LM_LAYERS and 0 <= r["sizes1"]
-          - r["sizes0"] <= r["folded"] * LM_BATCH * cfg.n_kv_heads
-          and r["dropped"] >= 0 and fill_after == 0,
-          f"the folds took {r['folded']} ring slots, one per layer per "
-          f"decoded token, and left the ring empty")
-    check(reads == 2, f"host reads: 1 per decode step ({reads} for 2)")
+    _lm_checks(torch, check, "2e", cfg, r, launches, LM_DECODE, LM_LAYERS,
+               reads, fill_after)
     # the clustered decode through the executor envelope (ex.call) against
     # direct calls on the same cache, 8 steps each, in turns
     ex = r["executor"]
@@ -1441,11 +1482,8 @@ def _lm_serve(torch, dev, serve, check) -> dict:
           f"{', '.join(f'{v:.3f}' for v in per['envelope'])}, direct "
           f"{', '.join(f'{v:.3f}' for v in per['direct'])}; host reads "
           f"{reads_ex} for 2 steps")
-    check(st_ex["admitted"] == LM_DECODE + LM_DECODE // LM_FOLD + 1
-          and st_ex["rejected"] == 0 and reads_ex == 2,
-          f"every decode step and fold went through ex.call "
-          f"({st_ex['admitted']} admitted), 1 host read per step "
-          f"({reads_ex} for 2)")
+    check(reads_ex == 2, f"1 host read per step through the executor "
+                         f"({reads_ex} for 2)")
     _flat_clustered_decode(torch, serve, check, cfg, r)
     _small_serve_agrees(torch, dev, serve, check)
     _small_serve_agrees(torch, dev, serve, check, kind="flat")
@@ -1568,28 +1606,8 @@ def _moe_phase(torch, dev, serve, check, cluster_attend_partial,
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the {cfg.top_k} chosen "
           f"experts' {expert_bytes * cfg.top_k / E / 1e9:.3f} GB would take "
           f"{expert_bytes * cfg.top_k / E / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    want = MOE_LAYERS * LM_DECODE
-    check(launches["cluster_attend"] == want
-          and r["launches"]["cluster_attend"] == want
-          and sum(launches.values()) == want,
-          f"2l: cluster_attend (K6) launched once per layer per clustered "
-          f"token and nothing else launched ({launches['cluster_attend']} "
-          f"for {want})")
-    for name in ("prefill_logits", "full_logits", "clus_logits"):
-        check(tuple(r[name].shape) == (LM_BATCH, cfg.vocab)
-              and bool(torch.isfinite(r[name]).all()),
-              f"2l: {name} finite, shape ({LM_BATCH}, {cfg.vocab})")
-    check(r["folded"] == LM_DECODE * MOE_LAYERS and 0 <= r["sizes1"]
-          - r["sizes0"] <= r["folded"] * LM_BATCH * cfg.n_kv_heads
-          and r["dropped"] >= 0 and fill_after == 0,
-          f"2l: the folds took {r['folded']} ring slots, one per layer per "
-          f"decoded token, and left the ring empty")
-    check(reads == 2, f"2l: host reads: 1 per decode step ({reads} for 2)")
-    st_ex = r["executor"].stats()
-    check(st_ex["admitted"] == LM_DECODE + LM_DECODE // LM_FOLD + 1
-          and st_ex["rejected"] == 0,
-          f"2l: every decode step and fold went through ex.call "
-          f"({st_ex['admitted']} admitted)")
+    _lm_checks(torch, check, "2l", cfg, r, launches, LM_DECODE, MOE_LAYERS,
+               reads, fill_after)
     entry = _k6_entry(torch, check, dict(r, cfg=cfg, launches_all=launches),
                       cluster_attend_partial, ref,
                       name="cluster_attend[arctic]")
@@ -2026,6 +2044,244 @@ def _ssm_phase(torch, dev, serve, check, ref, smi_line: str,
     return entries
 
 
+def _lm_lines(tag, cfg, r, n_tok, layers, smi_line) -> None:
+    """The prefill, attach, decode and fold lines of a ``serve.run`` with
+    a clustered decode (phases 2p and 2q, as phase 2e prints them)."""
+    B = r["prompt"].shape[0]
+    slots = r["prompt"].shape[1] * B * cfg.n_kv_heads * layers
+    enc = (f"encode {r['t_encode']:.3f} s; "
+           if r["t_encode"] is not None else "")
+    print(f"  init {r['t_init']:.3f} s; {enc}prefill {r['t_prefill']:.3f} "
+          f"s; attach (k2-means + repack of {layers} layers) "
+          f"{r['t_attach']:.3f} s, tokens dropped by full clusters "
+          f"{r['dropped']} of {slots} ({100.0 * r['dropped'] / slots:.3f}%)"
+          f" [{smi_line}]")
+    print(f"  decode: full {r['t_full'] / n_tok * 1e3:.3f} ms/token, "
+          f"clustered {r['t_clus'] / n_tok * 1e3:.3f} ms/token with folds "
+          f"({r['t_clus_loop'] / n_tok * 1e3:.3f} in the loop before the "
+          f"tail fold); token agreement {r['agreement']:.4f}; folds: "
+          f"{r['folded']} ring slots, {r['sizes1'] - r['sizes0']} member "
+          f"rows absorbed ({r['sizes0']} -> {r['sizes1']}); attention "
+          f"reads/token: full {r['reads_full']}, clustered "
+          f"{r['reads_clus']} [{smi_line}]")
+
+
+def _lm_checks(torch, check, tag, cfg, r, launches, n_tok, layers,
+               reads, fill_after) -> None:
+    """Phase 2e's checks of a clustered ``serve.run``: K6 once a layer a
+    clustered token and nothing else launched, finite logits, the folds
+    (``fill_after``: the rings' fill right after the run), one host read
+    a step, every step and fold through the executor."""
+    B = r["prompt"].shape[0]
+    want = layers * n_tok
+    check(launches["cluster_attend"] == want
+          and r["launches"]["cluster_attend"] == want
+          and sum(launches.values()) == want,
+          f"{tag}: cluster_attend (K6) launched once per layer per "
+          f"clustered token and nothing else launched "
+          f"({launches['cluster_attend']} for {want})")
+    for name in ("prefill_logits", "full_logits", "clus_logits"):
+        check(tuple(r[name].shape) == (B, cfg.vocab)
+              and bool(torch.isfinite(r[name]).all()),
+              f"{tag}: {name} finite, shape ({B}, {cfg.vocab})")
+    check(r["folded"] == n_tok * layers and 0 <= r["sizes1"] - r["sizes0"]
+          <= r["folded"] * B * cfg.n_kv_heads and r["dropped"] >= 0
+          and fill_after == 0,
+          f"{tag}: the folds took {r['folded']} ring slots, one per layer "
+          f"per decoded token, and left the ring empty")
+    check(reads == 2, f"{tag}: host reads: 1 per decode step ({reads} for 2)")
+    st_ex = r["executor"].stats()
+    n_folds = n_tok // r["fold_every"] + 1
+    check(st_ex["admitted"] == n_tok + n_folds and st_ex["rejected"] == 0,
+          f"{tag}: every decode step and fold went through ex.call "
+          f"({st_ex['admitted']} admitted for {n_tok} steps and {n_folds} "
+          f"folds)")
+
+
+def _audio_phase(torch, dev, serve, check, cluster_attend_partial, ref,
+                 smi_line: str) -> dict:
+    """Phase 2p: Whisper-base whole (6 encoder and 6 decoder layers at
+    full width) through ``serve.run``, counts set to 0 just before:
+    AUDIO_BATCH utterances of AUDIO_FRAMES frames encoded (the cross keys
+    and values written into the cache), a prompt of AUDIO_PROMPT tokens,
+    AUDIO_DECODE tokens full and clustered at the serving knobs AUDIO_KC
+    x AUDIO_CAP x AUDIO_TOP_P, folds every AUDIO_FOLD. Checks the
+    launches, finite logits, the folds, one host read a step, the
+    parameter count against ``params_estimate`` made up, the cross cache
+    kept through the clustering, the chunked prefill of the first
+    AUDIO_STEPPED tokens against a stepped one (f32, rel 1e-3) and the
+    smoke config card = CPU. Returns K6's entry on its layer-0 tables (dh
+    64, a GQA group of 1)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    full = get_config(AUDIO_ARCH)
+    cfg = dataclasses.replace(full, kv_clusters=AUDIO_KC,
+                              cluster_cap=AUDIO_CAP,
+                              cluster_top_p=AUDIO_TOP_P)
+    d, L = cfg.d_model, cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    config_tables = (2 * AUDIO_BATCH * cfg.n_kv_heads * full.kv_clusters
+                     * full.cluster_cap * cfg.d_head * 2)
+    print(f"phase 2p: {cfg.name} whole ({cfg.encoder_layers} encoder and {L}"
+          f" decoder layers, d_model {d}, {cfg.n_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"{AUDIO_BATCH} utterances x {AUDIO_FRAMES} frames, "
+          f"{AUDIO_PROMPT} prompt tokens, {AUDIO_DECODE} decode tokens full "
+          f"and clustered at the serving knobs kc {cfg.kv_clusters}, cap "
+          f"{cfg.cluster_cap}, top-p {cfg.cluster_top_p} (the config's kc "
+          f"{full.kv_clusters} x cap {full.cluster_cap} would take "
+          f"{config_tables / 1e9:.1f} GB a layer), ring {cfg.cluster_ring}, "
+          f"fold every {AUDIO_FOLD}; allocated at the start "
+          f"{base / 2 ** 30:.2f} GiB")
+    _build.reset_launches()
+    r = serve.run(cfg, batch=AUDIO_BATCH, prompt_len=AUDIO_PROMPT,
+                  decode_len=AUDIO_DECODE, fold_every=AUDIO_FOLD,
+                  enc_len=AUDIO_FRAMES, device=dev, seed=SEED,
+                  echo=lambda line: print(f"  serve: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    params, st = r["params"], r["cache"]["stack"]
+    fill_after = int(st["ring_fill"].sum())
+    tok = r["prompt"][:, -1:]
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, params, r["cache"], tok, AUDIO_PROMPT + AUDIO_DECODE, 2))
+    if "--profile" in sys.argv[1:]:
+        _profile(torch, "2p full decode x4", lambda: serve.decode(
+            cfg, params, r["flat_cache"], tok, AUDIO_PROMPT, 4))
+        _profile(torch, "2p clustered decode x4", lambda: serve.decode(
+            cfg, params, r["cache"], tok, AUDIO_PROMPT + AUDIO_DECODE + 2, 4))
+    leaves = {k: sum(t.numel() for t in _leaves(v))
+              for k, v in params.items() if k != "embed_f32"}
+    n_params = sum(leaves.values())
+    est = cfg.params_estimate()
+    # the estimate leaves out the decoder's cross attention (wq, wk, wv,
+    # wo of each layer) and the norms
+    xattn = L * (2 * d * cfg.d_q + 2 * d * cfg.n_kv_heads * cfg.d_head)
+    norms = sum(t.numel() for t in _norm_leaves(params))
+    cross_bytes = sum(st[f].numel() * st[f].element_size()
+                      for f in ("xk", "xv"))
+    _lm_lines("2p", cfg, r, AUDIO_DECODE, L, smi_line)
+    print(f"  {n_params} parameters ("
+          + ", ".join(f"{k} {v}" for k, v in leaves.items())
+          + f"); params_estimate {int(est)}; the cross K/V cache "
+          f"{cross_bytes / 1e9:.3f} GB ({L} layers x 2 x {AUDIO_BATCH} x "
+          f"{cfg.n_kv_heads} x {AUDIO_FRAMES} x {cfg.d_head} bf16); peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB (+"
+          f"{(peak - base) / 2 ** 30:.2f} over the start); host reads "
+          f"{reads} for 2 decode steps; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{smi_line}]")
+    _lm_checks(torch, check, "2p", cfg, r, launches, AUDIO_DECODE, L, reads,
+               fill_after)
+    check(n_params == est + xattn + norms,
+          f"2p: {n_params} parameters = params_estimate {int(est)} with the "
+          f"cross attention ({xattn}) and the norms ({norms})")
+    check(st["xk"] is r["flat_cache"]["stack"]["xk"]
+          and tuple(st["xk"].shape) == (L, AUDIO_BATCH, cfg.n_kv_heads,
+                                        AUDIO_FRAMES, cfg.d_head)
+          and bool(torch.isfinite(st["xk"].float()).all())
+          and bool((st["xv"] != 0).any()),
+          "2p: the encoded cross keys and values fill the cache's "
+          f"{AUDIO_FRAMES} slots and stay through the clustering and folds")
+    entry = _k6_entry(torch, check, dict(r, cfg=cfg, launches_all=launches),
+                      cluster_attend_partial, ref,
+                      name="cluster_attend[whisper]")
+    prompt, frames = r["prompt"], r["frames"]
+    del r, st
+    torch.cuda.empty_cache()
+    _stepped_agrees(torch, dev, serve, check, cfg, params, prompt, "2p",
+                    n=AUDIO_STEPPED, frames=frames)
+    del params
+    torch.cuda.empty_cache()
+    _small_serve_agrees(torch, dev, serve, check, arch=AUDIO_ARCH)
+    return entry
+
+
+def _vlm_phase(torch, dev, serve, check, cluster_attend_partial, ref,
+               smi_line: str) -> dict:
+    """Phase 2q: InternVL2-76B's LLM at full width, cut to VLM_LAYERS of
+    80 layers, through ``serve.run``, counts set to 0 just before:
+    LM_BATCH requests of VLM_PROMPT positions whose first 256 are patch
+    rows drawn from the seed, LM_DECODE tokens full and clustered at the
+    config's kc, cap and top-p, folds every LM_FOLD. Checks as phase 2e,
+    the parameter count against ``params_estimate`` with the norms, the
+    patched chunked prefill of the first VLM_STEPPED positions against a
+    stepped one (f32, rel 1e-3) and the smoke config card = CPU. Returns
+    K6's entry on its layer-0 tables (a GQA group of 8)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tables = (2 * VLM_LAYERS * LM_BATCH * cfg.n_kv_heads * cfg.kv_clusters
+              * cfg.cluster_cap * cfg.d_head * 2)
+    print(f"phase 2q: {cfg.name} cut to {VLM_LAYERS} of {full.n_layers} "
+          f"layers (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.n_patches} patch positions), {LM_BATCH} requests x "
+          f"{VLM_PROMPT} prompt positions, {LM_DECODE} decode tokens, kc "
+          f"{cfg.kv_clusters}, cap {cfg.cluster_cap}, top-p "
+          f"{cfg.cluster_top_p}, ring {cfg.cluster_ring}, fold every "
+          f"{LM_FOLD}; the k2-attention tables {tables / 1e9:.1f} GB; "
+          f"allocated at the start {base / 2 ** 30:.2f} GiB")
+    _build.reset_launches()
+    r = serve.run(cfg, batch=LM_BATCH, prompt_len=VLM_PROMPT,
+                  decode_len=LM_DECODE, fold_every=LM_FOLD, device=dev,
+                  seed=SEED, echo=lambda line: print(f"  serve: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    params = r["params"]
+    fill_after = int(r["cache"]["stack"]["ring_fill"].sum())
+    tok = r["prompt"][:, -1:]
+    reads = _host_reads(torch, lambda: serve.decode(
+        cfg, params, r["cache"], tok, VLM_PROMPT + LM_DECODE, 2))
+    if "--profile" in sys.argv[1:]:
+        _profile(torch, "2q full decode x4", lambda: serve.decode(
+            cfg, params, r["flat_cache"], tok, VLM_PROMPT, 4))
+        _profile(torch, "2q clustered decode x4", lambda: serve.decode(
+            cfg, params, r["cache"], tok, VLM_PROMPT + LM_DECODE + 2, 4))
+    n_params = sum(t.numel() for k, v in params.items() if k != "embed_f32"
+                   for t in _leaves(v))
+    est = cfg.params_estimate()
+    norms = sum(t.numel() for t in _norm_leaves(params))
+    _lm_lines("2q", cfg, r, LM_DECODE, VLM_LAYERS, smi_line)
+    print(f"  {n_params} parameters (params_estimate {int(est)} and "
+          f"{norms} norm scales); the patch rows "
+          f"{tuple(r['patches'].shape)} bf16; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB (+{(peak - base) / 2 ** 30:.2f} over the "
+          f"start); host reads {reads} for 2 decode steps; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{smi_line}]")
+    _lm_checks(torch, check, "2q", cfg, r, launches, LM_DECODE, VLM_LAYERS,
+               reads, fill_after)
+    check(n_params == est + norms,
+          f"2q: {n_params} parameters = params_estimate {int(est)} with the "
+          f"norms ({norms})")
+    entry = _k6_entry(torch, check, dict(r, cfg=cfg, launches_all=launches),
+                      cluster_attend_partial, ref,
+                      name="cluster_attend[internvl]")
+    dev_t = (f"device {entry['device_ms']:.4f} ms (L2 flushed)"
+             if "device_ms" in entry else "the profiler's time not kept")
+    print(f"  K6 at a GQA group of {cfg.n_heads // cfg.n_kv_heads} on layer "
+          f"0's tables: {dev_t}, events {entry['ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) [{smi_line}]")
+    prompt, patches = r["prompt"], r["patches"]
+    del r
+    torch.cuda.empty_cache()
+    _stepped_agrees(torch, dev, serve, check, cfg, params, prompt, "2q",
+                    n=VLM_STEPPED, patches=patches)
+    del params
+    torch.cuda.empty_cache()
+    _small_serve_agrees(torch, dev, serve, check, arch=VLM_ARCH)
+    return entry
+
+
 def _scan_entry(torch, check, name, kern_fn, plain_fn, args, state0,
                 launches, bound_ms_by, keep) -> dict:
     """A scan kernel against its plain version on the same inputs from
@@ -2064,20 +2320,26 @@ def _scan_entry(torch, check, name, kern_fn, plain_fn, args, state0,
 
 
 def _stepped_agrees(torch, dev, serve, check, cfg, params, prompt, tag,
-                    n: int = 0) -> None:
+                    n: int = 0, frames=None, patches=None) -> None:
     """The serve prefill (one chunked forward) of the first ``n``
     (SSM_STEPPED) prompt tokens against ``serve_step`` stepped over them
-    from an empty cache, every cache field (each layer's state, RWKV6's
-    ``xprev``, the shared block's keys and values at those slots). In the
-    model's types (bf16): layer 0's fields and the shared block's first
-    application's within 2e-2 (the tests' ``BF16_REL``) of their largest
-    magnitude, the deeper ones measured (the chunked and stepped products
-    round bf16 at other places, and the gap grows from layer to layer);
-    with the params and caches in f32, every field within 1e-3 of its
-    largest magnitude."""
-    from repro_torch.models.model import init_cache, serve_step
+    from an empty cache, every cache field (each layer's state or keys
+    and values, RWKV6's ``xprev``, the shared block's keys and values at
+    those slots, Whisper's cross keys and values). Whisper's ``frames``
+    are encoded once and the cross keys and values written into both
+    caches; a VLM's ``patches`` take the first positions in both (the
+    stepped one through ``serve_step(patches=)``). In the model's types
+    (bf16): layer 0's fields and the shared block's first application's
+    within 2e-2 (the tests' ``BF16_REL``) of their largest magnitude, the
+    deeper ones measured (the chunked and stepped products round bf16 at
+    other places, and the gap grows from layer to layer); with the params
+    and caches in f32, every field within 1e-3 of its largest
+    magnitude."""
+    from repro_torch.models.model import encode, init_cache, serve_step
     n = n or SSM_STEPPED
     toks = prompt[:, :n].contiguous()
+    B = toks.shape[0]
+    enc_len = frames.shape[1] if frames is not None else 1
 
     def f32(tree):
         return {k: f32(v) if isinstance(v, dict) else
@@ -2094,26 +2356,34 @@ def _stepped_agrees(torch, dev, serve, check, cfg, params, prompt, tag,
             p = f32(params)
         caches = []
         for _ in range(2):
-            caches.append(cast(init_cache(cfg, LM_BATCH, n + 1,
-                                          clustered=False, device=dev)))
+            caches.append(cast(init_cache(cfg, B, n + 1, clustered=False,
+                                          enc_len=enc_len, device=dev)))
         chunked, stepped = caches
-        serve.prefill_into_cache(cfg, p, chunked, toks)
+        cross = None
+        if frames is not None:
+            cross = encode(cfg, p, frames)[1]
+            for f in ("xk", "xv"):
+                stepped["stack"][f].copy_(cross[f])
+        serve.prefill_into_cache(cfg, p, chunked, toks, cross=cross,
+                                 patches=patches)
+        del cross
         for i in range(n):
-            serve_step(cfg, p, stepped, toks[:, i:i + 1], i)
+            serve_step(cfg, p, stepped, toks[:, i:i + 1], i, patches=patches)
         del p
         errs, first = {}, {}
         for part, fields in stepped.items():
             for f, want in fields.items():
                 errs[f"{part}.{f}"] = rel(chunked[part][f], want)
                 first[f"{part}.{f}[0]"] = rel(chunked[part][f][0], want[0])
-        st_c, st_s = chunked["stack"]["state"], stepped["stack"]["state"]
-        by_layer = [rel(st_c[i], st_s[i]) for i in range(cfg.n_layers)]
+        main = "state" if "state" in stepped["stack"] else "k"
+        st_c, st_s = chunked["stack"][main], stepped["stack"][main]
+        by_layer = [rel(st_c[i], st_s[i]) for i in range(st_s.shape[0])]
         print(f"  {tag}: the serve prefill of the first {n} tokens against "
               f"serve_step stepped over them, {label}: max rel err by field "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
               + "; layer 0 and the first application: "
               + ", ".join(f"{k} {v:.3g}" for k, v in first.items())
-              + "; the state by layer: "
+              + f"; the {main} by layer: "
               + " ".join(f"{v:.2g}" for v in by_layer))
         if "shared" in stepped:
             sh_c, sh_s = chunked["shared"], stepped["shared"]
@@ -2209,13 +2479,19 @@ def _small_serve_agrees(torch, dev, serve, check, arch: str = LM_ARCH,
                            generator=torch.Generator().manual_seed(4))
     toks = torch.randint(0, cfg.vocab, (steps, 2, 1),
                          generator=torch.Generator().manual_seed(5))
+    # Whisper's 24 encoder frames, or a VLM's patch rows
+    extra = torch.randn((2, 24 if cfg.family == "audio" else cfg.n_patches,
+                         cfg.d_model),
+                        generator=torch.Generator().manual_seed(6))
     out = {}
     for where in ("cpu", dev):
         p = f32(params, where)
         cache = f32(init_cache(cfg, 2, 48 + steps + 1, clustered=False,
-                               device="cpu"), where)
+                               enc_len=24, device="cpu"), where)
+        kw = ({"frames": extra.to(where)} if cfg.family == "audio" else
+              {"patches": extra.to(where)} if cfg.n_patches else {})
         logits, cache = serve.prefill_into_cache(cfg, p, cache,
-                                                 prompt.to(where))
+                                                 prompt.to(where), **kw)
         if kind == "cluster_major":
             cache = serve.attach_clusters(cfg, cache, length=48)
         elif kind == "flat":

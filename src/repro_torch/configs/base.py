@@ -1,8 +1,8 @@
 """Architecture config schema and registry (port of
 ``repro.configs.base``): the port's own copy of ``ArchConfig``, with its
 fields and defaults as the reference has them, and the registry of the
-ported architectures, one module each. The reference's VLM and audio
-architectures wait for their families (ROADMAP §1 item 13)."""
+architectures, one module each: every architecture of the reference is
+ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,14 +58,15 @@ class ArchConfig:
         return self.n_heads * self.d_head
 
     def params_estimate(self) -> float:
-        """The reference's rough total param count, for the families the
-        port runs: the embedding and ``n_layers`` layers of attention (GQA
-        or MLA) and MLP (SwiGLU, or the MoE's routed and shared experts
-        and dense residual); a pure SSM's mixers (RWKV6's six d x d
-        matrices and its SwiGLU, or Mamba2's projections); a hybrid's
-        Mamba2 mixers and one shared attention + MLP block. As the
-        reference, it leaves out the routers, norms and RWKV6's decay
-        LoRA, and counts a ``first_dense`` layer as the stack's."""
+        """The reference's rough total param count: the embedding and
+        ``n_layers`` layers of attention (GQA or MLA) and MLP (SwiGLU, or
+        the MoE's routed and shared experts and dense residual), and an
+        audio config's ``encoder_layers`` dense encoder layers; a pure
+        SSM's mixers (RWKV6's six d x d matrices and its SwiGLU, or
+        Mamba2's projections); a hybrid's Mamba2 mixers and one shared
+        attention + MLP block. As the reference, it leaves out the
+        routers, norms, RWKV6's decay LoRA and the decoder's cross
+        attention, and counts a ``first_dense`` layer as the stack's."""
         d, L = self.d_model, self.n_layers
         emb = self.vocab * d
         if self.ssm and self.attn_every == 0:        # pure SSM
@@ -92,7 +93,8 @@ class ArchConfig:
                 ffn += 3 * d * self.d_ff
         else:
             ffn = 3 * d * self.d_ff
-        return emb + L * (attn + ffn)
+        enc = self.encoder_layers * (attn + 3 * d * self.d_ff)
+        return emb + L * (attn + ffn) + enc
 
     def _mamba2_params(self) -> int:
         """A Mamba2 mixer's in and out projections, as the reference
@@ -102,19 +104,21 @@ class ArchConfig:
         return d * (2 * d_in + 2 * self.ssm_state + self.n_heads) + d_in * d
 
 
-# the ported architectures: dense GQA, with and without qk-norm; the MoE
-# family with its dense residual (Arctic) or with MLA, shared experts and
-# a dense first layer (DeepSeek); RWKV6; the Mamba2 hybrid with a shared
-# attention block (Zamba2)
+# the architectures, the reference's list: dense GQA, with and without
+# qk-norm; the MoE family with its dense residual (Arctic) or with MLA,
+# shared experts and a dense first layer (DeepSeek); RWKV6; the VLM
+# (InternVL2: dense GQA with a patch prefix); the Mamba2 hybrid with a
+# shared attention block (Zamba2); the audio encoder-decoder (Whisper)
 ARCH_IDS = ["arctic-480b", "deepseek-v2-lite-16b", "granite-8b", "qwen3-8b",
-            "qwen3-14b", "minitron-4b", "rwkv6-3b", "zamba2-7b"]
+            "qwen3-14b", "minitron-4b", "rwkv6-3b", "internvl2-76b",
+            "zamba2-7b", "whisper-base"]
 
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
-            f"{arch_id}: only the architectures {ARCH_IDS} are ported (the "
-            f"other families wait for ROADMAP §1 item 13)")
+            f"{arch_id}: not an architecture of the reference; the port "
+            f"has {ARCH_IDS}")
     return importlib.import_module(
         f"{__package__}.{arch_id.replace('-', '_')}")
 

@@ -80,6 +80,7 @@ def _tree(v, device):
 
 
 _LAYER_KEYS = {"ln1", "attn", "ln2", "mlp", "dense_mlp", "mix"}
+_CROSS_KEYS = {"lnx", "xattn"}            # an audio config's decoder layers
 _GQA_KEYS = {"wq", "wk", "wv", "wo", "qn", "kn"}
 _MLA_KEYS = {"wq", "wdkv", "wkpe", "wuk", "wuv", "wo", "kvn"}
 _MOE_KEYS = {"router", "wi", "wg", "wo", "shared"}
@@ -92,39 +93,45 @@ def params_from_reference(params_np, cfg, *, device):
     """The reference's LM params (a nested dict of arrays, layers stacked
     on a leading axis) -> the port's, same paths and types, on
     ``device``, with the f32 copy of the embedding that ``unembed``
-    reads. Dense GQA, MoE, SSM and hybrid families: an MoE layer's router
-    (f32), its stacked experts ``wi``/``wg``/``wo`` (L, E, d, f), its
-    shared experts and Arctic's ``dense_mlp`` come across as they are,
-    and so do MLA's attention keys, DeepSeek's dense ``prefix`` stack,
-    an SSM layer's ``mix`` (RWKV6's or Mamba2's keys, with their f32
-    ``w0``, ``u``, ``A_log``, ``D`` and ``dt_bias``) and Zamba2's top-level
-    ``shared`` block; any other key raises."""
+    reads. Every family: an MoE layer's router (f32), its stacked experts
+    ``wi``/``wg``/``wo`` (L, E, d, f), its shared experts and Arctic's
+    ``dense_mlp`` come across as they are, and so do MLA's attention
+    keys, DeepSeek's dense ``prefix`` stack, an SSM layer's ``mix``
+    (RWKV6's or Mamba2's keys, with their f32 ``w0``, ``u``, ``A_log``,
+    ``D`` and ``dt_bias``), Zamba2's top-level ``shared`` block, and
+    Whisper's encoder stack ``enc``, its ``enc_norm`` and its decoder
+    layers' cross attention ``lnx``/``xattn``; any other key raises."""
     from .models.model import with_unembed_table
+    from .models.transformer import FAMILIES
+    audio = cfg.family == "audio"
     stack = params_np.get("stack", {})
-    prefix = params_np.get("prefix", {})
-    shared = params_np.get("shared", {})
+    dense_parts = [params_np.get(k, {}) for k in ("prefix", "shared", "enc")]
     unknown = (set(params_np) - {"embed", "out_norm", "stack", "prefix",
-                                 "shared"}) \
-        | (set(stack) - _LAYER_KEYS) | (set(prefix) - _LAYER_KEYS) \
-        | (set(shared) - _LAYER_KEYS) \
+                                 "shared"}
+               - ({"enc", "enc_norm"} if audio else set())) \
+        | (set(stack) - _LAYER_KEYS - (_CROSS_KEYS if audio else set())) \
         | (set(stack.get("attn", {})) - (_MLA_KEYS if cfg.mla
                                          else _GQA_KEYS)) \
-        | (set(prefix.get("attn", {})) - _GQA_KEYS) \
-        | (set(shared.get("attn", {})) - _GQA_KEYS) \
+        | (set(stack.get("xattn", {})) - _GQA_KEYS) \
         | (set(stack.get("mix", {})) - _MIX_KEYS.get(cfg.ssm, set()))
+    for part in dense_parts:
+        unknown |= (set(part) - _LAYER_KEYS) \
+            | (set(part.get("attn", {})) - _GQA_KEYS)
     if cfg.moe:
         unknown |= set(stack.get("mlp", {})) - _MOE_KEYS
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or unknown:
+    if cfg.family not in FAMILIES or unknown:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA, MoE, SSM and hybrid families "
-            f"are ported (ROADMAP §1 item 13); unknown keys "
-            f"{sorted(unknown)}")
+            f"{cfg.name}: family {cfg.family!r}, unknown keys "
+            f"{sorted(unknown)}: the port carries the reference's families "
+            f"{FAMILIES} and their keys; what ROADMAP §1 item 13 leaves is "
+            f"its slices f (training) and g (LM placement)")
     return with_unembed_table(_tree(params_np, device))
 
 
 def cache_from_reference(cache_np, *, device):
     """The reference's decode cache, flat (``k``, ``v``, with member
-    lists ``cent``, ``mem``, ``mmask``, ``sizes`` or without), MLA's
+    lists ``cent``, ``mem``, ``mmask``, ``sizes`` or without; an audio
+    config's cross-attention ``xk``, ``xv`` beside them), MLA's
     latent ``lat``, an SSM layer's ``state`` and ``xprev``, the dense
     ``prefix``'s, Zamba2's ``shared`` block's (flat or cluster-major,
     over its applications), or cluster-major (``kt``, ``vt``, ``cent``,

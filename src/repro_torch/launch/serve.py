@@ -18,7 +18,28 @@ zamba2-7b``) clusters its shared attention block's cache, one
 cluster-major table set for each application of the block, and decodes
 with k²-attention without folds (the reference's ``fold_ring`` reads
 only the stack), so its decode may not outrun the ring; the reference's
-own serve raises ``KeyError: 'k'`` there (ROADMAP §3 entry 25).
+own serve raises ``KeyError: 'k'`` there (ROADMAP §3 entry 25). A VLM
+(``--arch internvl2-76b``) is a dense LLM whose prompt's first
+``n_patches`` positions take patch embeddings, drawn from the run's
+generator (the vision tower is stubbed), and serves as the dense family
+does. Whisper (``--arch whisper-base``) encodes ``enc_len`` frames drawn
+from the generator (the conv frontend is stubbed; 8 by default, as the
+reference's serve sizes its cache), writes every decoder layer's cross
+keys and values ``xk``/``xv`` into the cache, then prefills, clusters and
+decodes its decoder's self-attention cache as the other families do;
+the cross attention reads all enc_len slots at every step.
+
+Two facts of the reference shape the audio path (ROADMAP §3 entry 26).
+Its ``forward_prefill`` on an audio config runs the cross layers as plain
+decoder layers: it never runs the encoder and skips every layer's
+``lnx``/``xattn``, so it is no oracle for the audio prefill; the
+reference's chunked encoder-decoder is ``encoder_layer_fwd`` then
+``cross_layer_fwd``, and its stepped counterpart is ``serve_step``
+through ``cross_layer_decode``, which reads ``xk``/``xv`` from the cache.
+And its serve never fills that cross K/V cache (zeros at ``enc_len=8``),
+so there its cross attention adds exactly 0. The port computes ``xk``/
+``xv`` as ``cross_layer_fwd`` does, ``dense(xattn.wk|wv, enc_out)`` of
+the normed encoder output, in the layout ``cross_layer_decode`` reads.
 
 Compares full-attention decode with k²-attention (cluster-major KV)
 decode and reports token agreement and the attention reads saved. The
@@ -54,8 +75,8 @@ from ..device import resolve
 from ..kernels import _build
 from ..models.kv_cluster import (build_cluster_major, build_kv_clusters,
                                  kv_partial_fit)
-from ..models.model import (forward_prefill, init_cache, init_params,
-                            serve_step)
+from ..models.model import (encode, forward_prefill, init_cache,
+                            init_params, serve_step)
 from ..serve import ServeConfig, ServeExecutor
 
 
@@ -85,7 +106,8 @@ def _shared_sink(part: dict, S: int):
     return sink
 
 
-def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
+def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512,
+                       frames=None, patches=None, cross=None):
     """Fill the cache's first S slots from the prompt (B, S) and return
     (logits after the prompt (B, vocab), cache): the contract of the
     reference's stepped prefill, from one chunked forward whose layers
@@ -95,15 +117,34 @@ def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512):
     tokens are routed as the reference's decode step routes them
     (``moe.moe_apply_stepped``: with B <= 8 no pair is dropped), not as
     one call over the B·S tokens of the chunked forward, whose capacity
-    would drop pairs the stepped prefill keeps."""
+    would drop pairs the stepped prefill keeps. A VLM's ``patches``
+    (B, n_patches, d) take the first positions. An audio config encodes
+    ``frames`` (B, enc_len, d) (or takes ``cross``, ``model.encode``'s
+    keys and values), writes the cross keys and values into the cache's
+    ``xk``/``xv`` and runs the decoder over them."""
     S = tokens.shape[1]
     prefix, shared = cache.get("prefix"), cache.get("shared")
+    if cfg.family == "audio":
+        st = cache["stack"]
+        if cross is None:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an audio prefill needs "
+                                 f"frames= (B, enc_len, d) or cross=")
+            cross = encode(cfg, params, frames, q_chunk=q_chunk)[1]
+        if cross["xk"].shape != st["xk"].shape:
+            raise ValueError(f"{cfg.name}: cross keys "
+                             f"{tuple(cross['xk'].shape)} for a cache of "
+                             f"{tuple(st['xk'].shape)}: the frames must fill "
+                             f"its enc_len")
+        st["xk"].copy_(cross["xk"])
+        st["xv"].copy_(cross["xv"])
+        cross = {"xk": st["xk"], "xv": st["xv"]}   # as the decode reads them
     logits = forward_prefill(
         cfg, params, tokens, q_chunk=q_chunk,
         kv_sink=_cache_sink(cache["stack"], S),
         prefix_sink=_cache_sink(prefix, S) if prefix is not None else None,
         shared_sink=_shared_sink(shared, S) if shared is not None else None,
-        moe_stepped=True)
+        moe_stepped=True, patches=patches, cross=cross)
     return logits, cache
 
 
@@ -243,7 +284,7 @@ def _sync(dev):
 
 def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
         fold_every: int = 0, device=None, seed: int = 0, retries: int = 3,
-        echo=print) -> dict:
+        enc_len: int = 8, echo=print) -> dict:
     """Prefill a random prompt, decode with full attention, cluster the
     cache, decode again with k²-attention through the serving executor
     (folding the ring every ``fold_every`` steps, default the ring size;
@@ -254,7 +295,11 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     attention-free SSM config, with the reference's two lines. A hybrid
     clusters its shared block's cache and decodes without folds, so it
     raises when ``decode_len`` exceeds ``cluster_ring`` or ``fold_every``
-    is set."""
+    is set. A VLM's prompt takes patch rows (B, n_patches, d), normal
+    draws times d^-0.5 (an embedding's scale), at its first positions;
+    an audio config encodes ``enc_len`` frames (B, enc_len, d), standard
+    normal draws, first (``t_encode``). Both are drawn from the run's
+    generator after the prompt, in bf16."""
     if cfg.attn_every and (decode_len > cfg.cluster_ring or fold_every):
         raise ValueError(
             f"{cfg.name}: decode_len {decode_len} (cluster_ring "
@@ -270,12 +315,30 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     S_total = prompt_len + decode_len + 1
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                            device=dev, dtype=torch.int32)
+    frames = patches = cross = None
+    d = cfg.d_model
+    if cfg.family == "audio":
+        frames = torch.randn((batch, enc_len, d), generator=gen, device=dev,
+                             dtype=torch.float32).to(torch.bfloat16)
+    elif cfg.n_patches:
+        patches = (torch.randn((batch, cfg.n_patches, d), generator=gen,
+                               device=dev, dtype=torch.float32)
+                   * d ** -0.5).to(torch.bfloat16)
 
     # full-attention path
-    cache = init_cache(cfg, batch, S_total, clustered=False, device=dev)
+    cache = init_cache(cfg, batch, S_total, clustered=False, enc_len=enc_len,
+                       device=dev)
     _sync(dev)
+    t_encode = None
+    if frames is not None:
+        t0 = time.perf_counter()
+        cross = encode(cfg, params, frames)[1]
+        _sync(dev)
+        t_encode = time.perf_counter() - t0
     t0 = time.perf_counter()
-    prefill_logits, cache = prefill_into_cache(cfg, params, cache, prompt)
+    prefill_logits, cache = prefill_into_cache(cfg, params, cache, prompt,
+                                               patches=patches, cross=cross)
+    del cross
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -294,9 +357,11 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
                  f"latent cache; decoded with full attention only")
         return dict(
             params=params, cache=None, flat_cache=cache, counts=None,
-            prompt=prompt, prefill_logits=prefill_logits,
+            prompt=prompt, frames=frames, patches=patches,
+            prefill_logits=prefill_logits,
             full_logits=full_logits, clus_logits=None, full_toks=full_toks,
-            clus_toks=None, t_init=t_init, t_prefill=t_prefill,
+            clus_toks=None, t_init=t_init, t_encode=t_encode,
+            t_prefill=t_prefill,
             t_attach=None, t_full=t_full, t_clus=None, t_clus_loop=None,
             agreement=None, folded=None, sizes0=None, sizes1=None,
             dropped=None, reads_full=S_total, reads_clus=None,
@@ -364,10 +429,11 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
          f"sheds={prof['degrades']['shed']}")
     return dict(
         params=params, cache=cache2, flat_cache=cache, counts=counts,
-        prompt=prompt,
+        prompt=prompt, frames=frames, patches=patches,
         prefill_logits=prefill_logits, full_logits=full_logits,
         clus_logits=clus_logits, full_toks=full_toks, clus_toks=clus_toks,
-        t_init=t_init, t_prefill=t_prefill, t_attach=t_attach, t_full=t_full,
+        t_init=t_init, t_encode=t_encode, t_prefill=t_prefill,
+        t_attach=t_attach, t_full=t_full,
         t_clus=t_clus, t_clus_loop=t_loop, agreement=agree, folded=folded,
         sizes0=sizes0, sizes1=sizes1,
         dropped=prompt_len * batch * cfg.n_kv_heads * n_layers - sizes0,
@@ -391,12 +457,15 @@ def main(argv=None):
                          "call (ft.retry_transient)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--enc-len", type=int, default=8,
+                    help="an audio config's encoder frames (the "
+                         "reference's serve sizes its cross cache to 8)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run(cfg, batch=args.batch, prompt_len=args.prompt_len,
         decode_len=args.decode, fold_every=args.fold_every,
-        device=args.device, retries=args.retries)
+        device=args.device, retries=args.retries, enc_len=args.enc_len)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Attention variants (port of ``repro.models.attention``): GQA with
 cluster-major and flat-cache k²-attention decode, and MLA (DeepSeek-V2).
 
-Prefill attention is query-chunked, so no (S, S) logit tensor is ever
-held; a chunk's logits are (B, Hkv, g, qc, S) f32 at most. Under the
+Prefill attention is query-chunked, so no (S, Skv) logit tensor is ever
+held; a chunk's logits are (B, Hkv, g, qc, Skv) f32 at most. Under the
 causal mask the keys after a chunk's last query get weight exactly 0,
 so each chunk reads only the keys up to its last query (the reference
 masks them), and one-token decode reads only the filled slots of the
 flat cache and of MLA's latent cache (the reference masks the rest).
+Non-causal attention (Whisper's encoder, its decoder's cross attention
+over the encoder's keys) reads every key.
 
 k²-attention decode over the cluster-major cache selects each q-head's
 top-p clusters (``kernels.cluster_attend.select_clusters``, the
@@ -52,33 +54,40 @@ def _softmax(logits: torch.Tensor) -> torch.Tensor:
 # chunked causal attention core
 # --------------------------------------------------------------------------
 
-def causal_attention(q, k, v, *, q_chunk: int = 512) -> torch.Tensor:
-    """q: (B, S, H, dh); k, v: (B, S, Hkv, dh) -> (B, S, H, dh).
+def causal_attention(q, k, v, *, causal: bool = True,
+                     q_chunk: int = 512) -> torch.Tensor:
+    """q: (B, S, H, dh); k, v: (B, Skv, Hkv, dh) -> (B, S, H, dh).
 
     Grouped-query: H = g * Hkv. Logits in f32 from the bf16-scaled
     queries, softmax weights cast to v's type for the value product, as
     the reference. A last chunk shorter than ``q_chunk`` is allowed (the
-    reference asserts S % q_chunk == 0)."""
+    reference asserts S % q_chunk == 0, which Whisper's 1500 frames at
+    512 fail). ``causal=False`` is bidirectional or cross attention
+    (Whisper's encoder, the decoder's cross attention): each chunk reads
+    all Skv keys, unmasked. Causal, Skv = S and each chunk reads the keys
+    up to its last query."""
     B, S, H, dh = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     qr = scale(q, dh ** -0.5).reshape(B, S, Hkv, g, dh)
-    kt = k.float().permute(0, 2, 3, 1)                 # (B, Hkv, dh, S)
-    vr = v.permute(0, 2, 1, 3)                         # (B, Hkv, S, dh)
+    kt = k.float().permute(0, 2, 3, 1)                 # (B, Hkv, dh, Skv)
+    vr = v.permute(0, 2, 1, 3)                         # (B, Hkv, Skv, dh)
     out = torch.empty((B, S, Hkv, g, v.shape[-1]), dtype=v.dtype,
                       device=q.device)
     for lo in range(0, S, q_chunk):
-        ke = min(S, lo + q_chunk)          # keys up to the chunk's last query
-        n = ke - lo
-        qb = qr[:, lo:ke].float().permute(0, 2, 3, 1, 4)   # (B,Hkv,g,n,dh)
+        hi = min(S, lo + q_chunk)
+        ke = hi if causal else Skv     # causal: keys up to the last query
+        n = hi - lo
+        qb = qr[:, lo:hi].float().permute(0, 2, 3, 1, 4)   # (B,Hkv,g,n,dh)
         logits = torch.matmul(qb.reshape(B, Hkv, g * n, dh), kt[..., :ke])
-        pos = torch.arange(lo, ke, device=q.device)
-        late = pos[:, None] < pos[None, :]                 # (n, n)
-        logits.view(B, Hkv, g, n, ke)[..., lo:].masked_fill_(late,
-                                                             -torch.inf)
+        if causal:
+            pos = torch.arange(lo, hi, device=q.device)
+            late = pos[:, None] < pos[None, :]             # (n, n)
+            logits.view(B, Hkv, g, n, ke)[..., lo:].masked_fill_(late,
+                                                                 -torch.inf)
         w = _softmax(logits).to(v.dtype)
         o = torch.matmul(w, vr[:, :, :ke])                 # (B,Hkv,g*n,dh)
-        out[:, lo:ke] = o.reshape(B, Hkv, g, n, -1).permute(0, 3, 1, 2, 4)
+        out[:, lo:hi] = o.reshape(B, Hkv, g, n, -1).permute(0, 3, 1, 2, 4)
         del logits, w, o           # before the next chunk's are allocated
     return out.reshape(B, S, H, v.shape[-1])
 
@@ -86,7 +95,8 @@ def causal_attention(q, k, v, *, q_chunk: int = 512) -> torch.Tensor:
 def decode_attention(q, k, v) -> torch.Tensor:
     """One-token decode: q (B, H, dh) against every slot of k/v in the
     decode-native layout (B, Hkv, S, dh) (the caller passes the live
-    slots; the reference masks the others)."""
+    slots; the reference masks the others). The decoder's cross
+    attention reads all enc_len slots of ``xk``/``xv``."""
     B, H, dh = q.shape
     Hkv = k.shape[1]
     g = H // Hkv

@@ -195,7 +195,10 @@ def _ring_fold(kt, vt, centroids, sizes, extra, ring_k, ring_v, fill,
     hi = torch.arange(H, device=kt.device)[None, :]
     for r in range(min(n_live, R)):
         krow, vrow = ring_k[:, :, r], ring_v[:, :, r]          # (B, H, d)
-        c = torch.argmin(_sqdist(krow[:, :, None], centroids)[:, :, 0], -1)
+        # in the centroids' type: the reference promotes a bf16 ring
+        # against the f32 centroids of an f32 cache
+        c = torch.argmin(_sqdist(krow[:, :, None].to(centroids.dtype),
+                                 centroids)[:, :, 0], -1)
         sz = sizes[bi, hi, c]
         slot = torch.clamp(sz, max=cap - 1)
         ok = sz < cap

@@ -1,8 +1,10 @@
 """Top-level model: the dense GQA and MoE families, with GQA or MLA
-attention and DeepSeek's dense prefix, and the SSM (RWKV6) and hybrid
-(Zamba2: Mamba2 layers and a shared attention block) families (port of
-``repro.models.model``): config -> params, prefill forward, caches and
-the serve step.
+attention and DeepSeek's dense prefix, the SSM (RWKV6) and hybrid
+(Zamba2: Mamba2 layers and a shared attention block) families, the VLM
+(InternVL2: a dense LLM whose first ``n_patches`` positions take patch
+embeddings) and the audio encoder-decoder (Whisper) (port of
+``repro.models.model``): config -> params, the encoder, prefill
+forward, caches and the serve step.
 
 Params are nested dicts of tensors whose paths and shapes are the
 reference's (``convert.params_from_reference`` carries them across),
@@ -15,7 +17,18 @@ own. A config with ``attn_every`` has ``"shared"`` params, one
 attention + MLP block, and a ``"shared"`` cache with one slot for each of
 its ⌈n_layers / attn_every⌉ applications. An SSM layer's cache is its
 recurrent state (f32) and, for RWKV6, the previous token's normed input
-``xprev``. The caches are updated in place by ``serve_step``.
+``xprev``. An audio config has an ``"enc"`` stack of dense encoder
+layers and ``"enc_norm"``, and its ``"stack"`` is of cross layers
+(``transformer.cross_layer_init``), whose cache holds the cross
+attention's keys and values ``xk``/``xv`` (B, Hkv, enc_len, dh) beside
+the self attention's: :func:`encode` computes them from the frames. The
+caches are updated in place by ``serve_step``.
+
+Differences from the reference: its ``forward_prefill`` on an audio
+config runs the cross layers as plain decoder layers, with neither the
+encoder nor the cross attention (ROADMAP §3 entry 26); this one runs
+both, and raises without frames. ``serve_step`` takes ``patches=`` (the
+reference's ignores patches), so a patched prompt can also be stepped.
 """
 from __future__ import annotations
 
@@ -42,6 +55,13 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
                       device=gen.device) * d ** -0.5
     params = {"embed": emb.to(torch.bfloat16),
               "out_norm": rmsnorm_init(d, device=gen.device)}
+    if cfg.family == "audio":
+        params["enc"] = tf.stack_init(cfg, gen, tf.dense_layer_init,
+                                      cfg.encoder_layers)
+        params["enc_norm"] = rmsnorm_init(d, device=gen.device)
+        params["stack"] = tf.stack_init(cfg, gen, tf.cross_layer_init,
+                                        cfg.n_layers)
+        return with_unembed_table(params)
     if cfg.first_dense:
         params["prefix"] = tf.stack_init(cfg, gen, tf.dense_layer_init,
                                          cfg.first_dense)
@@ -63,8 +83,21 @@ def with_unembed_table(params: dict) -> dict:
     return params
 
 
-def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+def embed_tokens(cfg, params, tokens, patches=None, *, start: int = 0):
+    """The token embeddings of ``tokens`` (B, S) at positions start, ...,
+    start + S - 1. With ``patches`` (B, n_patches, d) on a VLM config the
+    positions below ``n_patches`` take their patch rows instead, cast to
+    the embedding's type (the vision tower's output, stubbed); with
+    ``start`` 0 and S >= n_patches this is the reference's
+    ``embed_tokens``."""
+    h = params["embed"][tokens.long()]
+    n = min(cfg.n_patches, start + h.shape[1]) - start
+    if patches is not None and n > 0:
+        if patches.shape[1] != cfg.n_patches:
+            raise ValueError(f"{cfg.name}: patches {tuple(patches.shape)}, "
+                             f"want (B, {cfg.n_patches}, {cfg.d_model})")
+        h[:, :n] = patches[:, start:start + n].to(h.dtype)
+    return h
 
 
 def unembed(cfg, params, h):
@@ -73,9 +106,35 @@ def unembed(cfg, params, h):
     return h.float() @ params["embed_f32"].T
 
 
+def encode(cfg, params, frames, *, q_chunk: int = 512):
+    """Whisper's encoder over ``frames`` (B, enc_len, d), the stubbed
+    frontend's frame embeddings, cast to the embedding's type: the dense
+    encoder layers (bidirectional attention), then ``enc_norm``. Returns
+    (the normed encoder output (B, enc_len, d), {"xk", "xv"}): every
+    decoder layer's cross-attention keys and values of that output,
+    ``dense(xattn.wk|wv, ·)``, stacked over the layers in the cache's
+    layout (L, B, Hkv, enc_len, dh), which ``cross_layer_decode`` reads
+    and the reference's cache never gets filled with (ROADMAP §3 entry
+    26)."""
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: encode runs an audio config's "
+                         f"encoder, not a {cfg.family} config's")
+    h = frames.to(params["embed"].dtype)
+    for i in range(tf.n_layers_of(params["enc"])):
+        h = tf.encoder_layer_fwd(cfg, tf.layer_params(params["enc"], i), h,
+                                 q_chunk=q_chunk)
+    out = rmsnorm(params["enc_norm"], h)
+    del h
+    kv = [tf.cross_kv(cfg, tf.layer_params(params["stack"], i), out)
+          for i in range(cfg.n_layers)]
+    return out, {"xk": torch.stack([k for k, _ in kv]),
+                 "xv": torch.stack([v for _, v in kv])}
+
+
 def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
                     kv_sink=None, prefix_sink=None, shared_sink=None,
-                    moe_stepped: bool = False):
+                    moe_stepped: bool = False, patches=None, frames=None,
+                    cross=None):
     """Prefill forward: logits for the LAST position only, (B, vocab).
     ``kv_sink(i, fields)`` receives every stack layer's cache fields, a
     dict keyed by the cache's field names (``transformer.
@@ -84,14 +143,30 @@ def forward_prefill(cfg, params, tokens, *, q_chunk: int = 512,
     each application. ``moe_stepped``: route the MoE's tokens as a
     decode step over each position would (``moe.moe_apply_stepped``) and
     not as one call over all B·S tokens, whose capacity drops pairs the
-    steps keep."""
-    h = embed_tokens(cfg, params, tokens)
+    steps keep. ``patches`` (B, n_patches, d): a VLM's patch rows in
+    place of the first positions' embeddings (:func:`embed_tokens`). An
+    audio config needs ``frames`` (B, enc_len, d), which :func:`encode`
+    runs through the encoder, or ``cross``, :func:`encode`'s keys and
+    values, and runs its cross layers over them."""
+    if cfg.family == "audio":
+        if cross is None:
+            if frames is None:
+                raise ValueError(
+                    f"{cfg.name}: an audio prefill needs frames= (or the "
+                    f"encoder's cross= keys and values); the reference's "
+                    f"forward_prefill runs its cross layers without the "
+                    f"encoder (ROADMAP §3 entry 26)")
+            cross = encode(cfg, params, frames, q_chunk=q_chunk)[1]
+    elif frames is not None or cross is not None:
+        raise ValueError(f"{cfg.name}: frames are an audio config's input")
+    h = embed_tokens(cfg, params, tokens, patches)
     if cfg.first_dense:
         h = tf.run_stack(prefix_config(cfg), params["prefix"], h,
                          q_chunk=q_chunk, kv_sink=prefix_sink)
     h = tf.run_stack(cfg, params["stack"], h, shared_p=params.get("shared"),
                      q_chunk=q_chunk, kv_sink=kv_sink,
-                     shared_sink=shared_sink, moe_stepped=moe_stepped)
+                     shared_sink=shared_sink, moe_stepped=moe_stepped,
+                     cross=cross)
     h_last = rmsnorm(params["out_norm"], h[:, -1:])
     return unembed(cfg, params, h_last)[:, 0]
 
@@ -128,13 +203,16 @@ def n_shared_apps(cfg) -> int:
     return -(-cfg.n_layers // cfg.attn_every)
 
 
-def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
+def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None,
+                 enc_len: int = 1500):
     """{"stack": {field: (shape, dtype)}} of the stacked decode cache,
     {"prefix": ...} (a flat k/v cache) with ``first_dense`` layers, and
     {"shared": ...} with ``attn_every``: the shared block's cache (flat or
     cluster-major as ``clustered`` says) stacked over its applications,
-    the ring's fill one per application. ``clustered=None``: clustered
-    from ``long_context_threshold`` on, never for an SSM config."""
+    the ring's fill one per application. An audio config's stack also
+    holds ``xk``/``xv`` (L, B, Hkv, enc_len, dh) bf16, the cross
+    attention's keys and values. ``clustered=None``: clustered from
+    ``long_context_threshold`` on, never for an SSM config."""
     if clustered is None:
         clustered = S >= cfg.long_context_threshold and not cfg.ssm
 
@@ -142,6 +220,10 @@ def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
         return {f: ((n,) + shape, dt) for f, (shape, dt) in
                 _layer_cache_shape(c, B, S, clus).items()}
     out = {"stack": stacked(cfg, cfg.n_layers - cfg.first_dense, clustered)}
+    if cfg.family == "audio":
+        xs = ((cfg.n_layers, B, cfg.n_kv_heads, enc_len, cfg.d_head),
+              torch.bfloat16)
+        out["stack"].update(xk=xs, xv=xs)
     if cfg.first_dense:
         out["prefix"] = stacked(prefix_config(cfg), cfg.first_dense, False)
     if cfg.attn_every:
@@ -151,35 +233,43 @@ def cache_shapes(cfg, B: int, S: int, *, clustered: bool | None = None):
 
 
 def init_cache(cfg, B: int, S: int, *, clustered: bool | None = None,
-               device=None) -> dict:
+               enc_len: int = 1500, device=None) -> dict:
     """Zero-initialised decode cache, stacked over layers, on ``device``
-    (the card by default)."""
+    (the card by default); ``enc_len``: an audio config's encoder
+    length."""
     dev = resolve(device)
     return {part: {f: torch.zeros(shape, dtype=dt, device=dev)
                    for f, (shape, dt) in fields.items()}
-            for part, fields in cache_shapes(cfg, B, S,
-                                             clustered=clustered).items()}
+            for part, fields in cache_shapes(
+                cfg, B, S, clustered=clustered, enc_len=enc_len).items()}
 
 
-def serve_step(cfg, params, cache, tokens, pos: int, *, device=None):
+def serve_step(cfg, params, cache, tokens, pos: int, *, patches=None,
+               device=None):
     """Decode one token. tokens: (B, 1) int; pos: the slot (host int).
     Returns (logits (B, vocab) f32, cache), the cache updated in place.
     Whether attention is full or clustered is decided by the cache's
     contents: a cluster-major cache carries ``kt``, a flat cache with
     member lists ``mem`` (Zamba2's shared block: its ``"shared"``
-    cache). The step runs where
-    params and cache lie; host-array tokens go to ``device`` (the card
-    by default), which must be theirs."""
+    cache). An audio config's stack decodes through
+    ``transformer.cross_layer_decode`` (cross attention over ``xk``/
+    ``xv``). ``patches``: a VLM's patch rows (B, n_patches, d), the row
+    at ``pos`` taken in place of the token's embedding while pos <
+    n_patches (:func:`embed_tokens`). The step runs where params and
+    cache lie; host-array tokens go to ``device`` (the card by default),
+    which must be theirs."""
     tokens = host_input(tokens, device)
     if tokens.device != params["embed"].device:
         raise ValueError(f"serve_step: tokens on {tokens.device}, params "
                          f"on {params['embed'].device}")
-    h = embed_tokens(cfg, params, tokens)
+    h = embed_tokens(cfg, params, tokens, patches, start=pos)
     if cfg.first_dense:
         h = tf.run_stack_decode(prefix_config(cfg), params["prefix"],
                                 cache["prefix"], h, pos)
-    h = tf.run_stack_decode(cfg, params["stack"], cache["stack"], h, pos,
-                            shared_p=params.get("shared"),
-                            shared_cache=cache.get("shared"))
+    h = tf.run_stack_decode(
+        cfg, params["stack"], cache["stack"], h, pos,
+        shared_p=params.get("shared"), shared_cache=cache.get("shared"),
+        layer_decode_fn=tf.cross_layer_decode if cfg.family == "audio"
+        else None)
     h = rmsnorm(params["out_norm"], h)
     return unembed(cfg, params, h)[:, 0], cache

@@ -1,5 +1,6 @@
-"""Layer-stack assembly for the dense GQA, MoE, SSM and hybrid families,
-with GQA or MLA attention (port of those parts of
+"""Layer-stack assembly for every family of the reference: dense GQA
+(and the VLM, whose LLM is one), MoE, SSM, hybrid and the audio
+encoder-decoder, with GQA or MLA attention (port of
 ``repro.models.transformer``).
 
 Layer params are stacked on a leading axis, as in the reference; the
@@ -20,8 +21,13 @@ experts or Arctic's parallel dense residual; a Mamba2 layer has none.
 DeepSeek's dense first layers are :func:`dense_layer_init` layers.
 Zamba2's shared attention + MLP block (one set of weights) runs after
 the mixer of every layer i with i % ``attn_every`` == 0, application
-i // ``attn_every``, with a cache slot of its own. The audio and VLM
-branches wait for ROADMAP §1 item 13.
+i // ``attn_every``, with a cache slot of its own. Whisper's encoder
+layers (:func:`encoder_layer_fwd`) are dense layers with bidirectional
+attention; its decoder layers (:func:`cross_layer_init`) add cross
+attention (``lnx``, ``xattn``) over the encoder's keys and values between
+the self attention and the MLP. In decode they read those keys and
+values from the cache's ``xk``/``xv`` (:func:`cross_layer_decode`), which
+the prefill fills from the encoder's output (``model.encode``).
 """
 from __future__ import annotations
 
@@ -33,15 +39,19 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .kv_cluster import cluster_append
-from .layers import rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .layers import dense, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_family(cfg) -> None:
-    """Raise for the families the port does not run yet (audio, VLM)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise for a family string the reference does not have."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP "
-            f"§1 item 13)")
+            f"{cfg.name}: no family {cfg.family!r} in the reference, whose "
+            f"families {FAMILIES} the port serves; what ROADMAP §1 item 13 "
+            f"leaves is its slices f (training) and g (LM placement)")
 
 
 def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
@@ -95,6 +105,17 @@ def shared_attn_init(cfg, gen: torch.Generator, new=None) -> dict:
                                   cfg.d_head, False, new=new),
             "ln2": rmsnorm_init(d, device=gen.device, new=new),
             "mlp": swiglu_init(gen, d, cfg.d_ff, new=new)}
+
+
+def cross_layer_init(cfg, gen: torch.Generator, new=None) -> dict:
+    """Whisper's decoder layer: self attention, cross attention (GQA
+    without qk-norm, each) and a SwiGLU of ``d_ff``."""
+    d = cfg.d_model
+    ln = lambda: rmsnorm_init(d, device=gen.device, new=new)  # noqa: E731
+    gqa = lambda: attn.gqa_init(gen, d, cfg.n_heads,  # noqa: E731
+                                cfg.n_kv_heads, cfg.d_head, False, new=new)
+    return {"ln1": ln(), "attn": gqa(), "lnx": ln(), "xattn": gqa(),
+            "ln2": ln(), "mlp": swiglu_init(gen, d, cfg.d_ff, new=new)}
 
 
 def mla_dims(cfg) -> attn.MLADims:
@@ -213,19 +234,74 @@ def decoder_layer_fwd(cfg, p, h, q_chunk: int = 512,
     return h + y, aux, fields
 
 
+def encoder_layer_fwd(cfg, p, h, q_chunk: int = 512):
+    """Whisper's encoder layer: bidirectional (non-causal) attention, with
+    RoPE on the encoder positions through ``gqa_project`` and no
+    qk-norm, as the reference; then the SwiGLU."""
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)[None, :]
+    q, k, v = attn.gqa_project(p["attn"], rmsnorm(p["ln1"], h), cfg.n_heads,
+                               cfg.n_kv_heads, cfg.d_head, positions,
+                               cfg.rope_theta, False)
+    o = attn.causal_attention(q, k, v, causal=False, q_chunk=q_chunk)
+    del q, k, v
+    h = h + dense(p["attn"]["wo"], o.reshape(B, S, -1))
+    return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h))
+
+
+def cross_kv(cfg, p, enc_out):
+    """A decoder layer's cross-attention keys and values of the normed
+    encoder output (B, Skv, d): ``dense(xattn.wk|wv, enc_out)`` in the
+    cache's layout (B, Hkv, Skv, dh)."""
+    B = enc_out.shape[0]
+    return tuple(dense(p["xattn"][w], enc_out).reshape(
+        B, -1, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+        for w in ("wk", "wv"))
+
+
+def cross_layer_fwd(cfg, p, h, enc_out=None, q_chunk: int = 512, xkv=None):
+    """Whisper's decoder layer, prefill path: causal self attention, cross
+    attention of h's queries over the encoder's keys and values, the
+    SwiGLU. The cross keys and values are ``cross_kv(enc_out)``, or
+    ``xkv`` (xk, xv), already in the cache's layout (B, Hkv, Skv, dh).
+    Returns (h, fields): the self attention's ``k``, ``v``
+    (B, S, Hkv, dh), keyed as the cache keys them."""
+    o, (k, v) = attn.gqa_apply(p["attn"], rmsnorm(p["ln1"], h),
+                               n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                               d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+                               q_chunk=q_chunk)
+    h = h + o
+    B, S, _ = h.shape
+    xk, xv = xkv if xkv is not None else cross_kv(cfg, p, enc_out)
+    q = dense(p["xattn"]["wq"], rmsnorm(p["lnx"], h)).reshape(
+        B, S, cfg.n_heads, cfg.d_head)
+    o = attn.causal_attention(q, xk.transpose(1, 2), xv.transpose(1, 2),
+                              causal=False, q_chunk=q_chunk)
+    h = h + dense(p["xattn"]["wo"], o.reshape(B, S, -1))
+    return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h)), {"k": k, "v": v}
+
+
 def run_stack(cfg, stacked, h, shared_p=None, q_chunk: int = 512,
-              kv_sink=None, shared_sink=None, moe_stepped: bool = False):
+              kv_sink=None, shared_sink=None, moe_stepped: bool = False,
+              cross=None):
     """Run the stacked decoder layers over h. Returns h. ``kv_sink(i,
     fields)``, when given, receives layer i's cache fields
     (:func:`decoder_layer_fwd`) before the next layer runs. With
     ``shared_p`` (Zamba2), layer i with i % attn_every == 0 is followed
     by the shared block, and ``shared_sink(app, k, v)`` receives its keys
     and values at application i // attn_every. ``moe_stepped``: as
-    :func:`_mlp_apply`."""
+    :func:`_mlp_apply`. ``cross`` (an audio config's stack: cross
+    layers): {"xk", "xv"} stacked over the layers (L, B, Hkv, Skv, dh),
+    each layer's cross keys and values (``model.encode``)."""
     for i in range(n_layers_of(stacked)):
-        h, _, fields = decoder_layer_fwd(cfg, layer_params(stacked, i), h,
-                                         q_chunk=q_chunk,
-                                         moe_stepped=moe_stepped)
+        if cross is not None:
+            h, fields = cross_layer_fwd(
+                cfg, layer_params(stacked, i), h, q_chunk=q_chunk,
+                xkv=(cross["xk"][i], cross["xv"][i]))
+        else:
+            h, _, fields = decoder_layer_fwd(cfg, layer_params(stacked, i),
+                                             h, q_chunk=q_chunk,
+                                             moe_stepped=moe_stepped)
         if kv_sink is not None:
             kv_sink(i, fields)
         del fields
@@ -281,6 +357,35 @@ def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
     return h + _mlp_apply(cfg, p, rmsnorm(p["ln2"], h))[0]
 
 
+def cross_layer_decode(cfg, p, cache_l, h, pos: int):
+    """Whisper's decoder layer, one-token decode: self attention over the
+    cluster-major cache (``"kt"``, K6) or the flat one (with member lists
+    when it holds ``"mem"``; as the reference, this branch files no token
+    into them), then cross attention of the token's query over all
+    enc_len slots of ``xk``/``xv``, then the SwiGLU. The caches are
+    updated in place. Returns h."""
+    x = rmsnorm(p["ln1"], h)
+    if "kt" in cache_l:
+        o, _ = attn.gqa_decode_cluster_major(
+            p["attn"], x, cache_l, pos, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
+            top_p=cfg.cluster_top_p)
+    else:
+        o, _, _, _ = attn.gqa_decode(
+            p["attn"], x, cache_l["k"], cache_l["v"], pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
+            rope_theta=cfg.rope_theta, clusters=_clusters_of(cache_l),
+            top_p=cfg.cluster_top_p)
+    del x
+    h = h + o
+    B = h.shape[0]
+    q = dense(p["xattn"]["wq"], rmsnorm(p["lnx"], h)).reshape(
+        B, cfg.n_heads, cfg.d_head)
+    o = attn.decode_attention(q, cache_l["xk"], cache_l["xv"])
+    h = h + dense(p["xattn"]["wo"], o.reshape(B, 1, -1))
+    return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h))
+
+
 def shared_block_decode(cfg, sp, sc_app, h, pos: int):
     """Zamba2's shared block, one-token decode, over its application's
     cache ``sc_app`` (views, updated in place): the flat ``k``/``v``
@@ -301,16 +406,18 @@ def shared_block_decode(cfg, sp, sc_app, h, pos: int):
 
 
 def run_stack_decode(cfg, stacked, cache, h, pos: int, shared_p=None,
-                     shared_cache=None):
+                     shared_cache=None, layer_decode_fn=None):
     """Decode one token through the layer stack with per-layer caches
-    (``cache``: the stacked cache dict, updated in place). With
-    ``shared_p`` (Zamba2), layer i with i % attn_every == 0 then runs
-    the shared block over application i // attn_every of
-    ``shared_cache`` (leading axis the applications). Returns h."""
+    (``cache``: the stacked cache dict, updated in place), each layer
+    through ``layer_decode_fn`` (default :func:`decoder_layer_decode`;
+    :func:`cross_layer_decode` for an audio stack). With ``shared_p``
+    (Zamba2), layer i with i % attn_every == 0 then runs the shared block
+    over application i // attn_every of ``shared_cache`` (leading axis
+    the applications). Returns h."""
+    fn = layer_decode_fn or decoder_layer_decode
     for i in range(n_layers_of(stacked)):
         cache_l = {f: v[i] for f, v in cache.items()}
-        h = decoder_layer_decode(cfg, layer_params(stacked, i), cache_l, h,
-                                 pos)
+        h = fn(cfg, layer_params(stacked, i), cache_l, h, pos)
         if cfg.attn_every and shared_p is not None \
                 and i % cfg.attn_every == 0:
             app = i // cfg.attn_every

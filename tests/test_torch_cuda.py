@@ -1499,7 +1499,8 @@ def _smoke_serve(arch, device, steps, member_lists=False, clustered=False,
     decode steps teacher-forced with tokens drawn on the CPU. Returns (the
     logits after the prompt and after each step, the cache), on the CPU.
     The decode steps launch the kernels ``launches`` counts (none by
-    default)."""
+    default). An audio config encodes 24 frames and a VLM's prompt takes
+    patch rows, both drawn on the CPU."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models.model import init_cache, init_params, serve_step
@@ -1511,9 +1512,14 @@ def _smoke_serve(arch, device, steps, member_lists=False, clustered=False,
     toks = torch.randint(0, cfg.vocab, (steps, 2, 1),
                          generator=torch.Generator().manual_seed(5))
     cache = _f32(init_cache(cfg, 2, 48 + steps + 1, clustered=False,
-                            device="cpu"), device)
+                            enc_len=24, device="cpu"), device)
+    extra = torch.randn((2, 24 if cfg.family == "audio" else cfg.n_patches,
+                         cfg.d_model),
+                        generator=torch.Generator().manual_seed(6)).to(device)
+    kw = ({"frames": extra} if cfg.family == "audio" else
+          {"patches": extra} if cfg.n_patches else {})
     logits, cache = serve.prefill_into_cache(cfg, params, cache,
-                                             prompt.to(device))
+                                             prompt.to(device), **kw)
     if member_lists:
         cache = serve.attach_member_lists(cfg, cache, length=48)
     if clustered:
@@ -1602,6 +1608,88 @@ def test_cuda_cluster_attend_zamba_shape(cuda):
                                                sizes=sizes)[2])
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_cluster_attend_whisper_shape(cuda, cap, dtype):
+    """K6 at Whisper's head width (dh 64: a bf16 row of 128 bytes, so a
+    16-row tile a warp stage) with small caps (16 and 32, phase 2p's) and
+    p 4, over 512 query rows (64 utterances x 8 heads, a GQA group of 1):
+    both validity forms give the same state, within the plain version's
+    tolerances, and a second launch gives the same bits."""
+    q, kt, vt, sel, sizes, valid = _attend_inputs(512, 4096, cap, 64, 4,
+                                                  dtype, 7, cuda)
+    a = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    b = cluster_attend_partial(q, kt, vt, sel, valid=valid)
+    c = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    _assert_state_close(a, ref.cluster_attend_ref(q, kt, vt, sel,
+                                                  sizes=sizes),
+                        ref.cluster_attend_ref(q, kt, vt.abs(), sel,
+                                               sizes=sizes)[2])
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_attend_gqa_group_of_8(cuda):
+    """K6 at InternVL2's attention (dh 128, 64 q-heads over 8 kv-heads, a
+    group of 8 query rows reading one kv-head's blocks) with cap 512 and
+    p 16, the selection made by ``select_clusters`` as the decode path
+    makes it (kc 64 here, where phase 2q has 2048): the plain version's
+    tolerances, and both validity forms equal."""
+    from repro_torch.kernels.cluster_attend import select_clusters
+    B, H, Hkv, dh, kc, cap, p = 2, 64, 8, 128, 64, 512, 16
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((B, H, dh), generator=gen, device=cuda)
+    cent = torch.randn((B, Hkv, kc, dh), generator=gen, device=cuda)
+    kt = torch.randn((B * Hkv * kc, cap, dh), generator=gen,
+                     device=cuda).bfloat16()
+    vt = torch.randn((B * Hkv * kc, cap, dh), generator=gen,
+                     device=cuda).bfloat16()
+    sizes = torch.randint(0, cap + 1, (B * Hkv * kc,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    valid = (torch.arange(cap, device=cuda)[None, :]
+             < sizes[:, None]).to(torch.int32)
+    sel = select_clusters(q, cent, p)
+    kv_head = (sel.long() // kc).reshape(B, H, p)
+    assert torch.equal(kv_head, (torch.arange(B, device=cuda)[:, None, None]
+                                 * Hkv + torch.arange(H, device=cuda)[
+                                     None, :, None] // 8).expand(B, H, p))
+    qf = q.reshape(B * H, dh)
+    a = cluster_attend_partial(qf, kt, vt, sel, sizes=sizes)
+    b = cluster_attend_partial(qf, kt, vt, sel, valid=valid)
+    _assert_state_close(a, ref.cluster_attend_ref(qf, kt, vt, sel,
+                                                  sizes=sizes),
+                        ref.cluster_attend_ref(qf, kt, vt.abs(), sel,
+                                               sizes=sizes)[2])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b"])
+@pytest.mark.parametrize("clustered", [False, True])
+def test_cuda_audio_vlm_smoke_serve_matches_cpu(cuda, arch, clustered):
+    """Whisper's (24 encoded frames) and InternVL2's (8 patch rows) smoke
+    configs in f32 on the card against the CPU: the serve prefill and 4
+    decode steps, flat or k²-attention over the cluster-major cache (K6
+    once a layer a step), logits within 1e-4 of their largest magnitude,
+    every cache field within 1e-4 of its."""
+    from repro_torch.configs.base import get_smoke_config
+    cfg = get_smoke_config(arch)
+    got, cache = _smoke_serve(arch, cuda, 4, clustered=clustered,
+                              launches={"cluster_attend": 4 * cfg.n_layers}
+                              if clustered else None)
+    want, want_c = _smoke_serve(arch, "cpu", 4, clustered=clustered)
+    _logits_close(got, want)
+    for f, t in want_c["stack"].items():
+        if t.is_floating_point():
+            assert float((cache["stack"][f] - t).abs().max()) <= \
+                1e-4 * float(t.abs().max()), f
+        else:
+            assert torch.equal(cache["stack"][f], t), f
 
 
 def _scan_close(got, want, scale):
