@@ -256,6 +256,37 @@ Phases (any failure exits non-zero, without the final result line):
    bound; check as phase 2e, the parameter count (with the norms), the
    patched chunked prefill of the first 300 positions against a stepped
    one (f32, rel 1e-3) and the smoke config card = CPU;
+2r. (after 2q, with its model released) LM training: Qwen3-8B at full
+   width (d_model 4096, 32 q-heads over 8 kv-heads of 128, d_ff 12,288,
+   vocab 151,936, the embedding tied) cut to 4 of 36 layers, random
+   weights from the seed, ``launch.train.make_train_step`` (autograd
+   through ``forward_train`` with remat "dots" and q_chunk 512, clipping,
+   AdamW) through ``ft.FaultTolerantLoop`` at B x S = 4 x 2048 on
+   ``ShardedBatcher`` tokens: run A trains 8 steps with a checkpoint
+   (params and AdamW state) under ``build/train_ckpt``, the job's
+   directory, at step 4, written in the background; run B trains from
+   the same init, is preempted at step 6 and resumes from the job's
+   newest checkpoint (step 4) to step 8; then one step with int8 gradient
+   compression, counts set to 0 just before run A; print the allocated
+   memory at the start, init seconds, ms a step and tokens/s, peak device
+   memory, the step's FLOPs and their share of the card's peak, the
+   unembedding's share of the FLOPs, host reads a step and the
+   checkpoint's bytes; check finite losses and gradient norms, the params
+   moving, no kernel launched, the resumed run ending on run A's params
+   and AdamW state bit for bit (and replaying its losses) and 1 host read
+   a step;
+2s. (after 2r) the SSM families' training: RWKV6-3B cut to 4 of 32 layers
+   and Zamba2-7B cut to 7 of 81 (two applications of the shared block),
+   full width, B x S = 2 x 4096, 4 steps each, counts set to 0 just
+   before; each layer's scan runs through the ``ssm_scan`` autograd
+   Functions: the forward kernel (saving the state every 64 steps), again
+   when the backward recomputes the layer, and the backward kernel
+   (``wkv6_scan_bwd``, ``ssd_scan_bwd``); print ms a step, tokens/s, peak
+   memory and each backward kernel's launches and time a layer at the
+   training shape beside its bound; check finite losses and the launches;
+   then every arch's smoke config, one forward and backward in f32 on the
+   card against the CPU (the loss rel 1e-5, every gradient leaf within
+   1e-4 of its largest magnitude);
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -281,7 +312,11 @@ Phases (any failure exits non-zero, without the final result line):
    its outputs within 1e-5 of their sum of absolute terms, K6 on its
    arguments at a clustered decode step of phase 2o, dh = 112, and, after
    phases 2p and 2q, K6 on their layer-0 tables: dh = 64 with cap 32 and
-   a GQA group of 1, and dh = 128 at a GQA group of 8), beside one
+   a GQA group of 1, and dh = 128 at a GQA group of 8; after phase 2s,
+   each backward kernel on 256 steps of layer 0's training inputs with a
+   seeded random output gradient, launched twice and bit-identical, every
+   gradient within 1e-5 of its sum of absolute terms of autograd through
+   the plain version, and timed beside that autograd backward), beside one
    library call where one
    computes the same function and beside the least time the card could
    take (bytes over 3.35 TB/s, or operations over the H100 SXM data
@@ -361,10 +396,23 @@ AUDIO_KC, AUDIO_CAP, AUDIO_TOP_P, AUDIO_FOLD, AUDIO_STEPPED = 32, 32, 4, 16, 32
 # k²-attention knobs (the config's); the stepped prefill check over the
 # first 300 positions
 VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_STEPPED = "internvl2-76b", 4, 32768, 300
+# phase 2r: Qwen3-8B trained at full width, depth cut to 4 of 36 layers (as
+# phase 2e), B x S = 4 x 2048, remat "dots", q_chunk 512: 8 steps with a
+# checkpoint at step 4, then a run preempted at step 6 and resumed from its
+# step-4 checkpoint, then one step with int8 gradient compression
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = (
+    "qwen3-8b", 4, 4, 2048, 8)
+TRAIN_CKPT_AT, TRAIN_FAIL_AT = 4, 6
+# phase 2s: RWKV6-3B (4 of 32 layers) and Zamba2-7B (7 of 81 layers, two
+# applications of the shared block) trained at full width, B x S = 2 x
+# 4096, 4 steps each
+SSM_TRAIN = {"rwkv6-3b": 4, "zamba2-7b": 7}
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 4096, 4
 # phase 2f: the streaming model (window in epochs = partial_fit batches)
 STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, FP32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM, bf16 tensor cores (dense)
 FP64_TC_FLOP_PER_S = 67e12         # H100 SXM, FP64 tensor cores
 INT8_OP_PER_S = 1979e12            # H100 SXM, int8 tensor cores (dense)
 
@@ -1101,6 +1149,17 @@ def main() -> int:
                           ref, smi_line))
         print(f"  phase {tag} wall {time.perf_counter() - t0:.1f} s")
 
+    # --- 2r, 2s. LM training: Qwen3-8B at full width, then the SSM
+    # families' scans and their backward kernels ---------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _train_phase(torch, dev, check, smi_line)
+    print(f"  phase 2r wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.extend(_ssm_train_phase(torch, dev, check, ref, smi_line))
+    print(f"  phase 2s wall {time.perf_counter() - t0:.1f} s")
+
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
@@ -1120,6 +1179,524 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# --- phases 2r and 2s: LM training ----------------------------------------
+
+def _train_flops(cfg, B: int, S: int, q_chunk: int = 512) -> dict:
+    """A dense GQA config's training step in operations, from its shapes:
+    the forward's matrix products (the layers' projections and MLP in
+    bf16; attention's scores in f32 and its value product in bf16, each
+    query chunk against the keys up to its last query; the unembedding
+    in f32), times 3 for the forward and the backward's two products
+    each. The recomputation under remat "dots" repeats no product."""
+    T = B * S
+    d, H, Hkv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head, cfg.d_ff)
+    proj = d * H * dh * 2 + d * Hkv * dh * 2 + 3 * d * f
+    pairs = sum((hi - lo) * hi for lo in range(0, S, q_chunk)
+                for hi in (min(S, lo + q_chunk),))
+    att = 2 * B * H * pairs * dh
+    layers = cfg.n_layers
+    bf16 = 3 * layers * (2 * T * proj + att)
+    f32 = 3 * (layers * att + 2 * T * d * cfg.vocab)
+    return {"bf16": bf16, "f32": f32, "unembed": 3 * 2 * T * d * cfg.vocab}
+
+
+def _run_loop(loop, box, start: int, n: int) -> int:
+    """``loop.run`` from the state in ``box`` (a one-item list), the
+    state's only reference during the run, so each step frees the one
+    before (a caller's name for the first state would keep its 14 GB of
+    params and moments alive through the run); the last state goes back
+    into ``box``. Returns the step reached."""
+    state, end = loop.run(box.pop(), start, n)
+    box.append(state)
+    return end
+
+
+def _host_copy(state):
+    """Every leaf of a (params, opt) state on the host, keyed by path."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (tuple, list)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out[path] = t.detach().cpu()
+    walk(state, ())
+    return out
+
+
+def _train_phase(torch, dev, check, smi_line: str) -> None:
+    """Phase 2r: ``launch.train``'s step through ``ft.FaultTolerantLoop``
+    on Qwen3-8B at full width, cut to TRAIN_LAYERS layers, random weights
+    from the seed, ``ShardedBatcher`` tokens, one checkpoint directory
+    for the job (``build/train_ckpt``): run A trains TRAIN_STEPS steps
+    and checkpoints its params and AdamW state at TRAIN_CKPT_AT (written
+    in the background while it trains on and while run B runs); run B
+    trains from the same init, is preempted at TRAIN_FAIL_AT, and
+    resumes from the job's newest checkpoint to TRAIN_STEPS; then one
+    step with int8 gradient compression. Checks finite losses and
+    gradient norms, the params moving, no kernel of the port launched,
+    the resumed run ending on run A's state bit for bit (and replaying
+    its losses), and one host read a step (the loop's copy of the loss
+    and the gradient norm)."""
+    import dataclasses
+    import shutil
+    from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                        restore_checkpoint)
+    from repro_torch.configs.base import get_config
+    from repro_torch.ft import FaultTolerantLoop
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.models.model import param_shapes
+    from repro_torch.optim import init_opt_shapes
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    print(f"phase 2r: {cfg.name} trained at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} q-heads over {cfg.n_kv_heads} "
+          f"kv-heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"the embedding tied), cut to {TRAIN_LAYERS} of {full.n_layers} "
+          f"layers; B x S = {B} x {S}, remat 'dots', q_chunk 512, AdamW "
+          f"with the cosine schedule, clipping at norm 1; allocated at the "
+          f"start {base / 2 ** 30:.2f} GiB; disk free under build/ "
+          f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    box = [train.init_state(cfg, seed=SEED, device=dev)]
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(box[0][0]))
+    wq0 = box[0][0]["stack"]["attn"]["wq"]["w"].clone()
+    batcher = train.batcher_for(cfg, B, S, seed=SEED)
+    step_fn = train.make_train_step(cfg, remat="dots", q_chunk=512)
+    _build.reset_launches()
+
+    # run A: TRAIN_STEPS steps, a checkpoint at TRAIN_CKPT_AT
+    rec_a = train.MetricsStep(step_fn)
+    ck = AsyncCheckpointer(str(root), keep=1)
+    loop = FaultTolerantLoop(rec_a, batcher, ck, ckpt_every=TRAIN_CKPT_AT)
+    t0 = time.perf_counter()
+    _run_loop(loop, box, 0, TRAIN_CKPT_AT)
+    times = list(loop.policy.times)
+    t_leg1 = time.perf_counter() - t0
+    peak_leg1 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    moved = not torch.equal(box[0][0]["stack"]["attn"]["wq"]["w"], wq0)
+    del wq0
+    loop = FaultTolerantLoop(rec_a, batcher, ck, ckpt_every=10 ** 9)
+    _run_loop(loop, box, TRAIN_CKPT_AT, TRAIN_STEPS - 1 - TRAIN_CKPT_AT)
+    times += loop.policy.times
+    peak_leg2 = torch.cuda.max_memory_allocated()
+    reads = _host_reads(torch, lambda: _run_loop(loop, box, TRAIN_STEPS - 1,
+                                                 1))
+    launched = {k: v for k, v in _build.launches().items() if v}
+    want = _host_copy(box.pop())
+    hist_a = list(rec_a.history)
+    torch.cuda.empty_cache()
+
+    steady = times[1:]
+    ms = sum(steady) / len(steady) * 1e3
+    fl = _train_flops(cfg, B, S)
+    total = fl["bf16"] + fl["f32"]
+    floor_ms = (fl["bf16"] / BF16_FLOP_PER_S + fl["f32"] / FP32_FLOP_PER_S) \
+        * 1e3
+    print(f"  init {t_init:.3f} s ({n_params / 1e9:.4f} B parameters, AdamW "
+          f"m and v in f32); steps (ms, host clock after the device): "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times)
+          + f" (the last under the profiler); {ms:.1f} ms a step over steps "
+          f"1..{len(times) - 1}, {B * S / ms * 1e3:.0f} tokens/s [{smi_line}]")
+    print(f"  losses " + ", ".join(f"{m['loss']:.4f}" for m in hist_a)
+          + "; gradient norms " + ", ".join(f"{m['grad_norm']:.3f}"
+                                            for m in hist_a))
+    print(f"  the step: {total / 1e12:.2f} TFLOP ({fl['bf16'] / 1e12:.2f} in "
+          f"bf16 products, {fl['f32'] / 1e12:.2f} in f32: the unembedding "
+          f"{fl['unembed'] / 1e12:.2f} TFLOP, {fl['unembed'] / total:.1%} of "
+          f"the step, and attention's scores); at the data sheet's peaks "
+          f"(989 TFLOP/s bf16, 67 TFLOP/s f32) it takes at least "
+          f"{floor_ms:.1f} ms: {floor_ms / ms:.1%} of the card's peak "
+          f"(achieved {total / ms * 1e3 / 1e12:.1f} TFLOP/s)")
+    print(f"  peak device memory {peak_leg1 / 2 ** 30:.2f} GiB over steps "
+          f"0..{TRAIN_CKPT_AT - 1} and the checkpoint's host copy, "
+          f"{peak_leg2 / 2 ** 30:.2f} over steps {TRAIN_CKPT_AT}.."
+          f"{TRAIN_STEPS - 2} (start {base / 2 ** 30:.2f}); host reads "
+          f"{reads} in step {TRAIN_STEPS - 1}; the first {TRAIN_CKPT_AT} "
+          f"steps and the checkpoint's host copy {t_leg1:.1f} s; launches "
+          f"{launched}")
+    check(all(_finite(m["loss"]) and _finite(m["grad_norm"])
+              for m in hist_a) and len(hist_a) == TRAIN_STEPS,
+          f"2r: loss and gradient norm finite at each of {TRAIN_STEPS} "
+          f"steps")
+    check(moved, "2r: the params move (layer 0's wq after "
+          f"{TRAIN_CKPT_AT} steps differs from its init)")
+    check(not launched, f"2r: no kernel of the port launched (K1-K7, the "
+          f"scans: {launched})")
+    check(reads == 1, f"2r: host reads: 1 a step ({reads})")
+
+    # run B: the same init, preempted at TRAIN_FAIL_AT, resumed from the
+    # job's newest checkpoint
+    box = [train.init_state(cfg, seed=SEED, device=dev)]
+    rec_b = train.MetricsStep(step_fn)
+    loop = FaultTolerantLoop(rec_b, batcher, ck, ckpt_every=10 ** 9,
+                             fail_at_step=TRAIN_FAIL_AT)
+    try:
+        _run_loop(loop, box, 0, TRAIN_STEPS)
+        preempted = ""
+    except RuntimeError as e:
+        preempted = str(e)
+    del loop
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ck.wait()
+    t_wait = time.perf_counter() - t0
+    ck_bytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    last = latest_step(str(root))
+    t_latest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    like = (param_shapes(cfg), init_opt_shapes(param_shapes(cfg)))
+    box = [restore_checkpoint(str(root), last, like, device=dev)]
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    rec_c = train.MetricsStep(step_fn)
+    loop = FaultTolerantLoop(rec_c, batcher, ck, ckpt_every=10 ** 9)
+    end = _run_loop(loop, box, last, TRAIN_STEPS - last)
+    state = box.pop()
+    got = _host_copy(state)
+    diff = [p for p in want if not torch.equal(want[p], got[p])]
+    print(f"  checkpoint at step {TRAIN_CKPT_AT}: {ck_bytes / 1e9:.2f} GB, "
+          f"written in the background (the wait after run B "
+          f"{t_wait:.1f} s); run B: {preempted!r} after "
+          f"{len(rec_b.history)} steps; newest complete checkpoint step "
+          f"{last} (found, every array read, in {t_latest:.1f} s), restored "
+          f"in {t_restore:.1f} s; resumed to step {end}, losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in rec_c.history)
+          + f"; leaves unequal to run A's: {len(diff)} of {len(want)}")
+    check(preempted == f"simulated preemption at step {TRAIN_FAIL_AT}"
+          and last == TRAIN_CKPT_AT and end == TRAIN_STEPS,
+          f"2r: run B preempted at step {TRAIN_FAIL_AT}, resumed from the "
+          f"step-{TRAIN_CKPT_AT} checkpoint to step {TRAIN_STEPS}")
+    check(not diff and rec_c.history == hist_a[last:]
+          and rec_b.history == hist_a[:TRAIN_FAIL_AT],
+          f"2r: the resumed run ends on run A's params and AdamW state bit "
+          f"for bit and replays its losses and gradient norms (unequal "
+          f"leaves: {diff[:4]})")
+    del want, got
+
+    # one step with int8 gradient compression
+    step_c = train.make_train_step(cfg, remat="dots", q_chunk=512,
+                                   compress=True)
+    t0 = time.perf_counter()
+    state, m = step_c(state, batcher.batch_at(TRAIN_STEPS))
+    vals = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+    t_c = time.perf_counter() - t0
+    print(f"  a step with int8 gradient compression: {t_c * 1e3:.1f} ms, "
+          f"loss {vals[0]:.4f}, gradient norm {vals[1]:.3f}")
+    check(all(_finite(v) for v in vals) and int(state[1]["step"]) ==
+          TRAIN_STEPS + 1, "2r: the compressed step's loss and gradient "
+                           "norm finite")
+    del state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _ssm_scan_args(torch, ssm, cfg, params, tokens):
+    """Layer 0's scan inputs over ``tokens`` as the layer computes them
+    (f32, contiguous), and a zero state: (args, state0)."""
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import layer_params
+    p0 = layer_params(params["stack"], 0)
+    x = rmsnorm(p0["ln1"], params["embed"][tokens.long()])
+    B, S = tokens.shape
+    H = cfg.n_heads
+    with torch.no_grad():
+        if cfg.ssm == "mamba2":
+            _, xin, Bm, Cm, dt = ssm._mamba2_inputs(p0["mix"], x, H)
+            P = xin.shape[-1] // H
+            args = (xin.reshape(B, S, H, P).float().contiguous(),
+                    Bm.contiguous(), Cm.contiguous(),
+                    torch.exp(-torch.exp(p0["mix"]["A_log"]) * dt)
+                    .contiguous(), dt.contiguous(),
+                    p0["mix"]["D"].detach().clone())
+            state0 = torch.zeros((B, H, P, Bm.shape[-1]), device=x.device)
+        else:
+            x_prev = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+            r, k, v, w, _ = ssm._rwkv6_inputs(p0["mix"], x, x_prev, H)
+            args = tuple(t.float().contiguous() for t in (r, k, v, w)) \
+                + (p0["mix"]["u"].detach().clone(),)
+            dh = cfg.d_model // H
+            state0 = torch.zeros((B, H, dh, dh), device=x.device)
+    return args, state0
+
+
+def _bwd_bound(args, hybrid: bool):
+    """The backward kernel's least time: bytes, the inputs (the forward's
+    inputs, the checkpoints, the output's gradient) read once and every
+    gradient (the initial state's too) written once; operations, the
+    reverse recurrence's 11 FLOPs a state element a step, the states'
+    recomputation left out. WKV6: the sums for dr, dw, dk and dv, 2 each,
+    and dState's update, 3; plus 16 an element of a head's row for the
+    rank-1 bonus terms (sum_j v_j do_j, sum_i r_i u_i k_i, and their
+    shares of dr, dk, du and dv). SSD: dS', the sums for dC, dB, dx's
+    e and ddecay, and dState's update; plus 8 a state row (dt x, dx,
+    ddt's and dD's sums)."""
+    from repro_torch.kernels.ssm_scan import CKPT_EVERY
+    if hybrid:
+        B_, S_, H_, P_ = args[0].shape
+        N_ = args[1].shape[-1]
+        st = B_ * H_ * P_ * N_
+        io = (3 * B_ * S_ * H_ * P_ + 4 * B_ * S_ * N_ + 4 * B_ * S_ * H_
+              + 2 * H_ + st + st * -(-S_ // CKPT_EVERY))
+        ops = B_ * S_ * H_ * P_ * (11.0 * N_ + 8)
+    else:
+        B_, S_, H_, dh_ = args[0].shape
+        st = B_ * H_ * dh_ * dh_
+        io = (9 * B_ * S_ * H_ * dh_ + 2 * H_ * dh_ + st
+              + st * -(-S_ // CKPT_EVERY))
+        ops = B_ * S_ * H_ * dh_ * (11.0 * dh_ + 16)
+    return bound(4.0 * io, ops)
+
+
+def _scan_bwd_entry(torch, check, name, args, state0, launches,
+                    hybrid: bool) -> dict:
+    """A backward kernel on ``args`` (layer 0's inputs) from ``state0``,
+    with a seeded random gradient of the outputs: launched twice and
+    bit-identical; each gradient within 1e-5 of its sum of absolute terms
+    plus 1e-6 (autograd through the plain version on |inputs| and
+    |cotangent|, positive decays as they are) of autograd through the
+    plain version; both timed with CUDA events."""
+    from repro_torch.kernels import ref, ssm_scan
+    saving, bwd, plain = (
+        (ssm_scan.ssd_scan_saving, ssm_scan.ssd_scan_bwd,
+         ref.ssd_scan_states_ref) if hybrid else
+        (ssm_scan.wkv6_scan_saving, ssm_scan.wkv6_scan_bwd,
+         ref.wkv6_scan_states_ref))
+    keep = {3, 4} if hybrid else {3}
+    gen = torch.Generator(device=args[0].device).manual_seed(SEED)
+    out, _, ckpt = saving(*args, state0)
+    dout = torch.randn(out.shape, generator=gen, device=out.device)
+    got = bwd(*args, ckpt, dout)
+    again = bwd(*args, ckpt, dout)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+
+    def grads(inputs, cot, retain=False):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        o, _ = plain(*ts)
+        loss = torch.sum(o * cot)
+        return ts, loss
+    ts, loss = grads(args + (state0,), dout)
+    want = torch.autograd.grad(loss, ts, retain_graph=True)
+    ts_a, loss_a = grads(tuple(a if i in keep else a.abs()
+                               for i, a in enumerate(args))
+                         + (state0.abs(),), dout.abs())
+    scale = torch.autograd.grad(loss_a, ts_a)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    ok = all(bool(((g - w).abs() <= 1e-5 * s + 1e-6).all())
+             for g, w, s in zip(got, want, scale))
+    check(ok, f"{name} {tuple(args[0].shape)} vs autograd through the "
+              f"plain version: every gradient within 1e-5 of its sum of "
+              f"|terms| (max abs errs {[f'{e:.3g}' for e in errs]})")
+    check(same, f"{name}: launched twice, bit-identical")
+    b_ms, b_by = _bwd_bound(args, hybrid)
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces=("src/repro/models/ssm.py:165" if hybrid
+                  else "src/repro/models/ssm.py:83"),
+        launches=launches, max_abs_err=max(errs),
+        ms=time_ms(lambda: bwd(*args, ckpt, dout), torch),
+        plain_ms=time_ms(lambda: torch.autograd.grad(
+            loss, ts, retain_graph=True), torch, reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def _ssm_train_phase(torch, dev, check, ref, smi_line: str) -> list:
+    """Phase 2s: RWKV6-3B and Zamba2-7B at full width, cut to
+    SSM_TRAIN[arch] layers, SSM_TRAIN_STEPS ``make_train_step`` steps
+    each (remat "dots": a layer's scan runs forward twice a step, once
+    more when the backward recomputes the layer, and its backward kernel
+    once), counts set to 0 just before; prints ms a step, tokens/s, peak
+    memory, the launches and each backward kernel's time a layer at the
+    training shape beside its bound; checks finite losses and gradient
+    norms and the launches. Then phase 3's checks of both backward
+    kernels on SSM_SCAN_STEPS steps of layer 0's inputs, and every arch's
+    smoke config one step in f32 on the card against the CPU. Returns
+    the two kernels' entries."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build, ssm_scan
+    from repro_torch.launch import train
+    from repro_torch.models import ssm
+    B, S = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ
+    entries = []
+    for arch, layers in SSM_TRAIN.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        hybrid = bool(cfg.attn_every)
+        scan = "ssd_scan" if hybrid else "wkv6_scan"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        box = [train.init_state(cfg, seed=SEED, device=dev)]
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(box[0][0]))
+        batcher = train.batcher_for(cfg, B, S, seed=SEED)
+        rec = train.MetricsStep(train.make_train_step(cfg, remat="dots",
+                                                      q_chunk=512))
+        _build.reset_launches()
+        times = []
+        for s in range(SSM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            box.append(rec(box.pop(), batcher.batch_at(s)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        state = box.pop()
+        launched = {k: v for k, v in _build.launches().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        apps = -(-layers // cfg.attn_every) if hybrid else 0
+        ms = sum(times[1:]) / (len(times) - 1) * 1e3
+        print(f"phase 2s: {cfg.name} trained at full width, cut to {layers}"
+              f" of {full.n_layers} layers"
+              + (f" ({apps} applications of the shared block)" if hybrid
+                 else "")
+              + f", {n_params / 1e9:.4f} B parameters, B x S = {B} x {S}, "
+              f"remat 'dots'; allocated at the start {base / 2 ** 30:.2f} "
+              f"GiB; init {t_init:.3f} s; steps (ms) "
+              + ", ".join(f"{t * 1e3:.1f}" for t in times)
+              + f": {ms:.1f} ms a step over steps 1..{len(times) - 1}, "
+              f"{B * S / ms * 1e3:.0f} tokens/s; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB; losses "
+              + ", ".join(f"{m['loss']:.4f}" for m in rec.history)
+              + f"; launches {launched} [{smi_line}]")
+        want = {scan: 2 * layers * SSM_TRAIN_STEPS,
+                scan + "_bwd": layers * SSM_TRAIN_STEPS}
+        n_bwd = launched.get(scan + "_bwd", 0)
+        check(all(_finite(m["loss"]) and _finite(m["grad_norm"])
+                  for m in rec.history),
+              f"2s {arch}: loss and gradient norm finite at each step")
+        check(launched == want,
+              f"2s {arch}: launches {launched}: {scan} twice a layer a step "
+              f"(the forward and the backward's recomputation) and "
+              f"{scan}_bwd once, nothing else ({want})")
+
+        # the backward kernel a layer at the training shape
+        tokens = batcher.batch_at(0)["tokens"].to(dev)
+        args, state0 = _ssm_scan_args(torch, ssm, cfg, state[0], tokens)
+        del state, rec
+        torch.cuda.empty_cache()
+        saving, bwd = ((ssm_scan.ssd_scan_saving, ssm_scan.ssd_scan_bwd)
+                       if hybrid else (ssm_scan.wkv6_scan_saving,
+                                       ssm_scan.wkv6_scan_bwd))
+        out, _, ckpt = saving(*args, state0)
+        dout = torch.randn(out.shape, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED))
+        fwd_ms = time_ms(lambda: saving(*args, state0), torch, reps=3,
+                         warmup=1)
+        bwd_ms = time_ms(lambda: bwd(*args, ckpt, dout), torch, reps=3,
+                         warmup=1)
+        b_ms, b_by = _bwd_bound(args, hybrid)
+        print(f"  {scan}_bwd a layer at the training shape "
+              f"({tuple(args[0].shape)}): {bwd_ms:.3f} ms (CUDA events), "
+              f"bound {b_ms:.4f} ms ({b_by}); the forward with its "
+              f"checkpoints {fwd_ms:.3f} ms; {n_bwd} launches in "
+              f"{SSM_TRAIN_STEPS} steps [{smi_line}]")
+        del out, ckpt, dout
+
+        # phase 3's checks of the backward kernel: SSM_SCAN_STEPS steps
+        head = tuple(a[:, :SSM_SCAN_STEPS].contiguous() if a.dim() >= 3
+                     else a for a in args)
+        del args
+        entries.append(_scan_bwd_entry(torch, check, f"{scan}_bwd", head,
+                                       state0, n_bwd, hybrid))
+        del head, state0
+        torch.cuda.empty_cache()
+    for kr in entries:
+        print(f"phase 3: {kr['name']}: {kr['ms']:.4f} ms, plain (autograd "
+              f"backward) {kr['plain_ms']:.4f} ms, library "
+              f"{kr['library_ms']}, bound {kr['bound_ms']:.4f} ms "
+              f"({kr['bound_by']}), launches {kr['launches']} [{smi_line}]")
+    _train_smoke_agrees(torch, dev, check)
+    return entries
+
+
+def _train_smoke_grads(torch, arch, dev):
+    """``forward_train`` of an arch's smoke config in f32 on ``dev``
+    (params from the CPU generator's seed): (loss, every leaf's
+    gradient in key order, the launches)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import forward_train, init_params
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device="cpu", unembed_table=False)
+    leaves = []
+
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in sorted(t.items())}
+        leaves.append(t.float().to(dev).requires_grad_())
+        return leaves[-1]
+    params = move(params)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    tok = torch.randint(0, cfg.vocab, (2, 16), generator=gen,
+                        dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, 16, cfg.d_model), generator=gen)
+    if cfg.n_patches:
+        batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                       generator=gen)
+    _build.reset_launches()
+    loss, _ = forward_train(cfg, params, {k: v.to(dev)
+                                          for k, v in batch.items()},
+                            q_chunk=8)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.cpu() for g in grads], \
+        _build.launches()
+
+
+def train_smoke_agrees(torch, arch, dev) -> tuple[bool, tuple]:
+    """An arch's smoke config, one step's forward and backward in f32 on
+    the card (``dev``) against the CPU: the loss rel 1e-5, every gradient
+    leaf within 1e-4 of its largest magnitude, the SSM configs through
+    their scan and backward kernels and no other config through any
+    kernel. (agrees, (arch, loss, CPU loss, largest leaf error, the
+    kernels launched on the card)). Also run by
+    tests/test_torch_cuda.py."""
+    loss, grads, got = _train_smoke_grads(torch, arch, dev)
+    loss_c, grads_c, _ = _train_smoke_grads(torch, arch, "cpu")
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(grads, grads_c)]
+    kern = {k: v for k, v in got.items() if v}
+    ssm_k = {"rwkv6-3b": "wkv6_scan", "zamba2-7b": "ssd_scan"}.get(arch)
+    ok = (abs(loss - loss_c) <= 1e-5 * abs(loss_c)
+          and max(errs) <= 1e-4
+          and (set(kern) == {ssm_k, ssm_k + "_bwd"} if ssm_k else not kern))
+    return ok, (arch, loss, loss_c, max(errs), kern)
+
+
+def _train_smoke_agrees(torch, dev, check) -> None:
+    """``train_smoke_agrees`` for every arch."""
+    from repro_torch.configs.base import ARCH_IDS
+    bad = [d for ok, d in (train_smoke_agrees(torch, a, dev)
+                           for a in ARCH_IDS) if not ok]
+    check(not bad, f"2s: every arch's smoke config in f32, forward_train's "
+                   f"loss (rel 1e-5) and every gradient leaf (1e-4 of its "
+                   f"largest magnitude) card = CPU, the SSM configs through "
+                   f"their scan and backward kernels ({bad})")
 
 
 def _profile(torch, label: str, fn) -> None:

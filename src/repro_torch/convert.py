@@ -1,6 +1,7 @@
 """Carry a fitted state across packages: the reference's (JAX) centers
-and assignment, or its whole served model, read as numpy arrays, become
-the port's tensors, so both packages can start from one state."""
+and assignment, its whole served model, or an LM's params and AdamW
+state, read as numpy arrays, become the port's tensors, so both packages
+can start from one state."""
 from __future__ import annotations
 
 import numpy as np
@@ -89,11 +90,13 @@ _MIX_KEYS = {"rwkv6": {"mu", "wr", "wk", "wv", "wg", "wo", "w0", "w1", "w2",
              "mamba2": {"in_proj", "out_proj", "A_log", "D", "dt_bias", "ln"}}
 
 
-def params_from_reference(params_np, cfg, *, device):
+def params_from_reference(params_np, cfg, *, device,
+                          unembed_table: bool = True):
     """The reference's LM params (a nested dict of arrays, layers stacked
     on a leading axis) -> the port's, same paths and types, on
     ``device``, with the f32 copy of the embedding that ``unembed``
-    reads. Every family: an MoE layer's router (f32), its stacked experts
+    reads when ``unembed_table`` (a training state goes without it).
+    Every family: an MoE layer's router (f32), its stacked experts
     ``wi``/``wg``/``wo`` (L, E, d, f), its shared experts and Arctic's
     ``dense_mlp`` come across as they are, and so do MLA's attention
     keys, DeepSeek's dense ``prefix`` stack, an SSM layer's ``mix``
@@ -124,8 +127,18 @@ def params_from_reference(params_np, cfg, *, device):
             f"{cfg.name}: family {cfg.family!r}, unknown keys "
             f"{sorted(unknown)}: the port carries the reference's families "
             f"{FAMILIES} and their keys; what ROADMAP §1 item 13 leaves is "
-            f"its slices f (training) and g (LM placement)")
-    return with_unembed_table(_tree(params_np, device))
+            f"its slice g (LM placement)")
+    params = _tree(params_np, device)
+    return with_unembed_table(params) if unembed_table else params
+
+
+def opt_state_from_reference(opt_np, *, device):
+    """The reference's AdamW state ({"m", "v"}: f32 trees of the params'
+    paths, "step": an int32 scalar) -> the port's on ``device``, same
+    paths and types."""
+    return {"m": _tree(opt_np["m"], device), "v": _tree(opt_np["v"], device),
+            "step": torch.tensor(int(np.asarray(opt_np["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 def cache_from_reference(cache_np, *, device):

@@ -39,7 +39,8 @@ LAUNCHES = {"center_sqdist": 0, "candidate_assign_tiled": 0,
             "distance_argmin": 0, "candidate_assign_rowwise": 0,
             "cluster_attend": 0, "exact_sqnorm": 0,
             "exact_split_sqnorms": 0, "exact_cross": 0, "exact_rowdot": 0,
-            "segment_sum_blocks": 0, "wkv6_scan": 0, "ssd_scan": 0}
+            "segment_sum_blocks": 0, "wkv6_scan": 0, "ssd_scan": 0,
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -513,15 +513,27 @@ def wkv6_scan_ref(r, k, v, w, u, state):
     """``ssm_scan.wkv6_scan``'s contract step by step, as the reference's
     ``ssm.rwkv6_apply`` scan body: kv = k_t v_tᵀ, out_t = r_t · (S + u ⊙
     kv), S <- w_t ⊙ S + kv. r, k, v, w: (B, S, H, dh) f32; u: (H, dh);
-    state (B, H, dh, dh) f32, updated in place. Returns out (B, S, H,
-    dh)."""
-    out = torch.empty_like(v)
+    state (B, H, dh, dh) f32, overwritten with the final state (outside
+    the autograd graph). Returns out (B, S, H, dh)."""
+    out, final = wkv6_scan_states_ref(r, k, v, w, u, state.clone())
+    with torch.no_grad():
+        state.copy_(final)
+    return out
+
+
+def wkv6_scan_states_ref(r, k, v, w, u, state0):
+    """:func:`wkv6_scan_ref` out of place: (out, final state). Each step
+    makes a new state (the same product, then sum, as an update in place
+    rounds), so autograd through this function gives the gradients of
+    every input and of ``state0``: the oracle of ``wkv6_scan_bwd``."""
+    outs = []
     uu = u[None, :, :, None]
+    s = state0
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]
-        out[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], state + uu * kv)
-        state.mul_(w[:, t, :, :, None]).add_(kv)
-    return out
+        outs.append(torch.einsum("bhi,bhij->bhj", r[:, t], s + uu * kv))
+        s = s * w[:, t, :, :, None] + kv
+    return (torch.stack(outs, 1) if outs else torch.empty_like(v)), s
 
 
 def ssd_scan_ref(x, Bm, Cm, decay, dt, D, state):
@@ -529,11 +541,24 @@ def ssd_scan_ref(x, Bm, Cm, decay, dt, D, state):
     ``ssm.mamba2_apply`` scan body and its D skip: upd = (dt_t x_t) B_tᵀ,
     S <- decay_t S + upd, y_t = S C_t, then y + D x. x: (B, S, H, P);
     Bm, Cm: (B, S, N); decay, dt: (B, S, H); D: (H,); state (B, H, P, N),
-    updated in place; all f32. Returns y (B, S, H, P)."""
-    y = torch.empty_like(x)
+    overwritten with the final state (outside the autograd graph); all
+    f32. Returns y (B, S, H, P)."""
+    y, final = ssd_scan_states_ref(x, Bm, Cm, decay, dt, D, state.clone())
+    with torch.no_grad():
+        state.copy_(final)
+    return y
+
+
+def ssd_scan_states_ref(x, Bm, Cm, decay, dt, D, state0):
+    """:func:`ssd_scan_ref` out of place: (y, final state), the oracle of
+    ``ssd_scan_bwd`` as :func:`wkv6_scan_states_ref` is of
+    ``wkv6_scan_bwd``."""
+    ys = []
+    s = state0
     for t in range(x.shape[1]):
         upd = (dt[:, t, :, None, None] * x[:, t, :, :, None]
                * Bm[:, t, None, None, :])
-        state.mul_(decay[:, t, :, None, None]).add_(upd)
-        y[:, t] = torch.einsum("bhpn,bn->bhp", state, Cm[:, t])
-    return y.add_(D[None, None, :, None] * x)
+        s = s * decay[:, t, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", s, Cm[:, t]))
+    y = torch.stack(ys, 1) if ys else torch.empty_like(x)
+    return y + D[None, None, :, None] * x, s

@@ -40,12 +40,19 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.cluster_attend import cluster_attend_partial, select_clusters
-from .layers import apply_rope, dense, dense_init, rmsnorm, rmsnorm_init, scale
+from .layers import (apply_rope, dense, dense_init, recorded, rmsnorm,
+                     rmsnorm_init, scale)
 
 
 def _softmax(logits: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax`` over the last axis, in place: exp(x - max) /
-    sum."""
+    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum, in
+    place, or out of place with the same arithmetic where autograd
+    records (the max then held constant, as ``jax.nn.softmax`` holds
+    it)."""
+    if recorded(logits):
+        e = torch.exp(logits - torch.amax(logits.detach(), dim=-1,
+                                          keepdim=True))
+        return e / torch.sum(e, dim=-1, keepdim=True)
     logits.sub_(torch.amax(logits, dim=-1, keepdim=True)).exp_()
     return logits.div_(torch.sum(logits, dim=-1, keepdim=True))
 
@@ -72,8 +79,9 @@ def causal_attention(q, k, v, *, causal: bool = True,
     qr = scale(q, dh ** -0.5).reshape(B, S, Hkv, g, dh)
     kt = k.float().permute(0, 2, 3, 1)                 # (B, Hkv, dh, Skv)
     vr = v.permute(0, 2, 1, 3)                         # (B, Hkv, Skv, dh)
-    out = torch.empty((B, S, Hkv, g, v.shape[-1]), dtype=v.dtype,
-                      device=q.device)
+    train = recorded(q, k, v)
+    out = [] if train else torch.empty((B, S, Hkv, g, v.shape[-1]),
+                                       dtype=v.dtype, device=q.device)
     for lo in range(0, S, q_chunk):
         hi = min(S, lo + q_chunk)
         ke = hi if causal else Skv     # causal: keys up to the last query
@@ -83,12 +91,23 @@ def causal_attention(q, k, v, *, causal: bool = True,
         if causal:
             pos = torch.arange(lo, hi, device=q.device)
             late = pos[:, None] < pos[None, :]             # (n, n)
-            logits.view(B, Hkv, g, n, ke)[..., lo:].masked_fill_(late,
-                                                                 -torch.inf)
+            if train:       # out of place: the product's output is saved
+                late = torch.cat([late.new_zeros((n, lo)), late], 1)
+                logits = logits.view(B, Hkv, g, n, ke).masked_fill(
+                    late, -torch.inf).view(B, Hkv, g * n, ke)
+            else:
+                logits.view(B, Hkv, g, n, ke)[..., lo:].masked_fill_(
+                    late, -torch.inf)
         w = _softmax(logits).to(v.dtype)
         o = torch.matmul(w, vr[:, :, :ke])                 # (B,Hkv,g*n,dh)
-        out[:, lo:hi] = o.reshape(B, Hkv, g, n, -1).permute(0, 3, 1, 2, 4)
+        o = o.reshape(B, Hkv, g, n, -1).permute(0, 3, 1, 2, 4)
+        if train:
+            out.append(o)
+        else:
+            out[:, lo:hi] = o
         del logits, w, o           # before the next chunk's are allocated
+    if train:
+        out = torch.cat(out, 1)
     return out.reshape(B, S, H, v.shape[-1])
 
 

@@ -13,12 +13,34 @@ other numbers than ``jax.random``: tests carry the reference's params
 across with ``convert.params_from_reference``. An init fills tensors it
 asks of ``new(shape, dtype)`` (default: a fresh tensor on the
 generator's device), so a layer stack can hand out slices of its
-stacked leaves (``transformer.stack_init``).
+stacked leaves (``transformer.stack_init``). On ``device="meta"``
+(``model.param_shapes``, through :class:`MetaGenerator`) an init
+allocates meta tensors and draws nothing.
+
+Training: where autograd records an op (:func:`recorded`), the callers
+that update a tensor in place to save memory on the serving path
+(attention's softmax and mask, the MoE's expert SwiGLU) take the same
+arithmetic out of place.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device: inits
+    given it allocate meta tensors (shapes and types, no storage) and
+    draw nothing."""
+    device = torch.device("meta")
+
+
+def recorded(*ts) -> bool:
+    """True when autograd records ops on any of ``ts``: grad mode is on
+    and one requires grad. An in-place update there would overwrite what
+    the backward reads, so callers then compute out of place."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
 def allocator(device, new=None):
@@ -29,7 +51,10 @@ def allocator(device, new=None):
 
 def normal_into(w: torch.Tensor, gen: torch.Generator, scale: float):
     """Fill ``w`` with normal draws from ``gen``, made in f32, times
-    ``scale``, then cast to ``w``'s type. Returns ``w``."""
+    ``scale``, then cast to ``w``'s type. Returns ``w`` (a meta tensor
+    as it is)."""
+    if w.is_meta:
+        return w
     return w.copy_(torch.randn(w.shape, generator=gen, dtype=torch.float32,
                                device=gen.device).mul_(scale))
 

@@ -3,8 +3,8 @@ attention and DeepSeek's dense prefix, the SSM (RWKV6) and hybrid
 (Zamba2: Mamba2 layers and a shared attention block) families, the VLM
 (InternVL2: a dense LLM whose first ``n_patches`` positions take patch
 embeddings) and the audio encoder-decoder (Whisper) (port of
-``repro.models.model``): config -> params, the encoder, prefill
-forward, caches and the serve step.
+``repro.models.model``): config -> params, the training forward, the
+encoder, prefill forward, caches and the serve step.
 
 Params are nested dicts of tensors whose paths and shapes are the
 reference's (``convert.params_from_reference`` carries them across),
@@ -29,6 +29,13 @@ config runs the cross layers as plain decoder layers, with neither the
 encoder nor the cross attention (ROADMAP §3 entry 26); this one runs
 both, and raises without frames. ``serve_step`` takes ``patches=`` (the
 reference's ignores patches), so a patched prompt can also be stepped.
+
+Training (:func:`forward_train`) reads no ``"embed_f32"``: its
+unembedding converts ``params["embed"]`` to f32 inside the autograd
+graph, as the reference does, so the tied table takes its gradient
+through both ends. The training state is made without the copy
+(``init_params(..., unembed_table=False)``); a trained model gets it
+again with :func:`with_unembed_table` before it serves.
 """
 from __future__ import annotations
 
@@ -38,12 +45,15 @@ import torch
 
 from ..device import host_input, resolve
 from . import transformer as tf
-from .layers import rmsnorm, rmsnorm_init
+from .layers import MetaGenerator, rmsnorm, rmsnorm_init, softmax_xent
 
 
-def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
+def init_params(cfg, gen: torch.Generator, *, device=None,
+                unembed_table: bool = True) -> dict:
     """Random params from ``gen`` on ``device`` (the card by default),
-    which must be the generator's device."""
+    which must be the generator's device; with ``unembed_table`` the f32
+    copy of the embedding that serving's ``unembed`` reads (a training
+    state goes without it)."""
     dev = resolve(device)
     if gen.device.type != dev.type or (
             dev.index is not None and gen.device.index != dev.index):
@@ -51,8 +61,11 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
                          f"asked for on {dev}")
     d, v = cfg.d_model, cfg.vocab
     tf.check_family(cfg)
-    emb = torch.randn((v, d), generator=gen, dtype=torch.float32,
-                      device=gen.device) * d ** -0.5
+    if dev.type == "meta":
+        emb = torch.empty((v, d), dtype=torch.float32, device=dev)
+    else:
+        emb = torch.randn((v, d), generator=gen, dtype=torch.float32,
+                          device=gen.device) * d ** -0.5
     params = {"embed": emb.to(torch.bfloat16),
               "out_norm": rmsnorm_init(d, device=gen.device)}
     if cfg.family == "audio":
@@ -61,15 +74,22 @@ def init_params(cfg, gen: torch.Generator, *, device=None) -> dict:
         params["enc_norm"] = rmsnorm_init(d, device=gen.device)
         params["stack"] = tf.stack_init(cfg, gen, tf.cross_layer_init,
                                         cfg.n_layers)
-        return with_unembed_table(params)
-    if cfg.first_dense:
-        params["prefix"] = tf.stack_init(cfg, gen, tf.dense_layer_init,
-                                         cfg.first_dense)
-    params["stack"] = tf.stack_init(cfg, gen, tf.layer_init,
-                                    cfg.n_layers - cfg.first_dense)
-    if cfg.attn_every:
-        params["shared"] = tf.shared_attn_init(cfg, gen)
-    return with_unembed_table(params)
+    else:
+        if cfg.first_dense:
+            params["prefix"] = tf.stack_init(cfg, gen, tf.dense_layer_init,
+                                             cfg.first_dense)
+        params["stack"] = tf.stack_init(cfg, gen, tf.layer_init,
+                                        cfg.n_layers - cfg.first_dense)
+        if cfg.attn_every:
+            params["shared"] = tf.shared_attn_init(cfg, gen)
+    return with_unembed_table(params) if unembed_table else params
+
+
+def param_shapes(cfg) -> dict:
+    """The training params' tree of meta tensors (shapes and types, no
+    storage): the reference's ``param_shapes``."""
+    return init_params(cfg, MetaGenerator(), device="meta",
+                       unembed_table=False)
 
 
 def prefix_config(cfg):
@@ -104,6 +124,47 @@ def unembed(cfg, params, h):
     """h (..., d) -> f32 logits (..., vocab): h in f32 against the f32
     tied embedding."""
     return h.float() @ params["embed_f32"].T
+
+
+def forward_train(cfg, params, batch, *, remat: str = "dots",
+                  q_chunk: int = 512):
+    """The training loss of ``batch`` ({"tokens", "labels"} (B, S) ints,
+    with ``"frames"`` (B, S_enc, d) on an audio config, ``"patches"`` (B,
+    n_patches, d) on a VLM one): (loss + 0.01 aux, {"loss", "aux"}), the
+    reference's ``forward_train``. ``remat`` is the stack's policy
+    (``transformer.REMAT_POLICIES``); as the reference, the audio
+    encoder's and decoder's layers are checkpointed whole and the
+    ``first_dense`` prefix not at all. The unembedding multiplies h in
+    f32 by ``params["embed"]`` converted to f32 in the graph."""
+    tokens = batch["tokens"]
+    if cfg.family == "audio":
+        # the stubbed frontend's frame embeddings, cast to bf16 as the
+        # reference casts them
+        h = batch["frames"].to(torch.bfloat16)
+        for i in range(tf.n_layers_of(params["enc"])):
+            h = tf.remat(lambda x, p: tf.encoder_layer_fwd(
+                cfg, p, x, q_chunk=q_chunk), "full", h,
+                tf.layer_params(params["enc"], i))
+        enc_out = rmsnorm(params["enc_norm"], h)
+        h = embed_tokens(cfg, params, tokens)
+        for i in range(tf.n_layers_of(params["stack"])):
+            h = tf.remat(lambda x, p: tf.cross_layer_fwd(
+                cfg, p, x, enc_out, q_chunk=q_chunk)[0], "full", h,
+                tf.layer_params(params["stack"], i))
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        h = embed_tokens(cfg, params, tokens, batch.get("patches"))
+        if cfg.first_dense:
+            h, _ = tf.run_stack_train(prefix_config(cfg), params["prefix"], h,
+                                      remat_policy="none", q_chunk=q_chunk)
+        h, aux = tf.run_stack_train(cfg, params["stack"], h,
+                                    shared_p=params.get("shared"),
+                                    remat_policy=remat, q_chunk=q_chunk)
+    h = rmsnorm(params["out_norm"], h)
+    logits = h.float() @ params["embed"].float().T
+    del h
+    loss = softmax_xent(logits, batch["labels"])
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def encode(cfg, params, frames, *, q_chunk: int = 512):

@@ -20,7 +20,10 @@ The reference's orders are kept where they decide the result:
   bit-identical (``index_add_`` on CUDA adds in no fixed order).
 
 The expert SwiGLU runs over the capacity buffers with batched matrix
-products, as the reference's ``einsum``. The serve prefill takes
+products, as the reference's ``einsum``, in place on the serving path
+and out of place, with the same arithmetic, where autograd records
+(``layers.recorded``): the load-balance ``aux`` and the gates then carry
+gradients to the router as the reference's do. The serve prefill takes
 :func:`moe_apply_stepped`, which routes each position's tokens as a
 decode step does and runs each expert over its own rows; it alone reads
 the device to the host (the experts' row counts). The reference's
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.distance import bottom_k
-from .layers import allocator, normal_into, swiglu, swiglu_init
+from .layers import allocator, normal_into, recorded, swiglu, swiglu_init
 
 
 def moe_init(gen: torch.Generator, d: int, f: int, n_experts: int,
@@ -137,13 +140,17 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     slot_tok = r["slot_tok"]
     valid = slot_tok < T
     xe = xf[torch.clamp(slot_tok, max=T - 1)]              # (E, C, d)
-    xe.mul_(valid[..., None].to(xe.dtype))
-    h = F.silu(torch.bmm(xe, p["wg"]), inplace=True)
-    h.mul_(torch.bmm(xe, p["wi"]))
-    del xe
-    ye = torch.bmm(h, p["wo"])                              # (E, C, d)
-    del h
-    ye.mul_(r["slot_gate"][..., None].to(ye.dtype))
+    gate = r["slot_gate"][..., None]
+    if recorded(xe, gate, p["wi"], p["wg"], p["wo"]):
+        h = _expert_swiglu(p, xe * valid[..., None].to(xe.dtype))
+        ye = torch.bmm(h, p["wo"]) * gate.to(h.dtype)
+    else:
+        xe.mul_(valid[..., None].to(xe.dtype))
+        h = _expert_swiglu(p, xe)
+        del xe
+        ye = torch.bmm(h, p["wo"])                          # (E, C, d)
+        del h
+        ye.mul_(gate.to(ye.dtype))
     y = _combine(ye.reshape(E * C, d), r["pair_slot"])
     return _tail(p, xf, y, dense_residual_fn).reshape(B, S, d), r["aux"]
 
@@ -192,10 +199,9 @@ def moe_apply_stepped(p: dict, x: torch.Tensor, *, top_k: int,
     for e, m in enumerate(counts):
         if m:
             xe = xf[rows[lo:lo + m]]
-            h = F.silu(xe @ p["wg"][e], inplace=True)
-            h.mul_(xe @ p["wi"][e])
-            ye[lo:lo + m] = (h @ p["wo"][e]).mul_(
-                g[lo:lo + m, None].to(ye.dtype))
+            h = _expert_swiglu(p, xe, e)
+            ye[lo:lo + m] = (h @ p["wo"][e]) * g[lo:lo + m, None].to(
+                ye.dtype)
             lo += m
     slot = torch.full((T * top_k,), n, dtype=torch.int64, device=dev)
     slot[order] = torch.arange(n, device=dev)
@@ -203,6 +209,17 @@ def moe_apply_stepped(p: dict, x: torch.Tensor, *, top_k: int,
                         torch.argsort(eidx, dim=1))
     y = _combine(ye, slot)
     return _tail(p, xf, y, dense_residual_fn).reshape(B, S, d), aux
+
+
+def _expert_swiglu(p: dict, xe: torch.Tensor, e: int | None = None):
+    """silu(xe wg) * (xe wi) over the capacity buffers (E, C, d), or
+    expert ``e``'s rows (m, d): in place, or out of place where autograd
+    records."""
+    wg, wi = (p["wg"], p["wi"]) if e is None else (p["wg"][e], p["wi"][e])
+    if recorded(xe, wg, wi):
+        return F.silu(torch.matmul(xe, wg)) * torch.matmul(xe, wi)
+    h = F.silu(torch.matmul(xe, wg), inplace=True)
+    return h.mul_(torch.matmul(xe, wi))
 
 
 def _combine(ye: torch.Tensor, pair_slot: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,10 @@ def rwkv6_init(gen: torch.Generator, d: int, n_heads: int, lora: int = 64,
     f32 = torch.float32
 
     def draw(shape, dtype_, fn):
-        return alloc(shape, dtype_).copy_(fn(torch.empty(
-            shape, dtype=f32, device=gen.device)))
+        w = alloc(shape, dtype_)
+        if w.is_meta:                  # model.param_shapes: no draws
+            return w
+        return w.copy_(fn(torch.empty(shape, dtype=f32, device=gen.device)))
     return {
         "mu": draw((5, d), dtype, lambda t: t.uniform_(generator=gen)),
         "wr": dense_init(gen, d, d, dtype, new),

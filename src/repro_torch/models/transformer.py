@@ -4,16 +4,20 @@ encoder-decoder, with GQA or MLA attention (port of
 ``repro.models.transformer``).
 
 Layer params are stacked on a leading axis, as in the reference; the
-stack runs as a Python loop over layers (the reference's ``lax.scan``),
-forward only (no remat). The prefill keeps what each layer's decode
-cache holds, which the reference's forward drops, so the cache is filled
-from one chunked forward: a dict keyed by the cache's own field names,
-(``k``, ``v``) of GQA, MLA's ``lat``, an SSM mixer's ``state`` (and
-RWKV6's ``xprev``), and Zamba's shared block's (``k``, ``v``) for its
-application. Decode takes the SSM branches (the recurrent state, in
-place), the MLA branch (the latent cache), the ``"kt"`` branch
-(cluster-major k²-attention) or the flat-cache branch, which is
-k²-attention over member lists when the cache holds ``"mem"``
+stack runs as a Python loop over layers (the reference's ``lax.scan``).
+:func:`run_stack_train` is the training stack: each layer under
+:func:`remat`, the reference's ``REMAT_POLICIES`` on
+``torch.utils.checkpoint``, and the MoE's load-balance losses summed; a
+layer's slice of a stacked leaf (:func:`layer_params`) is a view, so its
+gradient lands in the stacked leaf. The prefill keeps what each layer's
+decode cache holds, which the reference's forward drops, so the cache is
+filled from one chunked forward: a dict keyed by the cache's own field
+names, (``k``, ``v``) of GQA, MLA's ``lat``, an SSM mixer's ``state``
+(and RWKV6's ``xprev``), and Zamba's shared block's (``k``, ``v``) for
+its application. Decode takes the SSM branches (the recurrent state, in
+place), the MLA branch (the latent cache), the ``"kt"`` branch (cluster-
+major k²-attention) or the flat-cache branch, which is k²-attention over
+member lists when the cache holds ``"mem"``
 (``kv_cluster.cluster_append`` then files the token); the cluster-major
 tables are read-only in decode, which writes only the ring (in place).
 The MLP is a SwiGLU or, in the MoE family, ``moe.moe_apply`` with shared
@@ -31,9 +35,12 @@ the prefill fills from the encoder's output (``model.encode``).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -44,14 +51,52 @@ from .layers import dense, rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
+_aten = torch.ops.aten
+# the reference's REMAT_POLICIES: the matrix products a layer's backward
+# keeps from its forward ("dots": every product, jax's checkpoint_dots;
+# "dots_no_batch": those without batch dimensions); the rest of the layer
+# is recomputed. "none" keeps everything, "full" nothing.
+REMAT_POLICIES = {
+    "none": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+    "full": (),
+}
+
+
+def _save_only(ops, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in ops
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, policy: str, *args):
+    """``fn(*args)`` with its activations kept as ``policy`` says (a key
+    of :data:`REMAT_POLICIES`): all of them ("none"), none but the
+    inputs ("full", a plain checkpoint), or the matrix products' outputs
+    (a selective checkpoint). The numbers do not depend on the policy: a
+    recomputed op repeats its forward's arithmetic."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat: {policy!r} is not one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    ops = REMAT_POLICIES[policy]
+    if ops is None:
+        return fn(*args)
+    if not ops:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          functools.partial(_save_only, ops)))
+
 
 def check_family(cfg) -> None:
     """Raise for a family string the reference does not have."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: no family {cfg.family!r} in the reference, whose "
-            f"families {FAMILIES} the port serves; what ROADMAP §1 item 13 "
-            f"leaves is its slices f (training) and g (LM placement)")
+            f"families {FAMILIES} the port serves and trains; what ROADMAP §1 "
+            f"item 13 leaves is its slice g (LM placement)")
 
 
 def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
@@ -312,6 +357,27 @@ def run_stack(cfg, stacked, h, shared_p=None, q_chunk: int = 512,
                 shared_sink(i // cfg.attn_every, k, v)
             del k, v
     return h
+
+
+def run_stack_train(cfg, stacked, h, shared_p=None, remat_policy: str = "dots",
+                    q_chunk: int = 512):
+    """The training stack: each decoder layer (with Zamba2's shared block
+    after it when i % attn_every == 0, as the reference's layer body
+    holds it) under :func:`remat`. Returns (h, aux): the summed MoE
+    load-balance losses, 0-d f32 (0 without MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def body(i, h, p):
+        h, a, _ = decoder_layer_fwd(cfg, p, h, q_chunk=q_chunk)
+        if cfg.attn_every and shared_p is not None \
+                and i % cfg.attn_every == 0:
+            h = shared_block_fwd(cfg, shared_p, h, q_chunk)[0]
+        return h, a
+    for i in range(n_layers_of(stacked)):
+        h, a = remat(functools.partial(body, i), remat_policy, h,
+                     layer_params(stacked, i))
+        aux = aux + a
+    return h, aux
 
 
 def _clusters_of(cache_l):

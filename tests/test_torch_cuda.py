@@ -26,6 +26,9 @@ rescaled the same way, to 1e-5 times the row's sum of w |v| plus 1e-6,
 since acc sums terms of both signs and its error scales with their
 magnitudes, not with the sum; empty rows exactly.
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -50,6 +53,8 @@ from repro_torch.kernels.segment_sum import segment_sum_blocks
 from repro_torch.kernels.segmented_scan import segmented_scan
 from repro_torch.kernels.ssm_scan import ssd_scan, wkv6_scan
 from repro_torch.models.attention import cluster_major_decode_attention
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -1826,3 +1831,104 @@ def test_cuda_zamba_clustered_serve_matches_cpu(cuda):
         t = want_c["shared"][f]
         assert float((cache["shared"][f] - t).abs().max()) <= \
             1e-4 * float(t.abs().max()), f
+
+
+def _scan_grads_check(names, got, want, scale):
+    """Each gradient within 1e-5 of its sum of absolute terms plus 1e-6
+    (autograd through the plain version on |inputs| and |cotangents|)."""
+    for n, g, w, s in zip(names, got, want, scale):
+        err = (g - w).abs()
+        assert bool((err <= 1e-5 * s.abs() + 1e-6).all()), (n, float(
+            err.max()))
+
+
+def _grads(fn, inputs, cots):
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    loss = sum(torch.sum(o * c) for o, c in zip(outs, cots))
+    return torch.autograd.grad(loss, ts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 16), (2, 40, 64)],
+                         ids=["smoke", "rwkv6-3b"])
+@pytest.mark.parametrize("S", [1, 130, 300])
+def test_cuda_wkv6_scan_backward(cuda, shape, S):
+    """``wkv6_scan_bwd`` (through ``ssm_scan.wkv6_scan_states``'s autograd
+    Function) against autograd through the plain version on the card,
+    from a random state with random cotangents of the outputs and the
+    final state, at S = 1, 130 (a chunk boundary inside) and 300: the
+    gradients of r, k, v, w, u and the initial state within 1e-5 of
+    their sum of absolute terms; one forward and one backward launch; a
+    second backward bit-identical."""
+    from repro_torch.kernels import ssm_scan
+    B, H, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(7 * S + dh)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa
+    w = torch.exp(-torch.exp(rnd(B, S, H, dh) * 0.5 - 3.0))
+    inputs = [rnd(B, S, H, dh), rnd(B, S, H, dh), rnd(B, S, H, dh), w,
+              rnd(H, dh) * 0.1, rnd(B, H, dh, dh)]
+    cots = [rnd(B, S, H, dh), rnd(B, H, dh, dh)]
+    _build.reset_launches()
+    got = _grads(ssm_scan.wkv6_scan_states, inputs, cots)
+    torch.cuda.synchronize()
+    assert _build.launches()["wkv6_scan"] == 1
+    assert _build.launches()["wkv6_scan_bwd"] == 1
+    again = _grads(ssm_scan.wkv6_scan_states, inputs, cots)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _grads(ref.wkv6_scan_states_ref, inputs, cots)
+    scale = _grads(ref.wkv6_scan_states_ref,
+                   [t if i == 3 else t.abs() for i, t in enumerate(inputs)],
+                   [c.abs() for c in cots])
+    _scan_grads_check(("r", "k", "v", "w", "u", "state0"), got, want, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 32, 8), (2, 32, 224, 64)],
+                         ids=["smoke", "zamba2-7b"])
+@pytest.mark.parametrize("S", [1, 130, 300])
+def test_cuda_ssd_scan_backward(cuda, shape, S):
+    """``ssd_scan_bwd`` against autograd through the plain version on the
+    card, as the WKV6 test: the gradients of x, B, C, decay, dt, D and
+    the initial state within 1e-5 of their sum of absolute terms."""
+    from repro_torch.kernels import ssm_scan
+    B, H, P, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(5 * S + P)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=cuda)  # noqa
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    decay = torch.exp(-torch.exp(rnd(H) * 0.5) * dt)
+    inputs = [rnd(B, S, H, P), rnd(B, S, N), rnd(B, S, N), decay, dt,
+              rnd(H), rnd(B, H, P, N)]
+    cots = [rnd(B, S, H, P), rnd(B, H, P, N)]
+    _build.reset_launches()
+    got = _grads(ssm_scan.ssd_scan_states, inputs, cots)
+    torch.cuda.synchronize()
+    assert _build.launches()["ssd_scan"] == 1
+    assert _build.launches()["ssd_scan_bwd"] == 1
+    again = _grads(ssm_scan.ssd_scan_states, inputs, cots)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _grads(ref.ssd_scan_states_ref, inputs, cots)
+    scale = _grads(ref.ssd_scan_states_ref,
+                   [t if i in (3, 4) else t.abs()
+                    for i, t in enumerate(inputs)], [c.abs() for c in cots])
+    _scan_grads_check(("x", "Bm", "Cm", "decay", "dt", "D", "state0"), got,
+                      want, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v2-lite-16b",
+                                  "granite-8b", "qwen3-8b", "qwen3-14b",
+                                  "minitron-4b", "rwkv6-3b", "internvl2-76b",
+                                  "zamba2-7b", "whisper-base"])
+def test_cuda_train_smoke_matches_cpu(cuda, arch):
+    """``forward_train``'s loss and every gradient leaf of each arch's
+    smoke config in f32 on the card against the CPU: the loss rel 1e-5,
+    each leaf within 1e-4 of its largest magnitude; the SSM configs
+    through the scan kernels and their backward kernels and no other
+    config through any kernel (``chip_smoke.train_smoke_agrees``, which
+    phase 2s runs too)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    ok, detail = chip_smoke.train_smoke_agrees(torch, arch, cuda)
+    assert ok, detail

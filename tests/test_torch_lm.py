@@ -120,7 +120,7 @@ def test_config_matches_reference():
 def test_unported_families_raise_naming_item_13():
     """A family string the reference does not have raises
     NotImplementedError naming what ROADMAP §1 item 13 leaves (its
-    slices f and g), from the model, the layer init and the converter;
+    slice g), from the model, the layer init and the converter;
     so does a param key the reference's families do not have (a cross
     layer's ``xattn`` outside the audio family among them)."""
     import dataclasses
@@ -128,12 +128,12 @@ def test_unported_families_raise_naming_item_13():
     arctic = get_smoke_config("arctic-480b")
     gen = torch.Generator().manual_seed(0)
     cfg = dataclasses.replace(arctic, family="video")
-    with pytest.raises(NotImplementedError, match="item 13 .*slices f"):
+    with pytest.raises(NotImplementedError, match="item 13 .*slice g"):
         init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13 .*slices f"):
+    with pytest.raises(NotImplementedError, match="item 13 .*slice g"):
         layer_init(cfg, gen)
     emb = np.zeros((4, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="item 13 .*slices f"):
+    with pytest.raises(NotImplementedError, match="item 13 .*slice g"):
         params_from_reference({"embed": emb}, cfg, device="cpu")
     for bad in ({"embed": emb, "stack": {"xattn": {}}},
                 {"embed": emb, "stack": {"attn": {"wq": emb, "wz": emb}}},
