@@ -287,6 +287,36 @@ Phases (any failure exits non-zero, without the final result line):
    then every arch's smoke config, one forward and backward in f32 on the
    card against the CPU (the loss rel 1e-5, every gradient leaf within
    1e-4 of its largest magnitude);
+2t. (after 2s) the sharded k²-attention decode: Qwen3-8B at full width cut
+   to 2 of 36 layers, random weights from the seed, 2 x 16,384-token
+   prompts, the config's kc 2048 x cap 512 x top-p 16; each rank's bytes
+   reckoned and printed; one device's clustered decode of 32 tokens (the
+   parent), the same decode teacher-forced with the merge reordered as the
+   shards merge it (its gap to one device sets the tolerance) and K6 on a
+   shard's layer-0 tables with its remote selections (ids -1, a head's
+   whole selection among them) against its plain version; then four gloo
+   ranks sharing the card (``run_local``), each ``serve.run(mesh=)``
+   (prefill, 32 tokens full, the clustering with its 512 clusters
+   packed, 32 clustered tokens, no folds) and the clustered decode
+   teacher-forced over one device's tokens twice; check each layer's
+   attention output at the first step within one bf16 ulp of one
+   device's, every step's logits within max(2e-2, 1.5 x the reordered
+   gap) of their largest, K6 once a layer a token on each rank, host
+   reads a step as one device's (gloo's staging apart), the merge's bytes
+   a rank a token equal ``dryrun.decode_merge_bytes``, two runs
+   bit-identical; print the free-running agreement and peak memory;
+2u. (after 2t) ZeRO-1 training: Qwen3-8B at full width cut to 2 of 36
+   layers, four gloo ranks sharing the card, 1 x 2048 tokens a rank, remat
+   "dots"; the parent first trains 3 steps on one device over the four
+   shards' batches concatenated in shard order, and again with the batch's
+   gradient taken as the four shards' gradients added in shard order (the
+   sharded step's reordering); then each rank trains 3 steps, the first
+   step again and one compressed step; check the losses and rank 0's
+   params within 1.5 x the reordered run's gap of one device's, the
+   bytes a rank sends a step equal ``dryrun.zero_step_bytes``, the first
+   step again bit-identical and every rank the same params, the
+   compressed step finite; print ms a step, tokens/s and each rank's
+   peak memory;
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -349,6 +379,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -408,6 +439,16 @@ TRAIN_CKPT_AT, TRAIN_FAIL_AT = 4, 6
 # 4096, 4 steps each
 SSM_TRAIN = {"rwkv6-3b": 4, "zamba2-7b": 7}
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 4096, 4
+# phase 2t: the sharded k²-attention decode, Qwen3-8B at full width cut to
+# 2 of 36 layers, 2 x 16,384-token prompts, the config's kc 2048 x cap 512 x
+# top-p 16 over MESH_RANKS gloo ranks sharing the card, 32 tokens full then
+# clustered, no folds
+LMM_LAYERS, LMM_BATCH, LMM_PROMPT, LMM_DECODE = 2, 2, 16384, 32
+# phase 2u: ZeRO-1 training of Qwen3-8B at full width cut to 2 of 36 layers
+# over MESH_RANKS gloo ranks sharing the card, 1 x 2048 tokens a rank, 3
+# steps, the first again and one compressed step (gloo stages each rank's
+# 2.5 GB of gradients and blocks a step through the host: ~10 s a step)
+ZERO_LAYERS, ZERO_SEQ, ZERO_STEPS = 2, 2048, 3
 # phase 2f: the streaming model (window in epochs = partial_fit batches)
 STREAM_WINDOW, STREAM_HALF_LIFE, STREAM_FLOOR, STREAM_REFRESH = 4, 8.0, 0.25, 4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
@@ -1160,6 +1201,18 @@ def main() -> int:
     kernels.extend(_ssm_train_phase(torch, dev, check, ref, smi_line))
     print(f"  phase 2s wall {time.perf_counter() - t0:.1f} s")
 
+    # --- 2t, 2u. the LM's placement: the sharded k²-attention decode and
+    # ZeRO-1 training over gloo ranks sharing the card ---------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(_lm_mesh_phase(torch, dev, check, ref,
+                                  cluster_attend_partial, smi_line))
+    print(f"  phase 2t wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _zero_phase(torch, dev, check, smi_line)
+    print(f"  phase 2u wall {time.perf_counter() - t0:.1f} s")
+
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
@@ -1182,26 +1235,6 @@ def main() -> int:
 
 
 # --- phases 2r and 2s: LM training ----------------------------------------
-
-def _train_flops(cfg, B: int, S: int, q_chunk: int = 512) -> dict:
-    """A dense GQA config's training step in operations, from its shapes:
-    the forward's matrix products (the layers' projections and MLP in
-    bf16; attention's scores in f32 and its value product in bf16, each
-    query chunk against the keys up to its last query; the unembedding
-    in f32), times 3 for the forward and the backward's two products
-    each. The recomputation under remat "dots" repeats no product."""
-    T = B * S
-    d, H, Hkv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.d_head, cfg.d_ff)
-    proj = d * H * dh * 2 + d * Hkv * dh * 2 + 3 * d * f
-    pairs = sum((hi - lo) * hi for lo in range(0, S, q_chunk)
-                for hi in (min(S, lo + q_chunk),))
-    att = 2 * B * H * pairs * dh
-    layers = cfg.n_layers
-    bf16 = 3 * layers * (2 * T * proj + att)
-    f32 = 3 * (layers * att + 2 * T * d * cfg.vocab)
-    return {"bf16": bf16, "f32": f32, "unembed": 3 * 2 * T * d * cfg.vocab}
-
 
 def _run_loop(loop, box, start: int, n: int) -> int:
     """``loop.run`` from the state in ``box`` (a one-item list), the
@@ -1253,6 +1286,7 @@ def _train_phase(torch, dev, check, smi_line: str) -> None:
     from repro_torch.ft import FaultTolerantLoop
     from repro_torch.kernels import _build
     from repro_torch.launch import train
+    from repro_torch.launch.dryrun import train_flops
     from repro_torch.models.model import param_shapes
     from repro_torch.optim import init_opt_shapes
     full = get_config(TRAIN_ARCH)
@@ -1307,7 +1341,7 @@ def _train_phase(torch, dev, check, smi_line: str) -> None:
 
     steady = times[1:]
     ms = sum(steady) / len(steady) * 1e3
-    fl = _train_flops(cfg, B, S)
+    fl = train_flops(cfg, B, S)
     total = fl["bf16"] + fl["f32"]
     floor_ms = (fl["bf16"] / BF16_FLOP_PER_S + fl["f32"] / FP32_FLOP_PER_S) \
         * 1e3
@@ -3156,20 +3190,24 @@ def _k6_entry(torch, check, lm, cluster_attend_partial, ref,
                 f"bit-identical ({same})")
     # bound: the distinct selected blocks' live rows of K and V (bf16),
     # q, sel and the sizes read, the outputs written; 4 dh FLOPs per
-    # (query row, live row) pair
-    ids = torch.unique(sel.long())
+    # (query row, live row) pair; an id -1 (a cluster another shard holds,
+    # phase 2t) selects nothing
+    s = sel.long()
+    here = s >= 0
+    s = s.clamp(min=0)
+    ids = torch.unique(s[here])
     live_rows = int(sizes.long()[ids].sum())
-    pair_rows = int(sizes.long()[sel.long()].sum())
+    pair_rows = int((sizes.long()[s] * here).sum())
     n_bytes = (live_rows * dh * 2 * 2 + qf.numel() * 4 + sel.numel() * 4
                + ids.numel() * 4 + B * H * (dh + 2) * 4)
     b_ms, b_by = bound(n_bytes, 4.0 * dh * pair_rows)
     # SDPA over the pre-gathered blocks with the validity mask (the gather
     # is outside the timed call)
-    s = sel.long()
     kk = kt[s].reshape(B * H, 1, p * cap, dh)
     vv = vt[s].reshape(B * H, 1, p * cap, dh)
-    mask = (torch.arange(cap, device=qf.device)
-            < sizes.long()[s][..., None]).reshape(B * H, 1, 1, p * cap)
+    mask = ((torch.arange(cap, device=qf.device)
+             < sizes.long()[s][..., None]) & here[..., None]).reshape(
+        B * H, 1, 1, p * cap)
     qb = qf.to(torch.bfloat16).reshape(B * H, 1, 1, dh)
     print(f"  K6 at the decode step: {live_rows} distinct live rows in "
           f"{ids.numel()} selected blocks, {pair_rows} (row, block) reads, "
@@ -4347,6 +4385,489 @@ def _mesh_phase(torch, dev, x, res, check) -> list:
                       " for bit, and the host drop keeps the fault-free "
                       "result (one restore)")
     return [r["launches"] for r in card]
+
+
+# --- phases 2t and 2u: the LM's placement over gloo ranks sharing the card -
+
+def _lmm_cfg(layers: int):
+    """Qwen3-8B at full width, cut to ``layers`` of its 36 layers."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=layers)
+
+
+class _AttnTap:
+    """Wraps ``attention.cluster_major_decode_attention`` to keep each
+    layer's output (on the host, f32) while ``on`` is set."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod = attention
+        self.orig = attention.cluster_major_decode_attention
+        self.outs, self.on = [], False
+
+        def tap(*a, **kw):
+            out = self.orig(*a, **kw)
+            if self.on:
+                self.outs.append(out.float().cpu())
+            return out
+        attention.cluster_major_decode_attention = tap
+
+    def close(self):
+        self.mod.cluster_major_decode_attention = self.orig
+
+
+def _forced_decode(torch, cfg, params, cache, toks, mesh=None, tap=None):
+    """The clustered decode teacher-forced over ``toks`` (each (B, 1), the
+    first at slot LMM_PROMPT) from the cache as ``attach_clusters`` left
+    it (the ring emptied first; the tables are read-only): each step's
+    logits on the host, (steps, B, vocab) f32."""
+    from repro_torch.models.model import serve_step
+    st = cache["stack"]
+    for f in ("ring_k", "ring_v", "ring_fill"):
+        st[f].zero_()
+    out = []
+    for i, t in enumerate(toks):
+        if tap is not None:
+            tap.on = i == 0
+        logits, cache = serve_step(cfg, params, cache, t, LMM_PROMPT + i,
+                                   mesh=mesh)
+        out.append(logits.float().cpu())
+    if tap is not None:
+        tap.on = False
+    return torch.stack(out)
+
+
+class _StackMesh:
+    """Stands in for a mesh whose shards' partial states are ``parts``:
+    ``gather`` returns them stacked, as ``Mesh.gather`` would."""
+
+    def __init__(self, torch, parts):
+        self.g = torch.stack([torch.cat([m[:, None], l[:, None], acc], 1)
+                              for m, l, acc in parts])
+
+    def gather(self, t):
+        return self.g
+
+
+def _quarters_partial(orig, torch, kc, P, q, kt, vt, sel, *, sizes):
+    """K6 over one device's whole tables as P shards run it: the selected
+    clusters of shard j alone (the others' ids -1) for each j, the states
+    merged as ``attention._merge_shards`` merges the ranks'."""
+    from repro_torch.models.attention import _merge_shards
+    shard = (sel % kc) // (kc // P)
+    parts = [orig(q, kt, vt, torch.where(shard == j, sel, -1).to(
+        torch.int32), sizes=sizes) for j in range(P)]
+    return _merge_shards(_StackMesh(torch, parts), *parts[0])
+
+
+def _bf16_ulps(torch, a, b) -> float:
+    """The largest |a - b| in bf16 ulps of max(|a|, |b|)."""
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def _lmm_rank(mesh, toks) -> dict:
+    """Phase 2t on one of the gloo ranks sharing the card:
+    ``serve.run(mesh=)`` (prefill, full decode, the clustering with this
+    rank's clusters packed, the sharded clustered decode), then the
+    clustered decode teacher-forced over ``toks`` twice with the launches,
+    the bytes sent and (the first step) each layer's attention output
+    recorded, and one step's host reads."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models.model import serve_step
+    cfg, dev = _lmm_cfg(LMM_LAYERS), mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = serve.run(cfg, batch=LMM_BATCH, prompt_len=LMM_PROMPT,
+                  decode_len=LMM_DECODE, device=dev, seed=SEED, mesh=mesh,
+                  echo=lambda *a: None)
+    out = {k: r[k] for k in ("t_prefill", "t_attach", "t_full", "t_clus",
+                             "agreement", "sizes0")}
+    out["run_launches"] = r["launches"]["cluster_attend"]
+    params, cache = r["params"], r["cache"]
+    out["kt_shape"] = tuple(cache["stack"]["kt"].shape)
+    del r
+    toks = [torch.from_numpy(t).to(dev)[:, None] for t in toks]
+    tap = _AttnTap()
+    _build.reset_launches()
+    b0 = mesh.sent_bytes
+    try:
+        logits = _forced_decode(torch, cfg, params, cache, toks, mesh, tap)
+    finally:
+        tap.close()
+    out["launches"] = _build.launches()["cluster_attend"]
+    out["sent"] = (mesh.sent_bytes - b0) / len(toks)
+    out["attn"] = [o.numpy() for o in tap.outs]
+    again = _forced_decode(torch, cfg, params, cache, toks, mesh)
+    out["same"] = bool(torch.equal(logits, again))
+    out["logits"] = logits.numpy()
+    del again
+    g0 = mesh.gathers
+    pos = LMM_PROMPT + len(toks)
+    out["dtoh"] = _host_reads(torch, lambda: torch.argmax(serve_step(
+        cfg, params, cache, toks[-1], pos, mesh=mesh)[0], -1).cpu())
+    out["staged"] = mesh.gathers - g0
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+class _rank_alloc_env:
+    """Spawned ranks sharing the card map their memory in growing segments
+    (``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``, which they
+    inherit): four caching allocators side by side otherwise each hold
+    gigabytes reserved but unused, and together run out of memory."""
+
+    def __enter__(self):
+        self.old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = self.old
+
+
+def _lmm_one_device(torch, dev, check, ref, cluster_attend_partial,
+                    cfg) -> dict:
+    """Phase 2t's parent, before the ranks: one device's clustered decode
+    (free-running, each step's logits and the first step's attention
+    outputs kept on the host), the same decode teacher-forced with the
+    merge reordered as the shards merge it, and K6 on a rank's local
+    tables with its remote selections. Returns host data only, so every
+    tensor it made on the card is freed when it returns (a small one left
+    alive would pin its cached segment against ``empty_cache``)."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    from repro_torch.models.model import init_cache, init_params, serve_step
+    B, S, n, P = LMM_BATCH, LMM_PROMPT, LMM_DECODE, MESH_RANKS
+    H, Hkv, kc = cfg.n_heads, cfg.n_kv_heads, cfg.kv_clusters
+    # one device's clustered decode, free-running
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cache = init_cache(cfg, B, S + n + 1, clustered=False, device=dev)
+    _, cache = serve.prefill_into_cache(cfg, params, cache, prompt)
+    cache2 = serve.attach_clusters(cfg, cache, length=S)
+    del cache
+    tap = _AttnTap()
+    toks, one = [prompt[:, -1:]], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            tap.on = i == 0
+            lg, cache2 = serve_step(cfg, params, cache2, toks[-1], S + i)
+            one.append(lg.float().cpu())
+            toks.append(torch.argmax(lg, -1)[:, None].to(torch.int32))
+    finally:
+        tap.close()
+    t_one = (time.perf_counter() - t0) / n
+    one, one_attn, toks = torch.stack(one), tap.outs, toks[:n]
+    one_reads = _host_reads(torch, lambda: torch.argmax(serve_step(
+        cfg, params, cache2, toks[-1], S + n)[0], -1).cpu())
+    # the merge reordered as the shards merge it, on one device
+    orig = attention.cluster_attend_partial
+    attention.cluster_attend_partial = functools.partial(
+        _quarters_partial, orig, torch, kc, P)
+    try:
+        emul = _forced_decode(torch, cfg, params, cache2, toks)
+    finally:
+        attention.cluster_attend_partial = orig
+    scale = one.abs().amax(dim=(1, 2))
+    gap = ((emul - one).abs().amax(dim=(1, 2)) / scale).tolist()
+    # K6 on a rank's inputs: shard 1's tables of layer 0, its selections
+    # of the last step's query with the other shards' clusters at -1
+    lm = {"cfg": cfg, "params": params, "cache": cache2, "prompt": prompt}
+    qf, kt, vt, sel, sizes = k6_inputs(torch, lm)
+    lo, kl = kc // P, kc // P
+    loc = lambda t: t.reshape(B * Hkv, kc, *t.shape[1:])[:, lo:lo + kl] \
+        .reshape(-1, *t.shape[1:]).contiguous()   # noqa: E731
+    c = sel % kc - lo
+    here = (c >= 0) & (c < kl)
+    sel_l = torch.where(here, sel // kc * kl + c, -1).to(torch.int32)
+    natural = int((~here).all(dim=1).sum())
+    if not natural:
+        sel_l[0] = -1
+    entry = _k6_entry(torch, check, dict(lm, launches_all={
+        "cluster_attend": 0}), cluster_attend_partial, ref,
+        name="cluster_attend[2t shard]",
+        inputs=(qf, loc(kt), loc(vt), sel_l, loc(sizes[:, None])[:, 0]))
+    print(f"  K6 on shard 1's layer-0 tables ({B * Hkv * kl} blocks): "
+          f"{natural} of {B * H} heads select no cluster the shard holds"
+          + ("" if natural else "; head 0's selection set wholly remote"))
+    return {"entry": entry, "logits": one, "attn": one_attn, "emul": emul,
+            "scale": scale, "gap": gap, "reads": one_reads, "t_one": t_one,
+            "toks": np.stack([t[:, 0].cpu().numpy() for t in toks])}
+
+
+def _lm_mesh_phase(torch, dev, check, ref, cluster_attend_partial,
+                   smi_line: str) -> dict:
+    """Phase 2t: the sharded k²-attention decode. Qwen3-8B at full width
+    cut to LMM_LAYERS layers, random weights from the seed, LMM_BATCH
+    prompts of LMM_PROMPT tokens, the config's kc 2048 x cap 512 x top-p
+    16; one device's clustered decode (the parent, before the ranks), the
+    same decode with the merge reordered as the shards merge it (its gap
+    to one device sets the tolerance), K6 on a rank's local tables with
+    its remote selections; then MESH_RANKS gloo ranks sharing the card
+    (``_lmm_rank``). Returns the K6 entry of the rank's inputs."""
+    import numpy as np
+    from repro_torch.launch.dryrun import decode_merge_bytes
+    from repro_torch.launch.mesh import run_local
+    cfg = _lmm_cfg(LMM_LAYERS)
+    B, S, n, P = LMM_BATCH, LMM_PROMPT, LMM_DECODE, MESH_RANKS
+    L, H, Hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kc, cap, R = cfg.kv_clusters, cfg.cluster_cap, cfg.cluster_ring
+    n_par = L * (cfg.params_estimate() - cfg.vocab * cfg.d_model) \
+        / cfg.n_layers + cfg.vocab * cfg.d_model
+    tables = L * B * Hkv * kc * cap * dh * 2 * 2
+    flat = L * B * Hkv * (S + n + 1) * dh * 2 * 2
+    small = L * B * Hkv * (kc + 2 * R) * dh * 2
+    unembed = cfg.vocab * cfg.d_model * 4
+    print(f"phase 2t: {cfg.name} cut to {L} of 36 layers, {B} x {S}-token "
+          f"prompts, kc {kc} x cap {cap} x top-p {cfg.cluster_top_p} over "
+          f"{P} gloo ranks sharing the card, {n} tokens full then clustered,"
+          f" no folds; reckoned a rank: params {n_par * 2 / 1e9:.2f} GB bf16 "
+          f"+ the f32 unembedding {unembed / 1e9:.2f} GB, flat cache "
+          f"{flat / 1e9:.3f} GB, its tables {tables / P / 1e9:.3f} GB (one "
+          f"device's {tables / 1e9:.3f}), centroids and ring "
+          f"{small / 1e9:.3f} GB")
+    one = _lmm_one_device(torch, dev, check, ref, cluster_attend_partial,
+                          cfg)
+    torch.cuda.empty_cache()
+    print(f"  the parent before the ranks: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved")
+    entry, toks = one["entry"], one["toks"]
+    t0 = time.perf_counter()
+    with _rank_alloc_env():
+        ranks = run_local(_lmm_rank, P, toks, device="cuda", timeout=900)
+    t_ranks = time.perf_counter() - t0
+    lead = ranks[0]
+    entry["launches"] = lead["launches"]
+    one_attn, scale, gap = one["attn"], one["scale"], one["gap"]
+    one_reads, t_one = one["reads"], one["t_one"]
+    emul, one = one["emul"], one["logits"]
+    ulps = [max(_bf16_ulps(torch, torch.from_numpy(a), b)
+                for a, b in zip(r["attn"], one_attn)) for r in ranks]
+    errs = [[float(x) for x in (torch.from_numpy(r["logits"]) - one).abs()
+             .amax(dim=(1, 2)) / scale] for r in ranks]
+    tol = [max(2e-2, 1.5 * g) for g in gap]
+    nxt = torch.from_numpy(toks[1:])
+    agree = float((torch.from_numpy(lead["logits"][:-1]).argmax(-1)
+                   == nxt).float().mean())
+    same_emul = bool(np.array_equal(lead["logits"], emul.numpy()))
+    want_bytes = decode_merge_bytes(cfg, B, P)
+    print(f"  one device: {t_one * 1e3:.1f} ms a clustered token (logits "
+          f"read each step); the ranks: {t_ranks:.1f} s in all; rank 0 "
+          f"prefill {lead['t_prefill']:.3f} s, attach {lead['t_attach']:.3f}"
+          f" s (tables {lead['kt_shape']}), {n} tokens full "
+          f"{lead['t_full']:.2f} s, clustered {lead['t_clus']:.2f} s "
+          f"({P} ranks on one card), serve.run's token agreement "
+          f"{lead['agreement']:.4f}, member rows {lead['sizes0']} "
+          f"[{smi_line}]")
+    print(f"  peak device memory a rank "
+          f"{[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB; K6 launches "
+          f"a rank in the forced decode {[r['launches'] for r in ranks]} "
+          f"({L} layers x {n} tokens), in serve.run's "
+          f"{[r['run_launches'] for r in ranks]}; bytes sent a token "
+          f"{[r['sent'] for r in ranks]} (the dry run's {want_bytes})")
+    print(f"  the first step's attention outputs against one device: "
+          f"{ulps} bf16 ulps at most (rank by rank); logits' error over "
+          f"their largest, the worst step of each rank "
+          f"{[max(e) for e in errs]}; the reordered merge's gap on one "
+          f"device {min(gap):.3g}..{max(gap):.3g} (tolerance "
+          f"max(2e-2, 1.5 x gap)); rank 0 = the reordered merge bit for "
+          f"bit: {same_emul}; free-running agreement (the ranks' argmax "
+          f"against one device's next token) {agree:.4f}")
+    reads = [r["dtoh"] - r["staged"] for r in ranks]
+    print(f"  host reads a step: one device {one_reads}, the ranks "
+          f"{reads} (less gloo's {lead['staged']} staging copies)")
+    check(all(u <= 1.0 for u in ulps),
+          f"2t: each layer's attention output at the first step equal to "
+          f"one device's or within one bf16 ulp ({max(ulps)})")
+    check(all(e <= t for es in errs for e, t in zip(es, tol)),
+          "2t: every step's logits within max(2e-2, 1.5 x the reordered "
+          "merge's gap) of their largest, on every rank")
+    check(all(r["launches"] == L * n and r["run_launches"] == L * n
+              for r in ranks), f"2t: K6 once a layer a token on each rank "
+                               f"({L * n})")
+    check(all(x == one_reads for x in reads),
+          f"2t: host reads a step as one device's ({one_reads}), gloo's "
+          f"staging apart")
+    check(all(r["sent"] == want_bytes for r in ranks),
+          f"2t: the merge's bytes a rank a token equal the dry run's "
+          f"({want_bytes})")
+    check(all(r["same"] for r in ranks) and all(
+        np.array_equal(r["logits"], lead["logits"]) for r in ranks),
+        "2t: two runs bit-identical, every rank the same logits")
+    return entry
+
+
+def _zero_rank(mesh, ref_path: str) -> dict:
+    """Phase 2u on one of the gloo ranks sharing the card: ZERO_STEPS
+    ZeRO-1 steps from the seed's init (the bytes sent, the step times),
+    the first step again from the init (bit-identical to the first run's),
+    then one compressed step; rank 0 holds its params after ZERO_STEPS
+    against the parent's one-device and reordered runs saved at
+    ``ref_path``."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim import tree_leaves
+    cfg, dev = _lmm_cfg(ZERO_LAYERS), mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    batcher = train.batcher_for(cfg, MESH_RANKS, ZERO_SEQ, seed=SEED,
+                                mesh=mesh)
+    step = train.MetricsStep(train.make_train_step(
+        cfg, remat="dots", q_chunk=512, mesh=mesh))
+    out, first = {"runs": []}, None
+    for run, n in enumerate((ZERO_STEPS, 1)):
+        state = train.init_state(cfg, seed=SEED, device=dev, mesh=mesh)
+        sent, times = [], []
+        for s in range(n):
+            b0, t0 = mesh.sent_bytes, time.perf_counter()
+            state = step(state, batcher.batch_at(s))
+            times.append(time.perf_counter() - t0)
+            sent.append(mesh.sent_bytes - b0)
+            if s == 0 and run == 0:
+                first = [t.clone() for t in tree_leaves(state[0])]
+        out["runs"].append({"hist": list(step.history[-n:]),
+                            "sent": sent, "times": times})
+        if run == 0:
+            final = list(tree_leaves(state[0]))
+            out["sums"] = [float(t.double().sum()) for t in final]
+            if mesh.index == 0:
+                want = torch.load(ref_path)
+                rel = lambda a, b: float(  # noqa: E731
+                    (a.float() - b.to(a.device).float()).abs().max()
+                    / b.float().abs().max())
+                out["err_one"] = max(rel(a, b) for a, b in zip(
+                    final, want["one"]))
+                out["err_emul"] = max(rel(a, b) for a, b in zip(
+                    final, want["emul"]))
+                del want
+            del final, state
+    out["same"] = all(bool(torch.equal(a, b))
+                      for a, b in zip(first, tree_leaves(state[0])))
+    del first
+    cstep = train.make_train_step(cfg, remat="dots", q_chunk=512,
+                                  compress=True, mesh=mesh)
+    state, m = cstep(state, batcher.batch_at(ZERO_STEPS))
+    out["compressed"] = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _zero_phase(torch, dev, check, smi_line: str) -> None:
+    """Phase 2u: ZeRO-1 training of Qwen3-8B at full width cut to
+    ZERO_LAYERS layers, MESH_RANKS gloo ranks sharing the card, 1 x
+    ZERO_SEQ tokens a rank, remat "dots". The parent first runs one
+    device's steps over the shards' batches concatenated in shard order,
+    and the same steps with the batch's gradient taken as MESH_RANKS
+    shard gradients added in shard order (the sharded step's reordering,
+    whose gap to one device sets the tolerance), saves both runs' params
+    for rank 0 and frees them."""
+    import math
+    from repro_torch.data import ShardedBatcher
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import zero_step_bytes
+    from repro_torch.launch.mesh import run_local
+    from repro_torch.optim import (adamw_update, clip_by_global_norm,
+                                   tree_leaves, tree_map)
+    cfg, P = _lmm_cfg(ZERO_LAYERS), MESH_RANKS
+    shards = [ShardedBatcher(P, ZERO_SEQ, cfg.vocab, num_shards=P,
+                             shard_id=s, seed=SEED) for s in range(P)]
+    batches = [[b.batch_at(s) for b in shards] for s in range(ZERO_STEPS)]
+    step = train.make_train_step(cfg, remat="dots", q_chunk=512)
+    state = train.init_state(cfg, seed=SEED, device=dev)
+    one_loss = []
+    for parts in batches:
+        batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        state, m = step(state, batch)
+        one_loss.append(float(m["loss"]))
+    one = [t.cpu() for t in tree_leaves(state[0])]
+    del state
+    state = train.init_state(cfg, seed=SEED, device=dev)
+    emul_loss = []
+    for parts in batches:
+        acc, loss = None, None
+        for p in parts:
+            met, g = train.loss_and_grads(cfg, state[0], p, remat="dots")
+            acc = g if acc is None else tree_map(lambda a, b: a + b, acc, g)
+            met = met["loss"].detach()
+            loss = met if loss is None else loss + met
+            del g
+        acc = tree_map(lambda a: a / P, acc)
+        acc, _ = clip_by_global_norm(acc)
+        with torch.no_grad():
+            state = adamw_update(acc, state[1], state[0])
+        del acc
+        emul_loss.append(float(loss / P))
+    emul = [t.cpu() for t in tree_leaves(state[0])]
+    del state
+    torch.cuda.empty_cache()
+    gap = max(float((a.float() - b.float()).abs().max() / b.float().abs()
+                    .max()) for a, b in zip(emul, one))
+    gap_loss = max(abs(a - b) / abs(b) for a, b in zip(emul_loss, one_loss))
+    path = ROOT / "build" / "zero_ref.pt"
+    torch.save({"one": one, "emul": emul}, path)
+    del one, emul
+    want_bytes = zero_step_bytes(cfg, P)
+    print(f"  the parent before the ranks: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved")
+    t0 = time.perf_counter()
+    try:
+        with _rank_alloc_env():
+            ranks = run_local(_zero_rank, P, str(path), device="cuda",
+                              timeout=900)
+    finally:
+        path.unlink(missing_ok=True)
+    t_ranks = time.perf_counter() - t0
+    lead = ranks[0]
+    hist = lead["runs"][0]["hist"]
+    steady = [t for r in ranks for t in r["runs"][0]["times"][1:]]
+    ms = sum(steady) / len(steady) * 1e3
+    print(f"phase 2u: {cfg.name} cut to {ZERO_LAYERS} of 36 layers trained "
+          f"under ZeRO-1 over {P} gloo ranks sharing the card, 1 x "
+          f"{ZERO_SEQ} tokens a rank, remat 'dots', {ZERO_STEPS} steps, the "
+          f"first again and one compressed; the ranks {t_ranks:.1f} s in "
+          f"all; "
+          f"{ms:.1f} ms a step (steps 1.., host clock, {P} ranks on one "
+          f"card), {P * ZERO_SEQ / ms * 1e3:.0f} tokens/s [{smi_line}]")
+    print(f"  losses one device {one_loss}, reordered {emul_loss}, ranks "
+          f"{[h['loss'] for h in hist]}; gradient norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; params' error over "
+          f"each leaf's largest: rank 0 against one device "
+          f"{lead['err_one']:.3g}, against the reordered run "
+          f"{lead['err_emul']:.3g}, the reordered run's gap {gap:.3g} (loss "
+          f"gap {gap_loss:.3g}); tolerance 1.5 x the gap")
+    print(f"  bytes a rank a step {[r['runs'][0]['sent'] for r in ranks]} "
+          f"(the dry run's {want_bytes}); peak device memory a rank "
+          f"{[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB; the "
+          f"compressed step's loss and norm {lead['compressed']}")
+    check(lead["err_one"] <= 1.5 * gap and all(
+        abs(h["loss"] - w) <= max(1.5 * gap_loss, 2 ** -22) * abs(w)
+        for h, w in zip(hist, one_loss)),
+        f"2u: losses and params within 1.5 x the reordered run's gap of one "
+        f"device's on the concatenated batch (params {lead['err_one']:.3g} "
+        f"<= 1.5 x {gap:.3g}; losses within max(1.5 x {gap_loss:.3g}, "
+        f"2^-22) relative)")
+    check(all(s == want_bytes for r in ranks for rr in r["runs"]
+              for s in rr["sent"]),
+          f"2u: the bytes a rank sends a step equal the dry run's "
+          f"({want_bytes})")
+    check(all(r["same"] and r["runs"][0]["hist"][:1] == r["runs"][1]["hist"]
+              and r["sums"] == lead["sums"] for r in ranks),
+          "2u: the first step run again bit-identical, every rank the same "
+          "params")
+    check(all(math.isfinite(v) for r in ranks for v in r["compressed"]),
+          "2u: the compressed step's loss and gradient norm finite")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 ``repro.configs.base``): the port's own copy of ``ArchConfig``, with its
 fields and defaults as the reference has them, and the registry of the
 architectures, one module each: every architecture of the reference is
-ported."""
+ported, and the reference's shape cells ``SHAPES``."""
 from __future__ import annotations
 
 import dataclasses
@@ -96,6 +96,16 @@ class ArchConfig:
         enc = self.encoder_layers * (attn + 3 * d * self.d_ff)
         return emb + L * (attn + ffn) + enc
 
+    def active_params_estimate(self) -> float:
+        """Active (per-token) params, the reference's: an MoE config
+        counts top_k of its n_experts."""
+        if not self.moe:
+            return self.params_estimate()
+        d, L = self.d_model, self.n_layers
+        all_experts = L * 3 * d * self.moe_d_ff * self.n_experts
+        active = L * 3 * d * self.moe_d_ff * self.top_k
+        return self.params_estimate() - all_experts + active
+
     def _mamba2_params(self) -> int:
         """A Mamba2 mixer's in and out projections, as the reference
         counts them."""
@@ -103,6 +113,15 @@ class ArchConfig:
         d_in = self.ssm_expand * d
         return d * (2 * d_in + 2 * self.ssm_state + self.n_heads) + d_in * d
 
+
+# the shape cells, the reference's (identical across the LM archs): what
+# the dry run (``launch.dryrun``) places and counts
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
 
 # the architectures, the reference's list: dense GQA, with and without
 # qk-norm; the MoE family with its dense residual (Arctic) or with MLA,

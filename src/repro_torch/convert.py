@@ -126,8 +126,9 @@ def params_from_reference(params_np, cfg, *, device,
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, unknown keys "
             f"{sorted(unknown)}: the port carries the reference's families "
-            f"{FAMILIES} and their keys; what ROADMAP §1 item 13 leaves is "
-            f"its slice g (LM placement)")
+            f"{FAMILIES} and their keys; ROADMAP §1 item 13 ported all of "
+            f"them, and a family or key the reference lacks is none of its "
+            f"slices")
     params = _tree(params_np, device)
     return with_unembed_table(params) if unembed_table else params
 

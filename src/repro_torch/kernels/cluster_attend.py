@@ -54,12 +54,13 @@ def cluster_attend_partial(q: torch.Tensor, k_table: torch.Tensor,
     """Online-softmax state of each query row over its selected blocks.
 
     q: (BH, dh), one row per (batch, q-head); k_table/v_table: (rows, cap,
-    dh) bf16 or f32; sel: (BH, p) int32 table rows in [0, rows); exactly
-    one of valid (rows, cap) int32 (> 0 is valid) or sizes (rows,) int32
-    (slots below the size are valid). Returns (m (BH,), l (BH,),
-    acc (BH, dh)), f32, at scale dh^-0.5: m the largest valid logit,
-    l = sum exp(logit - m), acc = sum exp(logit - m) v; a row whose
-    blocks are all empty gives (-inf, 0, 0)."""
+    dh) bf16 or f32; sel: (BH, p) int32 table rows, an id outside
+    [0, rows) selecting nothing (the sharded decode's clusters that
+    another shard holds); exactly one of valid (rows, cap) int32 (> 0 is
+    valid) or sizes (rows,) int32 (slots below the size are valid).
+    Returns (m (BH,), l (BH,), acc (BH, dh)), f32, at scale dh^-0.5: m
+    the largest valid logit, l = sum exp(logit - m), acc = sum exp(logit
+    - m) v; a row whose blocks are all empty gives (-inf, 0, 0)."""
     if (valid is None) == (sizes is None):
         raise ValueError("cluster_attend: pass exactly one of valid, sizes")
     if q.dim() != 2 or k_table.dim() != 3 or sel.dim() != 2 \

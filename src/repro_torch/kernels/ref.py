@@ -436,17 +436,21 @@ def cluster_attend_ref(q, k_table, v_table, sel, *, valid=None, sizes=None):
     ``attention._cm_partial``): each row of ``q`` (BH, dh) attends over
     the p blocks ``k_table[sel[i]]`` / ``v_table[sel[i]]`` (rows, cap,
     dh) in f32 at scale dh^-0.5, masked by ``valid`` (rows, cap) > 0 or,
-    when ``sizes`` (rows,) is given instead, by slot < size. Returns the
-    softmax state (m (BH,), l (BH,), acc (BH, dh)), all f32; a row whose
-    blocks are all empty gives (-inf, 0, 0)."""
+    when ``sizes`` (rows,) is given instead, by slot < size. A selected id
+    outside [0, rows) selects nothing (a cluster another shard holds, in
+    the sharded decode). Returns the softmax state (m (BH,), l (BH,),
+    acc (BH, dh)), all f32; a row whose blocks are all empty gives (-inf,
+    0, 0)."""
     bh, dh = q.shape
-    cap = k_table.shape[1]
-    s = sel.long()
+    rows, cap = k_table.shape[0], k_table.shape[1]
+    here = (sel >= 0) & (sel < rows)                        # (BH, p)
+    s = torch.where(here, sel, 0).long()
     if sizes is not None:
         ok = (torch.arange(cap, device=q.device)
               < sizes.long()[s][..., None])               # (BH, p, cap)
     else:
         ok = valid[s] > 0
+    ok = ok & here[..., None]
     logits = torch.einsum("nd,npcd->npc", q.float(),
                           k_table[s].float()) * dh ** -0.5
     logits = torch.where(ok, logits, -torch.inf).reshape(bh, -1)

@@ -2,7 +2,14 @@
 
 One process per card: a :class:`Mesh` names the ranks of the initialised
 process group that hold the data's row shards, in shard order, with a
-``"data"`` axis and an optional leading ``"pod"`` axis. Each axis has its
+``"data"`` axis, an optional leading ``"pod"`` axis and an optional
+trailing ``"model"`` (tensor-parallel) axis, which an executable mesh
+carries only of size 1: tensor-parallel execution is ROADMAP §1 item 16,
+and a larger ``"model"`` axis raises rather than run as data parallel.
+:func:`make_production_mesh` and :func:`make_debug_mesh` give the
+reference's LM meshes as :class:`MeshShape` stand-ins (shape and axis
+names, no ranks), which is all the spec functions of
+``launch.sharding`` and the dry run read. Each data axis has its
 subgroup (the ranks of this rank's pod along ``"data"``, the ranks with
 this rank's data index along ``"pod"``). Centers and the k_n-NN graph are
 replicated; what the shards computed is combined by :meth:`Mesh.sum`, the
@@ -17,8 +24,17 @@ give one result. The gather carries every partial's bits, so a ``-0.0``
 partial stays ``-0.0`` (an ``all_reduce`` over zero-filled slots would
 turn it into ``+0.0``).
 
-gloo runs its ``all_gather`` on host tensors: a CUDA payload is staged
-through the host and its sum taken back on the card.
+The LM's placement adds :meth:`Mesh.max` (exact in any order),
+:meth:`Mesh.reduce_scatter` (each shard's block of the shards' sum, the
+blocks exchanged by one ``all_to_all`` and added in shard order, never
+through the library's ``reduce_scatter``, whose order is its own) and
+:meth:`Mesh.gather_blocks` (the shards' blocks joined along an axis).
+Each counts the bytes this rank hands to the collective
+(``gathered_bytes``, ``scattered_bytes``; ``sent_bytes`` both).
+
+gloo runs its collectives on host tensors: a CUDA payload is staged
+through the host and its result taken back on the card. Payloads travel
+as bytes, so every type goes through either backend.
 
 Every collective is bounded in time. :func:`init_process_group` starts
 the process group with a timeout, and each mesh carries it to the
@@ -49,6 +65,8 @@ import torch.distributed as dist
 from ..device import resolve
 
 DATA_AXES = ("pod", "data")
+TP_AXIS = "model"
+AXES = DATA_AXES + (TP_AXIS,)
 # the bound on every collective of the process group this process started
 # (init_process_group), carried by every mesh to the subgroups it makes
 _TIMEOUT: datetime.timedelta | None = None
@@ -78,13 +96,28 @@ class Mesh:
                                             for a in self.axis_names})
         me = dist.get_rank()
         self.index = self.ranks.index(me) if me in self.ranks else None
-        # this rank's share of the traffic: gathers run, bytes it sent
+        # this rank's share of the traffic: collectives run, bytes it
+        # handed to them (a gather's buffer, a reduce-scatter's input)
         self.gathers = 0
         self.gathered_bytes = 0
+        self.scatters = 0
+        self.scattered_bytes = 0
 
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    @property
+    def sent_bytes(self) -> int:
+        return self.gathered_bytes + self.scattered_bytes
+
+    def coords(self) -> dict:
+        """This rank's index along each axis (row-major over ``shape``)."""
+        out, rest = {}, self.index
+        for a in reversed(self.axis_names):
+            out[a] = rest % self.shape[a]
+            rest //= self.shape[a]
+        return out
 
     def _gather(self, buf: torch.Tensor, group, n: int) -> torch.Tensor:
         """(n, *buf.shape): every rank's ``buf`` in group-rank order."""
@@ -104,11 +137,53 @@ class Mesh:
         """(P, *t.shape): every shard's ``t``, in shard order."""
         return self._gather(t, self.group, self.size)
 
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The shards' ``t`` elementwise largest (one gather): the same
+        in any order, so the same on every rank."""
+        return torch.amax(self.gather(t), dim=0)
+
+    def gather_blocks(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The shards' blocks ``t`` joined along ``dim`` in shard order
+        (every shard's ``t`` must have the same shape)."""
+        g = self.gather(t).movedim(0, dim)
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        return g.reshape(shape)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This shard's block of the shards' ``t`` summed: ``t`` is split
+        along ``dim`` into ``size`` equal blocks in shard order, shard r
+        receives block r of every shard's ``t`` through one
+        ``all_to_all`` and adds them in shard order, in ``t``'s type. The
+        result is contiguous, the same bits on every backend and in every
+        run."""
+        n = self.size
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)}"
+                             f" does not split over {n} shards")
+        moved = t.movedim(dim, 0)
+        blocks = moved.reshape(n, -1)
+        self.scatters += 1
+        self.scattered_bytes += blocks.numel() * blocks.element_size()
+        stage = blocks.is_cuda and dist.get_backend(self.group) == "gloo"
+        raw = (blocks.cpu() if stage else blocks).contiguous().view(
+            torch.uint8).reshape(-1)
+        out = torch.empty_like(raw)
+        dist.all_to_all_single(out, raw, group=self.group)
+        got = out.view(blocks.dtype).reshape(blocks.shape)
+        got = got.to(blocks.device) if stage else got
+        acc = got[0]
+        for j in range(1, n):
+            acc = acc + got[j]
+        shape = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+        return acc.reshape(shape).movedim(0, dim).contiguous()
+
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The shards' row blocks concatenated in shard order (every
         shard's ``t`` must have the same shape)."""
-        g = self.gather(t)
-        return g.reshape(g.shape[0] * g.shape[1], *g.shape[2:])
+        return self.gather_blocks(t, 0)
 
     def sum(self, *ts: torch.Tensor, axes=None):
         """Every shard's partials summed in shard order over ``axes``
@@ -172,34 +247,84 @@ def init_process_group(backend: str, *, timeout: float, **kw) -> None:
     dist.init_process_group(backend, timeout=_TIMEOUT, **kw)
 
 
+class MeshShape:
+    """A stand-in mesh: the shape and axis names of a mesh that no process
+    group backs (the reference's production meshes), all that the spec
+    functions and the dry run read. ``shape`` maps each axis, major to
+    minor, to its size."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production mesh as a stand-in: 16 x 16 ("data",
+    "model"), or 2 x 16 x 16 ("pod", "data", "model")."""
+    if multi_pod:
+        return MeshShape({"pod": 2, "data": 16, "model": 16})
+    return MeshShape({"data": 16, "model": 16})
+
+
+def make_debug_mesh(data: int = 2, model: int = 2) -> MeshShape:
+    """The reference's debug mesh (data, model) as a stand-in."""
+    return MeshShape({"data": data, "model": model})
+
+
+def _check_axes(shape: tuple, axis_names: tuple) -> None:
+    """Axes among ("pod", "data", "model"), each once, in that order;
+    ``"model"`` of size 1 (raises NotImplementedError for a larger one)."""
+    if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+            axis_names) or any(a not in AXES for a in axis_names) \
+            or list(axis_names) != sorted(axis_names, key=AXES.index):
+        raise ValueError(f"mesh axes {axis_names} of shape {shape}: "
+                         f"expected axes among {AXES}, in that order")
+    size = dict(zip(axis_names, shape))
+    if size.get(TP_AXIS, 1) != 1:
+        raise NotImplementedError(
+            f"mesh {size}: a {TP_AXIS!r} axis of size {size[TP_AXIS]}: "
+            f"tensor-parallel execution is ROADMAP §1 item 16; an "
+            f"executable mesh carries a {TP_AXIS!r} axis of size 1 (the "
+            f"spec functions and the dry run take any on a MeshShape)")
+
+
 def make_mesh(shape=None, axis_names=("data",), *, device=None) -> Mesh:
     """A mesh over every rank of the process group that
     :func:`init_process_group` started (the counterpart of
     ``jax.make_mesh``): ``shape`` defaults to one ``"data"`` axis over
-    the world; with ``("pod", "data")`` axes each axis gets its subgroup
-    (every rank must call this, as ``dist.new_group`` demands).
+    the world; with ``("pod", "data")`` axes each data axis gets its
+    subgroup (every rank must call this, as ``dist.new_group``
+    demands); a trailing ``"model"`` axis must have size 1 (tensor
+    parallel execution, ROADMAP §1 item 16, raises NotImplementedError).
     ``device``: this rank's device, by default its card,
     ``cuda:<rank % device_count>`` (raises without one, on either
     backend)."""
+    axis_names = tuple(axis_names)
+    if shape is not None:
+        _check_axes(tuple(shape), axis_names)
     if _TIMEOUT is None or not dist.is_initialized():
         raise RuntimeError("make_mesh needs the process group started by "
                            "launch.mesh.init_process_group (its timeout "
                            "bounds every collective of the mesh)")
     world = dist.get_world_size()
     shape = tuple(shape) if shape is not None else (world,)
-    axis_names = tuple(axis_names)
-    if len(shape) != len(axis_names) or any(a not in DATA_AXES
-                                            for a in axis_names):
-        raise ValueError(f"mesh axes {axis_names} of shape {shape}: "
-                         f"expected axes among {DATA_AXES}")
+    _check_axes(shape, axis_names)
     if device is None:
         resolve(None)                   # raises without a card
         device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
     ranks = list(range(world))
     group = dist.group.WORLD
     sub = {a: group for a in axis_names}
-    if len(shape) == 2:
-        pods, per = shape
+    size = dict(zip(axis_names, shape))
+    if "pod" in size and "data" in size:
+        pods, per = size["pod"], size["data"]
         sub["data"], _ = dist.new_subgroups_by_enumeration(
             [ranks[p * per:(p + 1) * per] for p in range(pods)],
             timeout=_TIMEOUT)
@@ -306,5 +431,30 @@ def run_local(fn, nprocs: int, *args, backend: str = "gloo",
         return out
 
 
-__all__ = ["Mesh", "DATA_AXES", "dp_axes", "dp_size", "init_process_group",
-           "make_debug_cluster_mesh", "make_mesh", "run_local"]
+def parse_mesh(text: str) -> tuple[tuple, tuple]:
+    """``"data=4"`` or ``"pod=2,data=2"`` -> (shape, axis_names), the
+    launchers' ``--mesh`` flag."""
+    axes = [kv.split("=") for kv in text.split(",") if kv]
+    if not axes or any(len(kv) != 2 for kv in axes):
+        raise ValueError(f"--mesh {text!r}: expected axis=size[,...]")
+    return (tuple(int(n) for _, n in axes), tuple(a for a, _ in axes))
+
+
+def mesh_from_env(text: str, *, device=None, timeout: float = 600.0) -> Mesh:
+    """The mesh of a ``torch.distributed.run`` launch (its ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``): NCCL with each
+    rank on its card, gloo on the CPU (``device="cpu"``)."""
+    shape, names = parse_mesh(text)
+    dev = resolve(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                       timeout=timeout)
+    return make_mesh(shape, names, device=dev)
+
+
+__all__ = ["AXES", "DATA_AXES", "Mesh", "MeshShape", "TP_AXIS", "dp_axes",
+           "dp_size", "init_process_group", "make_debug_cluster_mesh",
+           "make_debug_mesh", "make_mesh", "make_production_mesh",
+           "mesh_from_env", "parse_mesh", "run_local"]

@@ -58,6 +58,20 @@ shares the bounded admission queue, the transient-retry envelope
 accounting of the predict/partial_fit traffic; the end-of-run lines
 print the queue and the fault counters.
 
+Under a mesh (``run(mesh=)``, ``--mesh data=4`` under
+``torch.distributed.run``: one rank a card, NCCL), the cache is placed
+as ``launch.sharding.cache_specs`` says and decoded by the reference's
+``shard_map`` branch of the k²-attention. Every rank runs the prefill,
+the full decode and the k²-means clustering of the keys (bit-identical
+run to run, so every rank gets the same clusters), then packs only its
+own kc / P clusters' tables (the whole tables of a layer are never
+allocated on a rank); the centroids, the ring and the params stay
+replicated. A clustered step merges the ranks' attention states with one
+gather a layer (``attention.cluster_major_decode_attention``). The
+reference never folds a sharded cache (its serve runs on one device), so
+neither does the port: under a mesh ``fold_every`` must be 0 and the
+decode stays within ``cluster_ring`` steps.
+
 Difference from the reference: the prompt fills the cache from one
 chunked prefill forward (the reference steps ``serve_step`` over the
 prompt, which 65,536 tokens make too slow); an SSM layer's recurrence
@@ -73,6 +87,7 @@ import torch
 from ..configs.base import get_config, get_smoke_config
 from ..device import resolve
 from ..kernels import _build
+from .mesh import dp_size, mesh_from_env
 from ..models.kv_cluster import (build_cluster_major, build_kv_clusters,
                                  kv_partial_fit)
 from ..models.model import (encode, forward_prefill, init_cache,
@@ -148,23 +163,39 @@ def prefill_into_cache(cfg, params, cache, tokens, *, q_chunk: int = 512,
     return logits, cache
 
 
-def _cluster_part(cfg, part: dict, length: int | None) -> dict:
+def shard_clusters(cfg, mesh) -> tuple | None:
+    """This rank's cluster range (lo, hi) under ``mesh`` (the cluster
+    axis of ``cache_specs`` over the data axes), or None for the whole
+    table: no mesh, or a data size that does not divide kc."""
+    dsz = dp_size(mesh) if mesh is not None else 1
+    if dsz <= 1 or cfg.kv_clusters % dsz:
+        return None
+    n = cfg.kv_clusters // dsz
+    return mesh.index * n, (mesh.index + 1) * n
+
+
+def _cluster_part(cfg, part: dict, length: int | None,
+                  clusters=None) -> dict:
     """``part``'s flat k/v (L, B, Hkv, S, dh) repacked cluster-major, one
     slice of the leading axis at a time: a new dict without ``k``/``v``,
-    with the member tables and an empty ring in the cache's type."""
+    with the member tables and an empty ring in the cache's type.
+    ``clusters``: (lo, hi), the tables and sizes of those clusters only
+    (the centroids of all)."""
     keys, vals = part["k"], part["v"]
     if length is not None:
         keys, vals = keys[:, :, :, :length], vals[:, :, :, :length]
     L, B, Hkv, _, dh = keys.shape
     kc, cap, R = cfg.kv_clusters, cfg.cluster_cap, cfg.cluster_ring
+    n = kc if clusters is None else clusters[1] - clusters[0]
     dev = keys.device
-    kt = torch.empty((L, B, Hkv, kc, cap, dh), dtype=keys.dtype, device=dev)
+    kt = torch.empty((L, B, Hkv, n, cap, dh), dtype=keys.dtype, device=dev)
     vt = torch.empty_like(kt)
     cent = torch.empty((L, B, Hkv, kc, dh), dtype=keys.dtype, device=dev)
-    sizes = torch.empty((L, B, Hkv, kc), dtype=torch.int32, device=dev)
+    sizes = torch.empty((L, B, Hkv, n), dtype=torch.int32, device=dev)
     for i in range(L):
         _, _, cent[i], sizes[i] = build_cluster_major(
-            keys[i], vals[i], kc, cap, out=(kt[i], vt[i]))
+            keys[i], vals[i], kc, cap, out=(kt[i], vt[i]),
+            clusters=clusters)
     new = {f: v for f, v in part.items() if f not in ("k", "v")}
     new.update(
         kt=kt, vt=vt, cent=cent, sizes=sizes,
@@ -174,7 +205,7 @@ def _cluster_part(cfg, part: dict, length: int | None) -> dict:
     return new
 
 
-def attach_clusters(cfg, cache, length: int | None = None):
+def attach_clusters(cfg, cache, length: int | None = None, mesh=None):
     """Run k²-means over the cached keys of every layer (one layer at a
     time) and repack the cache cluster-major: the flat K/V is replaced by
     the member tables, and an empty ring in the cache's type (bf16 in the
@@ -182,14 +213,16 @@ def attach_clusters(cfg, cache, length: int | None = None):
     cache is repacked instead, one application at a time, into the
     reference's clustered layout (a leading applications axis, a ring
     fill per application). ``length``: number of filled slots (unfilled
-    zero rows must not be clustered)."""
+    zero rows must not be clustered). ``mesh``: pack this rank's
+    clusters only (:func:`shard_clusters`)."""
     parts = [p for p in ("stack", "shared") if "k" in cache.get(p, {})]
     if not parts:
         raise ValueError(f"{cfg.name}: the cache holds no flat keys to "
                          f"cluster (fields {sorted(cache['stack'])})")
     new = dict(cache)
     for part in parts:
-        new[part] = _cluster_part(cfg, cache[part], length)
+        new[part] = _cluster_part(cfg, cache[part], length,
+                                  shard_clusters(cfg, mesh))
     return new
 
 
@@ -229,14 +262,16 @@ def fold_ring(cache, counts):
     return cache, counts, sum(fills)
 
 
-def serve_executor(cfg, params, retries: int = 3) -> ServeExecutor:
+def serve_executor(cfg, params, retries: int = 3,
+                   mesh=None) -> ServeExecutor:
     """A bare :class:`ServeExecutor` with the KV workload's two ops
     registered: ``decode_step`` (payload ``{"cache", "tok", "i"}`` ->
-    ``(logits, cache)``) and ``fold_ring`` (``{"cache", "counts"}`` ->
-    ``(cache, counts, slots folded)``)."""
+    ``(logits, cache)``, over this rank's clusters under ``mesh``) and
+    ``fold_ring`` (``{"cache", "counts"}`` -> ``(cache, counts, slots
+    folded)``)."""
     ex = ServeExecutor(config=ServeConfig(queue_bound=8, retries=retries))
-    ex.register("decode_step", lambda p: serve_step(cfg, params, p["cache"],
-                                                    p["tok"], p["i"]))
+    ex.register("decode_step", lambda p: serve_step(
+        cfg, params, p["cache"], p["tok"], p["i"], mesh=mesh))
     ex.register("fold_ring", lambda p: fold_ring(p["cache"], p["counts"]))
     return ex
 
@@ -251,15 +286,22 @@ def _guarded(ex: ServeExecutor, op: str, payload):
 
 
 def decode(cfg, params, cache, tok, start: int, n: int, *,
-           fold_every: int = 0, counts=None, executor=None):
+           fold_every: int = 0, counts=None, executor=None, mesh=None):
     """Greedy-decode ``n`` tokens after ``tok`` (B, 1), the first at slot
     ``start``. One host read per step (the token); with ``fold_every``,
     the ring folds into the tables every that many steps. With
     ``executor`` (:func:`serve_executor`) every step and fold is a
-    request through its ``call``. Returns (tokens: list of (B,) int
-    arrays, last logits, cache, counts, slots folded)."""
+    request through its ``call``. ``mesh``: the cache's tables are this
+    rank's clusters; no folds then (the reference never folds a sharded
+    cache), so ``fold_every`` must be 0. Returns (tokens: list of (B,)
+    int arrays, last logits, cache, counts, slots folded)."""
+    if mesh is not None and fold_every:
+        raise ValueError(f"decode: fold_every {fold_every} under a mesh: "
+                         f"a sharded cache is not folded (ROADMAP §1 item "
+                         f"16)")
     if executor is None:
-        step = lambda c, t, i: serve_step(cfg, params, c, t, i)  # noqa: E731
+        step = lambda c, t, i: serve_step(  # noqa: E731
+            cfg, params, c, t, i, mesh=mesh)
         fold = fold_ring
     else:
         step = lambda c, t, i: _guarded(  # noqa: E731
@@ -284,7 +326,7 @@ def _sync(dev):
 
 def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
         fold_every: int = 0, device=None, seed: int = 0, retries: int = 3,
-        enc_len: int = 8, echo=print) -> dict:
+        enc_len: int = 8, echo=print, mesh=None) -> dict:
     """Prefill a random prompt, decode with full attention, cluster the
     cache, decode again with k²-attention through the serving executor
     (folding the ring every ``fold_every`` steps, default the ring size;
@@ -299,14 +341,20 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     draws times d^-0.5 (an embedding's scale), at its first positions;
     an audio config encodes ``enc_len`` frames (B, enc_len, d), standard
     normal draws, first (``t_encode``). Both are drawn from the run's
-    generator after the prompt, in bf16."""
-    if cfg.attn_every and (decode_len > cfg.cluster_ring or fold_every):
+    generator after the prompt, in bf16. ``mesh``: every rank runs this
+    with the same arguments on its own device (the mesh's); the tables
+    are packed per rank (:func:`attach_clusters`) and the clustered
+    decode is sharded, without folds."""
+    if (cfg.attn_every or mesh is not None) and (
+            decode_len > cfg.cluster_ring or fold_every):
         raise ValueError(
             f"{cfg.name}: decode_len {decode_len} (cluster_ring "
-            f"{cfg.cluster_ring}), fold_every {fold_every}: the shared "
-            f"block's ring is not folded (the reference's fold_ring reads "
-            f"only the stack), so a decode may not outrun it")
-    dev = resolve(device)
+            f"{cfg.cluster_ring}), fold_every {fold_every}: "
+            + ("a sharded cache is not folded (the reference never folds "
+               "one)" if mesh is not None else "the shared block's ring is "
+               "not folded (the reference's fold_ring reads only the "
+               "stack)") + ", so a decode may not outrun the ring")
+    dev = resolve(device) if mesh is None else mesh.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device=dev)
@@ -372,19 +420,23 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     # hybrid's keys are its shared block's, and its ring is not folded
     part = "shared" if cfg.attn_every else "stack"
     t0 = time.perf_counter()
-    cache2 = attach_clusters(cfg, cache, length=prompt_len)
+    cache2 = attach_clusters(cfg, cache, length=prompt_len, mesh=mesh)
     _sync(dev)
     t_attach = time.perf_counter() - t0
     counts = cache2[part]["sizes"].float()
-    if not cfg.attn_every:
+    if not cfg.attn_every and mesh is None:
         fold_every = fold_every or cfg.cluster_ring
     sizes0 = int(torch.sum(cache2[part]["sizes"]))
-    ex = serve_executor(cfg, params, retries)
+    if mesh is not None:            # every rank's clusters
+        sizes0 = int(mesh.sum(torch.tensor(sizes0, dtype=torch.int64,
+                                           device=dev)))
+    ex = serve_executor(cfg, params, retries, mesh=mesh)
+    sent0 = mesh.sent_bytes if mesh is not None else 0
     before = _build.launches()
     t0 = time.perf_counter()
     clus_toks, clus_logits, cache2, counts, folded = decode(
         cfg, params, cache2, prompt[:, -1:], prompt_len, decode_len,
-        fold_every=fold_every, counts=counts, executor=ex)
+        fold_every=fold_every, counts=counts, executor=ex, mesh=mesh)
     t_loop = time.perf_counter() - t0
     if fold_every:
         cache2, counts, tail = _guarded(                   # drain the tail
@@ -393,7 +445,8 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     _sync(dev)
     t_clus = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in _build.launches().items()}
-    sizes1 = int(torch.sum(cache2[part]["sizes"]))
+    sizes1 = sizes0 if mesh is not None else int(torch.sum(
+        cache2[part]["sizes"]))
 
     agree = float(sum((a == b).mean() for a, b in zip(full_toks, clus_toks))
                   / max(len(full_toks), 1))
@@ -402,7 +455,11 @@ def run(cfg, *, batch: int = 2, prompt_len: int = 48, decode_len: int = 16,
     n_layers = cache2[part]["ring_fill"].shape[0]
     echo(f"decoded {decode_len} tokens: full={t_full:.2f}s "
          f"clustered={t_clus:.2f}s  token agreement={agree:.2f}")
-    if fold_every:
+    if mesh is not None:
+        echo(f"sharded k²-attention: kc {cfg.kv_clusters} over {mesh.size} "
+             f"ranks, no folds ({sizes0} member rows); this rank sent "
+             f"{mesh.sent_bytes - sent0} bytes in the clustered decode")
+    elif fold_every:
         echo(f"partial_fit folds: {folded} ring slots "
              f"({folded // max(n_layers, 1)} tokens x {n_layers} "
              f"layers) absorbed into the cluster tables "
@@ -460,12 +517,24 @@ def main(argv=None):
     ap.add_argument("--enc-len", type=int, default=8,
                     help="an audio config's encoder frames (the "
                          "reference's serve sizes its cross cache to 8)")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. data=4: under torch.distributed.run, one "
+                         "rank a card (NCCL; gloo with --device cpu), the "
+                         "cluster axis of the cache sharded")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    run(cfg, batch=args.batch, prompt_len=args.prompt_len,
-        decode_len=args.decode, fold_every=args.fold_every,
-        device=args.device, retries=args.retries, enc_len=args.enc_len)
+    mesh = mesh_from_env(args.mesh, device=args.device) if args.mesh \
+        else None
+    try:
+        run(cfg, batch=args.batch, prompt_len=args.prompt_len,
+            decode_len=args.decode, fold_every=args.fold_every,
+            device=args.device, retries=args.retries, enc_len=args.enc_len,
+            mesh=mesh, echo=print if mesh is None or mesh.index == 0
+            else (lambda *a: None))
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,11 +18,17 @@ the lower cluster id, as ``lax.top_k``), then K6
 blocks, where the reference computes the same state in jnp
 (``_cm_partial``); the recent-token ring and the token being decoded are
 merged into it in plain torch, exactly as the reference merges them.
-The flat-cache variant (:func:`clustered_decode_attention`) selects the
-same way and gathers the chosen clusters' member rows from the flat
-cache, in plain torch as the reference does: it reaches no kernel. The
-reference's ``shard_map`` branch (cluster shards over a mesh) waits for
-ROADMAP §1 item 13.
+Under a mesh whose data size divides kc (``mesh=``, the reference's
+``shard_map`` branch), each rank holds its kc / P clusters' tables
+(``launch.sharding.cache_specs``) and the replicated centroids: the
+selection is replicated, K6 runs once over the rank's own tables (a
+cluster another rank holds is selected as table row -1, which selects
+nothing), and one gather of every rank's (m, l, acc) lets each rank
+merge them as the reference's ``pmax``/``psum`` do, adding in shard
+order. The flat-cache variant (:func:`clustered_decode_attention`)
+selects the same way and gathers the chosen clusters' member rows from
+the flat cache, in plain torch as the reference does: it reaches no
+kernel.
 
 MLA decode reads the latent cache with the key up-projection absorbed
 into the query, in f32 as the reference; it converts only the live
@@ -40,8 +46,9 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.cluster_attend import cluster_attend_partial, select_clusters
-from .layers import (apply_rope, dense, dense_init, recorded, rmsnorm,
-                     rmsnorm_init, scale)
+from ..launch.mesh import dp_size
+from .layers import (apply_rope, dense, dense_init, head_spec, recorded,
+                     rmsnorm, rmsnorm_init, scale, shard)
 
 
 def _softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -168,8 +175,28 @@ def clustered_decode_attention(q, k, v, centroids, members, member_mask,
 # k²-attention over the cluster-major cache
 # --------------------------------------------------------------------------
 
+def _merge_shards(mesh, m, l, acc):
+    """The reference's ``pmax``/``psum`` merge of the shards' softmax
+    states, from one gather of every rank's (m, l, acc) (f32, (BH,),
+    (BH,), (BH, dh)): gm = max m, corr = exp(m - gm) (0 where m is not
+    finite), l and acc the shard-order sums of l·corr and acc·corr. The
+    same bits on every rank."""
+    g = mesh.gather(torch.cat([m[:, None], l[:, None], acc], dim=1))
+    ms = g[:, :, 0]
+    gm = torch.amax(ms, dim=0)
+    gm_safe = torch.where(torch.isfinite(gm), gm, 0.0)
+    corr = torch.where(torch.isfinite(ms), torch.exp(ms - gm_safe), 0.0)
+    l_out = g[0, :, 1] * corr[0]
+    acc_out = g[0, :, 2:] * corr[0][:, None]
+    for j in range(1, g.shape[0]):
+        l_out = l_out + g[j, :, 1] * corr[j]
+        acc_out = acc_out + g[j, :, 2:] * corr[j][:, None]
+    return gm, l_out, acc_out
+
+
 def cluster_major_decode_attention(q, kt, vt, centroids, sizes, top_p: int,
-                                   self_kv=None, ring=None) -> torch.Tensor:
+                                   self_kv=None, ring=None,
+                                   mesh=None) -> torch.Tensor:
     """k²-attention over the cluster-major KV cache.
 
     q: (B, H, dh); kt/vt: (B, Hkv, kc, cap, dh) contiguous, the cache
@@ -177,15 +204,33 @@ def cluster_major_decode_attention(q, kt, vt, centroids, sizes, top_p: int,
     (B, Hkv, kc) int32. ring: optional (ring_k, ring_v, fill), the exact
     recent-token buffer ((B, Hkv, R, dh) x2 and a 0-d fill count);
     self_kv: optional (k_new, v_new), each (B, Hkv, dh), the token being
-    decoded, which joins the softmax exactly. One K6 launch per call."""
+    decoded, which joins the softmax exactly. One K6 launch per call.
+    ``mesh``: a mesh whose data size P divides kc: kt, vt and sizes then
+    hold this rank's clusters only, (B, Hkv, kc / P, ...), shard i's the
+    clusters i·kc/P .. (i+1)·kc/P - 1, and the ranks' partial states are
+    merged (one gather); every rank returns the same output."""
     B, H, dh = q.shape
     Hkv, kc, cap = centroids.shape[1], centroids.shape[2], kt.shape[3]
     g = H // Hkv
     qr = q.reshape(B, Hkv, g, dh)
+    sel = select_clusters(q, centroids, top_p)            # replicated
+    dsz = dp_size(mesh) if mesh is not None else 1
+    sharded = dsz > 1 and kc % dsz == 0
+    kc_loc = kc // dsz if sharded else kc
+    if kt.shape[2] != kc_loc or sizes.shape[2] != kc_loc:
+        raise ValueError(f"cluster_major_decode_attention: tables of "
+                         f"{kt.shape[2]} clusters for kc {kc} over "
+                         f"{dsz if sharded else 1} shard(s)")
+    if sharded:     # global ids -> this shard's table rows, -1 elsewhere
+        c = sel % kc - mesh.index * kc_loc
+        here = (c >= 0) & (c < kc_loc)
+        sel = torch.where(here, sel // kc * kc_loc + c, -1).to(torch.int32)
     m, l, acc = cluster_attend_partial(
-        qr.reshape(B * H, dh), kt.reshape(B * Hkv * kc, cap, dh),
-        vt.reshape(B * Hkv * kc, cap, dh),
-        select_clusters(q, centroids, top_p), sizes=sizes.reshape(-1))
+        qr.reshape(B * H, dh), kt.reshape(B * Hkv * kc_loc, cap, dh),
+        vt.reshape(B * Hkv * kc_loc, cap, dh), sel,
+        sizes=sizes.reshape(-1))
+    if sharded:
+        m, l, acc = _merge_shards(mesh, m, l, acc)
     m, l = m.reshape(B, Hkv, g), l.reshape(B, Hkv, g)
     acc = acc.reshape(B, Hkv, g, dh)
     qf = qr.float()
@@ -245,8 +290,9 @@ def gqa_project(p, x, n_heads: int, n_kv: int, d_head: int, positions,
     if qk_norm:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
-    return (apply_rope(q, positions, rope_theta),
-            apply_rope(k, positions, rope_theta), v)
+    q = shard(apply_rope(q, positions, rope_theta), head_spec(n_heads))
+    k = shard(apply_rope(k, positions, rope_theta), head_spec(n_kv))
+    return q, k, v
 
 
 def gqa_apply(p, x, *, n_heads, n_kv, d_head, rope_theta=1e4, qk_norm=False,
@@ -263,12 +309,14 @@ def gqa_apply(p, x, *, n_heads, n_kv, d_head, rope_theta=1e4, qk_norm=False,
 
 def gqa_decode_cluster_major(p, x, cache_l, cur_pos: int, *, n_heads, n_kv,
                              d_head, rope_theta=1e4, qk_norm=False,
-                             top_p: int = 16):
+                             top_p: int = 16, mesh=None):
     """One-token decode against a cluster-major cache. cache_l: {"kt",
     "vt", "cent", "sizes", "ring_k", "ring_v", "ring_fill"}. Attention =
     top-p clusters + exact recent ring + self token; the fresh K/V is
     written into the ring's next slot and the fill count raised, in
-    place; the tables are read-only. Returns (out, ring fields)."""
+    place; the tables are read-only. ``mesh``: the tables are this
+    rank's clusters (:func:`cluster_major_decode_attention`). Returns
+    (out, ring fields)."""
     B = x.shape[0]
     positions = torch.full((B, 1), cur_pos, device=x.device)
     q, k_new, v_new = gqa_project(p, x, n_heads, n_kv, d_head, positions,
@@ -278,7 +326,8 @@ def gqa_decode_cluster_major(p, x, cache_l, cur_pos: int, *, n_heads, n_kv,
                             cache_l["ring_fill"])
     out = cluster_major_decode_attention(
         q[:, 0], cache_l["kt"], cache_l["vt"], cache_l["cent"],
-        cache_l["sizes"], top_p, self_kv=(k1, v1), ring=(ring_k, ring_v, fill))
+        cache_l["sizes"], top_p, self_kv=(k1, v1), ring=(ring_k, ring_v, fill),
+        mesh=mesh)
     slot = torch.remainder(fill, ring_k.shape[2]).reshape(1).long()
     ring_k.index_copy_(2, slot, k1[:, :, None].to(ring_k.dtype))
     ring_v.index_copy_(2, slot, v1[:, :, None].to(ring_v.dtype))

@@ -153,13 +153,20 @@ def build_kv_clusters(keys, kc: int, cap: int, lloyd_iters: int = 2,
 
 
 def build_cluster_major(keys: torch.Tensor, values: torch.Tensor, kc: int,
-                        cap: int, out=None, **kw):
+                        cap: int, out=None, clusters=None, **kw):
     """Cluster-major KV tables: run k²-means over the keys and repack the
     cache so each cluster's members are contiguous. keys/values:
     (B, Hkv, S, d) -> (kt (B, Hkv, kc, cap, d), vt same, centroids
     (B, Hkv, kc, d), sizes (B, Hkv, kc) int32); slots past a cluster's
-    size are 0. ``out``: optional (kt, vt) contiguous tensors to fill."""
+    size are 0. ``out``: optional (kt, vt) contiguous tensors to fill.
+    ``clusters``: optional (lo, hi), pack only clusters lo..hi-1 (a
+    shard's, under ``launch.sharding.cache_specs``): kt, vt and sizes
+    then hold those clusters, the centroids all kc."""
     cent, members, mask, sizes = build_kv_clusters(keys, kc, cap, **kw)
+    if clusters is not None:
+        lo, hi = clusters
+        members, mask = members[:, :, lo:hi], mask[:, :, lo:hi]
+        sizes, kc = sizes[:, :, lo:hi].contiguous(), hi - lo
     B, H, S, d = keys.shape
     row = torch.arange(B * H, device=keys.device).reshape(B, H, 1, 1) * S
     idx = (members.long() + row).reshape(-1)

@@ -6,16 +6,28 @@ f32, casts to the input's type and then scales by ``g`` in that type;
 ``apply_rope`` rotates split halves; ``dense`` is ``x @ w`` with ``w``
 laid out (d_in, d_out). A Python constant that multiplies a bf16 tensor
 is rounded to bf16 first (:func:`scale`), as XLA rounds a weakly typed
-constant to the tensor's type. The reference's sharding hints
-(``shard``, ``sanitize_spec``, ``head_spec``) do nothing on one device
-and are left out. Inits take an explicit ``torch.Generator`` and draw
-other numbers than ``jax.random``: tests carry the reference's params
-across with ``convert.params_from_reference``. An init fills tensors it
+constant to the tensor's type. Inits take an explicit
+``torch.Generator`` and draw other numbers than ``jax.random``: tests
+carry the reference's params across with
+``convert.params_from_reference``. An init fills tensors it
 asks of ``new(shape, dtype)`` (default: a fresh tensor on the
 generator's device), so a layer stack can hand out slices of its
 stacked leaves (``transformer.stack_init``). On ``device="meta"``
 (``model.param_shapes``, through :class:`MetaGenerator`) an init
 allocates meta tensors and draws nothing.
+
+Placement: :class:`PartitionSpec` is the port's own spec (one entry a
+dimension: ``None``, a mesh axis name or a tuple of them), which
+``launch.sharding`` gives every leaf of the params, the optimizer state,
+the batch and the cache. The reference's activation hints are kept at
+its call sites (:func:`shard`, :func:`head_spec`, :func:`sanitize_spec`)
+so a reader finds them, and :func:`shard` does nothing: the reference's
+is a no-op off a mesh, and on one GSPMD propagates the placement through
+the program. The port executes placement only where the reference
+writes it out (``shard_map``: the sharded k²-attention decode,
+``models.attention``) and where the dry run's step receives its inputs
+(the batch and the ZeRO optimizer state of ``launch.train``, the
+cluster-sharded cache of ``launch.serve``), never by propagation.
 
 Training: where autograd records an op (:func:`recorded`), the callers
 that update a tensor in place to save memory on the serving path
@@ -26,6 +38,58 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+DP = ("pod", "data")      # flattened data-parallel axes (multi-pod aware)
+TP = "model"
+
+
+class PartitionSpec(tuple):
+    """A leaf's placement over a mesh's named axes, one entry a dimension
+    (``None``: not split; an axis name; a tuple of names, split over
+    their product in that order, major first). Trailing dimensions
+    without an entry are not split. The reference's
+    ``jax.sharding.PartitionSpec`` as a tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def sanitize_spec(spec: PartitionSpec, mesh) -> PartitionSpec | None:
+    """``spec`` with the axes ``mesh`` lacks dropped (e.g. "pod" on a
+    single-pod mesh), so one set of hints serves every mesh; None without
+    a mesh (the reference reads the ambient mesh; the port has none and
+    takes it as an argument)."""
+    if mesh is None:
+        return None
+    names = set(mesh.axis_names)
+    clean = []
+    for e in spec:
+        if e is None or isinstance(e, str):
+            clean.append(e if e in names else None)
+        else:
+            t = tuple(a for a in e if a in names)
+            clean.append(t if t else None)
+    return PartitionSpec(*clean)
+
+
+def shard(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+    """The reference's activation sharding hint: ``x`` unchanged (see the
+    module's docstring: the port places no activation)."""
+    return x
+
+
+def head_spec(n_heads: int, tp_size: int = 16) -> PartitionSpec:
+    """Shard the head axis only when it divides the TP axis."""
+    if n_heads % tp_size == 0:
+        return PartitionSpec(DP, None, TP, None)
+    return PartitionSpec(DP, None, None, None)
 
 
 class MetaGenerator:

@@ -45,7 +45,8 @@ import torch
 
 from ..device import host_input, resolve
 from . import transformer as tf
-from .layers import MetaGenerator, rmsnorm, rmsnorm_init, softmax_xent
+from .layers import (DP, TP, MetaGenerator, P, rmsnorm, rmsnorm_init, shard,
+                     softmax_xent)
 
 
 def init_params(cfg, gen: torch.Generator, *, device=None,
@@ -117,13 +118,13 @@ def embed_tokens(cfg, params, tokens, patches=None, *, start: int = 0):
             raise ValueError(f"{cfg.name}: patches {tuple(patches.shape)}, "
                              f"want (B, {cfg.n_patches}, {cfg.d_model})")
         h[:, :n] = patches[:, start:start + n].to(h.dtype)
-    return h
+    return shard(h, P(DP, None, None))
 
 
 def unembed(cfg, params, h):
     """h (..., d) -> f32 logits (..., vocab): h in f32 against the f32
     tied embedding."""
-    return h.float() @ params["embed_f32"].T
+    return shard(h.float() @ params["embed_f32"].T, P(DP, None, TP))
 
 
 def forward_train(cfg, params, batch, *, remat: str = "dots",
@@ -140,7 +141,7 @@ def forward_train(cfg, params, batch, *, remat: str = "dots",
     if cfg.family == "audio":
         # the stubbed frontend's frame embeddings, cast to bf16 as the
         # reference casts them
-        h = batch["frames"].to(torch.bfloat16)
+        h = shard(batch["frames"].to(torch.bfloat16), P(DP, None, None))
         for i in range(tf.n_layers_of(params["enc"])):
             h = tf.remat(lambda x, p: tf.encoder_layer_fwd(
                 cfg, p, x, q_chunk=q_chunk), "full", h,
@@ -306,7 +307,7 @@ def init_cache(cfg, B: int, S: int, *, clustered: bool | None = None,
 
 
 def serve_step(cfg, params, cache, tokens, pos: int, *, patches=None,
-               device=None):
+               device=None, mesh=None):
     """Decode one token. tokens: (B, 1) int; pos: the slot (host int).
     Returns (logits (B, vocab) f32, cache), the cache updated in place.
     Whether attention is full or clustered is decided by the cache's
@@ -318,7 +319,10 @@ def serve_step(cfg, params, cache, tokens, pos: int, *, patches=None,
     at ``pos`` taken in place of the token's embedding while pos <
     n_patches (:func:`embed_tokens`). The step runs where params and
     cache lie; host-array tokens go to ``device`` (the card by default),
-    which must be theirs."""
+    which must be theirs. ``mesh``: the cache's cluster-major tables are
+    this rank's clusters (``launch.sharding.cache_specs``), and the
+    k²-attention merges the ranks' partial states; every rank returns the
+    same logits."""
     tokens = host_input(tokens, device)
     if tokens.device != params["embed"].device:
         raise ValueError(f"serve_step: tokens on {tokens.device}, params "
@@ -326,11 +330,11 @@ def serve_step(cfg, params, cache, tokens, pos: int, *, patches=None,
     h = embed_tokens(cfg, params, tokens, patches, start=pos)
     if cfg.first_dense:
         h = tf.run_stack_decode(prefix_config(cfg), params["prefix"],
-                                cache["prefix"], h, pos)
+                                cache["prefix"], h, pos, mesh=mesh)
     h = tf.run_stack_decode(
         cfg, params["stack"], cache["stack"], h, pos,
         shared_p=params.get("shared"), shared_cache=cache.get("shared"),
         layer_decode_fn=tf.cross_layer_decode if cfg.family == "audio"
-        else None)
+        else None, mesh=mesh)
     h = rmsnorm(params["out_norm"], h)
     return unembed(cfg, params, h)[:, 0], cache

@@ -27,8 +27,8 @@ gradients to the router as the reference's do. The serve prefill takes
 :func:`moe_apply_stepped`, which routes each position's tokens as a
 decode step does and runs each expert over its own rows; it alone reads
 the device to the host (the experts' row counts). The reference's
-expert-parallel sharding hint does nothing on one device and is left
-out.
+expert-parallel hint stays at its place (``layers.shard``, which places
+nothing: tensor and expert parallel execution is ROADMAP §1 item 16).
 """
 from __future__ import annotations
 
@@ -36,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.distance import bottom_k
-from .layers import allocator, normal_into, recorded, swiglu, swiglu_init
+from .layers import (TP, P, allocator, normal_into, recorded, shard, swiglu,
+                     swiglu_init)
 
 
 def moe_init(gen: torch.Generator, d: int, f: int, n_experts: int,
@@ -140,6 +141,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     slot_tok = r["slot_tok"]
     valid = slot_tok < T
     xe = xf[torch.clamp(slot_tok, max=T - 1)]              # (E, C, d)
+    xe = shard(xe, P(TP, None, None))   # expert axis over TP (the reference's)
     gate = r["slot_gate"][..., None]
     if recorded(xe, gate, p["wi"], p["wg"], p["wo"]):
         h = _expert_swiglu(p, xe * valid[..., None].to(xe.dtype))

@@ -95,8 +95,9 @@ def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: no family {cfg.family!r} in the reference, whose "
-            f"families {FAMILIES} the port serves and trains; what ROADMAP §1 "
-            f"item 13 leaves is its slice g (LM placement)")
+            f"families {FAMILIES} the port serves, trains and places; ROADMAP "
+            f"§1 item 13 ported all of them, and a family the reference "
+            f"lacks is none of its slices")
 
 
 def layer_init(cfg, gen: torch.Generator, new=None) -> dict:
@@ -386,9 +387,10 @@ def _clusters_of(cache_l):
     return None
 
 
-def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
+def decoder_layer_decode(cfg, p, cache_l, h, pos: int, mesh=None):
     """One-token decode through one layer. cache_l holds this layer's
-    state (views of the stacked cache, updated in place). Returns h."""
+    state (views of the stacked cache, updated in place); ``mesh``: its
+    cluster-major tables are this rank's clusters. Returns h."""
     if cfg.ssm == "rwkv6":
         xt = rmsnorm(p["ln1"], h)
         o, _, _ = ssm_mod.rwkv6_decode(p["mix"], xt, cache_l["xprev"],
@@ -409,7 +411,7 @@ def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
             p["attn"], rmsnorm(p["ln1"], h), cache_l, pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
             rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-            top_p=cfg.cluster_top_p)
+            top_p=cfg.cluster_top_p, mesh=mesh)
     else:
         o, _, _, k_new = attn.gqa_decode(
             p["attn"], rmsnorm(p["ln1"], h), cache_l["k"], cache_l["v"],
@@ -423,7 +425,7 @@ def decoder_layer_decode(cfg, p, cache_l, h, pos: int):
     return h + _mlp_apply(cfg, p, rmsnorm(p["ln2"], h))[0]
 
 
-def cross_layer_decode(cfg, p, cache_l, h, pos: int):
+def cross_layer_decode(cfg, p, cache_l, h, pos: int, mesh=None):
     """Whisper's decoder layer, one-token decode: self attention over the
     cluster-major cache (``"kt"``, K6) or the flat one (with member lists
     when it holds ``"mem"``; as the reference, this branch files no token
@@ -435,7 +437,7 @@ def cross_layer_decode(cfg, p, cache_l, h, pos: int):
         o, _ = attn.gqa_decode_cluster_major(
             p["attn"], x, cache_l, pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-            top_p=cfg.cluster_top_p)
+            top_p=cfg.cluster_top_p, mesh=mesh)
     else:
         o, _, _, _ = attn.gqa_decode(
             p["attn"], x, cache_l["k"], cache_l["v"], pos,
@@ -452,7 +454,7 @@ def cross_layer_decode(cfg, p, cache_l, h, pos: int):
     return h + swiglu(p["mlp"], rmsnorm(p["ln2"], h))
 
 
-def shared_block_decode(cfg, sp, sc_app, h, pos: int):
+def shared_block_decode(cfg, sp, sc_app, h, pos: int, mesh=None):
     """Zamba2's shared block, one-token decode, over its application's
     cache ``sc_app`` (views, updated in place): the flat ``k``/``v``
     (B, Hkv, S, dh), or the cluster-major tables (read-only) and ring.
@@ -462,7 +464,7 @@ def shared_block_decode(cfg, sp, sc_app, h, pos: int):
         o, _ = attn.gqa_decode_cluster_major(
             sp["attn"], x, sc_app, pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-            top_p=cfg.cluster_top_p)
+            top_p=cfg.cluster_top_p, mesh=mesh)
     else:
         o, _, _, _ = attn.gqa_decode(
             sp["attn"], x, sc_app["k"], sc_app["v"], pos, n_heads=cfg.n_heads,
@@ -472,22 +474,24 @@ def shared_block_decode(cfg, sp, sc_app, h, pos: int):
 
 
 def run_stack_decode(cfg, stacked, cache, h, pos: int, shared_p=None,
-                     shared_cache=None, layer_decode_fn=None):
+                     shared_cache=None, layer_decode_fn=None, mesh=None):
     """Decode one token through the layer stack with per-layer caches
     (``cache``: the stacked cache dict, updated in place), each layer
     through ``layer_decode_fn`` (default :func:`decoder_layer_decode`;
     :func:`cross_layer_decode` for an audio stack). With ``shared_p``
     (Zamba2), layer i with i % attn_every == 0 then runs the shared block
     over application i // attn_every of ``shared_cache`` (leading axis
-    the applications). Returns h."""
+    the applications). ``mesh``: the cluster-major tables are this
+    rank's clusters (``attention.cluster_major_decode_attention``).
+    Returns h."""
     fn = layer_decode_fn or decoder_layer_decode
     for i in range(n_layers_of(stacked)):
         cache_l = {f: v[i] for f, v in cache.items()}
-        h = fn(cfg, layer_params(stacked, i), cache_l, h, pos)
+        h = fn(cfg, layer_params(stacked, i), cache_l, h, pos, mesh=mesh)
         if cfg.attn_every and shared_p is not None \
                 and i % cfg.attn_every == 0:
             app = i // cfg.attn_every
             h = shared_block_decode(
                 cfg, shared_p, {f: v[app] for f, v in shared_cache.items()},
-                h, pos)
+                h, pos, mesh=mesh)
     return h

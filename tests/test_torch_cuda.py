@@ -591,6 +591,34 @@ def test_cuda_cluster_attend_splits(cuda, p, bh, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_cluster_attend_wholly_remote_selection(cuda, dtype):
+    """The sharded decode's selections (``attention.
+    cluster_major_decode_attention(mesh=)``): a rank's local table rows,
+    -1 for a cluster another rank holds, and heads whose whole selection
+    is remote. The kernel against its plain version, which skips the
+    same ids: those heads exactly (-inf, 0, 0), the others within the
+    plain version's tolerances."""
+    bh, rows, p = 64, 2 * 8 * 64, 16           # B=2, Hkv=8, kc/4 = 64
+    q, kt, vt, sel, sizes, _ = _attend_inputs(bh, rows, 128, 128, p, dtype,
+                                              11, cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    remote = torch.rand(sel.shape, device=cuda, generator=gen) < 0.75
+    sel = torch.where(remote, -1, sel)
+    sel[5:9] = -1                              # wholly remote heads
+    _build.reset_launches()
+    got = cluster_attend_partial(q, kt, vt, sel, sizes=sizes)
+    torch.cuda.synchronize()
+    assert _build.launches()["cluster_attend"] == 1
+    want = ref.cluster_attend_ref(q, kt, vt, sel, sizes=sizes)
+    _assert_state_close(got, want, ref.cluster_attend_ref(
+        q, kt, vt.abs(), sel, sizes=sizes)[2])
+    for i in range(5, 9):
+        assert torch.isinf(got[0][i]) and got[1][i] == 0
+        assert (got[2][i] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("p", [3, 16, 40])
 def test_cuda_cluster_attend_rows_independent_of_batch(cuda, p, dtype):
     """A row's state does not depend on the rows batched with it: the
