@@ -317,6 +317,15 @@ Phases (any failure exits non-zero, without the final result line):
    step again bit-identical and every rank the same params, the
    compressed step finite; print ms a step, tokens/s and each rank's
    peak memory;
+2v. (after 2u) the analyzer on the card (``repro_torch.analysis.cli.run``,
+   every pass, the report under ``build/``): no blocking finding; every
+   ``LAUNCHES`` key launched by the kernel pass and each of its cases'
+   plans read (``k2_plan_*``) with its dynamic shared memory within the
+   card's opt-in limit; for the resident step and the k²-attention decode
+   step, the audit's host reads equal the profiler's device-to-host
+   copies on the same call; print one JSON line a case (kernel, variant,
+   grid, threads, dynamic shared memory, registers, spill bytes, resident
+   blocks an SM) and the findings by rule (~20 s);
 3. hold each kernel against its plain version on tensors of those runs
    (K2 on the final centers, bit-equal, and the k_n-NN graph on the card
    equal to the CPU's; K1 over the final resident arena with no
@@ -1213,6 +1222,12 @@ def main() -> int:
     _zero_phase(torch, dev, check, smi_line)
     print(f"  phase 2u wall {time.perf_counter() - t0:.1f} s")
 
+    # --- 2v. the analyzer on the card ------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _analysis_phase(torch, dev, check)
+    print(f"  phase 2v wall {time.perf_counter() - t0:.1f} s")
+
     # --- 4. result -------------------------------------------------------
     for kr in kernels:
         kr["status"] = "ok" if kr["launches"] > 0 else "not launched"
@@ -1232,6 +1247,63 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# --- phase 2v: the analyzer on the card -----------------------------------
+
+def _analysis_phase(torch, dev, check) -> None:
+    """Every pass of the port's analyzer on the card, then the audit's
+    host reads held against the profiler's on the same calls."""
+    from repro_torch.analysis import cli, host_sync_audit, registry
+    from repro_torch.kernels import _build
+    out = ROOT / "build" / "k2lint_torch_report.json"
+    _build.reset_launches()
+    rc = cli.run(out=str(out), quiet=True, device=dev)
+    launched = _build.launches()
+    rep = json.loads(out.read_text())
+    kc = rep["passes"]["kernel_contracts"]
+    audit = rep["passes"]["host_sync_audit"]
+    optin = kc["limits"]["smem_optin"]
+    print(f"phase 2v: the analyzer on the card exits {rc}: "
+          f"{audit['entries']} entries, {kc['cases']} kernel cases "
+          f"({kc['kernels']} kernels), counts {rep['counts']}; limits "
+          f"{kc['limits']}")
+    for p in kc["plans"]:
+        print(json.dumps({"plan": f"{p['kernel']}/{p['case']}", **{
+            k: p[k] for k in ("variant", "grid", "launches", "threads",
+                              "smem", "registers", "spill_bytes",
+                              "local_bytes", "blocks_per_sm")}}))
+    by_rule: dict = {}
+    for f in rep["findings"]:
+        by_rule.setdefault(f["rule"], []).append(
+            f"{f['severity']} {f['entry'] or f['file']}: {f['site']}")
+    print(f"phase 2v: findings by rule {json.dumps(by_rule)}")
+    check(rc == 0 and rep["ok"],
+          f"phase 2v: the analyzer exits {rc} with "
+          f"{rep['counts']['blocking']} blocking findings")
+    check(all(launched.values()),
+          f"phase 2v: kernels never launched "
+          f"{[k for k, v in launched.items() if not v]}")
+    check({p["kernel"] for p in kc["plans"]} == set(launched)
+          and len(kc["plans"]) == kc["cases"],
+          f"phase 2v: {len(kc['plans'])} of {kc['cases']} cases' plans read")
+    check(all(p["smem"] <= optin for p in kc["plans"]),
+          f"phase 2v: a plan above the opt-in shared memory {optin}")
+    ents = {e.name: e for e in registry.audit_entries()}
+    for name in ("step/kernels-resident-f32", "lm/decode-k2attn"):
+        fn, args = ents[name].build(dev)
+        torch.cuda.synchronize()
+        box = []
+        prof = _host_reads(torch, lambda: box.append(
+            host_sync_audit.run_built(fn, args, dev, str(ROOT))))
+        got = box[0].count("host_read")
+        print(f"phase 2v: {name}: host reads audit {got}, profiler {prof}, "
+              f"budget {ents[name].host_reads}, in the report "
+              f"{audit['per_entry'][name]['host_reads']}")
+        check(got == prof == ents[name].host_reads
+              == audit["per_entry"][name]["host_reads"],
+              f"phase 2v: {name}'s host reads: audit {got}, profiler "
+              f"{prof}")
 
 
 # --- phases 2r and 2s: LM training ----------------------------------------

@@ -72,6 +72,7 @@ import dataclasses
 import math
 import typing
 
+import numpy as np
 import torch
 
 from ..kernels import quant
@@ -248,8 +249,9 @@ def resident_assignment(state: ResidentState, n: int) -> torch.Tensor:
 
 def f32(v: float) -> float:
     """``v`` rounded to the nearest f32, as a Python float: the value the
-    reference's ``jnp.float32(v)`` holds."""
-    return float(torch.tensor(v, dtype=torch.float32))
+    reference's ``jnp.float32(v)`` holds (host arithmetic: no tensor is
+    made or read)."""
+    return float(np.float32(v))
 
 
 def decay_pow(decay: float, age: torch.Tensor, max_age: int) -> torch.Tensor:

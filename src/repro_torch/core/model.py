@@ -96,7 +96,7 @@ from ..kernels.exact_round import exact_sqnorm, sqrt_rn
 from ..kernels.ops import (bincount, bounded_predict_assign,
                            bounded_predict_assign_int8,
                            bounded_predict_assign_top2, choose_group_bn,
-                           plan_layout_repair, resident_capacity,
+                           compact, plan_layout_repair, resident_capacity,
                            resident_regroup, scatter_drop, segment_sum,
                            segment_sum_f64, segment_sum_ordered)
 from .distance import (bottom_k, chunked_candidate_argmin,
@@ -388,14 +388,16 @@ def _append_plan(state: ResidentState, wb, ab, *, bn: int):
 
 
 def _arena_append(state: ResidentState, xb, wb, ids, plan, *, cap: int,
-                  all_live: bool):
+                  n_live: int):
     """Carry out :func:`_append_plan`'s plan in place: each live row's
     parked source slot (found by inverting ``pid``) becomes a hole, its
     destination slot takes the row, its id and weight. A recycled ring id
     whose slot the window already made a hole has no source: its
-    destination, a free slot, stands in. ``all_live``: no padding lanes
-    (else they are listed first, one host read). Returns (xg, pid, wg,
-    b2c, fill, openb)."""
+    destination, a free slot, stands in. ``n_live``: the batch's live
+    lanes (the caller's count); with padding lanes the live ones are
+    listed first by :func:`ops.compact` at that fixed size, with no host
+    read and no data-dependent shape. Returns (xg, pid, wg, b2c, fill,
+    openb)."""
     active, dst_slot, b2c2, fill2, openb2, _, _ = plan
     s_total = state.pid.shape[0]
     dev = state.pid.device
@@ -403,8 +405,8 @@ def _arena_append(state: ResidentState, xb, wb, ids, plan, *, cap: int,
     slot_of[torch.where(state.pid >= 0, state.pid.long(), cap)] = \
         torch.arange(s_total, device=dev)
     ids_l, dst = ids.long(), dst_slot.long()
-    if not all_live:
-        lanes = torch.nonzero(active).flatten()
+    if n_live < active.shape[0]:
+        lanes = compact(active, n_live, 0)
         ids_l, dst, xb, wb = ids_l[lanes], dst[lanes], xb[lanes], wb[lanes]
     src = slot_of[torch.clamp(ids_l, 0, cap - 1)]
     src = torch.where(src < s_total, src, dst)
@@ -1013,7 +1015,7 @@ class KMeansModel:
             if ok:
                 xg, pid, wg, b2c, fill, openb = _arena_append(
                     st, xb, wb, ids, plan, cap=self.capacity,
-                    all_live=m_live == m)
+                    n_live=m_live)
             else:
                 resorted = True
                 xg, pid, wg, b2c, fill, openb = _arena_resort(

@@ -11,6 +11,14 @@ Every kernel's C entry point returns ``cudaGetLastError()`` after its
 launches; :func:`check` raises on a non-zero code. :data:`LAUNCHES`
 holds one plain integer per kernel, which its wrapper raises by one each
 time it launches the kernel.
+
+Each library also exports, for each kernel, the host-only plan its
+launcher launches by (``k2_plan_<kernel>``, read by :func:`plan`), its
+instantiations (``k2_variants_<kernel>``) and their attributes on the
+card (``k2_attrs_<kernel>``, read by :func:`attrs`); ``csrc/common.cuh``
+describes the plan's fields. The compiler's log of each build (ptxas
+registers, shared memory and spills) is kept beside the library under
+its hashed name (:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -98,7 +107,7 @@ def build_all() -> dict:
         procs = {}
         for name in todo:
             tmp = _target(name).with_suffix(f".tmp{os.getpid()}.so")
-            log = open(BUILD_DIR / f"{name}.log", "w")
+            log = open(_log_path(name), "w")
             cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=log,
@@ -114,17 +123,101 @@ def build_all() -> dict:
             else:
                 os.replace(tmp, _target(name))
         if failed:
-            logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()
-                             for n in failed)
+            logs = "\n".join(_log_path(n).read_text() for n in failed)
             raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
         return took
 
 
+def _log_path(name: str) -> pathlib.Path:
+    """The compiler's log of the library ``_target(name)``: same hash, so
+    a build of other sources or flags never overwrites it."""
+    return _target(name).with_suffix(".log")
+
+
 def build_log(name: str) -> str:
-    """The compiler's output of the last build of ``name`` (ptxas
-    registers, shared memory and spills), or '' when it came from cache."""
-    p = BUILD_DIR / f"{name}.log"
+    """The compiler's output of the build of ``name`` from the current
+    sources and flags (ptxas registers, shared memory and spills), kept
+    with the cached library; '' when no such build left a log."""
+    p = _log_path(name)
     return p.read_text() if p.exists() else ""
+
+
+_PLAN_FIELDS: tuple | None = None
+
+
+def _library(lib: str) -> ctypes.CDLL:
+    if lib not in _libs:
+        build_all()
+        _libs[lib] = ctypes.CDLL(str(_target(lib)))
+    return _libs[lib]
+
+
+def plan(lib: str, kernel: str, argtypes: list, *args) -> dict:
+    """The launch plan ``k2_plan_<kernel>`` of library ``lib`` computes for
+    the shape arguments ``args`` (of C types ``argtypes``, before the
+    output pointer), the one its launcher launches by:
+    {field: int} in the fields ``k2_plan_fields`` names, with ``kernel``,
+    ``lib`` and the launched instantiation's name (``variant_name``)."""
+    global _PLAN_FIELDS
+    if _PLAN_FIELDS is None:
+        names = function(lib, "k2_plan_fields", [])
+        names.restype = ctypes.c_char_p
+        _PLAN_FIELDS = tuple(names().decode().split(","))
+    out = (ctypes.c_longlong * len(_PLAN_FIELDS))()
+    fn = function(lib, f"k2_plan_{kernel}",
+                  list(argtypes) + [ctypes.POINTER(ctypes.c_longlong)])
+    check(fn(*args, out), f"k2_plan_{kernel}")
+    rec = dict(zip(_PLAN_FIELDS, (int(v) for v in out)))
+    rec.update(kernel=kernel, lib=lib,
+               variant_name=variants(lib, kernel)[rec["variant"]])
+    return rec
+
+
+def variants(lib: str, kernel: str) -> list:
+    """The instantiations of ``kernel`` its launcher picks from, in
+    variant order."""
+    fn = function(lib, f"k2_variants_{kernel}", [])
+    fn.restype = ctypes.c_char_p
+    return fn().decode().split(",")
+
+
+def attrs(lib: str, kernel: str, variant: int, threads: int,
+          smem: int) -> dict:
+    """``cudaFuncGetAttributes`` of one instantiation and its resident
+    blocks an SM at ``threads`` and ``smem`` bytes of dynamic shared
+    memory, on the current card."""
+    out = (ctypes.c_longlong * 6)()
+    fn = function(lib, f"k2_attrs_{kernel}",
+                  [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_longlong)])
+    check(fn(variant, threads, smem, out), f"k2_attrs_{kernel}")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "max_dynamic_smem", "blocks_per_sm", "max_threads"),
+                    (int(v) for v in out)))
+
+
+def device_limits() -> dict:
+    """The current card's opt-in shared memory a block, SMs, shared memory
+    an SM and what the runtime reserves a block (``common.cuh``'s query,
+    which every library carries)."""
+    out = (ctypes.c_longlong * 4)()
+    fn = function("exact_round", "k2_device_limits",
+                  [ctypes.POINTER(ctypes.c_longlong)])
+    check(fn(out), "k2_device_limits")
+    return dict(zip(("smem_optin", "sms", "smem_per_sm", "smem_reserved"),
+                    (int(v) for v in out)))
+
+
+_SPILL = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack "
+                    r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                    r"loads")
+
+
+def spills(lib: str) -> dict:
+    """{mangled function: (stack bytes, spill store bytes, spill load
+    bytes)} from ``lib``'s ptxas log ({} when no log is kept)."""
+    return {m.group(1): tuple(int(m.group(i)) for i in (2, 3, 4))
+            for m in _SPILL.finditer(build_log(lib))}
 
 
 def function(lib: str, symbol: str, argtypes: list):
@@ -132,10 +225,7 @@ def function(lib: str, symbol: str, argtypes: list):
     on first use; returns int (a cudaError_t)."""
     key = (lib, symbol)
     if key not in _fns:
-        if lib not in _libs:
-            build_all()
-            _libs[lib] = ctypes.CDLL(str(_target(lib)))
-        fn = getattr(_libs[lib], symbol)
+        fn = getattr(_library(lib), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[key] = fn

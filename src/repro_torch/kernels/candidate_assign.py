@@ -32,6 +32,31 @@ _ARGS_INT8 = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGS_ROWWISE = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def plan_candidate_assign_tiled(nb: int, bn: int, knp: int, d: int, *,
+                                aligned: bool = True) -> dict:
+    """The launch plan of :func:`candidate_assign_tiled` over nb blocks of
+    bn rows and knp candidates of d floats, the one its launcher takes
+    (``_build.plan``); ``aligned``: x and ctab 16-byte aligned."""
+    return _build.plan("candidate_assign", "candidate_assign_tiled",
+                       [ctypes.c_int] * 5, nb, bn, knp, d, int(aligned))
+
+
+def plan_candidate_assign_int8_tiled(nb: int, bn: int, knp: int, d: int,
+                                     r: int, *, aligned: bool = True) -> dict:
+    """The launch plan of :func:`candidate_assign_int8_tiled` (``aligned``:
+    xq and qtab 16-byte aligned)."""
+    return _build.plan("candidate_assign_int8", "candidate_assign_int8_tiled",
+                       [ctypes.c_int] * 6, nb, bn, knp, d, r, int(aligned))
+
+
+def plan_candidate_assign_rowwise(nb: int, bn: int, kn: int, d: int, *,
+                                  aligned: bool = True) -> dict:
+    """The launch plan of :func:`candidate_assign_rowwise` (``aligned``: x
+    and c 16-byte aligned)."""
+    return _build.plan("candidate_assign_rowwise", "candidate_assign_rowwise",
+                       [ctypes.c_int] * 5, nb, bn, kn, d, int(aligned))
+
+
 def pad_candidates(cand: torch.Tensor, bkn: int) -> torch.Tensor:
     """Pad candidate lists (rows, kn) -> (rows, kn_pad) with -1 sentinels
     so kn divides into bkn tiles. -1 columns are masked to PAD_SQDIST."""

@@ -22,6 +22,14 @@ from .ref import center_sqdist_ref
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
+def plan_center_sqdist(k: int, d: int, *, aligned: bool = True) -> dict:
+    """The launch plan of :func:`center_sqdist`'s tile kernel over k
+    centers of d floats (``_build.plan``); ``aligned``: c 16-byte
+    aligned."""
+    return _build.plan("center_knn", "center_sqdist", [ctypes.c_int] * 3, k,
+                       d, int(aligned))
+
+
 def center_sqdist(c: torch.Tensor) -> torch.Tensor:
     """(k, d) f32 -> (k, k) squared distances, clamped at 0. A call runs
     the rows' rounded squared norms, then the tiles, and counts once."""

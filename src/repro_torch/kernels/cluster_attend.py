@@ -47,6 +47,16 @@ def _tickets(device: torch.device, stream: int, bh: int) -> torch.Tensor:
     return t
 
 
+def plan_cluster_attend(bh: int, rows: int, cap: int, dh: int, p: int, *,
+                        bf16: bool, aligned: bool = True) -> dict:
+    """The launch plan of :func:`cluster_attend_partial` over bh query rows
+    and p selected blocks of a (rows, cap, dh) table in bf16 or f32
+    (``_build.plan``); ``aligned``: both tables 16-byte aligned."""
+    return _build.plan("cluster_attend", "cluster_attend",
+                       [ctypes.c_int] * 7, bh, rows, cap, dh, p, int(bf16),
+                       int(aligned))
+
+
 def cluster_attend_partial(q: torch.Tensor, k_table: torch.Tensor,
                            v_table: torch.Tensor, sel: torch.Tensor, *,
                            valid: torch.Tensor | None = None,

@@ -350,26 +350,42 @@ candidate_assign_tiled_kernel(const float* __restrict__ x,
   }
 }
 
-template <int NJ, int RG>
-cudaError_t launch(const float* x, const float* ctab, const float* csqtab,
-                   const int* cidx, const int* rowsel, const int* skip,
-                   const int* prev_a, const float* prev_d1,
-                   const float* prev_d2, int* a, float* d1, float* d2, int nb,
-                   int bn, int knp, int d, cudaStream_t stream) {
-  const size_t smem = Tile<NJ, RG>::SMEM;
-  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)ctab % 16 == 0;
-  auto kern = vec ? candidate_assign_tiled_kernel<NJ, RG, 4>
-                  : candidate_assign_tiled_kernel<NJ, RG, 1>;
-  cudaError_t err = k2_set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  if (nb > 0)
-    kern<<<nb, NT, smem, stream>>>(x, ctab, csqtab, cidx, rowsel, skip,
-                                   prev_a, prev_d1, prev_d2, a, d1, d2, bn,
-                                   knp, d);
-  return cudaGetLastError();
+// The instantiations the launcher picks from, in variant order: the tile
+// (NJ, RG) by bn, each with 16-byte (VEC 4) and 4-byte (VEC 1) copies.
+const decltype(&candidate_assign_tiled_kernel<1, 1, 1>) FNS[] = {
+    candidate_assign_tiled_kernel<1, 1, 1>, candidate_assign_tiled_kernel<1, 1, 4>,
+    candidate_assign_tiled_kernel<1, 2, 1>, candidate_assign_tiled_kernel<1, 2, 4>,
+    candidate_assign_tiled_kernel<2, 2, 1>, candidate_assign_tiled_kernel<2, 2, 4>,
+    candidate_assign_tiled_kernel<2, 4, 1>, candidate_assign_tiled_kernel<2, 4, 4>,
+    candidate_assign_tiled_kernel<2, 8, 1>, candidate_assign_tiled_kernel<2, 8, 4>};
+const size_t SMEMS[] = {Tile<1, 1>::SMEM, Tile<1, 2>::SMEM, Tile<2, 2>::SMEM,
+                        Tile<2, 4>::SMEM, Tile<2, 8>::SMEM};
+
+// The launch of nb point blocks of bn rows over knp candidates of d floats;
+// aligned: x and ctab are 16-byte aligned. One CUDA block a point block.
+cudaError_t plan(int nb, int bn, int knp, int d, bool aligned, long long* p) {
+  if (nb < 0 || bn < 1 || bn > BN_MAX || knp < 1 || d < 0)
+    return cudaErrorInvalidValue;
+  const int tile = bn <= 8 ? 0 : bn <= 16 ? 1 : bn <= 32 ? 2 : bn <= 64 ? 3 : 4;
+  const bool vec = d % 4 == 0 && aligned;
+  k2_plan_init(p, nb, 1, 1, NT, SMEMS[tile], 2 * tile + (vec ? 1 : 0),
+               vec ? 1 : 0);
+  p[K2P_ROWS] = (long long)nb * bn;
+  p[K2P_ROW_EXTENT] = bn;
+  p[K2P_INNER] = knp;
+  p[K2P_INNER_TILE] = KC;
+  return cudaSuccess;
 }
 }  // namespace
+
+K2_DESCRIBE(candidate_assign_tiled, FNS,
+            "NJ1RG1/v1,NJ1RG1/v4,NJ1RG2/v1,NJ1RG2/v4,NJ2RG2/v1,NJ2RG2/v4,"
+            "NJ2RG4/v1,NJ2RG4/v4,NJ2RG8/v1,NJ2RG8/v4")
+
+K2_EXPORT int k2_plan_candidate_assign_tiled(int nb, int bn, int knp, int d,
+                                             int aligned, long long* out) {
+  return (int)plan(nb, bn, knp, d, aligned != 0, out);
+}
 
 // x: (nb*bn, d) f32; ctab: (T, knp, d) f32; csqtab: (T, knp) f32;
 // cidx: (T, knp) i32; rowsel, skip: (nb,) i32; prev_a i32, prev_d1/d2 f32
@@ -379,12 +395,16 @@ K2_EXPORT int k2_candidate_assign_tiled(
     const int* rowsel, const int* skip, const int* prev_a, const float* prev_d1,
     const float* prev_d2, int* a, float* d1, float* d2, int nb, int bn, int knp,
     int d, cudaStream_t stream) {
-  if (bn < 1 || bn > BN_MAX || knp < 1) return (int)cudaErrorInvalidValue;
-  auto go = bn <= 8    ? launch<1, 1>
-            : bn <= 16 ? launch<1, 2>
-            : bn <= 32 ? launch<2, 2>
-            : bn <= 64 ? launch<2, 4>
-                       : launch<2, 8>;
-  return (int)go(x, ctab, csqtab, cidx, rowsel, skip, prev_a, prev_d1,
-                 prev_d2, a, d1, d2, nb, bn, knp, d, stream);
+  long long p[K2P_WORDS];
+  cudaError_t err = plan(nb, bn, knp, d,
+                         k2_aligned16(x) && k2_aligned16(ctab), p);
+  if (err != cudaSuccess) return (int)err;
+  auto kern = FNS[p[K2P_VARIANT]];
+  err = k2_set_smem(kern, (size_t)p[K2P_SMEM]);
+  if (err != cudaSuccess) return (int)err;
+  if (nb > 0)
+    kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+           stream>>>(x, ctab, csqtab, cidx, rowsel, skip, prev_a, prev_d1,
+                     prev_d2, a, d1, d2, bn, knp, d);
+  return (int)cudaGetLastError();
 }

@@ -366,42 +366,57 @@ candidate_assign_int8_kernel(const int8_t* __restrict__ xq,
   }
 }
 
-template <int VB, int NTW>
-cudaError_t launch(const int8_t* xq, const float* xsc, const float* xerr,
-                   const int8_t* qtab, const float* qsc, const float* qerr,
-                   const float* csqtab, const int* rowsel, const int* skip,
-                   int* surv, int* nsv, float* lbm, int nb, int bn, int knp,
-                   int d, int r, cudaStream_t stream) {
+// The instantiations the launcher picks from, in variant order: 16-byte
+// (VB 16) or byte copies, by units of 8 NTW rows (NTW by bn).
+const decltype(&candidate_assign_int8_kernel<16, 1>) FNS[] = {
+    candidate_assign_int8_kernel<16, 1>, candidate_assign_int8_kernel<16, 2>,
+    candidate_assign_int8_kernel<16, 4>, candidate_assign_int8_kernel<1, 1>,
+    candidate_assign_int8_kernel<1, 2>, candidate_assign_int8_kernel<1, 4>};
+const size_t MAX_BYTES[] = {Unit<1>::max_block_bytes(),
+                            Unit<2>::max_block_bytes(),
+                            Unit<4>::max_block_bytes()};
+
+template <int NTW>
+void plan_unit(int bn, int knp, long long* p) {
   using U = Unit<NTW>;
-  auto kernel = candidate_assign_int8_kernel<VB, NTW>;
-  cudaError_t err;
-  k2_resident_blocks(kernel, NT, U::max_block_bytes(), err);  // opts in once
-  if (err != cudaSuccess) return err;
   const int win = U::one_pass(knp) ? knp : KC;
-  const long long units = (long long)nb * ((bn + U::ROWS - 1) / U::ROWS);
-  kernel<<<(unsigned)((units + NW - 1) / NW), NT, NW * U::warp_bytes(win),
-           stream>>>(xq, xsc, xerr, qtab, qsc, qerr, csqtab, rowsel, skip,
-                     surv, nsv, lbm, bn, knp, d, r, win, units);
-  return cudaGetLastError();
+  p[K2P_SMEM] = (long long)(NW * U::warp_bytes(win));
+  p[K2P_COL_EXTENT] = U::ROWS;
+  p[K2P_INNER_TILE] = win;
 }
 
-template <int VB>
-cudaError_t launch_rows(const int8_t* xq, const float* xsc, const float* xerr,
-                        const int8_t* qtab, const float* qsc,
-                        const float* qerr, const float* csqtab,
-                        const int* rowsel, const int* skip, int* surv,
-                        int* nsv, float* lbm, int nb, int bn, int knp, int d,
-                        int r, cudaStream_t stream) {
-  if (bn <= 8)
-    return launch<VB, 1>(xq, xsc, xerr, qtab, qsc, qerr, csqtab, rowsel, skip,
-                         surv, nsv, lbm, nb, bn, knp, d, r, stream);
-  if (bn <= 16)
-    return launch<VB, 2>(xq, xsc, xerr, qtab, qsc, qerr, csqtab, rowsel, skip,
-                         surv, nsv, lbm, nb, bn, knp, d, r, stream);
-  return launch<VB, 4>(xq, xsc, xerr, qtab, qsc, qerr, csqtab, rowsel, skip,
-                       surv, nsv, lbm, nb, bn, knp, d, r, stream);
+// The launch over nb point blocks of bn rows and knp candidates of d bytes;
+// aligned: xq and qtab are 16-byte aligned. A warp takes a unit of 8 NTW
+// rows of one point block, NW units a CUDA block.
+cudaError_t plan(int nb, int bn, int knp, int d, int r, bool aligned,
+                 long long* p) {
+  if (bn < 1 || knp < 1 || d < 0 || r < 0 || nb < 0)
+    return cudaErrorInvalidValue;
+  const int ntw = bn <= 8 ? 1 : bn <= 16 ? 2 : 4;
+  const int rows_unit = 8 * ntw;
+  const long long units = (long long)nb * ((bn + rows_unit - 1) / rows_unit);
+  const bool vec = d % 16 == 0 && aligned;
+  k2_plan_init(p, (units + NW - 1) / NW, 1, 1, NT, 0,
+               (vec ? 0 : 3) + (ntw == 1 ? 0 : ntw == 2 ? 1 : 2), vec ? 1 : 0);
+  if (ntw == 1) plan_unit<1>(bn, knp, p);
+  else if (ntw == 2) plan_unit<2>(bn, knp, p);
+  else plan_unit<4>(bn, knp, p);
+  p[K2P_ROWS] = nb;
+  p[K2P_COLS] = bn;
+  p[K2P_INNER] = knp;
+  p[K2P_PER_BLOCK] = NW;
+  return cudaSuccess;
 }
 }  // namespace
+
+K2_DESCRIBE(candidate_assign_int8_tiled, FNS,
+            "VB16NTW1,VB16NTW2,VB16NTW4,VB1NTW1,VB1NTW2,VB1NTW4")
+
+K2_EXPORT int k2_plan_candidate_assign_int8_tiled(int nb, int bn, int knp,
+                                                  int d, int r, int aligned,
+                                                  long long* out) {
+  return (int)plan(nb, bn, knp, d, r, aligned != 0, out);
+}
 
 // xq: (nb*bn, d) int8; xsc, xerr: (nb*bn,) f32; qtab: (T, knp, d) int8;
 // qsc, qerr, csqtab: (T, knp) f32; rowsel, skip: (nb,) i32; outputs surv
@@ -411,13 +426,20 @@ K2_EXPORT int k2_candidate_assign_int8_tiled(
     const float* qsc, const float* qerr, const float* csqtab,
     const int* rowsel, const int* skip, int* surv, int* nsv, float* lbm,
     int nb, int bn, int knp, int d, int r, cudaStream_t stream) {
-  if (bn < 1 || knp < 1 || d < 0 || r < 0) return (int)cudaErrorInvalidValue;
+  long long p[K2P_WORDS];
+  cudaError_t err = plan(nb, bn, knp, d, r,
+                         k2_aligned16(xq) && k2_aligned16(qtab), p);
+  if (err != cudaSuccess) return (int)err;
   if (nb <= 0) return (int)cudaGetLastError();
-  const uintptr_t both = (uintptr_t)xq | (uintptr_t)qtab;
-  if (d % 16 == 0 && both % 16 == 0)
-    return (int)launch_rows<16>(xq, xsc, xerr, qtab, qsc, qerr, csqtab,
-                                rowsel, skip, surv, nsv, lbm, nb, bn, knp, d,
-                                r, stream);
-  return (int)launch_rows<1>(xq, xsc, xerr, qtab, qsc, qerr, csqtab, rowsel,
-                             skip, surv, nsv, lbm, nb, bn, knp, d, r, stream);
+  auto kernel = FNS[p[K2P_VARIANT]];
+  // opts into the largest window's shared memory, once a device
+  k2_resident_blocks(kernel, NT, MAX_BYTES[p[K2P_VARIANT] % 3], err);
+  if (err != cudaSuccess) return (int)err;
+  const int units_row = (int)p[K2P_COL_EXTENT];
+  const long long units = (long long)nb * ((bn + units_row - 1) / units_row);
+  kernel<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+           stream>>>(xq, xsc, xerr, qtab, qsc, qerr, csqtab, rowsel, skip,
+                     surv, nsv, lbm, bn, knp, d, r, (int)p[K2P_INNER_TILE],
+                     units);
+  return (int)cudaGetLastError();
 }

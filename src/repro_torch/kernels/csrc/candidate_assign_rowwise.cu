@@ -343,7 +343,37 @@ candidate_assign_rowwise_kernel(const float* __restrict__ x,
   }
 }
 
+// The instantiations the launcher picks from, in variant order: 4-byte
+// (VEC 1) and 16-byte (VEC 4) copies.
+const decltype(&candidate_assign_rowwise_kernel<1>) FNS[] = {
+    candidate_assign_rowwise_kernel<1>, candidate_assign_rowwise_kernel<4>};
+
+// The launch over nb point blocks of bn rows and lists of kn centers of d
+// floats; aligned: x and c are 16-byte aligned. A CUDA block takes BR rows
+// of one point block: (nb, ceil(bn / BR)) blocks.
+cudaError_t plan(int nb, int bn, int kn, int d, bool aligned, long long* p) {
+  if (nb < 0 || bn < 1 || kn < 1 || kn >= (1 << 24) || d < 0 ||
+      (bn + BR - 1) / BR > 65535)
+    return cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && aligned;
+  k2_plan_init(p, nb, (bn + BR - 1) / BR, 1, NT, SMEM, vec ? 1 : 0,
+               vec ? 1 : 0);
+  p[K2P_ROWS] = nb;
+  p[K2P_COLS] = bn;
+  p[K2P_COL_EXTENT] = BR;
+  p[K2P_INNER] = kn;
+  p[K2P_INNER_TILE] = KC;
+  return cudaSuccess;
+}
+
 }  // namespace
+
+K2_DESCRIBE(candidate_assign_rowwise, FNS, "VEC1,VEC4")
+
+K2_EXPORT int k2_plan_candidate_assign_rowwise(int nb, int bn, int kn, int d,
+                                               int aligned, long long* out) {
+  return (int)plan(nb, bn, kn, d, aligned != 0, out);
+}
 
 // x: (nb*bn, d) f32; c: (k, d) f32; csq: (k,) f32 exactly rounded |c|^2;
 // cand: (nb, kn) i32 center ids in [0, k); skip: (nb,) i32; prev_a i32,
@@ -355,17 +385,16 @@ K2_EXPORT int k2_candidate_assign_rowwise(const float* x, const float* c,
                                           const float* prev_d, int* a,
                                           float* dout, int nb, int bn, int kn,
                                           int d, cudaStream_t stream) {
-  if (bn < 1 || kn < 1 || kn >= (1 << 24) || d < 0 ||
-      (bn + BR - 1) / BR > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = d % 4 == 0 && k2_aligned16(x) && k2_aligned16(c);
-  auto kern = vec ? candidate_assign_rowwise_kernel<4>
-                  : candidate_assign_rowwise_kernel<1>;
-  cudaError_t err;
-  k2_resident_blocks(kern, NT, SMEM, err);  // opts in once per device
+  long long p[K2P_WORDS];
+  cudaError_t err = plan(nb, bn, kn, d, k2_aligned16(x) && k2_aligned16(c),
+                         p);
+  if (err != cudaSuccess) return (int)err;
+  auto kern = FNS[p[K2P_VARIANT]];
+  k2_resident_blocks(kern, NT, (size_t)p[K2P_SMEM], err);  // opts in once
   if (err != cudaSuccess) return (int)err;
   if (nb > 0)
-    kern<<<dim3(nb, (bn + BR - 1) / BR), NT, SMEM, stream>>>(
-        x, c, csq, cand, skip, prev_a, prev_d, a, dout, bn, kn, d);
+    kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+           stream>>>(x, c, csq, cand, skip, prev_a, prev_d, a, dout, bn, kn,
+                     d);
   return (int)cudaGetLastError();
 }

@@ -286,32 +286,53 @@ center_sqdist_kernel(const float* __restrict__ c,
 // within that spread.
 constexpr int CFG_BT = 32, CFG_S = 2, CFG_DC = 64;
 
-template <int VEC>
-int launch(const float* c, const float* csq, float* out, int k, int d,
-           cudaStream_t stream) {
-  using T = Tile<CFG_BT, CFG_S, CFG_DC>;
-  auto* kernel = &center_sqdist_kernel<CFG_BT, CFG_S, CFG_DC, VEC>;
-  cudaError_t err;
-  k2_resident_blocks(kernel, T::NT, T::SMEM, err);  // opts into its smem
-  if (err != cudaSuccess) return (int)err;
-  const int nt = (k + CFG_BT - 1) / CFG_BT;
-  kernel<<<(unsigned)((long long)nt * (nt + 1) / 2), T::NT, T::SMEM,
-           stream>>>(c, csq, out, k, d, nt);
-  return (int)cudaGetLastError();
+using CfgTile = Tile<CFG_BT, CFG_S, CFG_DC>;
+// The instantiations the launcher picks from, in variant order: 4-byte
+// (VEC 1) and 16-byte (VEC 4) copies.
+const decltype(&center_sqdist_kernel<CFG_BT, CFG_S, CFG_DC, 1>) FNS[] = {
+    center_sqdist_kernel<CFG_BT, CFG_S, CFG_DC, 1>,
+    center_sqdist_kernel<CFG_BT, CFG_S, CFG_DC, 4>};
+
+// The tile launch over k centers of d floats (after the norms' launch);
+// aligned: c is 16-byte aligned. One CUDA block a tile on or above the
+// diagonal, nt (nt + 1) / 2 of the nt x nt tiles of BT x BT.
+cudaError_t plan(int k, int d, bool aligned, long long* p) {
+  if (k < 0 || d < 0) return cudaErrorInvalidValue;
+  const long long nt = (k + CFG_BT - 1) / CFG_BT;
+  const bool vec = d % 4 == 0 && aligned;
+  k2_plan_init(p, nt * (nt + 1) / 2, 1, 1, CfgTile::NT, CfgTile::SMEM,
+               vec ? 1 : 0, vec ? 1 : 0);
+  p[K2P_ROWS] = nt * (nt + 1) / 2;     // the triangle's tiles
+  p[K2P_INNER] = d;
+  p[K2P_INNER_TILE] = CFG_DC;
+  return cudaSuccess;
 }
 }  // namespace
+
+K2_DESCRIBE(center_sqdist, FNS, "BT32S2DC64/v1,BT32S2DC64/v4")
+
+K2_EXPORT int k2_plan_center_sqdist(int k, int d, int aligned,
+                                    long long* out) {
+  return (int)plan(k, d, aligned != 0, out);
+}
 
 // c: (k, d) f32 contiguous; csq: (k,) f32 scratch (the rows' correctly
 // rounded squared norms); out: (k, k) f32.
 K2_EXPORT int k2_center_sqdist(const float* c, float* csq, float* out, int k,
                                int d, cudaStream_t stream) {
-  if (k < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  long long p[K2P_WORDS];
+  cudaError_t err = plan(k, d, k2_aligned16(c), p);
+  if (err != cudaSuccess) return (int)err;
   if (k == 0) return (int)cudaGetLastError();
   k2_exact_sqnorm_kernel<NT_NORM>
       <<<(unsigned)((k + NT_NORM / 32 - 1) / (NT_NORM / 32)), NT_NORM, 0,
          stream>>>(c, csq, k, d);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return d % 4 == 0 && k2_aligned16(c) ? launch<4>(c, csq, out, k, d, stream)
-                                    : launch<1>(c, csq, out, k, d, stream);
+  auto kernel = FNS[p[K2P_VARIANT]];
+  k2_resident_blocks(kernel, CfgTile::NT, CfgTile::SMEM, err);  // opts in
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+           stream>>>(c, csq, out, k, d, (int)((k + CFG_BT - 1) / CFG_BT));
+  return (int)cudaGetLastError();
 }

@@ -369,17 +369,46 @@ int plan_splits(int p) {
   return s;
 }
 
+// The instantiations the launcher picks from, in variant order: f32 tables
+// in 16- or 4-byte pieces, bf16 tables in 16- or 2-byte pieces.
+const void* const FNS[] = {
+    (const void*)cluster_attend_kernel<float, 16>,
+    (const void*)cluster_attend_kernel<float, 4>,
+    (const void*)cluster_attend_kernel<__nv_bfloat16, 16>,
+    (const void*)cluster_attend_kernel<__nv_bfloat16, 2>};
+
+// The launch over bh query rows, each over p selected blocks of a (rows,
+// cap, dh) table; aligned: both tables are 16-byte aligned. One CUDA block
+// a (row, split), S splits a row, each walking its share of the p blocks.
+cudaError_t plan(int bh, int rows, int cap, int dh, int p, int table_bf16,
+                 bool aligned, long long* out) {
+  if (bh < 0 || rows < 0 || cap < 0 || dh < 1 || dh > MAX_DH || p < 0)
+    return cudaErrorInvalidValue;
+  const int S = plan_splits(p);
+  const int rb = dh * (table_bf16 ? 2 : 4);
+  const bool vec = rb % 16 == 0 && aligned;
+  k2_plan_init(out, (long long)bh * S, 1, 1, NT,
+               (size_t)NW * STAGES * 2 * TILE_BYTES +
+                   NW * (dh + 2) * sizeof(float),
+               (table_bf16 ? 2 : 0) + (vec ? 0 : 1), vec ? 1 : 0);
+  out[K2P_ROWS] = bh;
+  out[K2P_COLS] = S;
+  out[K2P_INNER] = p;
+  out[K2P_INNER_TILE] = S;
+  return cudaSuccess;
+}
+
 template <typename T, int VB>
-cudaError_t launch(const float* q, const void* kt, const void* vt,
-                   const int* vs, int by_sizes, const int* sel, float* m,
-                   float* l, float* acc, float* ws, int* tickets, int bh,
-                   int rows, int cap, int dh, int p, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const long long* pl, const float* q, const void* kt,
+                   const void* vt, const int* vs, int by_sizes,
+                   const int* sel, float* m, float* l, float* acc, float* ws,
+                   int* tickets, int rows, int cap, int dh, int p,
+                   float scale, cudaStream_t stream) {
   auto kernel = cluster_attend_kernel<T, VB>;
   cudaError_t err;
   k2_resident_blocks(kernel, NT, SMEM_MAX, err);  // opts in once
   if (err != cudaSuccess) return err;
-  const int S = plan_splits(p);
+  const int S = (int)pl[K2P_COLS];
   const int rb = dh * (int)sizeof(T), cpr = rb / VB;
   Lanes ln;
   ln.lpr = 1;
@@ -388,30 +417,21 @@ cudaError_t launch(const float* q, const void* kt, const void* vt,
   int trw = 1;
   while (trw * 2 * rb <= TILE_BYTES) trw *= 2;
   ln.trw = min(trw, MAX_STEPS * (32 / ln.lpr));
-  const size_t smem =
-      (size_t)NW * STAGES * 2 * TILE_BYTES + NW * (dh + 2) * sizeof(float);
-  kernel<<<(unsigned)((long long)bh * S), NT, smem, stream>>>(
-      q, static_cast<const T*>(kt), static_cast<const T*>(vt), vs, by_sizes,
-      sel, m, l, acc, ws, tickets, rows, cap, dh, p, scale, S, ln);
+  kernel<<<k2_grid(pl), (unsigned)pl[K2P_THREADS], (size_t)pl[K2P_SMEM],
+           stream>>>(q, static_cast<const T*>(kt), static_cast<const T*>(vt),
+                     vs, by_sizes, sel, m, l, acc, ws, tickets, rows, cap, dh,
+                     p, scale, S, ln);
   return cudaGetLastError();
 }
-
-template <typename T>
-cudaError_t launch_any(const float* q, const void* kt, const void* vt,
-                       const int* vs, int by_sizes, const int* sel, float* m,
-                       float* l, float* acc, float* ws, int* tickets, int bh,
-                       int rows, int cap, int dh, int p, float scale,
-                       cudaStream_t stream) {
-  const int rb = dh * (int)sizeof(T);
-  const uintptr_t both = (uintptr_t)kt | (uintptr_t)vt;
-  if (rb % 16 == 0 && both % 16 == 0)
-    return launch<T, 16>(q, kt, vt, vs, by_sizes, sel, m, l, acc, ws, tickets,
-                         bh, rows, cap, dh, p, scale, stream);
-  return launch<T, (int)sizeof(T)>(q, kt, vt, vs, by_sizes, sel, m, l, acc,
-                                   ws, tickets, bh, rows, cap, dh, p, scale,
-                                   stream);
-}
 }  // namespace
+
+K2_DESCRIBE(cluster_attend, FNS, "f32/VB16,f32/VB4,bf16/VB16,bf16/VB2")
+
+K2_EXPORT int k2_plan_cluster_attend(int bh, int rows, int cap, int dh, int p,
+                                     int table_bf16, int aligned,
+                                     long long* out) {
+  return (int)plan(bh, rows, cap, dh, p, table_bf16, aligned != 0, out);
+}
 
 // q: (bh, dh) f32; kt, vt: (rows, cap, dh) bf16 (table_bf16 = 1) or f32;
 // vs: (rows,) int32 sizes when by_sizes, else (rows, cap) int32 validity;
@@ -428,14 +448,27 @@ K2_EXPORT int k2_cluster_attend(const float* q, const void* kt,
                                 int rows, int cap, int dh, int p,
                                 int table_bf16, float scale,
                                 cudaStream_t stream) {
-  if (bh < 0 || rows < 0 || cap < 0 || dh < 1 || dh > MAX_DH || p < 0)
-    return (int)cudaErrorInvalidValue;
+  long long pl[K2P_WORDS];
+  cudaError_t err = plan(bh, rows, cap, dh, p, table_bf16,
+                         k2_aligned16(kt) && k2_aligned16(vt), pl);
+  if (err != cudaSuccess) return (int)err;
   if (bh == 0) return (int)cudaGetLastError();
-  return table_bf16
-             ? (int)launch_any<__nv_bfloat16>(q, kt, vt, vs, by_sizes, sel, m,
-                                              l, acc, ws, tickets, bh, rows,
-                                              cap, dh, p, scale, stream)
-             : (int)launch_any<float>(q, kt, vt, vs, by_sizes, sel, m, l, acc,
-                                      ws, tickets, bh, rows, cap, dh, p,
-                                      scale, stream);
+  switch (pl[K2P_VARIANT]) {
+    case 0:
+      return (int)launch<float, 16>(pl, q, kt, vt, vs, by_sizes, sel, m, l,
+                                    acc, ws, tickets, rows, cap, dh, p, scale,
+                                    stream);
+    case 1:
+      return (int)launch<float, 4>(pl, q, kt, vt, vs, by_sizes, sel, m, l,
+                                   acc, ws, tickets, rows, cap, dh, p, scale,
+                                   stream);
+    case 2:
+      return (int)launch<__nv_bfloat16, 16>(pl, q, kt, vt, vs, by_sizes, sel,
+                                            m, l, acc, ws, tickets, rows, cap,
+                                            dh, p, scale, stream);
+    default:
+      return (int)launch<__nv_bfloat16, 2>(pl, q, kt, vt, vs, by_sizes, sel,
+                                           m, l, acc, ws, tickets, rows, cap,
+                                           dh, p, scale, stream);
+  }
 }

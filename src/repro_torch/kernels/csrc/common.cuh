@@ -58,6 +58,123 @@ static long long k2_resident_blocks(K kernel, int nt, size_t smem,
   return slots;
 }
 
+// ---------------------------------------------------------------------------
+// Launch plans. Each launcher takes its grid, block, dynamic shared memory
+// and template variant from a host-only plan function of its library, which
+// is also exported as k2_plan_<kernel>(<shape args>, long long* out): the
+// analyzer (repro_torch.analysis.kernel_contracts) reads the configuration
+// the launcher launches, from the one place that decides it. A plan is
+// K2P_WORDS long longs, in the order K2_PLAN_FIELDS names them:
+//   grid_x, grid_y, grid_z: the grid of one launch; launches: how many such
+//     launches the call makes (exact_cross splits a batch beyond 65,535);
+//   threads, smem: threads a block and bytes of dynamic shared memory;
+//   variant: the instantiation launched, an index into k2_variants_<kernel>;
+//   vec: 1 when the copies run in 16-byte pieces, 0 when the launcher fell
+//     back to its scalar path (shape or alignment), -1 when it has none;
+//   rows, row_extent, cols, col_extent, batch: the output a launch must
+//     cover (rows x cols, batch entries) and the rows and columns one unit
+//     of work covers; units = ceil(rows / row_extent) ceil(cols /
+//     col_extent) batch;
+//   inner, inner_tile: the extent each unit walks (candidates, d) and the
+//     tile it walks it in;
+//   per_block: units one block covers in one pass;
+//   stride: units a pass of the grid covers, for a persistent kernel whose
+//     blocks stride over the units (0: each block covers its own);
+//   resident: the resident blocks (all SMs) a persistent or residency-
+//     sized plan assumed, 0 when the plan does not depend on them.
+enum {
+  K2P_GRID_X, K2P_GRID_Y, K2P_GRID_Z, K2P_LAUNCHES, K2P_THREADS, K2P_SMEM,
+  K2P_VARIANT, K2P_VEC, K2P_ROWS, K2P_ROW_EXTENT, K2P_COLS, K2P_COL_EXTENT,
+  K2P_BATCH, K2P_INNER, K2P_INNER_TILE, K2P_PER_BLOCK, K2P_STRIDE,
+  K2P_RESIDENT, K2P_WORDS
+};
+
+K2_EXPORT const char* k2_plan_fields() {
+  return "grid_x,grid_y,grid_z,launches,threads,smem,variant,vec,rows,"
+         "row_extent,cols,col_extent,batch,inner,inner_tile,per_block,"
+         "stride,resident";
+}
+
+// A plan of one launch of (gx, gy, gz) blocks of `threads` with `smem`
+// bytes, everything else one unit a block over rows x 1 x 1.
+static inline void k2_plan_init(long long* p, long long gx, long long gy,
+                                long long gz, int threads, size_t smem,
+                                int variant, int vec) {
+  for (int i = 0; i < K2P_WORDS; ++i) p[i] = 0;
+  p[K2P_GRID_X] = gx;
+  p[K2P_GRID_Y] = gy;
+  p[K2P_GRID_Z] = gz;
+  p[K2P_LAUNCHES] = 1;
+  p[K2P_THREADS] = threads;
+  p[K2P_SMEM] = (long long)smem;
+  p[K2P_VARIANT] = variant;
+  p[K2P_VEC] = vec;
+  p[K2P_ROW_EXTENT] = p[K2P_COLS] = p[K2P_COL_EXTENT] = p[K2P_BATCH] = 1;
+  p[K2P_INNER_TILE] = p[K2P_PER_BLOCK] = 1;
+}
+
+static inline dim3 k2_grid(const long long* p) {
+  return dim3((unsigned)p[K2P_GRID_X], (unsigned)p[K2P_GRID_Y],
+              (unsigned)p[K2P_GRID_Z]);
+}
+
+// What the card can hold: out[0] the opt-in dynamic shared memory a block
+// may have, out[1] the SMs, out[2] the shared memory an SM has, out[3] the
+// shared memory the runtime reserves a block.
+K2_EXPORT int k2_device_limits(long long* out) {
+  int dev = 0, v[4] = {0, 0, 0, 0};
+  cudaError_t err = cudaGetDevice(&dev);
+  const cudaDeviceAttr at[4] = {cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                cudaDevAttrMultiProcessorCount,
+                                cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = cudaDeviceGetAttribute(&v[i], at[i], dev);
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return (int)err;
+}
+
+// A kernel's attributes at a plan's block and shared memory: out[0]
+// registers a thread, out[1] local (spill and stack) bytes a thread,
+// out[2] static shared memory, out[3] the dynamic shared memory it is
+// opted into (raised to smem first when below it, never lowered), out[4]
+// blocks resident an SM at (threads, smem), out[5] its largest block.
+static inline int k2_func_attrs(const void* fn, int threads, size_t smem,
+                                long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess && (size_t)a.maxDynamicSharedSizeBytes < smem) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  }
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (long long)a.localSizeBytes;
+  out[2] = (long long)a.sharedSizeBytes;
+  out[3] = a.maxDynamicSharedSizeBytes;
+  out[4] = per_sm;
+  out[5] = a.maxThreadsPerBlock;
+  return 0;
+}
+
+// k2_variants_<kernel>(): the instantiations, comma-separated, in variant
+// order; k2_attrs_<kernel>(variant, threads, smem, out): k2_func_attrs of
+// one of them. fns is the launcher's array of kernel pointers.
+#define K2_DESCRIBE(kernel, fns, names)                                      \
+  K2_EXPORT const char* k2_variants_##kernel() { return names; }            \
+  K2_EXPORT int k2_attrs_##kernel(int variant, int threads, long long smem, \
+                                  long long* out) {                         \
+    if (variant < 0 || variant >= (int)(sizeof(fns) / sizeof(fns[0])))     \
+      return (int)cudaErrorInvalidValue;                                    \
+    return k2_func_attrs((const void*)fns[variant], threads, (size_t)smem,  \
+                         out);                                              \
+  }
+
 // cp.async of one 16- or 4-byte piece into shared memory; with valid
 // false it reads nothing and fills the piece with zeros. Then commit a
 // group, and wait until at most N groups are in flight. (K2, exact_cross

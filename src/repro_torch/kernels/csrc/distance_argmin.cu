@@ -348,27 +348,47 @@ distance_argmin_kernel(const float* __restrict__ x,
   }
 }
 
-template <int VEC>
-int launch(const float* x, const float* c, const float* csq, int* a,
-           float* dmin, int n, int k, int d, cudaStream_t stream) {
-  const cudaError_t err =
-      k2_set_smem(distance_argmin_kernel<VEC>, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  distance_argmin_kernel<VEC><<<(n + BM - 1) / BM, NT, SMEM_BYTES, stream>>>(
-      x, c, csq, a, dmin, n, k, d);
-  return (int)cudaGetLastError();
+// The instantiations the launcher picks from, in variant order: 4-byte
+// (VEC 1) and 16-byte (VEC 4) copies.
+const decltype(&distance_argmin_kernel<1>) FNS[] = {distance_argmin_kernel<1>,
+                                                    distance_argmin_kernel<4>};
+
+// The launch over n points and k centers of d floats; aligned: x and c are
+// 16-byte aligned. One CUDA block a tile of BM points, walking the centers
+// BN at a time.
+cudaError_t plan(int n, int k, int d, bool aligned, long long* p) {
+  if (n < 0 || k < 1 || d < 0) return cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && aligned;
+  k2_plan_init(p, (n + BM - 1) / BM, 1, 1, NT, SMEM_BYTES, vec ? 1 : 0,
+               vec ? 1 : 0);
+  p[K2P_ROWS] = n;
+  p[K2P_ROW_EXTENT] = BM;
+  p[K2P_INNER] = k;
+  p[K2P_INNER_TILE] = BN;
+  return cudaSuccess;
 }
 }  // namespace
+
+K2_DESCRIBE(distance_argmin, FNS, "VEC1,VEC4")
+
+K2_EXPORT int k2_plan_distance_argmin(int n, int k, int d, int aligned,
+                                      long long* out) {
+  return (int)plan(n, k, d, aligned != 0, out);
+}
 
 // x: (n, d) f32; c: (k, d) f32; csq: (k,) f32 exactly rounded |c|^2;
 // outputs a (n,) i32 and dmin (n,) f32. k >= 1.
 K2_EXPORT int k2_distance_argmin(const float* x, const float* c,
                                  const float* csq, int* a, float* dmin, int n,
                                  int k, int d, cudaStream_t stream) {
-  if (n < 0 || k < 1 || d < 0) return (int)cudaErrorInvalidValue;
+  long long p[K2P_WORDS];
+  cudaError_t err = plan(n, k, d, k2_aligned16(x) && k2_aligned16(c), p);
+  if (err != cudaSuccess) return (int)err;
   if (n == 0) return (int)cudaGetLastError();
-  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)c % 16 == 0;
-  return vec ? launch<4>(x, c, csq, a, dmin, n, k, d, stream)
-             : launch<1>(x, c, csq, a, dmin, n, k, d, stream);
+  auto kern = FNS[p[K2P_VARIANT]];
+  err = k2_set_smem(kern, (size_t)p[K2P_SMEM]);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(x, c, csq, a, dmin, n, k, d);
+  return (int)cudaGetLastError();
 }

@@ -380,24 +380,73 @@ exact_rowdot_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (lane == 0) out[r] = v;
 }
 
-template <int VEC, int BN>
-int launch_cross(const Operand& A, const Operand& B, const float* asq,
-                 const float* bsq, float* out, int nbat, int m, int k,
-                 int d, cudaStream_t stream) {
-  using T = CrossTile<BN>;
-  auto* kernel = &exact_cross_kernel<VEC, BN>;
+// The instantiations the launchers pick from, in variant order.
+const decltype(&k2_exact_sqnorm_kernel<NT>) SQNORM_FNS[] = {
+    k2_exact_sqnorm_kernel<NT>};
+const decltype(&exact_rowdot_kernel) ROWDOT_FNS[] = {exact_rowdot_kernel};
+const decltype(&exact_split_sqnorms_kernel<1>) SPLIT_FNS[] = {
+    exact_split_sqnorms_kernel<1>, exact_split_sqnorms_kernel<4>};
+// column tiles of 64 (k <= 64) or 128, 4- or 16-byte copies
+const decltype(&exact_cross_kernel<1, 64>) CROSS_FNS[] = {
+    exact_cross_kernel<1, 64>, exact_cross_kernel<4, 64>,
+    exact_cross_kernel<1, 128>, exact_cross_kernel<4, 128>};
+const int CROSS_NT[] = {CrossTile<64>::NT, CrossTile<64>::NT,
+                        CrossTile<128>::NT, CrossTile<128>::NT};
+const size_t CROSS_SMEM[] = {CrossTile<64>::SMEM, CrossTile<64>::SMEM,
+                             CrossTile<128>::SMEM, CrossTile<128>::SMEM};
+
+// One warp a row (NT / 32 rows a block) over rows of d floats: the plans of
+// exact_sqnorm and exact_rowdot.
+void plan_rows(long long rows, int d, long long* p) {
+  k2_plan_init(p, (rows + NT / 32 - 1) / (NT / 32), 1, 1, NT, 0, 0, -1);
+  p[K2P_ROWS] = rows;
+  p[K2P_ROW_EXTENT] = NT / 32;
+  p[K2P_INNER] = d;
+  p[K2P_INNER_TILE] = 32;
+}
+
+// exact_split_sqnorms: persistent, as many blocks as are resident (at most
+// one a warp-group of rows), each striding over the rows' groups of NT / 32;
+// aligned: csum and tot are 16-byte aligned.
+cudaError_t plan_split(long long rows, int d, bool aligned, long long* p) {
+  if (rows < 0 || d < 0) return cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && aligned;
   cudaError_t err;
-  const long long slots = k2_resident_blocks(kernel, T::NT, T::SMEM, err);
-  if (err != cudaSuccess) return (int)err;
-  // column tiles per block: the fewest waves of resident blocks, each
-  // block's steps plus one tile for its ring's fill, fewer splits on a tie
-  const int mt = (m + BM - 1) / BM, kt = (k + BN - 1) / BN;
-  const int zb = min(nbat, 65535);
+  const long long slots =
+      k2_resident_blocks(SPLIT_FNS[vec ? 1 : 0], NT, 0, err);
+  if (err != cudaSuccess) return err;
+  const long long need = (rows + NT / 32 - 1) / (NT / 32);
+  const long long grid = min(need, slots);
+  k2_plan_init(p, grid, 1, 1, NT, 0, vec ? 1 : 0, vec ? 1 : 0);
+  p[K2P_ROWS] = rows;
+  p[K2P_ROW_EXTENT] = NT / 32;
+  p[K2P_INNER] = d;
+  p[K2P_INNER_TILE] = 32 * (vec ? 4 : 1);
+  p[K2P_STRIDE] = grid;
+  p[K2P_RESIDENT] = slots;
+  return cudaSuccess;
+}
+
+// exact_cross over nbat (m, d) x (d, k) products with vec the 16-byte path:
+// a block takes BM rows by tpb column tiles, tpb chosen for the fewest
+// waves of resident blocks, each block's steps plus one tile for its
+// ring's fill, fewer splits on a tie; batches beyond 65,535 launch again.
+cudaError_t plan_cross(int nbat, int m, int k, int d, bool vec,
+                       long long* p) {
+  if (nbat < 0 || m < 0 || k < 0 || d < 0) return cudaErrorInvalidValue;
+  const int v = (k <= 64 ? 0 : 2) + (vec ? 1 : 0);
+  const int bn = k <= 64 ? 64 : 128;
+  cudaError_t err;
+  const long long slots =
+      k2_resident_blocks(CROSS_FNS[v], CROSS_NT[v], CROSS_SMEM[v], err);
+  if (err != cudaSuccess) return err;
+  const int mt = (m + BM - 1) / BM, kt = (k + bn - 1) / bn;
+  const int zb = max(1, min(nbat, 65535));
   int tpb = 1;
   long long best = LLONG_MAX;
   for (int s = 1; s <= kt; ++s) {
     const int per = (kt + s - 1) / s;
-    if (per * BN > MAXCOLS) continue;
+    if (per * bn > MAXCOLS) continue;
     const long long blocks = (long long)mt * zb * ((kt + per - 1) / per);
     const long long cost = (blocks + slots - 1) / slots * (per + 1);
     if (cost < best) {
@@ -405,30 +454,71 @@ int launch_cross(const Operand& A, const Operand& B, const float* asq,
       tpb = per;
     }
   }
-  const dim3 grid(mt, (kt + tpb - 1) / tpb, 1);
-  for (int t0 = 0; t0 < nbat; t0 += zb) {
-    const int nz = min(zb, nbat - t0);
-    Operand a = A, b = B;
-    a.p += t0 * A.st;
-    b.p += t0 * B.st;
-    kernel<<<dim3(grid.x, grid.y, nz), T::NT, T::SMEM, stream>>>(
-        a, b, asq + (long long)t0 * m, bsq + (long long)t0 * k,
-        out + (long long)t0 * m * k, m, k, d, tpb);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  k2_plan_init(p, mt, (kt + tpb - 1) / tpb, zb, CROSS_NT[v], CROSS_SMEM[v], v,
+               vec ? 1 : 0);
+  p[K2P_LAUNCHES] = (nbat + zb - 1) / zb;
+  p[K2P_ROWS] = m;
+  p[K2P_ROW_EXTENT] = BM;
+  p[K2P_COLS] = k;
+  p[K2P_COL_EXTENT] = (long long)tpb * bn;
+  p[K2P_BATCH] = nbat;
+  p[K2P_INNER] = d;
+  p[K2P_INNER_TILE] = DC;
+  p[K2P_RESIDENT] = slots;
+  return cudaSuccess;
+}
+
+bool cross_vec(const float* a, const float* b, int d, long long sat,
+               long long sam, long long sad, long long sbt, long long sbd,
+               long long sbk) {
+  return d % 4 == 0 && sad == 1 && sbd == 1 && k2_aligned16(a) &&
+         k2_aligned16(b) && sam % 4 == 0 && sbk % 4 == 0 && sat % 4 == 0 &&
+         sbt % 4 == 0;
 }
 }  // namespace
+
+K2_DESCRIBE(exact_sqnorm, SQNORM_FNS, "NT256")
+K2_DESCRIBE(exact_rowdot, ROWDOT_FNS, "NT256")
+K2_DESCRIBE(exact_split_sqnorms, SPLIT_FNS, "VEC1,VEC4")
+K2_DESCRIBE(exact_cross, CROSS_FNS, "BN64/v1,BN64/v4,BN128/v1,BN128/v4")
+
+K2_EXPORT int k2_plan_exact_sqnorm(long long rows, int d, long long* out) {
+  if (rows < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  plan_rows(rows, d, out);
+  return 0;
+}
+
+K2_EXPORT int k2_plan_exact_rowdot(long long rows, int d, long long* out) {
+  return k2_plan_exact_sqnorm(rows, d, out);
+}
+
+K2_EXPORT int k2_plan_exact_split_sqnorms(long long rows, int d, int aligned,
+                                          long long* out) {
+  return (int)plan_split(rows, d, aligned != 0, out);
+}
+
+// The strides as k2_exact_cross takes them; aligned: a and b are 16-byte
+// aligned.
+K2_EXPORT int k2_plan_exact_cross(int nbat, int m, int k, int d,
+                                  long long sat, long long sam, long long sad,
+                                  long long sbt, long long sbd, long long sbk,
+                                  int aligned, long long* out) {
+  const bool vec = aligned && d % 4 == 0 && sad == 1 && sbd == 1 &&
+                   sam % 4 == 0 && sbk % 4 == 0 && sat % 4 == 0 &&
+                   sbt % 4 == 0;
+  return (int)plan_cross(nbat, m, k, d, vec, out);
+}
 
 // x: (rows, d) f32 contiguous; out: (rows,) f32.
 K2_EXPORT int k2_exact_sqnorm(const float* x, float* out, long long rows,
                               int d, cudaStream_t stream) {
-  if (rows < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  long long p[K2P_WORDS];
+  if (k2_plan_exact_sqnorm(rows, d, p) != 0)
+    return (int)cudaErrorInvalidValue;
+  auto kern = SQNORM_FNS[p[K2P_VARIANT]];
   if (rows > 0)
-    k2_exact_sqnorm_kernel<NT>
-        <<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
-            x, out, rows, d);
+    kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+           stream>>>(x, out, rows, d);
   return (int)cudaGetLastError();
 }
 
@@ -441,15 +531,13 @@ K2_EXPORT int k2_exact_split_sqnorms(const float* csum, const float* tot,
                                      cudaStream_t stream) {
   if (rows < 0 || d < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
-  cudaError_t err;
-  const bool vec = d % 4 == 0 && k2_aligned16(csum) && k2_aligned16(tot);
-  auto* kernel = vec ? &exact_split_sqnorms_kernel<4>
-                     : &exact_split_sqnorms_kernel<1>;
-  const long long slots = k2_resident_blocks(kernel, NT, 0, err);
+  long long p[K2P_WORDS];
+  const cudaError_t err =
+      plan_split(rows, d, k2_aligned16(csum) && k2_aligned16(tot), p);
   if (err != cudaSuccess) return (int)err;
-  const long long need = (rows + NT / 32 - 1) / (NT / 32);
-  kernel<<<(unsigned)min(need, slots), NT, 0, stream>>>(csum, tot, row_seg,
-                                                        out_p, out_s, rows, d);
+  auto kern = SPLIT_FNS[p[K2P_VARIANT]];
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(csum, tot, row_seg, out_p, out_s, rows, d);
   return (int)cudaGetLastError();
 }
 
@@ -485,18 +573,27 @@ K2_EXPORT int k2_exact_cross(const float* a, const float* b, const float* asq,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const bool vec = d % 4 == 0 && sad == 1 && sbd == 1 && k2_aligned16(a) &&
-                   k2_aligned16(b) && sam % 4 == 0 && sbk % 4 == 0 &&
-                   sat % 4 == 0 && sbt % 4 == 0;
-  if (k <= 64)
-    return vec ? launch_cross<4, 64>(A, B, asq, bsq, out, nbat, m, k, d,
-                                     stream)
-               : launch_cross<1, 64>(A, B, asq, bsq, out, nbat, m, k, d,
-                                     stream);
-  return vec ? launch_cross<4, 128>(A, B, asq, bsq, out, nbat, m, k, d,
-                                    stream)
-             : launch_cross<1, 128>(A, B, asq, bsq, out, nbat, m, k, d,
-                                    stream);
+  long long p[K2P_WORDS];
+  cudaError_t err =
+      plan_cross(nbat, m, k, d, cross_vec(a, b, d, sat, sam, sad, sbt, sbd,
+                                          sbk), p);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = CROSS_FNS[p[K2P_VARIANT]];
+  const int zb = (int)p[K2P_GRID_Z];
+  for (int t0 = 0; t0 < nbat; t0 += zb) {
+    const int nz = min(zb, nbat - t0);
+    Operand a2 = A, b2 = B;
+    a2.p += t0 * A.st;
+    b2.p += t0 * B.st;
+    kernel<<<dim3((unsigned)p[K2P_GRID_X], (unsigned)p[K2P_GRID_Y], nz),
+             (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM], stream>>>(
+        a2, b2, asq + (long long)t0 * m, bsq + (long long)t0 * k,
+        out + (long long)t0 * m * k, m, k, d,
+        (int)(p[K2P_COL_EXTENT] / (k <= 64 ? 64 : 128)));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // x: (rows, d) f32 and y: (m, d) f32, contiguous; idx: (rows,) int64 in
@@ -504,9 +601,12 @@ K2_EXPORT int k2_exact_cross(const float* a, const float* b, const float* asq,
 K2_EXPORT int k2_exact_rowdot(const float* x, const float* y,
                               const long long* idx, float* out,
                               long long rows, int d, cudaStream_t stream) {
-  if (rows < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  long long p[K2P_WORDS];
+  if (k2_plan_exact_rowdot(rows, d, p) != 0)
+    return (int)cudaErrorInvalidValue;
+  auto kern = ROWDOT_FNS[p[K2P_VARIANT]];
   if (rows > 0)
-    exact_rowdot_kernel<<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT,
-                          0, stream>>>(x, y, idx, out, rows, d);
+    kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+           stream>>>(x, y, idx, out, rows, d);
   return (int)cudaGetLastError();
 }

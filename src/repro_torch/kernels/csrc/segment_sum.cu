@@ -236,25 +236,46 @@ constexpr size_t smem_bytes(int vec) {
          sizeof(float) * SW + sizeof(int) * SCAN + sizeof(int) * NT / 32;
 }
 
-template <int VEC>
-int launch(const float* x, const float* w, const int* perm, const int* b2s,
-           const int* scr, float* sums, float* cnt, int k, int nb, int bn,
-           int d, cudaStream_t stream) {
-  auto* kernel = &segment_sum_kernel<VEC>;
-  constexpr size_t SMEM = smem_bytes(VEC);
+// The instantiations the launcher picks from, in variant order: 4-byte
+// (VEC 1) and 16-byte (VEC 4) rows.
+const decltype(&segment_sum_kernel<1>) FNS[] = {segment_sum_kernel<1>,
+                                               segment_sum_kernel<4>};
+const size_t SMEMS[] = {smem_bytes(1), smem_bytes(4)};
+
+// The summing launch (after segment_ranges) over k segments of rows of d
+// floats; aligned: x is 16-byte aligned. Persistent: as many blocks as are
+// resident, at most one an item, striding over the k x nslice items (a
+// segment's chain over a slice of cpt pieces of its columns).
+cudaError_t plan(int k, int nb, int bn, int d, bool aligned, long long* p) {
+  if (k < 0 || nb < 0 || bn < 1 || d < 0) return cudaErrorInvalidValue;
+  const int vec = d % 4 == 0 && aligned ? 4 : 1;
+  const int v = vec == 4 ? 1 : 0;
   cudaError_t err;
-  const long long slots = k2_resident_blocks(kernel, NT, SMEM, err);
-  if (err != cudaSuccess) return (int)err;
-  const int dv = (d + VEC - 1) / VEC;
+  const long long slots = k2_resident_blocks(FNS[v], NT, SMEMS[v], err);
+  if (err != cudaSuccess) return err;
+  const int dv = (d + vec - 1) / vec;
   const int nslice = max(1, (dv + NT - 2) / (NT - 1));  // a spare thread
   const int cpt = (dv + nslice - 1) / nslice;           // for the count
   const long long items = (long long)k * nslice;
-  const unsigned grid = (unsigned)max(1LL, min(items, slots));
-  kernel<<<grid, NT, SMEM, stream>>>(x, w, perm, b2s, scr, sums, cnt, k, nb,
-                                     bn, d, nslice, cpt);
-  return (int)cudaGetLastError();
+  const long long grid = max(1LL, min(items, slots));
+  k2_plan_init(p, grid, 1, 1, NT, SMEMS[v], v, v);
+  p[K2P_ROWS] = k;
+  p[K2P_COLS] = max(dv, 1);
+  p[K2P_COL_EXTENT] = max(cpt, 1);
+  p[K2P_INNER] = (long long)nb * bn;
+  p[K2P_INNER_TILE] = R;
+  p[K2P_STRIDE] = grid;
+  p[K2P_RESIDENT] = slots;
+  return cudaSuccess;
 }
 }  // namespace
+
+K2_DESCRIBE(segment_sum_blocks, FNS, "VEC1,VEC4")
+
+K2_EXPORT int k2_plan_segment_sum_blocks(int k, int nb, int bn, int d,
+                                         int aligned, long long* out) {
+  return (int)plan(k, nb, bn, d, aligned != 0, out);
+}
 
 // x: (rows, d) f32; w: (nb * bn,) f32 or null (weight 1); perm: (nb * bn,)
 // i32 or null (slot s reads row s; -1: an empty slot); b2s: (nb,) i32,
@@ -281,9 +302,14 @@ K2_EXPORT int k2_segment_sum_blocks(const float* x, const float* w,
     segment_ranges<<<(nb + 255) / 256, 256, 0, stream>>>(b2s, scratch, k, nb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return d % 4 == 0 && k2_aligned16(x)
-             ? launch<4>(x, w, perm, b2s, scratch, sums, cnt, k, nb, bn, d,
-                         stream)
-             : launch<1>(x, w, perm, b2s, scratch, sums, cnt, k, nb, bn, d,
-                         stream);
+  long long p[K2P_WORDS];
+  err = plan(k, nb, bn, d, k2_aligned16(x), p);
+  if (err != cudaSuccess) return (int)err;
+  const int nslice = (int)((p[K2P_COLS] + p[K2P_COL_EXTENT] - 1) /
+                           p[K2P_COL_EXTENT]);
+  auto kern = FNS[p[K2P_VARIANT]];
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(x, w, perm, b2s, scratch, sums, cnt, k, nb, bn, d, nslice,
+                   (int)p[K2P_COL_EXTENT]);
+  return (int)cudaGetLastError();
 }

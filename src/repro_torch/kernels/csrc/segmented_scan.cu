@@ -385,27 +385,38 @@ segmented_scan_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int VEC>
-int launch(const Plan& p, const float* x, const float* w, const int* b2s,
-           unsigned char* scratch, float* csum, float* qsum, float* cnt,
-           int bn, int d, cudaStream_t stream) {
+// The instantiations the launcher picks from, in variant order: 4-byte
+// (VEC 1) and 16-byte (VEC 4) copies.
+const decltype(&segmented_scan_kernel<1>) FNS[] = {segmented_scan_kernel<1>,
+                                                   segmented_scan_kernel<4>};
+
+// The launch over nb blocks of bn rows of d floats; aligned: x and csum are
+// 16-byte aligned. One CUDA block a tile of tr rows by a slice of CS
+// columns, the tiles taken in order from the counter.
+void launch_plan(const Plan& sp, int nb, int bn, int d, bool aligned,
+                 long long* p) {
   const int ldx = ((d < CS ? d : CS) + 3) & ~3;
-  const size_t smem = sizeof(float) * ((size_t)p.tr * (ldx + 3));
-  cudaError_t err = k2_set_smem(segmented_scan_kernel<VEC>, smem);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(scratch, 0, p.flag_bytes, stream);
-  if (err != cudaSuccess) return (int)err;
-  double* agg = reinterpret_cast<double*>(scratch + p.flag_bytes);
-  double* incl = reinterpret_cast<double*>(scratch + p.flag_bytes +
-                                           p.agg_bytes);
-  double* qp = reinterpret_cast<double*>(scratch + p.flag_bytes +
-                                         p.agg_bytes + p.incl_bytes);
-  segmented_scan_kernel<VEC><<<p.ntiles, NT, smem, stream>>>(
-      x, w, b2s, reinterpret_cast<unsigned*>(scratch), agg, incl, qp, csum,
-      qsum, cnt, bn, d, p.tr, p.slices, p.ls);
-  return (int)cudaGetLastError();
+  const bool vec = d % 4 == 0 && aligned;
+  k2_plan_init(p, sp.ntiles, 1, 1, NT, sizeof(float) * ((size_t)sp.tr *
+                                                        (ldx + 3)),
+               vec ? 1 : 0, vec ? 1 : 0);
+  p[K2P_ROWS] = (long long)nb * bn;
+  p[K2P_ROW_EXTENT] = sp.tr;
+  p[K2P_COLS] = d > 0 ? d : 1;
+  p[K2P_COL_EXTENT] = CS;
+  p[K2P_INNER] = bn;
+  p[K2P_INNER_TILE] = sp.tr;
 }
 }  // namespace
+
+K2_DESCRIBE(segmented_scan, FNS, "VEC1,VEC4")
+
+K2_EXPORT int k2_plan_segmented_scan(int nb, int bn, int d, int aligned,
+                                     long long* out) {
+  if (nb < 0 || bn < 1 || d < 0) return (int)cudaErrorInvalidValue;
+  launch_plan(plan(nb, bn, d), nb, bn, d, aligned != 0, out);
+  return 0;
+}
 
 // Bytes of scratch that k2_segmented_scan needs for (nb*bn, d) rows.
 K2_EXPORT int k2_segmented_scan_scratch(int nb, int bn, int d,
@@ -425,10 +436,21 @@ K2_EXPORT int k2_segmented_scan(const float* x, const float* w, const int* b2s,
                                 cudaStream_t stream) {
   if (nb < 0 || bn < 1 || d < 0) return (int)cudaErrorInvalidValue;
   if (nb == 0) return (int)cudaGetLastError();
-  const Plan p = plan(nb, bn, d);
+  const Plan sp = plan(nb, bn, d);
+  long long p[K2P_WORDS];
+  launch_plan(sp, nb, bn, d, k2_aligned16(x) && k2_aligned16(csum), p);
   unsigned char* s = static_cast<unsigned char*>(scratch);
-  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)csum % 16 == 0;
-  return vec ? launch<4>(p, x, w, b2s, s, csum, qsum, cnt, bn, d, stream)
-             : launch<1>(p, x, w, b2s, s, csum, qsum, cnt, bn, d, stream);
+  auto kern = FNS[p[K2P_VARIANT]];
+  cudaError_t err = k2_set_smem(kern, (size_t)p[K2P_SMEM]);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0, sp.flag_bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  double* agg = reinterpret_cast<double*>(s + sp.flag_bytes);
+  double* incl = reinterpret_cast<double*>(s + sp.flag_bytes + sp.agg_bytes);
+  double* qp = reinterpret_cast<double*>(s + sp.flag_bytes + sp.agg_bytes +
+                                         sp.incl_bytes);
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(x, w, b2s, reinterpret_cast<unsigned*>(scratch), agg, incl,
+                   qp, csum, qsum, cnt, bn, d, sp.tr, sp.slices, sp.ls);
+  return (int)cudaGetLastError();
 }

@@ -204,29 +204,52 @@ __global__ void __launch_bounds__(256) ssd_kernel(const float* __restrict__ x,
   }
 }
 
-template <int MAXDH>
-int launch_wkv6(const float* r, const float* k, const float* v,
-                const float* w, const float* u, float* state, float* out,
-                float* ckpt, int B, int S, int H, int dh, int C,
+// The forward instantiations, in variant order: MAXDH (wkv6) or MAXN (ssd)
+// 16 or 64.
+const decltype(&wkv6_kernel<16>) WKV_FNS[] = {wkv6_kernel<16>, wkv6_kernel<64>};
+const decltype(&ssd_kernel<16>) SSD_FNS[] = {ssd_kernel<16>, ssd_kernel<64>};
+
+// One CUDA block a (batch, head), a thread a state column (wkv6: dh, ssd:
+// P), rounded up to whole warps; each block walks the S steps (ssd: in
+// chunks of SSD_T staged in shared memory).
+void plan_scan(int B, int H, int S, int cols, int step_tile, size_t smem,
+               int variant, long long* p) {
+  k2_plan_init(p, (long long)B * H, 1, 1, ((cols + 31) / 32) * 32, smem,
+               variant, -1);
+  p[K2P_ROWS] = (long long)B * H;
+  p[K2P_INNER] = S;
+  p[K2P_INNER_TILE] = step_tile;
+}
+
+void plan_wkv6(int B, int S, int H, int dh, long long* p) {
+  plan_scan(B, H, S, dh, 1, 0, dh <= 16 ? 0 : 1, p);
+}
+
+void plan_ssd(int B, int S, int H, int P, int N, long long* p) {
+  plan_scan(B, H, S, P, SSD_T,
+            sizeof(float) * ((size_t)SSD_T * (P + 2 * N) + 2 * SSD_T),
+            N <= 16 ? 0 : 1, p);
+}
+
+int launch_wkv6(const long long* p, const float* r, const float* k,
+                const float* v, const float* w, const float* u, float* state,
+                float* out, float* ckpt, int S, int H, int dh, int C,
                 cudaStream_t stream) {
-  const int nt = ((dh + 31) / 32) * 32;
-  wkv6_kernel<MAXDH><<<B * H, nt, 0, stream>>>(r, k, v, w, u, state, out,
-                                              ckpt, S, H, dh, C);
+  auto kern = WKV_FNS[p[K2P_VARIANT]];
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(r, k, v, w, u, state, out, ckpt, S, H, dh, C);
   return (int)cudaGetLastError();
 }
 
-template <int MAXN>
-int launch_ssd(const float* x, const float* Bm, const float* Cm,
-               const float* decay, const float* dt, const float* D,
-               float* state, float* y, float* ckpt, int B, int S, int H,
-               int P, int N, int C, cudaStream_t stream) {
-  const int nt = ((P + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * ((size_t)SSD_T * (P + 2 * N) + 2 * SSD_T);
-  cudaError_t err = k2_set_smem(ssd_kernel<MAXN>, smem);
+int launch_ssd(const long long* p, const float* x, const float* Bm,
+               const float* Cm, const float* decay, const float* dt,
+               const float* D, float* state, float* y, float* ckpt, int S,
+               int H, int P, int N, int C, cudaStream_t stream) {
+  auto kern = SSD_FNS[p[K2P_VARIANT]];
+  cudaError_t err = k2_set_smem(kern, (size_t)p[K2P_SMEM]);
   if (err != cudaSuccess) return (int)err;
-  ssd_kernel<MAXN><<<B * H, nt, smem, stream>>>(x, Bm, Cm, decay, dt, D,
-                                                 state, y, ckpt, S, H, P, N,
-                                                 C);
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(x, Bm, Cm, decay, dt, D, state, y, ckpt, S, H, P, N, C);
   return (int)cudaGetLastError();
 }
 
@@ -519,7 +542,66 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
   }
 }
 
+// The backward instantiations, in variant order: MAXDH (wkv6) or MAXN
+// (ssd) 16 or 64. One CUDA block a (batch, head), a thread a state row,
+// walking the chunks of C steps from the last.
+const decltype(&wkv6_bwd_kernel<16>) WKV_BWD_FNS[] = {wkv6_bwd_kernel<16>,
+                                                      wkv6_bwd_kernel<64>};
+const decltype(&ssd_bwd_kernel<16>) SSD_BWD_FNS[] = {ssd_bwd_kernel<16>,
+                                                     ssd_bwd_kernel<64>};
+
+void plan_wkv6_bwd(int B, int S, int H, int dh, int C, long long* p) {
+  const int maxdh = dh <= 16 ? 16 : 64;
+  plan_scan(B, H, S, dh, C,
+            sizeof(float) * (5 * (size_t)C * maxdh + maxdh * (maxdh + 1)),
+            maxdh == 16 ? 0 : 1, p);
+}
+
+void plan_ssd_bwd(int B, int S, int H, int P, int N, int C, long long* p) {
+  const int maxn = N <= 16 ? 16 : 64;
+  plan_scan(B, H, S, P, C,
+            sizeof(float) * ((size_t)C * (2 * P + 2 * N + 2) +
+                             8 * (2 * maxn + 2)),
+            maxn == 16 ? 0 : 1, p);
+}
 }  // namespace
+
+K2_DESCRIBE(wkv6_scan, WKV_FNS, "MAXDH16,MAXDH64")
+K2_DESCRIBE(ssd_scan, SSD_FNS, "MAXN16,MAXN64")
+K2_DESCRIBE(wkv6_scan_bwd, WKV_BWD_FNS, "MAXDH16,MAXDH64")
+K2_DESCRIBE(ssd_scan_bwd, SSD_BWD_FNS, "MAXN16,MAXN64")
+
+K2_EXPORT int k2_plan_wkv6_scan(int B, int S, int H, int dh, long long* out) {
+  if (B < 0 || S < 0 || H < 1 || dh < 1 || dh > 64)
+    return (int)cudaErrorInvalidValue;
+  plan_wkv6(B, S, H, dh, out);
+  return 0;
+}
+
+K2_EXPORT int k2_plan_ssd_scan(int B, int S, int H, int P, int N,
+                               long long* out) {
+  if (B < 0 || S < 0 || H < 1 || P < 1 || P > 256 || N < 1 || N > 64)
+    return (int)cudaErrorInvalidValue;
+  plan_ssd(B, S, H, P, N, out);
+  return 0;
+}
+
+K2_EXPORT int k2_plan_wkv6_scan_bwd(int B, int S, int H, int dh, int C,
+                                    long long* out) {
+  if (B < 0 || S < 1 || H < 1 || dh < 1 || dh > 64 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  plan_wkv6_bwd(B, S, H, dh, C, out);
+  return 0;
+}
+
+K2_EXPORT int k2_plan_ssd_scan_bwd(int B, int S, int H, int P, int N, int C,
+                                   long long* out) {
+  if (B < 0 || S < 1 || H < 1 || P < 1 || P > 256 || N < 1 || N > 64 ||
+      C < 1)
+    return (int)cudaErrorInvalidValue;
+  plan_ssd_bwd(B, S, H, P, N, C, out);
+  return 0;
+}
 
 // r, k, v, w: (B, S, H, dh) f32; u: (H, dh) f32; state: (B, H, dh, dh) f32,
 // read as the initial state and overwritten with the final one; out: (B, S,
@@ -534,11 +616,10 @@ K2_EXPORT int k2_wkv6_scan(const float* r, const float* k, const float* v,
       (ckpt != nullptr && C < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  if (dh <= 16)
-    return launch_wkv6<16>(r, k, v, w, u, state, out, ckpt, B, S, H, dh, C,
-                           stream);
-  return launch_wkv6<64>(r, k, v, w, u, state, out, ckpt, B, S, H, dh, C,
-                         stream);
+  long long p[K2P_WORDS];
+  plan_wkv6(B, S, H, dh, p);
+  return launch_wkv6(p, r, k, v, w, u, state, out, ckpt, S, H, dh, C,
+                     stream);
 }
 
 // x: (B, S, H, P) f32; Bm, Cm: (B, S, N) f32; decay, dt: (B, S, H) f32; D:
@@ -554,11 +635,10 @@ K2_EXPORT int k2_ssd_scan(const float* x, const float* Bm, const float* Cm,
       (ckpt != nullptr && C < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  if (N <= 16)
-    return launch_ssd<16>(x, Bm, Cm, decay, dt, D, state, y, ckpt, B, S, H,
-                          P, N, C, stream);
-  return launch_ssd<64>(x, Bm, Cm, decay, dt, D, state, y, ckpt, B, S, H, P,
-                        N, C, stream);
+  long long p[K2P_WORDS];
+  plan_ssd(B, S, H, P, N, p);
+  return launch_ssd(p, x, Bm, Cm, decay, dt, D, state, y, ckpt, S, H, P, N,
+                    C, stream);
 }
 
 // The gradients of k2_wkv6_scan over S >= 1 steps from the checkpoints
@@ -577,22 +657,14 @@ K2_EXPORT int k2_wkv6_scan_bwd(const float* r, const float* k, const float* v,
   if (B < 0 || S < 1 || H < 1 || dh < 1 || dh > 64 || C < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  const int nt = ((dh + 31) / 32) * 32;
-  if (dh <= 16) {
-    const size_t smem = sizeof(float) * (5 * (size_t)C * 16 + 16 * 17);
-    cudaError_t err = k2_set_smem(wkv6_bwd_kernel<16>, smem);
-    if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_kernel<16><<<B * H, nt, smem, stream>>>(
-        r, k, v, w, u, ckpt, dout, dfinal, scratch, dr, dk, dv, dw, du_part,
-        dstate0, S, H, dh, C);
-  } else {
-    const size_t smem = sizeof(float) * (5 * (size_t)C * 64 + 64 * 65);
-    cudaError_t err = k2_set_smem(wkv6_bwd_kernel<64>, smem);
-    if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_kernel<64><<<B * H, nt, smem, stream>>>(
-        r, k, v, w, u, ckpt, dout, dfinal, scratch, dr, dk, dv, dw, du_part,
-        dstate0, S, H, dh, C);
-  }
+  long long p[K2P_WORDS];
+  plan_wkv6_bwd(B, S, H, dh, C, p);
+  auto kern = WKV_BWD_FNS[p[K2P_VARIANT]];
+  cudaError_t err = k2_set_smem(kern, (size_t)p[K2P_SMEM]);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(r, k, v, w, u, ckpt, dout, dfinal, scratch, dr, dk, dv, dw,
+                   du_part, dstate0, S, H, dh, C);
   return (int)cudaGetLastError();
 }
 
@@ -614,23 +686,14 @@ K2_EXPORT int k2_ssd_scan_bwd(const float* x, const float* Bm,
       C < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
-  const int nt = ((P + 31) / 32) * 32;
-  const int maxn = N <= 16 ? 16 : 64;
-  const size_t smem = sizeof(float) * ((size_t)C * (2 * P + 2 * N + 2)
-                                       + 8 * (2 * maxn + 2));
-  cudaError_t err;
-  if (maxn == 16) {
-    err = k2_set_smem(ssd_bwd_kernel<16>, smem);
-    if (err != cudaSuccess) return (int)err;
-    ssd_bwd_kernel<16><<<B * H, nt, smem, stream>>>(
-        x, Bm, Cm, decay, dt, D, ckpt, dy, dfinal, scratch, dx, dB_part,
-        dC_part, ddecay, ddt, dD_part, dstate0, S, H, P, N, C);
-  } else {
-    err = k2_set_smem(ssd_bwd_kernel<64>, smem);
-    if (err != cudaSuccess) return (int)err;
-    ssd_bwd_kernel<64><<<B * H, nt, smem, stream>>>(
-        x, Bm, Cm, decay, dt, D, ckpt, dy, dfinal, scratch, dx, dB_part,
-        dC_part, ddecay, ddt, dD_part, dstate0, S, H, P, N, C);
-  }
+  long long p[K2P_WORDS];
+  plan_ssd_bwd(B, S, H, P, N, C, p);
+  auto kern = SSD_BWD_FNS[p[K2P_VARIANT]];
+  cudaError_t err = k2_set_smem(kern, (size_t)p[K2P_SMEM]);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<k2_grid(p), (unsigned)p[K2P_THREADS], (size_t)p[K2P_SMEM],
+         stream>>>(x, Bm, Cm, decay, dt, D, ckpt, dy, dfinal, scratch, dx,
+                   dB_part, dC_part, ddecay, ddt, dD_part, dstate0, S, H, P,
+                   N, C);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,15 @@ from .ref import distance_argmin_ref
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
+def plan_distance_argmin(n: int, k: int, d: int, *,
+                         aligned: bool = True) -> dict:
+    """The launch plan of :func:`distance_argmin` over n points and k
+    centers of d floats (``_build.plan``); ``aligned``: x and c 16-byte
+    aligned."""
+    return _build.plan("distance_argmin", "distance_argmin",
+                       [ctypes.c_int] * 4, n, k, d, int(aligned))
+
+
 def distance_argmin(x: torch.Tensor, c: torch.Tensor):
     """Nearest center per point: x (n, d) f32, c (k, d) f32, k >= 1 ->
     (assignment int32 (n,), min sqdist f32 (n,)), ties to the first

@@ -30,6 +30,42 @@ _ARGS_CROSS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
 
 
+def plan_exact_sqnorm(rows: int, d: int) -> dict:
+    """The launch plan of :func:`exact_sqnorm` over rows of d floats
+    (``_build.plan``)."""
+    return _build.plan("exact_round", "exact_sqnorm",
+                       [ctypes.c_longlong, ctypes.c_int], rows, d)
+
+
+def plan_exact_rowdot(rows: int, d: int) -> dict:
+    """The launch plan of :func:`exact_rowdot` over rows of d floats."""
+    return _build.plan("exact_round", "exact_rowdot",
+                       [ctypes.c_longlong, ctypes.c_int], rows, d)
+
+
+def plan_exact_split_sqnorms(rows: int, d: int, *,
+                             aligned: bool = True) -> dict:
+    """The launch plan of :func:`exact_split_sqnorms` (``aligned``: csum and
+    tot 16-byte aligned)."""
+    return _build.plan("exact_round", "exact_split_sqnorms",
+                       [ctypes.c_longlong, ctypes.c_int, ctypes.c_int], rows,
+                       d, int(aligned))
+
+
+def plan_exact_cross(nbat: int, m: int, k: int, d: int, strides=None, *,
+                     aligned: bool = True) -> dict:
+    """The launch plan of :func:`exact_cross`'s product kernel over nbat (m,
+    d) x (d, k) products; ``strides``: (sat, sam, sad, sbt, sbd, sbk) as
+    the kernel takes them (None: both operands contiguous); ``aligned``:
+    a and b 16-byte aligned."""
+    if strides is None:
+        strides = (m * d, d, 1, d * k, k, 1)
+    return _build.plan("exact_round", "exact_cross",
+                       [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_int], nbat, m, k, d, *strides,
+                       int(aligned))
+
+
 def exact_sqnorm(x: torch.Tensor) -> torch.Tensor:
     """(..., d) -> (...): each row's sum of squares, correctly rounded to
     f32 (a zero as +0). Integer rows sum exactly in f64 and round once."""

@@ -85,8 +85,9 @@ def residual_norm(x: torch.Tensor, q: torch.Tensor,
 def center_quant(c: torch.Tensor) -> CenterQuant:
     """Quantize the (k, d) center table per row."""
     q, scale = quantize_rows(c)
-    return CenterQuant(q, scale, exact_sqnorm(dequantize_rows(q, scale)),
-                       residual_norm(c, q, scale))
+    cd = dequantize_rows(q, scale)      # one round trip, as the reference
+    return CenterQuant(q, scale, exact_sqnorm(cd),
+                       sqrt_rn(exact_sqnorm(c - cd)))
 
 
 def quantized_candidate_slabs(cq: CenterQuant, cidx: torch.Tensor):

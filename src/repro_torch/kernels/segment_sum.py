@@ -37,6 +37,15 @@ from . import ref
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def plan_segment_sum_blocks(k: int, nb: int, bn: int, d: int, *,
+                            aligned: bool = True) -> dict:
+    """The launch plan of :func:`segment_sum_blocks`' summing kernel over k
+    segments and nb blocks of bn slots of d floats (``_build.plan``);
+    ``aligned``: x 16-byte aligned."""
+    return _build.plan("segment_sum", "segment_sum_blocks",
+                       [ctypes.c_int] * 5, k, nb, bn, d, int(aligned))
+
+
 def segment_sum(v: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
     """``jax.ops.segment_sum(v, seg, num_segments=k)`` for seg in [0, k).
     On the card its atomics add in no fixed order, so the result may

@@ -19,6 +19,15 @@ _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _SCRATCH_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_size_t)]
 
 
+def plan_segmented_scan(nb: int, bn: int, d: int, *,
+                        aligned: bool = True) -> dict:
+    """The launch plan of :func:`segmented_scan` over nb blocks of bn rows
+    of d floats (``_build.plan``); ``aligned``: x and csum 16-byte
+    aligned."""
+    return _build.plan("segmented_scan", "segmented_scan",
+                       [ctypes.c_int] * 4, nb, bn, d, int(aligned))
+
+
 def segmented_scan(x: torch.Tensor, w: torch.Tensor, block2seg: torch.Tensor,
                    *, bn: int):
     """Segmented inclusive scan of (x, ||x||^2, 1) weighted by ``w``.

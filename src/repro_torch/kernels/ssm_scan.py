@@ -43,6 +43,29 @@ _SSD_BWD_ARGS = [_P] * 17 + [_I] * 6 + [_P]
 _NULL = ctypes.c_void_p(None)
 
 
+def plan_wkv6_scan(B: int, S: int, H: int, dh: int) -> dict:
+    """The launch plan of the forward wkv6 kernel (``_build.plan``)."""
+    return _build.plan("ssm_scan", "wkv6_scan", [_I] * 4, B, S, H, dh)
+
+
+def plan_ssd_scan(B: int, S: int, H: int, P: int, N: int) -> dict:
+    """The launch plan of the forward ssd kernel."""
+    return _build.plan("ssm_scan", "ssd_scan", [_I] * 5, B, S, H, P, N)
+
+
+def plan_wkv6_scan_bwd(B: int, S: int, H: int, dh: int,
+                       C: int = CKPT_EVERY) -> dict:
+    """The launch plan of :func:`wkv6_scan_bwd`."""
+    return _build.plan("ssm_scan", "wkv6_scan_bwd", [_I] * 5, B, S, H, dh, C)
+
+
+def plan_ssd_scan_bwd(B: int, S: int, H: int, P: int, N: int,
+                      C: int = CKPT_EVERY) -> dict:
+    """The launch plan of :func:`ssd_scan_bwd`."""
+    return _build.plan("ssm_scan", "ssd_scan_bwd", [_I] * 6, B, S, H, P, N,
+                       C)
+
+
 def _recorded(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 

@@ -1960,3 +1960,24 @@ def test_cuda_train_smoke_matches_cpu(cuda, arch):
     import chip_smoke
     ok, detail = chip_smoke.train_smoke_agrees(torch, arch, cuda)
     assert ok, detail
+
+@pytest.mark.cuda
+def test_cuda_analyzer_kernel_pass_and_host_reads(cuda):
+    """The analyzer's kernel pass on the card: every kernel launched once
+    a case through its wrapper, its plan read from the launcher's own
+    ``k2_plan_*`` with no blocking finding and its shared memory within
+    the card's opt-in limit; and the audit of the resident step on the
+    card with its one host read."""
+    from repro_torch.analysis import host_sync_audit, kernel_contracts
+    from repro_torch.analysis.registry import audit_entries
+    _build.reset_launches()
+    fs, stats = kernel_contracts.run(device=cuda, repo_root=str(ROOT))
+    assert [f for f in fs if f.severity == "error"] == []
+    assert all(_build.launches().values()), _build.launches()
+    optin = stats["limits"]["smem_optin"]
+    assert len(stats["plans"]) == stats["cases"]
+    assert all(0 <= p["smem"] <= optin for p in stats["plans"])
+    entry = [e for e in audit_entries()
+             if e.name == "step/kernels-resident-f32"][0]
+    fs, counts = host_sync_audit.audit_entry(entry, cuda, str(ROOT))
+    assert fs == [] and counts["host_reads"] == 1
